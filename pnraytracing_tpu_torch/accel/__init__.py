@@ -1,0 +1,1 @@
+"""accel layer of the PyTorch/CUDA port (mirrors pnraytracing_tpu/accel)."""

@@ -1,0 +1,80 @@
+"""Carry a scene over between packages as a dict of numpy arrays.
+
+:func:`scene_to_arrays` flattens a scene into ``{"group.field": array}``
+leaves, taking from it only the fields this port's ``Scene`` has; it
+reads any object with those attributes (the port's own scene, or the JAX
+package's, whose arrays convert with ``np.asarray``), so this module
+never imports JAX.  :func:`scene_from_arrays` builds the port's ``Scene``
+from such a dict on a device.  Tests use the pair to render the very
+scene the JAX package built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pnraytracing_tpu_torch.accel.layout import TravData
+from pnraytracing_tpu_torch.core.camera import resolve_device
+from pnraytracing_tpu_torch.core.types import (
+    BVH,
+    EnvMap,
+    Lights,
+    Materials,
+    Scene,
+    TriangleMesh,
+)
+
+_GROUPS = {"mesh": TriangleMesh, "materials": Materials, "bvh": BVH,
+           "lights": Lights, "env": EnvMap}
+_TRAV_FIELDS = ("tri9", "nodes16c", "tri_attr16", "treelets")
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def scene_to_arrays(scene) -> dict[str, np.ndarray]:
+    """Flatten ``scene`` into numpy leaves named ``group.field``."""
+    if getattr(scene, "textures", None) is not None:
+        raise NotImplementedError(
+            "scenes with textures need the texture slice of the port")
+    out = {}
+    for group, cls in _GROUPS.items():
+        obj = getattr(scene, group)
+        if obj is None:
+            continue
+        for f in dataclasses.fields(cls):
+            v = getattr(obj, f.name)
+            if v is not None:
+                out[f"{group}.{f.name}"] = _np(v)
+    for name in _TRAV_FIELDS:
+        out[f"trav.{name}"] = _np(getattr(scene.trav, name))
+    if scene.env_constant is not None:
+        out["env_constant"] = _np(scene.env_constant)
+    out["bvh_depth"] = np.asarray(scene.bvh_depth, np.int64)
+    return out
+
+
+def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
+    """The port's ``Scene`` on ``device`` (None = cuda) from the leaves of
+    :func:`scene_to_arrays`; every array is copied as it is."""
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(np.array(a), device=dev)
+    parts = {}
+    for group, cls in _GROUPS.items():
+        kw = {f.name: t(leaves[f"{group}.{f.name}"])
+              for f in dataclasses.fields(cls)
+              if f"{group}.{f.name}" in leaves}
+        parts[group] = cls(**kw) if kw else None
+    depth = int(leaves["bvh_depth"])
+    trav = TravData(bvh_depth=depth,
+                    **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS})
+    env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
+                    else None)
+    return Scene(trav=trav, env_constant=env_constant, bvh_depth=depth,
+                 **parts)

@@ -1,0 +1,1 @@
+"""core layer of the PyTorch/CUDA port (mirrors pnraytracing_tpu/core)."""

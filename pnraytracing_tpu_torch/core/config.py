@@ -1,0 +1,103 @@
+"""Static render configuration.
+
+PyTorch counterpart of ``pnraytracing_tpu/core/config.py``: the fields
+this port honours, with the JAX package's defaults.  There is no
+``traversal`` field: the port has one traversal, the hand-written CUDA
+kernel on CUDA tensors and its plain PyTorch version on CPU tensors
+(``accel/traverse_cuda.py``).  Fields whose non-default values belong to
+later slices of the port are kept so that a config that asks for them
+fails loudly instead of rendering something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    width: int = 512  # SCREEN_WIDTH (PnRT.hpp:41)
+    height: int = 512  # SCREEN_HEIGHT (PnRT.hpp:42)
+    max_depth: int = 4  # MAX_BOUNCE_DEPTH in converged mode (main.cpp:572)
+    spp: int = 1  # samples/pixel per render() call
+
+    # Per-ray traversal stack capacity; must cover the scene's BVH depth.
+    stack_depth: int = 64
+
+    # Rays per render_rays call; larger frames render in sequential tiles.
+    tile_pixels: int = 1 << 18
+
+    # 'sobol' = Sobol + Cranley-Patterson for the BRDF lobe sample like the
+    # reference (ray_tracing.comp:928-929); 'hash' = counter-hash streams.
+    sampler: str = "sobol"
+    # Sub-pixel primary jitter: a later slice (the reference casts
+    # pixel-corner rays, comp:980).
+    jitter_primary: bool = False
+    clamp_radiance: bool = True  # clamp color to [0,1] (comp:988)
+
+    # Pack live rays to the front between bounces, ordered by the
+    # treelet-entry key of their continuation ray (ops/compaction.py), for
+    # the first sort_max_bounce bounces.  Turning either off is a later
+    # slice.
+    compact_rays: bool = True
+    sort_rays: bool = True
+    sort_max_bounce: int = 2
+
+    # 'unroll' only in this port; 'scan' is a later slice.
+    loop: str = "unroll"
+
+    # Both NEE shadow batches in ONE any-hit launch (2R rays) when the
+    # scene has lights and an env map.  The unfused pair is a later slice.
+    fuse_shadows: bool = True
+
+    rr_start: int | None = None  # Russian roulette from this bounce on
+    max_radiance: float | None = None  # per-contribution clamp
+
+    # 'reference' = the GLSL one-sample combine (comp:937-938);
+    # 'balanced' = per-strategy balance heuristic.
+    mis: str = "reference"
+
+    # Reference-quirk mode: a later slice of the port.
+    compat_pnrt: bool = False
+
+    env_scale: float = 1.0  # constant-env scale when there is no HDR map
+
+    # Take the interaction fill (shading normal, uv, material/texture id)
+    # from the closest-hit kernel at triangle-test time instead of a
+    # per-ray [T, 26] row gather afterwards.
+    kernel_interaction: bool = True
+
+    # Trilinear texture LOD: textures are a later slice.
+    texture_lod_scale: float | None = None
+
+    def __post_init__(self):
+        if self.sampler not in ("sobol", "hash"):
+            raise ValueError(f"sampler must be 'sobol' or 'hash', got "
+                             f"{self.sampler!r}")
+        if self.mis not in ("reference", "balanced"):
+            raise ValueError(f"mis must be 'reference' or 'balanced', got "
+                             f"{self.mis!r}")
+        if self.loop not in ("unroll", "scan"):
+            raise ValueError(f"loop must be 'unroll' or 'scan', got "
+                             f"{self.loop!r}")
+        if self.max_depth < 1 or self.stack_depth < 2:
+            raise ValueError("max_depth must be >= 1 and stack_depth >= 2")
+        if self.compat_pnrt:
+            raise NotImplementedError(
+                "compat_pnrt=True (reference-quirk mode) is not ported yet; "
+                "it is the compat slice of the port (ROADMAP.md)")
+        if self.loop == "scan":
+            raise NotImplementedError(
+                "loop='scan' is not ported yet; it is the scan slice of the "
+                "port (ROADMAP.md)")
+        for name, want in (("compact_rays", True), ("sort_rays", True),
+                           ("fuse_shadows", True), ("jitter_primary", False)):
+            if getattr(self, name) != want:
+                raise NotImplementedError(
+                    f"{name}={not want} is not ported yet; it is the "
+                    "ray-ordering and sampling options slice of the port "
+                    "(ROADMAP.md)")
+        if self.texture_lod_scale is not None:
+            raise NotImplementedError(
+                "texture_lod_scale needs the texture slice of the port "
+                "(ROADMAP.md), which is not ported yet")

@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source has a plain C interface and is compiled by
+``nvcc`` into its own shared library under ``build/torch_kernels/`` of the
+checkout, then loaded with ``ctypes``.  The library's file name carries a
+hash of its source, so an edited source is rebuilt and a stale library is
+never loaded.  The first call that needs a kernel builds it; ``build_all``
+builds every source at once, one ``nvcc`` process each, in parallel.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that the
+kernels' float arithmetic matches their plain PyTorch versions op for op
+(see csrc/traverse.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+SOURCES = ("traverse", "entry_key")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """The per-kernel register / spill lines of ``-Xptxas -v``."""
+    keep = re.compile(r"Compiling entry function|Used \d+ registers|spill")
+    return [ln.strip() for ln in log.splitlines() if keep.search(ln)]
+
+
+def build_all(names=SOURCES) -> dict[str, dict]:
+    """Compile every named source that has no up-to-date library, all
+    ``nvcc`` processes at once.  Returns ``{name: {"seconds", "ptxas",
+    "cached"}}``; raises with the compiler's output if a build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs, info = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            info[name] = {"seconds": 0.0, "ptxas": [], "cached": True}
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        info[name] = {"seconds": time.perf_counter() - t0,
+                      "ptxas": _ptxas_summary(log), "cached": False}
+    return info
+
+
+_SIGNATURES = {
+    "pnrt_closest_hit": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 12,
+    "pnrt_any_hit": [ctypes.c_void_p] * 10 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 3,
+    "pnrt_entry_key": [ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
+}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    ``argtypes``/``restype`` declared for every entry point."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(_lib_path(name))
+            for fn, argtypes in _SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib

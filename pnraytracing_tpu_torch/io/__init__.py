@@ -1,0 +1,1 @@
+"""io layer of the PyTorch/CUDA port (mirrors pnraytracing_tpu/io)."""

@@ -1,0 +1,171 @@
+"""Equirectangular HDR environment: table bake, lookup, importance sampling.
+
+PyTorch counterpart of ``pnraytracing_tpu/ops/envmap.py`` (LoadHDRImage,
+shader.hpp:126-225; SampleHDRImage, ray_tracing.comp:560-576).  The bake
+is the JAX package's host (numpy) branch, copied so that the tables come
+out bit-exact; sampling takes the Walker alias path with the fat rows
+(one row gather per sample).  Conventions: ``image[0]`` is the top row
+(+y); u = atan2(z, x)/2pi + 0.5, v = 0.5 - asin(y)/pi.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pnraytracing_tpu_torch.core.math import PI, TWO_PI
+from pnraytracing_tpu_torch.core.types import EnvMap
+from pnraytracing_tpu_torch.core.vec import V3, spherical_uv_v
+
+_POLE_EPS = 1e-6
+
+
+def _alias_table(p: np.ndarray):
+    """Walker alias table for a probability vector (Vose's stable
+    construction): sample j = floor(u*n); keep j if the fraction is below
+    prob[j], else take alias[j].  The distribution is exactly p."""
+    n = len(p)
+    p = np.asarray(p, np.float64)
+    s = p.sum()
+    p = p / s if s > 0 else np.full(n, 1.0 / n)
+    prob = np.zeros(n)
+    alias = np.arange(n, dtype=np.int64)
+    scaled = p * n
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    while small and large:
+        s_i = small.pop()
+        l_i = large.pop()
+        prob[s_i] = scaled[s_i]
+        alias[s_i] = l_i
+        scaled[l_i] = (scaled[l_i] + scaled[s_i]) - 1.0
+        (small if scaled[l_i] < 1.0 else large).append(l_i)
+    for i in large + small:  # numerical leftovers sample themselves
+        prob[i] = 1.0
+    return prob.astype(np.float32), alias
+
+
+def _pack_quads(image: np.ndarray) -> np.ndarray:
+    """[H, W, 3] -> [H, W, 12] of 2x2 bilinear quads (u wraps, v clamps)."""
+    xp = np.roll(image, -1, axis=1)
+    dn = np.concatenate([image[1:], image[-1:]], axis=0)
+    dnxp = np.roll(dn, -1, axis=1)
+    return np.concatenate([image, xp, dn, dnxp], axis=-1)
+
+
+def build_envmap(image: np.ndarray, device=None) -> EnvMap:
+    """Sampling tables of an [H, W, 3] radiance image, baked on the host
+    (shader.hpp:145-181): luminance pdf, marginal/conditional CDFs, Walker
+    alias tables and the fat alias rows [prob, alias, rgb(keep),
+    rgb(alias), pdf(keep), pdf(alias)]."""
+    img_np = np.asarray(image, np.float32)
+    lum = (0.2 * img_np[..., 0] + 0.7 * img_np[..., 1]
+           + 0.1 * img_np[..., 2])
+    pdf_xy = lum.T.copy()
+    pdf_xy /= max(pdf_xy.sum(), 1e-20)
+    pdf_marginal_x = pdf_xy.sum(axis=1)
+    cdf_marginal_x = np.cumsum(pdf_marginal_x)
+    cond = pdf_xy / np.maximum(pdf_marginal_x[:, None], 1e-20)
+    cdf_y_given_x = np.cumsum(cond, axis=1)
+
+    w, h = int(pdf_xy.shape[0]), int(pdf_xy.shape[1])
+    prob_x, al_x = _alias_table(pdf_marginal_x)
+    alias_x = np.stack([prob_x, al_x.astype(np.float32)], axis=1)
+    prob_y = np.zeros((w, h), np.float32)
+    al_y = np.zeros((w, h), np.float32)
+    for xcol in range(w):
+        pcol, acol = _alias_table(pdf_xy[xcol])
+        prob_y[xcol] = pcol
+        al_y[xcol] = acol.astype(np.float32)
+    alias_y = np.stack([prob_y, al_y], axis=-1)
+    al_int = al_y.astype(np.int64)
+    img_t = img_np.transpose(1, 0, 2)  # [w, h, 3]
+    rgb_alias = np.take_along_axis(img_t, al_int[..., None], axis=1)
+    pdf_keep = pdf_xy.astype(np.float32)
+    pdf_alias = np.take_along_axis(pdf_xy, al_int, axis=1).astype(np.float32)
+    alias_fat = np.concatenate(
+        [prob_y[..., None], al_y[..., None], img_t, rgb_alias,
+         pdf_keep[..., None], pdf_alias[..., None]], axis=-1,
+    ).reshape(w * h, 10).astype(np.float32)
+
+    dev = torch.device("cuda" if device is None else device)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    return EnvMap(
+        image=t(img_np),
+        pdf_xy=t(pdf_xy),
+        cdf_marginal_x=t(cdf_marginal_x),
+        cdf_y_given_x=t(cdf_y_given_x),
+        alias_x=t(alias_x),
+        alias_y=t(alias_y),
+        alias_fat=t(alias_fat),
+        quad12=t(_pack_quads(img_np)),
+    )
+
+
+def envmap_lookup_v(env: EnvMap, dirs: V3) -> V3:
+    """Bilinear radiance along escaped rays (GetHDRImageColor,
+    comp:190-193) through the packed quad rows: u wraps, v clamps."""
+    u, v = spherical_uv_v(dirs)
+    h, w = env.quad12.shape[0], env.quad12.shape[1]
+    fx = u * w - 0.5
+    fy = v * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = fx - x0
+    ty = fy - y0
+    x0i = torch.remainder(x0.to(torch.int64), w)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    q = env.quad12.reshape(h * w, 12)[y0i * w + x0i]
+
+    def lerp2(c00, c10, c01, c11):
+        top = c00 * (1 - tx) + c10 * tx
+        bot = c01 * (1 - tx) + c11 * tx
+        return top * (1 - ty) + bot * ty
+
+    return V3(lerp2(q[:, 0], q[:, 3], q[:, 6], q[:, 9]),
+              lerp2(q[:, 1], q[:, 4], q[:, 7], q[:, 10]),
+              lerp2(q[:, 2], q[:, 5], q[:, 8], q[:, 11]))
+
+
+def sample_envmap_v(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor):
+    """Importance-sample the environment with the alias tables: returns
+    (dir V3, radiance V3, solid-angle pdf [R]) — the pdf of the sampling
+    procedure, p_xy * W * H / (2 pi^2 cos(elevation))."""
+    if env.alias_fat is None:
+        raise NotImplementedError(
+            "CDF-bisection env sampling (no alias tables) is not ported; "
+            "build the EnvMap with ops/envmap.py::build_envmap")
+    w, h = env.width, env.height
+    j1 = torch.clamp((u1 * w).to(torch.int64), 0, w - 1)
+    frac1 = u1 * w - j1.to(torch.float32)
+    rowx = env.alias_x[j1]
+    x = torch.where(frac1 < rowx[:, 0], j1, rowx[:, 1].to(torch.int64))
+    j2 = torch.clamp((u2 * h).to(torch.int64), 0, h - 1)
+    frac2 = u2 * h - j2.to(torch.float32)
+    fat = env.alias_fat[x * h + j2]  # the one env gather
+    take = frac2 < fat[:, 0]
+    y = torch.where(take, j2, fat[:, 1].to(torch.int64))
+    radiance = V3(torch.where(take, fat[:, 2], fat[:, 5]),
+                  torch.where(take, fat[:, 3], fat[:, 6]),
+                  torch.where(take, fat[:, 4], fat[:, 7]))
+    p2d = torch.where(take, fat[:, 8], fat[:, 9])
+    u = (x.to(torch.float32) + 0.5) / w
+    v = (y.to(torch.float32) + 0.5) / h
+    phi = TWO_PI * (u - 0.5)
+    theta = PI * (0.5 - v)
+    cos_t = torch.cos(theta)
+    dirs = V3(cos_t * torch.cos(phi), torch.sin(theta), cos_t * torch.sin(phi))
+    pdf = p2d * (w * h) / (2.0 * PI * PI * torch.clamp_min(cos_t, _POLE_EPS))
+    return dirs, radiance, pdf
+
+
+def envmap_pdf_v(env: EnvMap, dirs: V3) -> torch.Tensor:
+    """Solid-angle pdf of the NEE sampler at arbitrary directions."""
+    w, h = env.width, env.height
+    u, v = spherical_uv_v(dirs)
+    x = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+    y = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    theta = PI * (0.5 - v)
+    cos_theta = torch.clamp_min(torch.cos(theta), _POLE_EPS)
+    return env.pdf_xy[x, y] * (w * h) / (2.0 * PI * PI * cos_theta)

@@ -1,0 +1,147 @@
+"""Random and low-discrepancy sampling.
+
+PyTorch counterpart of ``pnraytracing_tpu/ops/sampling.py``
+(ray_tracing.comp:496-624): the wang-hash counter RNG with explicit seed
+threading (no generator object), the Sobol sequence with
+Cranley-Patterson rotation, area-light selection and uniform triangle
+sampling.
+
+32-bit words live in int64 tensors holding values in [0, 2^32): torch
+has no working shift on uint32 on every backend, and every product below
+stays under 2^63 before the mask.  Floats are made from the unsigned
+value, exactly as the JAX package converts its uint32.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from pnraytracing_tpu_torch.core.math import safe_sqrt
+
+M32 = 0xFFFFFFFF
+_INV_2_32 = 1.0 / 4294967296.0
+
+
+def wang_hash(seed: torch.Tensor) -> torch.Tensor:
+    """One PRNG step (comp:499-506); returns the new seed (also the
+    32-bit draw)."""
+    seed = (seed ^ 61) ^ (seed >> 16)
+    seed = (seed * 9) & M32
+    seed = seed ^ (seed >> 4)
+    seed = (seed * 0x27D4EB2D) & M32
+    return seed ^ (seed >> 15)
+
+
+def u32_to_unit(word: torch.Tensor) -> torch.Tensor:
+    """A 32-bit word to float32 in [0, 1]: f32(word) * 2^-32."""
+    return word.to(torch.float32) * _INV_2_32
+
+
+def rand01(seed: torch.Tensor):
+    """(new_seed, uniform in [0,1)) — ``Rand0To1`` (comp:528-530)."""
+    seed = wang_hash(seed)
+    return seed, u32_to_unit(seed)
+
+
+def pixel_seed(x: torch.Tensor, y: torch.Tensor, frame: int) -> torch.Tensor:
+    """Per-pixel stream seed (comp:977-979):
+    (x*1973 + y*9277 + frame*26699) | 1, mod 2^32."""
+    s = x * 1973 + y * 9277 + (int(frame) & M32) * 26699
+    return (s & M32) | 1
+
+
+# Joe-Kuo (new-joe-kuo-6) parameters for Sobol dimensions 1..7.
+_JOE_KUO = [
+    (1, 0, [1]),
+    (2, 1, [1, 3]),
+    (3, 1, [1, 3, 1]),
+    (3, 2, [1, 1, 1]),
+    (4, 1, [1, 1, 3, 3]),
+    (4, 4, [1, 3, 5, 13]),
+    (5, 2, [1, 1, 5, 5, 17]),
+]
+
+SOBOL_DIMS = 8
+SOBOL_BITS = 32
+
+
+@functools.lru_cache(maxsize=1)
+def sobol_direction_table() -> np.ndarray:
+    """[SOBOL_DIMS, 32] uint32 direction numbers (the reference's literal
+    V[8*32] table, comp:508-510)."""
+    table = np.zeros((SOBOL_DIMS, SOBOL_BITS), np.uint32)
+    for k in range(1, SOBOL_BITS + 1):
+        table[0, k - 1] = np.uint32(1) << np.uint32(32 - k)
+    for dim, (s, a, m) in enumerate(_JOE_KUO, start=1):
+        v = np.zeros(SOBOL_BITS + 1, np.uint64)
+        for k in range(1, s + 1):
+            v[k] = np.uint64(m[k - 1]) << np.uint64(32 - k)
+        for k in range(s + 1, SOBOL_BITS + 1):
+            acc = v[k - s] ^ (v[k - s] >> np.uint64(s))
+            for i in range(1, s):
+                if (a >> (s - 1 - i)) & 1:
+                    acc ^= v[k - i]
+            v[k] = acc
+        table[dim] = v[1:].astype(np.uint32)
+    return table
+
+
+def sobol_u32(d: int, i: int) -> int:
+    """32-bit Sobol value of index i in dimension d (comp:518-526)."""
+    v = sobol_direction_table()[d]
+    out = 0
+    for bit in range(32):
+        if (i >> bit) & 1:
+            out ^= int(v[bit])
+    return out
+
+
+def sobol_float(d: int, i: int) -> float:
+    """f32(u32) * f32(1/0xFFFFFFFF), as a Python float holding that f32."""
+    return float(np.float32(sobol_u32(d, i))
+                 * np.float32(1.0 / 0xFFFFFFFF))
+
+
+def sobol_vec2(frame: int, bounce: int) -> tuple[float, float]:
+    """The (u, v) pair of bounce b for frame i (comp:533-537): dimensions
+    (2b, 2b+1) mod 8 at the gray-coded index.  One pair per frame, shared
+    by every pixel (the per-pixel shift comes from the rotation)."""
+    i = int(frame) & M32
+    g = i ^ (i >> 1)
+    return (sobol_float((2 * bounce) % SOBOL_DIMS, g),
+            sobol_float((2 * bounce + 1) % SOBOL_DIMS, g))
+
+
+def cranley_patterson_rotation_c(su, sv, px: torch.Tensor, py: torch.Tensor,
+                                 width: int, height: int, salt: int = 0):
+    """Per-pixel toroidal shift of the sample (su, sv) (comp:539-557),
+    with the reference's ``x*W*1973 + y*H*9277 + 59*26699`` seed mix.
+    ``salt`` (the integrator passes 2*bounce // SOBOL_DIMS) gives each
+    reuse of the 8-dim table past depth 4 a fresh shift; 0 keeps the
+    reference's bits."""
+    s = (px * ((width * 1973) & M32) + py * ((height * 9277) & M32)
+         + (114514 // 1919) * 26699 + ((int(salt) * 0x9E3779B9) & M32))
+    s = (s & M32) | 1
+    s, u = rand01(s)
+    _, v = rand01(s)
+    a = su + u
+    b = sv + v
+    return torch.where(a > 1.0, a - 1.0, a), torch.where(b > 1.0, b - 1.0, b)
+
+
+def pick_light(prefix_area: torch.Tensor, total_area: torch.Tensor,
+               u: torch.Tensor) -> torch.Tensor:
+    """Area-proportional light slot (GetLightIndex, comp:237-251): the
+    smallest slot with prefix >= u * total."""
+    slot = torch.searchsorted(prefix_area, u * total_area, side="left")
+    return torch.clamp(slot, 0, prefix_area.shape[0] - 1).to(torch.int32)
+
+
+def sample_uniform_triangle(u1: torch.Tensor, u2: torch.Tensor):
+    """Uniform barycentrics (comp:598-601): b0 = 1 - sqrt(u1),
+    b1 = u2 * sqrt(u1)."""
+    su = safe_sqrt(u1)
+    return 1.0 - su, u2 * su

@@ -1,0 +1,1 @@
+"""render layer of the PyTorch/CUDA port (mirrors pnraytracing_tpu/render)."""

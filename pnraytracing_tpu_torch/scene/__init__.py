@@ -1,0 +1,1 @@
+"""scene layer of the PyTorch/CUDA port (mirrors pnraytracing_tpu/scene)."""

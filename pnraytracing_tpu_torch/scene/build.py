@@ -1,0 +1,180 @@
+"""Scene assembly on the host: model flattening, BVH build, light list,
+environment tables and the traversal layout.
+
+PyTorch counterpart of ``pnraytracing_tpu/scene/build.py``
+(model.hpp:101-135, BVH.hpp:16-19, main.cpp:374-383).  The arithmetic is
+the JAX package's numpy code, so both packages build identical arrays;
+the result lives on ``device`` as tensors.  The layout packs only what
+this port's traversal reads (``accel/layout.py::TravData``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pnraytracing_tpu_torch.accel.bricks import treelet_cut_aabbs
+from pnraytracing_tpu_torch.accel.bvh import build_bvh
+from pnraytracing_tpu_torch.accel.layout import (
+    MAX_PACKED_LEAF,
+    MAX_PACKED_NODES,
+    MAX_PACKED_TRIS,
+    TravData,
+    pack_tri_attr16,
+    pack_wide_nodes_compact,
+)
+from pnraytracing_tpu_torch.core.camera import resolve_device
+from pnraytracing_tpu_torch.core.types import (
+    BVH,
+    Lights,
+    Materials,
+    Scene,
+    TriangleMesh,
+)
+from pnraytracing_tpu_torch.ops.envmap import build_envmap
+
+
+@dataclasses.dataclass
+class ModelEntry:
+    name: str
+    mesh: dict  # positions/normals/uvs/indices (numpy)
+    material: dict
+    transform: Optional[np.ndarray]  # 4x4 or None
+
+
+class SceneBuilder:
+    """Accumulates models, then flattens them into one :class:`Scene`."""
+
+    def __init__(self):
+        self.entries: list[ModelEntry] = []
+
+    def add(self, mesh: dict, material: dict, name: str | None = None,
+            transform: np.ndarray | None = None,
+            texture: np.ndarray | None = None) -> "SceneBuilder":
+        """Register a model (``Model(path, modelMatrix, material, name)``,
+        model.hpp:22)."""
+        if texture is not None:
+            raise NotImplementedError(
+                "textured models need the texture slice of the port "
+                "(ops/texture.py, ROADMAP.md), which is not ported yet")
+        self.entries.append(ModelEntry(
+            name=name or f"model{len(self.entries)}",
+            mesh=mesh,
+            material=dict(material),
+            transform=(None if transform is None
+                       else np.asarray(transform, np.float64)),
+        ))
+        return self
+
+    def build(self, max_leaf_size: int = 4,
+              env_image: np.ndarray | None = None, env_constant=None,
+              device=None) -> Scene:
+        """Flatten, build the BVH, light list, environment tables and
+        traversal layout; the result lives on ``device`` (None = cuda)."""
+        dev = resolve_device(device)
+        positions, normals, uvs = [], [], []
+        indices, mat_ids = [], []
+        materials: list[dict] = []
+        v_off = 0
+        for e in self.entries:
+            mat_id = len(materials)
+            materials.append(e.material)
+            pos = np.asarray(e.mesh["positions"], np.float64)
+            nrm = np.asarray(e.mesh["normals"], np.float64)
+            tuv = np.asarray(e.mesh["uvs"], np.float32)
+            idx = np.asarray(e.mesh["indices"], np.int64)
+            if e.transform is not None:
+                m = e.transform
+                pos = pos @ m[:3, :3].T + m[:3, 3]
+                # normal matrix = transpose(inverse(M)) (model.hpp:104-112)
+                n_mat = np.linalg.inv(m[:3, :3]).T
+                nz = np.any(nrm != 0, axis=1)
+                nrm = nrm @ n_mat.T
+                norms = np.linalg.norm(nrm, axis=1, keepdims=True)
+                nrm = np.where(nz[:, None], nrm / np.maximum(norms, 1e-20),
+                               0.0)
+            positions.append(pos.astype(np.float32))
+            normals.append(nrm.astype(np.float32))
+            uvs.append(tuv)
+            indices.append(idx + v_off)
+            mat_ids.append(np.full(len(idx), mat_id, np.int32))
+            v_off += len(pos)
+
+        positions = np.concatenate(positions)
+        normals = np.concatenate(normals)
+        uvs = np.concatenate(uvs)
+        indices = np.concatenate(indices).astype(np.int32)
+        mat_ids = np.concatenate(mat_ids)
+        tex_ids = np.full(len(indices), -1, np.int32)
+
+        # triangle areas (model.hpp:128)
+        p = positions[indices].astype(np.float64)
+        areas = 0.5 * np.linalg.norm(
+            np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=1)
+
+        built = build_bvh(positions, indices, max_leaf_size=max_leaf_size)
+        order = built.order
+        idx_o = indices[order]
+        t = lambda a, dt=None: torch.as_tensor(np.array(a, dt), device=dev)
+        mesh = TriangleMesh(
+            positions=t(positions),
+            normals=t(normals),
+            tangents=t(np.zeros_like(positions)),
+            bitangents=t(np.zeros_like(positions)),
+            uvs=t(uvs),
+            indices=t(idx_o),
+            material_id=t(mat_ids[order]),
+            texture_id=t(tex_ids[order]),
+            area=t(areas[order], np.float32),
+        )
+        bvh = BVH(
+            node_min=t(built.node_min), node_max=t(built.node_max),
+            axis=t(built.axis), right_child=t(built.right_child),
+            start=t(built.start), end=t(built.end),
+        )
+
+        # emissive light list (main.cpp:374-383)
+        emissive = np.stack([
+            np.asarray(m.get("emissive", (0.0, 0.0, 0.0)), np.float32)
+            for m in materials])
+        is_light = np.any(emissive[mat_ids[order]] != 0.0, axis=1)
+        light_idx = np.nonzero(is_light)[0].astype(np.int32)
+        prefix = np.cumsum(areas[order][light_idx]).astype(np.float32)
+        lights = Lights(
+            tri_index=t(light_idx),
+            prefix_area=t(prefix),
+            total_area=t(np.float32(prefix[-1] if len(prefix) else 0.0)),
+        )
+
+        max_count = int((built.end - built.start)[built.right_child == -1]
+                        .max())
+        if (max_count > MAX_PACKED_LEAF or len(built.start) > MAX_PACKED_NODES
+                or len(indices) > MAX_PACKED_TRIS):
+            raise ValueError(
+                f"scene exceeds the packed traversal layout (leaf of "
+                f"{max_count} triangles, {len(built.start)} nodes, "
+                f"{len(indices)} triangles)")
+        trav = TravData(
+            tri9=t(positions[idx_o].reshape(len(order), 9)),
+            nodes16c=t(pack_wide_nodes_compact(built)),
+            tri_attr16=t(pack_tri_attr16(positions, normals, uvs, idx_o,
+                                         mat_ids[order], tex_ids[order])),
+            treelets=t(treelet_cut_aabbs(built)),
+            bvh_depth=built.max_depth,
+        )
+
+        return Scene(
+            mesh=mesh,
+            materials=Materials.stack(materials, device=dev),
+            bvh=bvh,
+            lights=lights,
+            env=(build_envmap(env_image, device=dev)
+                 if env_image is not None else None),
+            trav=trav,
+            env_constant=(t(env_constant, np.float32)
+                          if env_constant is not None else None),
+            bvh_depth=built.max_depth,
+        )

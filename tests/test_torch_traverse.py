@@ -1,0 +1,265 @@
+"""The plain versions of the port's traversal and sort-key kernels against
+the JAX package's Pallas kernels (run by the Pallas interpreter, as
+tests/test_pallas_trav.py runs them), on random triangle soups and on the
+flagship teapot.
+
+Bounds (tests/test_pallas_trav.py::_assert_hits_close): at most 2 tri
+mismatches (exact-t ties resolve by visit order, which differs: the port
+walks one stack per ray, the Pallas kernel one per tile), t rtol 1e-6, b
+rtol 1e-5 / atol 1e-6; attributes: normal and u/v within ~2 ulp (FMA
+contraction on the JAX side), material/texture word exact; occlusion and
+sort keys exact.  Also the guard that the port never imports JAX.
+"""
+
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pnraytracing_tpu.accel.layout import pack_tri_attr16 as jax_pack_attr16
+from pnraytracing_tpu.accel.layout import (
+    pack_wide_nodes_compact as jax_pack_compact,
+)
+from pnraytracing_tpu.accel.traverse_pallas import (
+    any_hit_pallas,
+    closest_hit_pallas,
+    closest_hit_pallas_attr,
+)
+from pnraytracing_tpu.core.camera import camera_rays as jax_camera_rays
+from pnraytracing_tpu.ops.compaction import (
+    treelet_entry_key as jax_treelet_entry_key,
+)
+from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+from pnraytracing_tpu_torch.accel.layout import TravData, pack_tri_attr16
+from pnraytracing_tpu_torch.core.vec import V3
+from pnraytracing_tpu_torch.ops.compaction import entry_key, treelet_entry_key
+from tests.test_packet import setup as soup_setup
+from tests.test_torch_scene import (  # noqa: F401
+    _torch_threads,
+    jax_teapot_night,
+    port_scene,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PALLAS = dict(tile_size=128, interpret=True)
+
+
+def _v3(a) -> V3:
+    a = np.asarray(a, np.float32)
+    return V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                for k in range(3)))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def soup(num_tris=120, num_rays=256, seed=3):
+    """A random soup with both packages' traversal layouts: the JAX
+    TravData gains the compact wide rows and attribute rows of the port's
+    layout (copied, so both walk the same table)."""
+    mesh, bvh, trav, o, d, t_max = soup_setup(num_tris, num_rays, seed)
+    from tests.test_bvh import make_mesh_and_bvh, random_soup
+
+    rng = np.random.default_rng(seed)
+    positions, indices = random_soup(rng, num_tris)
+    _, _, built = make_mesh_and_bvh(positions, indices)
+    jtrav = trav.replace(nodes16c=jnp.asarray(jax_pack_compact(built)),
+                         tri_attr16=jax_pack_attr16(mesh))
+    ptrav = TravData(tri9=_t(jtrav.tri9), nodes16c=_t(jtrav.nodes16c),
+                     tri_attr16=_t(jtrav.tri_attr16),
+                     treelets=torch.zeros((1, 6)),
+                     bvh_depth=built.max_depth)
+    return jtrav, ptrav, mesh, built, o, d, t_max
+
+
+def _assert_hits_close(a, b, n):
+    tri_a, tri_b = a.tri.numpy(), np.asarray(b.tri)
+    same = tri_a == tri_b
+    assert same.sum() >= n - 2, f"{(~same).sum()} tri mismatches"
+    np.testing.assert_allclose(a.t.numpy()[same], np.asarray(b.t)[same],
+                               rtol=1e-6)
+    for pa, pb in ((a.b1, b.b1), (a.b2, b.b2)):
+        np.testing.assert_allclose(pa.numpy()[same], np.asarray(pb)[same],
+                                   rtol=1e-5, atol=1e-6)
+    return same
+
+
+def _assert_attrs_close(attrs, jattrs, same):
+    """Raw normal and u/v within ~2 ulp: XLA contracts the barycentrics
+    and the interpolation a*b0 + c*b1 + e*b2 into FMAs, the port does
+    not (its kernel is built with --fmad=false to match its plain
+    version bit for bit).  The material/texture word is exact."""
+    for k in range(5):
+        np.testing.assert_allclose(attrs[k].numpy()[same],
+                                   np.asarray(jattrs[k])[same], rtol=3e-7,
+                                   atol=1e-7)
+    np.testing.assert_array_equal(attrs[5].numpy()[same],
+                                  np.asarray(jattrs[5])[same])
+
+
+@pytest.mark.parametrize("seed", [3, 7])
+def test_closest_hit_plain_matches_pallas(seed):
+    jtrav, ptrav, _, _, o, d, t_max = soup(seed=seed)
+    want = closest_hit_pallas(jtrav, o, d, t_max, **PALLAS)
+    got = trv.closest_hit(ptrav, _v3(o), _v3(d), _t(t_max))
+    _assert_hits_close(got, want, 256)
+    assert (got.tri.numpy() >= 0).sum() >= 10  # the soup is actually hit
+
+
+def test_closest_hit_attr_plain_matches_pallas():
+    jtrav, ptrav, _, _, o, d, t_max = soup(seed=5)
+    want, jattrs = closest_hit_pallas_attr(jtrav, o, d, t_max, **PALLAS)
+    got, attrs = trv.closest_hit_attr(ptrav, _v3(o), _v3(d), _t(t_max))
+    same = _assert_hits_close(got, want, 256)
+    _assert_attrs_close(attrs, jattrs, same)
+    miss = got.tri.numpy() < 0
+    assert miss.any()
+    np.testing.assert_array_equal(attrs[2].numpy()[miss], 1.0)  # +z normal
+    np.testing.assert_array_equal(attrs[5].numpy()[miss], 0)
+
+
+def test_closest_hit_masked_rays_miss():
+    jtrav, ptrav, _, _, o, d, t_max = soup(num_rays=300, seed=11)
+    mask = np.arange(300) % 3 != 0
+    want = closest_hit_pallas(jtrav, o, d, t_max, jnp.asarray(mask),
+                              **PALLAS)
+    got, attrs = trv.closest_hit_attr(ptrav, _v3(o), _v3(d), _t(t_max),
+                                      torch.from_numpy(mask))
+    _assert_hits_close(got, want, 300)
+    assert (got.tri.numpy()[~mask] == -1).all()
+    np.testing.assert_array_equal(got.t.numpy()[~mask],
+                                  np.asarray(t_max)[~mask])
+    np.testing.assert_array_equal(attrs[2].numpy()[~mask], 1.0)
+
+
+@pytest.mark.parametrize("seed", [9, 13])
+def test_any_hit_plain_matches_pallas(seed):
+    jtrav, ptrav, _, _, o, d, _ = soup(seed=seed)
+    short = np.full((256,), 4.0, np.float32)
+    mask = np.arange(256) % 5 != 0
+    want = any_hit_pallas(jtrav, o, d, jnp.asarray(short),
+                          jnp.asarray(mask), **PALLAS)
+    got = trv.any_hit(ptrav, _v3(o), _v3(d), _t(short),
+                      torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.numpy().any() and not got.numpy()[~mask].any()
+
+
+def test_attr_table_packer_matches_jax():
+    """The port's host packer gives the JAX table bit for bit, including
+    the geometric-normal fallback (the soup has no vertex normals)."""
+    jtrav, _, mesh, _, _, _, _ = soup()
+    got = pack_tri_attr16(np.asarray(mesh.positions), np.asarray(
+        mesh.normals), np.asarray(mesh.uvs), np.asarray(mesh.indices),
+        np.asarray(mesh.material_id), np.asarray(mesh.texture_id))
+    np.testing.assert_array_equal(got, np.asarray(jtrav.tri_attr16))
+
+
+def _teapot_rays():
+    js, jcam = jax_teapot_night()
+    o, d, t_max = jax_camera_rays(jcam.basis(), 16, 16)
+    return js, np.asarray(o), np.asarray(d), np.asarray(t_max)
+
+
+def test_teapot_primary_attr_matches_pallas():
+    js, o, d, t_max = _teapot_rays()
+    ps = port_scene(js)
+    want, jattrs = closest_hit_pallas_attr(js.trav, jnp.asarray(o),
+                                           jnp.asarray(d),
+                                           jnp.asarray(t_max), **PALLAS)
+    got, attrs, stats = trv.closest_hit_attr(
+        ps.trav, _v3(o), _v3(d), _t(t_max), with_stats=True)
+    same = _assert_hits_close(got, want, 256)
+    _assert_attrs_close(attrs, jattrs, same)
+    assert got.valid.numpy().mean() > 0.3
+    pops, leaf, tris = (s.numpy() for s in stats)
+    assert (pops >= leaf).all() and (tris >= leaf).all() and pops.sum() > 0
+
+
+def test_teapot_shadow_rays_match_pallas():
+    """Unnormalized segments toward the lamp, t_max = 1 - SHADOW_EPS —
+    the shape of the integrator's area-light shadow queries."""
+    js, o, d, _ = _teapot_rays()
+    hit = closest_hit_pallas(js.trav, jnp.asarray(o), jnp.asarray(d),
+                             jnp.asarray(np.full(256, 1e7, np.float32)),
+                             **PALLAS)
+    t = np.where(np.asarray(hit.tri) >= 0, np.asarray(hit.t), 1.0)
+    pos = o + d * t[:, None]
+    lamp = np.array([-2.5, 5.0, 0.0], np.float32)
+    rng = np.random.default_rng(1)
+    target = lamp + rng.uniform(-1, 1, size=(256, 3)).astype(np.float32) * \
+        np.array([1, 0, 1], np.float32)
+    so = (pos + 1e-3 * (target - pos)).astype(np.float32)
+    sd = (target - so).astype(np.float32)
+    tm = np.full(256, 1.0 - 1e-4, np.float32)
+    mask = np.asarray(hit.tri) >= 0
+    want = any_hit_pallas(js.trav, jnp.asarray(so), jnp.asarray(sd),
+                          jnp.asarray(tm), jnp.asarray(mask), **PALLAS)
+    got = trv.any_hit(port_scene(js).trav, _v3(so), _v3(sd), _t(tm),
+                      torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_entry_key_matches_xla_form():
+    js, _ = jax_teapot_night()
+    ps = port_scene(js)
+    rng = np.random.default_rng(4)
+    o = rng.uniform(-4, 4, size=(512, 3)).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1])
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:16, 0] = 0.0  # axis-parallel directions
+    want = np.asarray(jax_treelet_entry_key(jnp.asarray(o), jnp.asarray(d),
+                                            js.trav.treelets))
+    got = treelet_entry_key(_v3(o), _v3(d), ps.trav.treelets)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(
+        entry_key(_v3(o), _v3(d), ps.trav.treelets).numpy(), got.numpy())
+    k = got.numpy() // 8
+    assert (k < ps.trav.treelets.shape[0]).any() and (k <= 375).all()
+
+
+def test_wrappers_reject_bad_inputs():
+    _, ptrav, _, built, o, d, t_max = soup()
+    o3, d3, tm = _v3(o), _v3(d), _t(t_max)
+    with pytest.raises(ValueError, match="too shallow"):
+        trv.closest_hit(ptrav, o3, d3, tm, stack_depth=built.max_depth - 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.from_numpy(np.array(o, np.float32))[:, 0]
+        trv.any_hit(ptrav, V3(strided, o3.y, o3.z), d3, tm)
+    with pytest.raises(ValueError, match="float32"):
+        trv.closest_hit_attr(ptrav, o3, d3, tm.double())
+    with pytest.raises(ValueError, match="mask"):
+        trv.any_hit(ptrav, o3, d3, tm, torch.ones(256, dtype=torch.int32))
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+(?:jax|flax|optax|pnraytracing_tpu)\b(?!_torch)"
+    r"|from\s+(?:jax|flax|optax|pnraytracing_tpu)\b(?!_torch))")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "pnraytracing_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_never_imports_jax():
+    """No module of the port and no line of chip_smoke.py imports jax,
+    flax, optax or the JAX package (even its numpy-only modules)."""
+    srcs = list(_port_sources())
+    assert len(srcs) > 20
+    for path in srcs:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                assert not _FORBIDDEN.search(line), f"{path}:{n}: {line}"
+                assert "pnraytracing_tpu." not in line.replace(
+                    "pnraytracing_tpu_torch", "") or "import" not in line, (
+                    f"{path}:{n}: {line}")
