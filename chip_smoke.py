@@ -3,11 +3,12 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's main path — the flagship teapot_night forward frame
-(512x512, 1 spp, 4 bounces) through ``render_frame`` — and holds every
-CUDA kernel of that path against its plain PyTorch version.  Each phase
-prints one JSON line; any failure raises and the script exits non-zero
-without printing a result.  Phases:
+Drives the port's two paths through ``render_frame`` — the flagship
+teapot_night forward frame (512x512, 1 spp, 4 bounces, resident
+kernels) and the large config5 frame (102,404 triangles, brick-streaming
+kernels) — and holds every CUDA kernel against its plain PyTorch
+version.  Each phase prints one JSON line; any failure raises and the
+script exits non-zero without printing a result.  Phases:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: every ``csrc/*.cu`` compiled by ``nvcc`` in parallel, with the
@@ -24,7 +25,20 @@ without printing a result.  Phases:
    version's time and its bound, and peak device memory;
 7. profile: one flagship frame under torch.profiler — device busy time,
    the top device kernels, and the idle share: busy time over the
-   unprofiled ms/frame of phase 6 (the profiler slows the host).
+   unprofiled ms/frame of phase 6 (the profiler slows the host);
+8. binary: the binary pop-test kernels (the ``variant="binary"`` entry
+   point, which the integrator never routes to) against their plain
+   versions on the flagship rays of phase 4, timed;
+9. stream_scene: config5_large built by the port on the card, with its
+   brick layout and the shared memory the stream kernel asks for;
+10. stream_parity: the stream kernels against their plain versions on
+   the rays of one plain-path config5 frame (primary, bounce-0
+   continuation, bounce-0 fused shadows), and the resident wide kernels
+   on the same rays (the bricks cover the tree);
+11. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
+   128x128 depth-4 frame through the kernels against the plain versions,
+   ms/frame and rays/s, peak memory, the stream kernels' times beside
+   the resident kernel's, and one profiled frame.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -47,6 +61,8 @@ FP32_OPS_PER_S = 67e12
 OPS_AABB = 25
 OPS_TRIANGLE = 50
 OPS_ENTRY_BOX = 25
+
+RAY_IN = 4 * 7 + 1  # bytes in per ray: ox..dz, t_max (f32) + mask (bool)
 
 WIDTH = HEIGHT = 512
 DEPTH = 4
@@ -71,20 +87,20 @@ class Recorder:
     clone their inputs and compute with the plain versions, so one frame
     yields the path's real kernel inputs without launching a kernel."""
 
-    def __init__(self, integrator, traverse, compaction):
+    def __init__(self, integrator, traverse, stream, compaction):
         self.mod = integrator
-        self.names = ("closest_hit_attr", "closest_hit", "any_hit",
-                      "entry_key")
-        self.saved = {n: getattr(integrator, n) for n in self.names}
-        self.calls: list[tuple[str, tuple]] = []
         plain = {
             "closest_hit_attr": traverse.plain_closest_hit_attr,
             "closest_hit": traverse.plain_closest_hit,
             "any_hit": traverse.plain_any_hit,
+            "closest_hit_stream": stream.plain_closest_hit_stream,
+            "any_hit_stream": stream.plain_any_hit_stream,
             "entry_key": compaction.treelet_entry_key,
         }
-        for n in self.names:
-            setattr(integrator, n, self._recording(n, plain[n]))
+        self.saved = {n: getattr(integrator, n) for n in plain}
+        self.calls: list[tuple[str, tuple]] = []
+        for n, fn in plain.items():
+            setattr(integrator, n, self._recording(n, fn))
 
     def _recording(self, name, fn):
         def call(*args, **kw):
@@ -95,6 +111,62 @@ class Recorder:
     def restore(self):
         for n, f in self.saved.items():
             setattr(self.mod, n, f)
+
+    def by_name(self) -> dict:
+        out = {}
+        for name, args in self.calls:
+            out.setdefault(name, []).append(args)
+        return out
+
+
+def record_frame(render_frame, scene, camera, cfg, dev, *modules):
+    """Run one frame with every kernel replaced by its plain version;
+    returns (image, the recorded kernel inputs by wrapper name)."""
+    rec = Recorder(*modules)
+    try:
+        img = render_frame(scene, camera, cfg, 0, device=dev)
+    finally:
+        rec.restore()
+    return img, rec.by_name()
+
+
+def zero_counts(*tables) -> None:
+    for counts in tables:
+        for k in counts:
+            counts[k] = 0
+
+
+def bound(bytes_, ops):
+    """The least time the card could take: the larger of bytes over the
+    HBM rate and operations over the fp32 rate, and which side it is."""
+    b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def trav_ops(stats, binary=False):
+    """Operations of a walk from its per-ray stats: slab tests (two per
+    internal pop of a wide walk, one per pop of the binary walk) and
+    triangle tests."""
+    pops, leaf, tris = (int(s.sum()) for s in stats)
+    slabs = pops if binary else 2 * (pops - leaf)
+    return OPS_AABB * slabs + OPS_TRIANGLE * tris
+
+
+def port_kernel_name(key: str):
+    """The LAUNCHES name of one of the port's kernels from its profiler
+    key (demangled "closest_hit_kernel<true>" or mangled "...ILb1E"),
+    else None."""
+    m = re.search(r"(closest_hit_binary|any_hit_binary|closest_hit|any_hit"
+                  r"|entry_key|stream)_kernel(?:<(true|false)>|ILb([01])E)?",
+                  key)
+    if not m:
+        return None
+    base, on = m.group(1), (m.group(2) or m.group(3)) in ("true", "1")
+    if base == "closest_hit":
+        return "closest_hit_attr" if on else "closest_hit"
+    if base == "stream":
+        return "closest_hit_stream" if on else "any_hit_stream"
+    return "treelet_entry_key" if base == "entry_key" else base
 
 
 def _clone(args):
@@ -167,14 +239,8 @@ def profile_frame(fn, frame_ms: float, top: int = 8) -> dict:
     kernels.sort(key=dev_us, reverse=True)
     ours = {}
     for e in kernels:
-        # demangled ("closest_hit_kernel<true>") or mangled ("...ILb1E")
-        m = re.search(r"(closest_hit|any_hit|entry_key)_kernel"
-                      r"(?:<(true|false)>|ILb([01])E)?", e.key)
-        if m:
-            attr = m.group(2) or m.group(3)
-            name = ("closest_hit_attr" if attr in ("true", "1") else
-                    "closest_hit" if attr in ("false", "0") else m.group(1))
-            name = "treelet_entry_key" if name == "entry_key" else name
+        name = port_kernel_name(e.key)
+        if name:
             ours[name] = {"calls": e.count, "device_ms": dev_us(e) / 1e3}
     return {
         "profiled_wall_ms": profiled_wall_ms, "frame_ms": frame_ms,
@@ -223,6 +289,270 @@ def check_closest(name, got, want, r, attrs=None):
     return n_bad, err
 
 
+def frame_parity(render_frame, scene, camera, cfgp, dev, modules) -> dict:
+    """A frame through the kernels against the same frame through the
+    plain versions: at most 0.02% of pixels outside atol 3e-5."""
+    import torch
+
+    img_k = render_frame(scene, camera, cfgp, 0, device=dev)
+    img_p, _ = record_frame(render_frame, scene, camera, cfgp, dev, *modules)
+    px_err = (img_k - img_p).abs().amax(dim=-1)
+    n_out = int((px_err > 3e-5).sum())
+    limit = int(cfgp.width * cfgp.height * 2e-4)
+    finite = bool(torch.isfinite(img_k).all())
+    out = {"pixels": cfgp.width * cfgp.height, "depth": cfgp.max_depth,
+           "outside_atol_3e-5": n_out, "limit": limit,
+           "max_abs_err": float(px_err.max()), "finite": finite,
+           "mean": float(img_k.mean())}
+    if n_out > limit or not finite:
+        raise AssertionError(f"frame parity failed: {out}")
+    return out
+
+
+def check_occ(name, got, want) -> int:
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} occlusion mismatches")
+    return bad
+
+
+def rays_of(args):
+    """(o, d, t_max, mask) of a recorded traversal call."""
+    return args[1], args[2], args[3], (args[4] if len(args) > 4 else None)
+
+
+def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
+    """Phase 8: the binary kernels against their plain versions on the
+    flagship rays, and their rows of the kernels line.  The integrator
+    never routes to them (the binary packing is 8 B larger than the wide
+    one), so their launches on the main path are 0."""
+    import torch
+
+    r = primary[1].x.shape[0]
+    res = {}
+    for label, args in (("primary", primary), ("bounce0", cont)):
+        o, d, tm, mask = rays_of(args)
+        got = trv.closest_hit(trav, o, d, tm, mask, variant="binary")
+        want = trv.plain_closest_hit_binary(trav, o, d, tm, mask)
+        bad, err = check_closest("closest_hit_binary/" + label, got, want, r)
+        # the same tree as the wide walk: the same hits
+        wide_bad, _ = check_closest("closest_hit_binary_vs_wide/" + label,
+                                    got, trv.closest_hit(trav, o, d, tm,
+                                                         mask), r)
+        res[label] = {"tri_mismatch": bad, "err": err,
+                      "tri_mismatch_vs_wide": wide_bad}
+    so, sd, stm, smask = rays_of(shadow)
+    occ = trv.any_hit(trav, so, sd, stm, smask, variant="binary")
+    occ_bad = check_occ("any_hit_binary", occ, trv.plain_any_hit_binary(
+        trav, so, sd, stm, smask))
+    check_occ("any_hit_binary_vs_wide", occ,
+              trv.any_hit(trav, so, sd, stm, smask))
+    torch.cuda.synchronize()
+
+    scene_bytes = 4 * (trav.nodes8.numel() + trav.tri9.numel())
+    o, d, tm, mask = rays_of(cont)
+    _, st = trv.closest_hit(trav, o, d, tm, mask, variant="binary",
+                            with_stats=True)
+    bnd_c = bound(r * (RAY_IN + 16) + scene_bytes, trav_ops(st, binary=True))
+    pops_c = int(st[0].sum())
+    rs = so.x.shape[0]
+    _, st = trv.any_hit(trav, so, sd, stm, smask, variant="binary",
+                        with_stats=True)
+    bnd_a = bound(rs * (RAY_IN + 1) + scene_bytes, trav_ops(st, binary=True))
+    rows = [
+        dict(name="closest_hit_binary",
+             source="pnraytracing_tpu_torch/csrc/traverse.cu",
+             replaces="pnraytracing_tpu/accel/traverse_pallas.py:144",
+             launches=launches["closest_hit_binary"],
+             max_abs_err=max(v["err"] for v in res.values()),
+             tri_mismatch=sum(v["tri_mismatch"] for v in res.values()),
+             ms=time_ms(lambda: trv.closest_hit(trav, o, d, tm, mask,
+                                                variant="binary"), 20),
+             plain_ms=time_ms(lambda: trv.plain_closest_hit_binary(
+                 trav, o, d, tm, mask), 2),
+             wide_ms=time_ms(lambda: trv.closest_hit(trav, o, d, tm, mask),
+                             20),
+             pops=pops_c, bound_ms=bnd_c[0], bound_by=bnd_c[1]),
+        dict(name="any_hit_binary",
+             source="pnraytracing_tpu_torch/csrc/traverse.cu",
+             replaces="pnraytracing_tpu/accel/traverse_pallas.py:233",
+             launches=launches["any_hit_binary"], max_abs_err=float(occ_bad),
+             mismatches=occ_bad,
+             ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask,
+                                            variant="binary"), 20),
+             plain_ms=time_ms(lambda: trv.plain_any_hit_binary(
+                 trav, so, sd, stm, smask), 2),
+             wide_ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask),
+                             20),
+             bound_ms=bnd_a[0], bound_by=bnd_a[1]),
+    ]
+    emit({"phase": "binary", "rays": r, "shadow_rays": rs, "closest": res,
+          "any_hit_mismatch": occ_bad,
+          "ms": {row["name"]: row["ms"] for row in rows},
+          "wide_ms": {row["name"]: row["wide_ms"] for row in rows}})
+    return rows
+
+
+def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
+                  counts, cfgp) -> list:
+    """Phases 9-11: config5_large through the brick-streaming kernels.
+    Returns their rows of the kernels line."""
+    import torch
+
+    from pnraytracing_tpu_torch.accel.route import traversal_route
+    from pnraytracing_tpu_torch.scene.scenes import config5_large
+
+    _, trv, trs, _ = modules
+
+    # ---- 9. the scene ---------------------------------------------------
+    t0 = time.perf_counter()
+    scene, cam_state = config5_large(device=dev)
+    camera = cam_state.basis(device=dev)
+    build_s = time.perf_counter() - t0
+    trav = scene.trav
+    s = trav.stream
+    route = traversal_route(trav, True)
+    smem = trs.stream_smem_bytes(trav)
+    emit({"phase": "stream_scene", "seconds": build_s,
+          "triangles": trav.tri9.shape[0], "bricks": s.n_bricks,
+          "brick_kb": s.brick_words * 4 / 1024, "top_rows": s.n_top_rows,
+          "brick_stack": s.brick_stack, "smem_per_block": smem,
+          "bvh_depth": trav.bvh_depth, "treelets": trav.treelets.shape[0],
+          "route": route})
+    if route != "stream" or trav.tri9.shape[0] != 102404:
+        raise AssertionError("config5_large must stream its 102,404 "
+                             "triangles")
+
+    # ---- 10. stream kernels vs plain, and vs the resident walk --------
+    cfg1 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=1)
+    _, calls = record_frame(render_frame, scene, camera, cfg1, dev, *modules)
+    primary, cont = calls["closest_hit_stream"][:2]
+    shadow = calls["any_hit_stream"][0]
+    r = primary[1].x.shape[0]
+    res = {}
+    for label, args in (("primary", primary), ("bounce0", cont)):
+        o, d, tm, mask = rays_of(args)
+        got, st, bst = trs.closest_hit_stream(trav, o, d, tm, mask,
+                                              with_stats=True)
+        want, wst, wbst = trs.plain_closest_hit_stream(trav, o, d, tm, mask,
+                                                       with_stats=True)
+        bad, err = check_closest("closest_hit_stream/" + label, got, want, r)
+        if not (torch.equal(st, wst) and torch.equal(bst, wbst)):
+            raise AssertionError(f"closest_hit_stream/{label}: walk stats "
+                                 "differ from the plain version")
+        res_bad, res_err = check_closest(
+            "closest_hit_resident_vs_stream/" + label,
+            trv.closest_hit(trav, o, d, tm, mask), want, r)
+        res[label] = {"tri_mismatch": bad, "err": err,
+                      "resident_tri_mismatch": res_bad,
+                      "resident_err": res_err,
+                      "bricks_staged": int(bst.sum()),
+                      "blocks": int(bst.numel())}
+    so, sd, stm, smask = rays_of(shadow)
+    occ, st, bst = trs.any_hit_stream(trav, so, sd, stm, smask,
+                                      with_stats=True)
+    wocc, wst, wbst = trs.plain_any_hit_stream(trav, so, sd, stm, smask,
+                                               with_stats=True)
+    occ_bad = check_occ("any_hit_stream", occ, wocc)
+    if not (torch.equal(st, wst) and torch.equal(bst, wbst)):
+        raise AssertionError("any_hit_stream: walk stats differ from the "
+                             "plain version")
+    res_occ_bad = check_occ("any_hit_resident_vs_stream", occ,
+                            trv.any_hit(trav, so, sd, stm, smask))
+    torch.cuda.synchronize()
+    emit({"phase": "stream_parity", "rays": r,
+          "shadow_rays": int(so.x.shape[0]), "closest": res,
+          "any_hit_mismatch": occ_bad,
+          "any_hit_resident_mismatch": res_occ_bad,
+          "any_bricks_staged": int(bst.sum())})
+
+    # ---- 11. the config5 frame -----------------------------------------
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    render_frame(scene, camera, cfg, 0, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts(*tables)
+    img = render_frame(scene, camera, cfg, 1, device=dev)
+    torch.cuda.synchronize()
+    launches = counts()
+    expected = dict({k: 0 for k in launches}, closest_hit_stream=1 + DEPTH,
+                    any_hit_stream=DEPTH,
+                    treelet_entry_key=cfg.sort_max_bounce)
+    if launches != expected:
+        raise AssertionError(f"config5 launches per frame {launches}, "
+                             f"expected {expected}")
+    if not (img.shape == (HEIGHT, WIDTH, 3) and torch.isfinite(img).all()
+            and float(img.min()) >= 0.0 and float(img.max()) <= 1.0):
+        raise AssertionError("config5 frame is not a finite [0,1] image")
+    parity = frame_parity(render_frame, scene, camera, cfgp, dev, modules)
+    torch.cuda.reset_peak_memory_stats()
+    n_frames = 5
+    enqueue_ms = []  # host time until render_frame returns, no sync
+    t0 = time.perf_counter()
+    for f in range(n_frames):
+        t1 = time.perf_counter()
+        render_frame(scene, camera, cfg, 2 + f, device=dev)
+        enqueue_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    ms_frame = (time.perf_counter() - t0) * 1e3 / n_frames
+    peak = torch.cuda.max_memory_allocated()
+
+    # bound: each input read once (rays, the top tree, the brick array);
+    # the bricks the blocks stage again and again come from the L2, so
+    # their bytes (at most brick_words words a staging) are reported
+    # beside it, with the time they would take at the HBM rate
+    scene_bytes = 4 * (s.top16.numel() + s.bricks.numel())
+    brick_bytes = 4 * s.brick_words
+    staged = lambda bst: {
+        "bricks_staged": int(bst.sum()),
+        "staged_bytes": int(bst.sum()) * brick_bytes,
+        "staged_hbm_ms": int(bst.sum()) * brick_bytes / HBM_BYTES_PER_S * 1e3}
+    rows = []
+    o, d, tm, mask = rays_of(cont)
+    _, st, bst = trs.closest_hit_stream(trav, o, d, tm, mask,
+                                        with_stats=True)
+    bnd = bound(r * (RAY_IN + 16) + scene_bytes, trav_ops(st))
+    rows.append(dict(
+        name="closest_hit_stream",
+        source="pnraytracing_tpu_torch/csrc/traverse_stream.cu",
+        replaces="pnraytracing_tpu/accel/traverse_stream.py:87",
+        launches=launches["closest_hit_stream"],
+        max_abs_err=max(v["err"] for v in res.values()),
+        tri_mismatch=sum(v["tri_mismatch"] for v in res.values()),
+        ms=time_ms(lambda: trs.closest_hit_stream(trav, o, d, tm, mask), 10),
+        plain_ms=time_ms(lambda: trs.plain_closest_hit_stream(
+            trav, o, d, tm, mask), 1),
+        resident_ms=time_ms(lambda: trv.closest_hit(trav, o, d, tm, mask),
+                            10),
+        bound_ms=bnd[0], bound_by=bnd[1], **staged(bst)))
+    rs = so.x.shape[0]
+    _, st, bst = trs.any_hit_stream(trav, so, sd, stm, smask,
+                                    with_stats=True)
+    bnd = bound(rs * (RAY_IN + 1) + scene_bytes, trav_ops(st))
+    rows.append(dict(
+        name="any_hit_stream",
+        source="pnraytracing_tpu_torch/csrc/traverse_stream.cu",
+        replaces="pnraytracing_tpu/accel/traverse_stream.py:87",
+        launches=launches["any_hit_stream"], max_abs_err=float(occ_bad),
+        mismatches=occ_bad,
+        ms=time_ms(lambda: trs.any_hit_stream(trav, so, sd, stm, smask), 10),
+        plain_ms=time_ms(lambda: trs.plain_any_hit_stream(
+            trav, so, sd, stm, smask), 1),
+        resident_ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask),
+                            10),
+        bound_ms=bnd[0], bound_by=bnd[1], **staged(bst)))
+    emit({"phase": "stream_frame", "width": WIDTH, "height": HEIGHT,
+          "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
+          "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),
+          "queries_per_frame": QUERIES_PER_FRAME,
+          "enqueue_ms": enqueue_ms,
+          "launches_per_frame": launches, "parity_128": parity,
+          "mean": float(img.mean()), "max_memory_allocated": peak,
+          "card": smi})
+    emit(dict(phase="stream_profile", **profile_frame(
+        lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -233,6 +563,7 @@ def main() -> int:
 
     from pnraytracing_tpu_torch import cuda_build
     from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+    from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
     from pnraytracing_tpu_torch.core.config import RenderConfig
     from pnraytracing_tpu_torch.ops import compaction
     from pnraytracing_tpu_torch.render import integrator
@@ -263,15 +594,9 @@ def main() -> int:
           "attr_bytes": 4 * trav.tri_attr16.numel()})
 
     # ---- 4. kernel parity on the rays of one plain-path frame ----------
+    modules = (integrator, trv, trs, compaction)
     cfg1 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=1)
-    rec = Recorder(integrator, trv, compaction)
-    try:
-        render_frame(scene, camera, cfg1, 0, device=dev)
-    finally:
-        rec.restore()
-    calls = {}
-    for name, args in rec.calls:
-        calls.setdefault(name, []).append(args)
+    _, calls = record_frame(render_frame, scene, camera, cfg1, dev, *modules)
     primary = calls["closest_hit_attr"][0]
     cont = calls["closest_hit_attr"][1]
     shadow = calls["any_hit"][0]
@@ -312,35 +637,21 @@ def main() -> int:
     # ---- 5. frame parity: kernels vs plain versions on the card --------
     cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
                         max_depth=DEPTH)
-    img_k = render_frame(scene, camera, cfgp, 0, device=dev)
-    rec = Recorder(integrator, trv, compaction)
-    try:
-        img_p = render_frame(scene, camera, cfgp, 0, device=dev)
-    finally:
-        rec.restore()
-    px_err = (img_k - img_p).abs().amax(dim=-1)
-    n_out = int((px_err > 3e-5).sum())
-    limit = int(PARITY_SIZE * PARITY_SIZE * 2e-4)
-    finite = bool(torch.isfinite(img_k).all())
-    emit({"phase": "frame_parity", "pixels": PARITY_SIZE * PARITY_SIZE,
-          "outside_atol_3e-5": n_out, "limit": limit,
-          "max_abs_err": float(px_err.max()), "finite": finite,
-          "mean": float(img_k.mean())})
-    if n_out > limit or not finite:
-        raise AssertionError("frame parity failed")
+    emit(dict(phase="frame_parity", **frame_parity(
+        render_frame, scene, camera, cfgp, dev, modules)))
 
     # ---- 6. the flagship frame ------------------------------------------
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
     render_frame(scene, camera, cfg, 0, device=dev)  # warm-up 1
     torch.cuda.synchronize()
-    for counts in (trv.LAUNCHES, compaction.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    tables = (trv.LAUNCHES, trs.LAUNCHES, compaction.LAUNCHES)
+    counts = lambda: {k: v for t in tables for k, v in t.items()}
+    zero_counts(*tables)
     img = render_frame(scene, camera, cfg, 1, device=dev)  # warm-up 2
     torch.cuda.synchronize()
-    launches = dict(trv.LAUNCHES, **compaction.LAUNCHES)
-    expected = {"closest_hit_attr": 1 + DEPTH, "any_hit": DEPTH,
-                "treelet_entry_key": cfg.sort_max_bounce, "closest_hit": 0}
+    launches = counts()
+    expected = dict({k: 0 for k in launches}, closest_hit_attr=1 + DEPTH,
+                    any_hit=DEPTH, treelet_entry_key=cfg.sort_max_bounce)
     if launches != expected:
         raise AssertionError(f"launches per frame {launches}, expected "
                              f"{expected}")
@@ -350,17 +661,22 @@ def main() -> int:
     # kernel 3's own path: the same frame with kernel_interaction off
     cfg_off = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH,
                            kernel_interaction=False)
-    for counts in (trv.LAUNCHES, compaction.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    zero_counts(*tables)
     img_off = render_frame(scene, camera, cfg_off, 1, device=dev)
     torch.cuda.synchronize()
-    launches_off = dict(trv.LAUNCHES, **compaction.LAUNCHES)
+    launches_off = counts()
     if launches_off != dict(expected, closest_hit_attr=0,
                             closest_hit=1 + DEPTH):
         raise AssertionError(f"kernel_interaction=False frame launched "
                              f"{launches_off}")
     off_px = int(((img_off - img).abs().amax(dim=-1) > 1e-3).sum())
+    # the same frame through closest_hit + make_interaction, timed: the
+    # interaction route every streamed frame takes
+    t0 = time.perf_counter()
+    for f in range(3):
+        render_frame(scene, camera, cfg_off, 2 + f, device=dev)
+    torch.cuda.synchronize()
+    ms_off = (time.perf_counter() - t0) * 1e3 / 3
     torch.cuda.reset_peak_memory_stats()
     n_frames = 10
     t0 = time.perf_counter()
@@ -372,21 +688,12 @@ def main() -> int:
 
     # per-kernel device times at the path's shapes, with bounds from the
     # work these inputs need (per-ray stats of one extra launch)
-    def bound(bytes_, ops):
-        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-        return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
-
-    def trav_ops(stats):
-        pops, leaf, tris = (int(s.sum()) for s in stats)
-        return OPS_AABB * 2 * (pops - leaf) + OPS_TRIANGLE * tris
-
-    ray_in = 4 * 7 + 1  # ox..dz, t_max (f32) + mask (bool)
     attr_bytes = 4 * trav.tri_attr16.numel()
     rows = []
     o, d, tm = cont[1], cont[2], cont[3]
     mask = cont[4]
     _, _, st = trv.closest_hit_attr(trav, o, d, tm, mask, with_stats=True)
-    bnd, by = bound(r * (ray_in + 40) + scene_bytes + attr_bytes,
+    bnd, by = bound(r * (RAY_IN + 40) + scene_bytes + attr_bytes,
                     trav_ops(st))
     rows.append(dict(
         name="closest_hit_attr", source="pnraytracing_tpu_torch/csrc/"
@@ -398,7 +705,7 @@ def main() -> int:
         plain_ms=time_ms(lambda: trv.plain_closest_hit_attr(
             trav, o, d, tm, mask), 2), bound_ms=bnd, bound_by=by))
     _, st = trv.closest_hit(trav, o, d, tm, mask, with_stats=True)
-    bnd, by = bound(r * (ray_in + 16) + scene_bytes, trav_ops(st))
+    bnd, by = bound(r * (RAY_IN + 16) + scene_bytes, trav_ops(st))
     rows.append(dict(
         name="closest_hit", source="pnraytracing_tpu_torch/csrc/traverse.cu",
         replaces="pnraytracing_tpu/accel/traverse_pallas.py:340",
@@ -411,7 +718,7 @@ def main() -> int:
     so, sd, stm, smask = shadow[1], shadow[2], shadow[3], shadow[4]
     _, st = trv.any_hit(trav, so, sd, stm, smask, with_stats=True)
     rs = so.x.shape[0]
-    bnd, by = bound(rs * (ray_in + 1) + scene_bytes, trav_ops(st))
+    bnd, by = bound(rs * (RAY_IN + 1) + scene_bytes, trav_ops(st))
     rows.append(dict(
         name="any_hit", source="pnraytracing_tpu_torch/csrc/traverse.cu",
         replaces="pnraytracing_tpu/accel/traverse_pallas.py:668",
@@ -430,8 +737,6 @@ def main() -> int:
         ms=time_ms(lambda: compaction.entry_key(ko, kd, tre), 20),
         plain_ms=time_ms(lambda: compaction.treelet_entry_key(ko, kd, tre),
                          2), bound_ms=bnd, bound_by=by))
-    for row in rows:
-        row.update(route="cuda", library_ms=None)
     emit({"phase": "flagship", "width": WIDTH, "height": HEIGHT,
           "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
           "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),
@@ -439,10 +744,17 @@ def main() -> int:
           "launches_per_frame": launches,
           "launches_kernel_interaction_off": launches_off,
           "pixels_off_1e-3_kernel_interaction_off": off_px,
+          "ms_per_frame_kernel_interaction_off": ms_off,
           "max_memory_allocated": peak,
           "card": smi})
     emit(dict(phase="profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
+
+    rows += binary_phase(trv, trav, cont, shadow, primary, launches)
+    rows += stream_phases(render_frame, RenderConfig, dev, smi, modules,
+                          tables, counts, cfgp)
+    for row in rows:
+        row.update(route="cuda", library_ms=None)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

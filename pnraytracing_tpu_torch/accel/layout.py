@@ -5,13 +5,19 @@ that the wide walk uses.  Built on the host in numpy at scene build and
 then moved to the device as tensors:
 
 * ``tri9``       [T, 9]  f32 — the three corner positions per triangle;
+* ``nodes8``     [N, 8]  f32 — one row per node of the flat BVH for the
+  binary pop-test walk: min, max, enc(right*4 + axis), enc(start*16 +
+  count) (:func:`pack_nodes8`);
 * ``nodes16c``   [N, 16] f32 — one row per INTERNAL node: both children's
   AABBs, the encoded child infos and the split axis
   (:func:`pack_wide_nodes_compact`);
 * ``tri_attr16`` [T, 16] f32 — corner shading normals, corner uvs and the
   encoded material/texture word (:func:`pack_tri_attr16`);
 * ``treelets``   [K, 6]  f32 — treelet AABBs for the coherence sort key
-  (accel/bricks.py::treelet_cut_aabbs).
+  (accel/bricks.py::treelet_cut_aabbs);
+* ``stream``     the brick-streaming layout (accel/bricks.py::StreamData)
+  of a scene too large for the resident route (accel/route.py), else
+  None.
 
 Topology is stored as exact small-integer floats: a child info ``>= 0``
 is an internal child's row id, ``< 0`` a leaf ``-(start*16 + count) - 1``.
@@ -20,15 +26,20 @@ is an internal child's row id, ``< 0`` a leaf ``-(start*16 + count) - 1``.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from pnraytracing_tpu_torch.core.types import _Movable
 
+if TYPE_CHECKING:
+    from pnraytracing_tpu_torch.accel.bricks import StreamData
+
 _COUNT_BASE = 16  # count in the low base-16 digit of enc(start, count)
+_AXIS_BASE = 4  # axis in the low base-4 digit of enc(right, axis)
 MAX_PACKED_LEAF = _COUNT_BASE - 1  # 15 triangles
-MAX_PACKED_NODES = 1 << 22
+MAX_PACKED_NODES = 1 << 22  # right*4+axis must stay < 2^24 (exact f32)
 MAX_PACKED_TRIS = 1 << 20  # start*16+count must stay < 2^24 (exact f32)
 
 # encoded material/texture word of the attribute rows: mat*4096+(tex+1),
@@ -39,10 +50,31 @@ ATTR_TEX_BASE = 4096
 @dataclasses.dataclass
 class TravData(_Movable):
     tri9: torch.Tensor  # [T, 9] f32
-    nodes16c: torch.Tensor  # [N, 16] f32
+    nodes8: torch.Tensor  # [N, 8] f32
+    nodes16c: torch.Tensor  # [N_internal, 16] f32
     tri_attr16: torch.Tensor  # [T, 16] f32
     treelets: torch.Tensor  # [K, 6] f32
     bvh_depth: int  # max node depth (root = 1); bounds the walk's stack
+    stream: StreamData | None = None
+
+
+def pack_nodes8(built) -> np.ndarray:
+    """[N, 8] binary node rows from the host BVHArrays, as
+    ``pnraytracing_tpu/accel/layout.py::pack_traversal_data`` packs them:
+    ``[min(3), max(3), enc(right*4 + axis) (-1 for a leaf),
+    enc(start*16 + min(count, 15))]``."""
+    right = np.asarray(built.right_child, np.int64)
+    axis = np.maximum(np.asarray(built.axis, np.int64), 0)
+    start = np.asarray(built.start, np.int64)
+    count = np.asarray(built.end, np.int64) - start
+    enc_right = np.where(right >= 0, right * _AXIS_BASE + axis, -1)
+    enc_meta = start * _COUNT_BASE + np.minimum(count, MAX_PACKED_LEAF)
+    return np.concatenate([
+        np.asarray(built.node_min, np.float32),
+        np.asarray(built.node_max, np.float32),
+        enc_right.astype(np.int32).astype(np.float32)[:, None],
+        enc_meta.astype(np.int32).astype(np.float32)[:, None],
+    ], axis=1)
 
 
 def pack_wide_nodes_compact(built) -> np.ndarray:

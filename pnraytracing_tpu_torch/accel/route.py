@@ -1,0 +1,82 @@
+"""Which traversal kernels a scene goes through.
+
+Copy of the routing predicates of ``pnraytracing_tpu/accel/
+traverse_pallas.py`` (``SMEM_SCENE_BUDGET_BYTES``, ``_scene_bytes``,
+``scene_fits_smem``, ``pick_variant``) and of the choice that
+``pnraytracing_tpu/render/integrator.py`` makes for
+``traversal="pallas"``.  The budget is the JAX package's: the TPU's 1 MB
+of scalar memory less headroom for the stack.  The port's resident
+kernels read the scene from device memory and have no such limit; the
+budget is kept so that both packages choose the same route for the same
+scene, and so the same scenes stream through bricks.
+"""
+
+from __future__ import annotations
+
+from pnraytracing_tpu_torch.accel.layout import TravData
+
+SMEM_SCENE_BUDGET_BYTES = (1 << 20) - (16 << 10)
+
+VARIANTS = ("wide", "binary")
+
+
+def _node_rows(trav: TravData, variant: str) -> int:
+    if variant in ("wide", "wide_attr"):
+        return int(trav.nodes16c.shape[0])
+    return int(trav.nodes8.shape[0])
+
+
+def _scene_bytes(trav: TravData, variant: str) -> int:
+    """Bytes of the variant's packed scene: node rows + tri9 rows (+ the
+    attribute rows for ``wide_attr``)."""
+    n_tris = int(trav.tri9.shape[0])
+    per_node = 16 if variant in ("wide", "wide_attr") else 8
+    per_tri = 9 + (16 if variant == "wide_attr" else 0)
+    return 4 * (per_node * _node_rows(trav, variant) + per_tri * n_tris)
+
+
+def scene_fits_smem(trav: TravData, variant: str = "binary") -> bool:
+    return _scene_bytes(trav, variant) <= SMEM_SCENE_BUDGET_BYTES
+
+
+def pick_variant(trav: TravData, requested: str = "wide") -> str:
+    """The resident kernel a ``requested`` variant runs as: ``wide`` when
+    requested and it fits the budget, else ``binary``.  Where even the
+    binary packing exceeds the budget the JAX package raises (its kernels
+    hold the scene in scalar memory); the port's kernels do not need the
+    budget, so the request stands there — the integrator sends such
+    scenes to the stream kernels before ever calling a resident one
+    (:func:`traversal_route`)."""
+    if requested not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{requested!r}")
+    if not scene_fits_smem(trav, "binary"):
+        return requested
+    if requested == "wide" and scene_fits_smem(trav, "wide"):
+        return "wide"
+    return "binary"
+
+
+def traversal_route(trav: TravData, kernel_interaction: bool) -> str:
+    """The route ``render_rays`` takes, as the JAX integrator chooses it
+    for ``traversal="pallas"`` (render/integrator.py:351-384):
+
+    * ``"attr"``: the resident closest-hit kernel with the interaction
+      fill, when ``kernel_interaction`` is set and ``wide_attr`` fits;
+    * ``"wide"``: the resident closest hit + ``make_interaction``, when
+      the binary packing fits;
+    * ``"stream"``: the brick-streaming kernels, when it does not and the
+      scene has a stream layout.
+
+    The JAX package falls back to its XLA packet walk otherwise; the port
+    has no such walk, so that case raises."""
+    if scene_fits_smem(trav, "binary"):
+        if kernel_interaction and scene_fits_smem(trav, "wide_attr"):
+            return "attr"
+        return "wide"
+    if trav.stream is not None:
+        return "stream"
+    raise NotImplementedError(
+        "the scene exceeds the resident budget and has no stream layout; "
+        "the JAX package walks it with its XLA packet backend, which is a "
+        "later slice of the port (ROADMAP.md)")

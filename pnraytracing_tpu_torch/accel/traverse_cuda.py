@@ -1,9 +1,11 @@
-"""BVH traversal: the hand-written CUDA kernels and their plain versions.
+"""BVH traversal over a resident scene: the hand-written CUDA kernels and
+their plain versions.
 
 PyTorch/CUDA counterpart of ``pnraytracing_tpu/accel/traverse_pallas.py``
-(kernels ``_closest_kernel_wide_attr``, ``_closest_kernel_wide`` and
-``_any_kernel_wide``).  The kernels live in ``csrc/traverse.cu``; see the
-note there for their design and bound.
+(kernels ``_closest_kernel_wide_attr``, ``_closest_kernel_wide``,
+``_any_kernel_wide``, and the binary ``_closest_kernel`` and
+``_any_kernel``).  The kernels live in ``csrc/traverse.cu``; see the note
+there for their design and bound.
 
 Each wrapper (:func:`closest_hit_attr`, :func:`closest_hit`,
 :func:`any_hit`) takes rays as component tensors (``V3`` origins and
@@ -13,8 +15,12 @@ and then
 * on CUDA tensors launches its kernel on the current stream and adds one
   to its entry of :data:`LAUNCHES`;
 * on CPU tensors runs the plain PyTorch version of the same walk
-  (``plain_*``, over :func:`_walk_plain`), which visits nodes in the
-  kernel's order.
+  (``plain_*``), which visits nodes in the kernel's order.
+
+``closest_hit`` and ``any_hit`` take ``variant="wide"`` (push-test walk
+over the compact wide rows ``nodes16c``) or ``"binary"`` (pop-test walk
+over ``nodes8``), resolved by ``accel/route.py::pick_variant`` as the
+JAX package resolves it.
 
 Results: the closest ``t`` (``t_max`` on a miss), ``tri`` (-1 on a miss)
 and barycentrics; the attribute variant also the raw interpolated shading
@@ -26,9 +32,12 @@ an ``[3, R]`` int32 tensor of per-ray pops, leaf pops and triangle tests.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from pnraytracing_tpu_torch.accel.layout import TravData
+from pnraytracing_tpu_torch.accel.route import pick_variant
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import (
     Hit,
@@ -39,9 +48,10 @@ from pnraytracing_tpu_torch.ops.intersect import (
 )
 
 # Launches per kernel since the last reset (the caller zeroes them).
-LAUNCHES = {"closest_hit_attr": 0, "closest_hit": 0, "any_hit": 0}
+LAUNCHES = {"closest_hit_attr": 0, "closest_hit": 0, "any_hit": 0,
+            "closest_hit_binary": 0, "any_hit_binary": 0}
 
-KERNEL_STACK = 64  # KSTACK of csrc/traverse.cu
+KERNEL_STACK = 64  # KSTACK of csrc/intersect.cuh
 
 
 def check_rays(o: V3, d: V3, *more: torch.Tensor):
@@ -61,63 +71,92 @@ def check_rays(o: V3, d: V3, *more: torch.Tensor):
     return r, dev
 
 
-def _check(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int):
-    """The device of a checked traversal call."""
-    r, dev = check_rays(o, d, t_max)
+def check_table(name: str, t: torch.Tensor, width: int, dev,
+                align: bool = False):
+    """Raise unless ``t`` is a contiguous float32 [N, width] tensor on
+    ``dev`` (16-byte aligned when ``align`` and on the card)."""
+    if not (isinstance(t, torch.Tensor) and t.dtype == torch.float32
+            and t.dim() == 2 and t.shape[1] == width and t.is_contiguous()
+            and t.device == dev):
+        raise ValueError(f"{name} must be a contiguous float32 [N, {width}] "
+                         "tensor on the rays' device")
+    if align and dev.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+
+
+def check_mask(mask, r: int, dev):
     if mask is not None and not (
             mask.dtype == torch.bool and mask.shape == (r,)
             and mask.is_contiguous() and mask.device == dev):
         raise ValueError("mask must be a contiguous bool [R] tensor on the "
                          "rays' device")
-    for name, t, width in (("nodes16c", trav.nodes16c, 16),
-                           ("tri9", trav.tri9, 9),
-                           ("tri_attr16", trav.tri_attr16, 16)):
-        if not (t.dtype == torch.float32 and t.dim() == 2
-                and t.shape[1] == width and t.is_contiguous()
-                and t.device == dev):
-            raise ValueError(f"trav.{name} must be a contiguous float32 "
-                             f"[N, {width}] tensor on the rays' device")
+
+
+def _check(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
+           variant: str = "wide"):
+    """The device of a checked traversal call over the tables that
+    ``variant`` ('wide', 'attr' or 'binary') reads."""
+    r, dev = check_rays(o, d, t_max)
+    check_mask(mask, r, dev)
+    check_table("trav.tri9", trav.tri9, 9, dev)
+    if variant == "binary":
+        check_table("trav.nodes8", trav.nodes8, 8, dev, align=True)
+    else:
+        check_table("trav.nodes16c", trav.nodes16c, 16, dev, align=True)
+    if variant == "attr":
+        check_table("trav.tri_attr16", trav.tri_attr16, 16, dev, align=True)
     if stack_depth < trav.bvh_depth:
         raise ValueError(
             f"stack_depth={stack_depth} is too shallow for this scene's BVH "
             f"(depth {trav.bvh_depth}); the traversal stack would silently "
             f"drop nodes.  Raise stack_depth to at least {trav.bvh_depth}.")
-    if dev.type == "cuda":
-        if stack_depth > KERNEL_STACK:
-            raise ValueError(f"the CUDA walk keeps a {KERNEL_STACK}-entry "
-                             f"stack; stack_depth={stack_depth} exceeds it")
-        for t in (trav.nodes16c, trav.tri_attr16):
-            if t.data_ptr() % 16:
-                raise ValueError("node/attribute rows must be 16-byte "
-                                 "aligned (float4 loads)")
+    if dev.type == "cuda" and stack_depth > KERNEL_STACK:
+        raise ValueError(f"the CUDA walk keeps a {KERNEL_STACK}-entry "
+                         f"stack; stack_depth={stack_depth} exceeds it")
     return dev
 
 
-def _ptr(t):
+def ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def stream_of(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _outputs(r, dev, closest: bool, with_stats: bool):
+    f32 = lambda: torch.empty(r, dtype=torch.float32, device=dev)
+    if closest:
+        outs = (f32(), torch.empty(r, dtype=torch.int32, device=dev), f32(),
+                f32())
+    else:
+        outs = (torch.empty(r, dtype=torch.bool, device=dev),)
+    stats = (torch.empty((3, r), dtype=torch.int32, device=dev)
+             if with_stats else None)
+    return outs, stats
+
+
+def _raise_on(err, what: str):
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
     from pnraytracing_tpu_torch.cuda_build import library
 
-    r = o.x.shape[0]
-    f32 = lambda: torch.empty(r, dtype=torch.float32, device=o.x.device)
-    t, b1, b2 = f32(), f32(), f32()
-    tri = torch.empty(r, dtype=torch.int32, device=o.x.device)
+    r, dev = o.x.shape[0], o.x.device
+    (t, tri, b1, b2), stats = _outputs(r, dev, True, with_stats)
+    f32 = lambda: torch.empty(r, dtype=torch.float32, device=dev)
     attrs = (f32(), f32(), f32(), f32(), f32(),
-             torch.empty(r, dtype=torch.int32, device=o.x.device)) \
+             torch.empty(r, dtype=torch.int32, device=dev)) \
         if attr else (None,) * 6
-    stats = (torch.empty((3, r), dtype=torch.int32, device=o.x.device)
-             if with_stats else None)
     err = library("traverse").pnrt_closest_hit(
-        _ptr(trav.nodes16c), _ptr(trav.tri9), _ptr(trav.tri_attr16),
-        _ptr(o.x), _ptr(o.y), _ptr(o.z), _ptr(d.x), _ptr(d.y), _ptr(d.z),
-        _ptr(t_max), _ptr(mask), r, int(attr), _ptr(t), _ptr(tri),
-        _ptr(b1), _ptr(b2), *[_ptr(a) for a in attrs], _ptr(stats),
-        torch.cuda.current_stream(o.x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"closest-hit kernel launch failed: CUDA error "
-                           f"{err}")
+        ptr(trav.nodes16c), ptr(trav.tri9), ptr(trav.tri_attr16),
+        ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
+        ptr(t_max), ptr(mask), r, int(attr), ptr(t), ptr(tri),
+        ptr(b1), ptr(b2), *[ptr(a) for a in attrs], ptr(stats),
+        stream_of(o.x))
+    _raise_on(err, "closest-hit")
     LAUNCHES["closest_hit_attr" if attr else "closest_hit"] += 1
     return Hit(tri=tri, t=t, b1=b1, b2=b2), (attrs if attr else None), stats
 
@@ -125,135 +164,269 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
 def _kernel_any(trav, o, d, t_max, mask, with_stats):
     from pnraytracing_tpu_torch.cuda_build import library
 
-    r = o.x.shape[0]
-    occ = torch.empty(r, dtype=torch.bool, device=o.x.device)
-    stats = (torch.empty((3, r), dtype=torch.int32, device=o.x.device)
-             if with_stats else None)
+    (occ,), stats = _outputs(o.x.shape[0], o.x.device, False, with_stats)
     err = library("traverse").pnrt_any_hit(
-        _ptr(trav.nodes16c), _ptr(trav.tri9), _ptr(o.x), _ptr(o.y),
-        _ptr(o.z), _ptr(d.x), _ptr(d.y), _ptr(d.z), _ptr(t_max),
-        _ptr(mask), r, _ptr(occ), _ptr(stats),
-        torch.cuda.current_stream(o.x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"any-hit kernel launch failed: CUDA error {err}")
+        ptr(trav.nodes16c), ptr(trav.tri9), ptr(o.x), ptr(o.y),
+        ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z), ptr(t_max),
+        ptr(mask), o.x.shape[0], ptr(occ), ptr(stats), stream_of(o.x))
+    _raise_on(err, "any-hit")
     LAUNCHES["any_hit"] += 1
     return occ, stats
 
 
-def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
-                mode: str):
-    """Plain PyTorch version of the kernels' per-ray walk: every ray keeps
-    its own stack (a row of an [R, stack_depth] tensor); each step pops
-    one entry for every ray whose stack is not empty, and works on just
-    those rays.  Same visit order, same arithmetic, same results as
-    csrc/traverse.cu.  ``mode``: 'closest', 'attr' or 'any'."""
-    ox, oy, oz, dx, dy, dz = o.x, o.y, o.z, d.x, d.y, d.z
-    r, dev = ox.shape[0], ox.device
-    i32 = torch.int32
-    inv_x, inv_y, inv_z = safe_inv_dir(dx), safe_inv_dir(dy), safe_inv_dir(dz)
-    setup = triangle_setup_c(dx, dy, dz)
-    active = (torch.ones(r, dtype=torch.bool, device=dev) if mask is None
-              else mask)
-    stack = torch.zeros((r, stack_depth), dtype=i32, device=dev)
-    top = active.to(torch.int64)  # the root row 0 sits in slot 0
-    t_best = t_max.clone()
-    tri_best = torch.full((r,), -1, dtype=i32, device=dev)
-    b1_best = torch.zeros(r, dtype=torch.float32, device=dev)
-    b2_best = torch.zeros_like(b1_best)
-    attrs = [torch.zeros_like(b1_best), torch.zeros_like(b1_best),
-             torch.ones_like(b1_best), torch.zeros_like(b1_best),
-             torch.zeros_like(b1_best), torch.zeros(r, dtype=i32, device=dev)]
-    occ = torch.zeros(r, dtype=torch.bool, device=dev)
-    stats = torch.zeros((3, r), dtype=i32, device=dev)
-    nodes, tri9, attr16 = trav.nodes16c, trav.tri9, trav.tri_attr16
-    any_mode = mode == "any"
+def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
+    from pnraytracing_tpu_torch.cuda_build import library
 
+    r = o.x.shape[0]
+    outs, stats = _outputs(r, o.x.device, closest, with_stats)
+    rays = (ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
+            ptr(t_max), ptr(mask), r)
+    lib = library("traverse")
+    fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
+    err = fn(ptr(trav.nodes8), ptr(trav.tri9), *rays,
+             *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
+    name = "closest_hit_binary" if closest else "any_hit_binary"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    if closest:
+        t, tri, b1, b2 = outs
+        return Hit(tri=tri, t=t, b1=b1, b2=b2), stats
+    return outs[0], stats
+
+
+# ---- the plain versions ---------------------------------------------------
+
+@dataclasses.dataclass
+class Rays:
+    """Per-ray components of a plain walk (origins, directions, their
+    safe inverses, the watertight setup, t_max)."""
+
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    t_max: torch.Tensor
+
+    def __post_init__(self):
+        self.inv = (safe_inv_dir(self.dx), safe_inv_dir(self.dy),
+                    safe_inv_dir(self.dz))
+        self.setup = triangle_setup_c(self.dx, self.dy, self.dz)
+
+    @classmethod
+    def of(cls, o: V3, d: V3, t_max):
+        return cls(o.x, o.y, o.z, d.x, d.y, d.z, t_max)
+
+    def slab(self, rows, bmin, bmax, t_lim):
+        """intersect_aabb_c of rays ``rows`` against boxes [n, 3] x 2."""
+        return intersect_aabb_c(
+            (bmin[:, 0], bmin[:, 1], bmin[:, 2]),
+            (bmax[:, 0], bmax[:, 1], bmax[:, 2]),
+            self.ox[rows], self.oy[rows], self.oz[rows], self.inv[0][rows],
+            self.inv[1][rows], self.inv[2][rows], t_lim)
+
+    def triangle(self, rows, p, t_lim):
+        """intersect_triangle_c of rays ``rows`` against triangles [n, 9]."""
+        return intersect_triangle_c(
+            (p[:, 0], p[:, 1], p[:, 2]), (p[:, 3], p[:, 4], p[:, 5]),
+            (p[:, 6], p[:, 7], p[:, 8]),
+            self.ox[rows], self.oy[rows], self.oz[rows], self.dx[rows],
+            self.dy[rows], self.dz[rows], t_lim,
+            setup=tuple(s[rows] for s in self.setup))
+
+    def d_on(self, rows, axis):
+        return torch.where(axis == 0, self.dx[rows],
+                           torch.where(axis == 1, self.dy[rows],
+                                       self.dz[rows]))
+
+
+class WalkState:
+    """The results a plain walk carries per ray: the closest hit (and the
+    attribute fill), the occlusion flag and the stats."""
+
+    def __init__(self, ray: Rays, mode: str):
+        r, dev = ray.t_max.shape[0], ray.t_max.device
+        self.mode = mode
+        self.any_mode = mode == "any"
+        self.t_best = ray.t_max.clone()
+        self.tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        self.b1 = torch.zeros(r, dtype=torch.float32, device=dev)
+        self.b2 = torch.zeros_like(self.b1)
+        self.attrs = [torch.zeros_like(self.b1), torch.zeros_like(self.b1),
+                      torch.ones_like(self.b1), torch.zeros_like(self.b1),
+                      torch.zeros_like(self.b1),
+                      torch.zeros(r, dtype=torch.int32, device=dev)]
+        self.occ = torch.zeros(r, dtype=torch.bool, device=dev)
+        self.stats = torch.zeros((3, r), dtype=torch.int32, device=dev)
+
+    def t_lim(self, ray: Rays, rows):
+        return ray.t_max[rows] if self.any_mode else self.t_best[rows]
+
+    def test_leaves(self, ray: Rays, lrows, start, count, fetch_tri,
+                    attr16=None):
+        """The triangle tests of leaf pops ``lrows`` (leaf k of row j is
+        triangle start[j] + k), in slot order; ``fetch_tri(rows, ti)``
+        gives their [n, 9] corners and global ids."""
+        self.stats[1, lrows] += 1
+        for k in range(int(count.max()) if count.numel() else 0):
+            sel = count > k
+            if self.any_mode:
+                sel = sel & ~self.occ[lrows]
+            rows = lrows[sel]
+            if rows.numel() == 0:
+                continue
+            p, ids = fetch_tri(rows, start[sel] + k)
+            self.stats[2, rows] += 1
+            t_lim = self.t_lim(ray, rows)
+            hit, t, b1, b2 = ray.triangle(rows, p, t_lim)
+            if self.any_mode:
+                self.occ[rows[hit]] = True
+                continue
+            win = hit & (t < t_lim)
+            w = rows[win]
+            self.t_best[w] = t[win]
+            self.tri[w] = ids[win].to(torch.int32)
+            b1w, b2w = b1[win], b2[win]
+            self.b1[w] = b1w
+            self.b2[w] = b2w
+            if self.mode == "attr":
+                a = attr16[ids[win]]
+                b0w = 1.0 - b1w - b2w
+                for j, (c0, c1, c2) in enumerate(
+                        ((0, 3, 6), (1, 4, 7), (2, 5, 8), (9, 11, 13),
+                         (10, 12, 14))):
+                    self.attrs[j][w] = (a[:, c0] * b0w + a[:, c1] * b1w
+                                        + a[:, c2] * b2w)
+                self.attrs[5][w] = a[:, 15].to(torch.int32)
+
+    def hit(self) -> Hit:
+        return Hit(tri=self.tri, t=self.t_best, b1=self.b1, b2=self.b2)
+
+
+def order_children(ray: Rays, rows, row, t_lim):
+    """Both children of wide rows [n, 16] slab-tested against ``t_lim``:
+    (near, far, hit near, hit far) by each ray's direction sign on the
+    row's split axis."""
+    hl = ray.slab(rows, row[:, 0:3], row[:, 3:6], t_lim)
+    hr = ray.slab(rows, row[:, 6:9], row[:, 9:12], t_lim)
+    li, ri = row[:, 12].to(torch.int32), row[:, 13].to(torch.int32)
+    d_neg = ray.d_on(rows, row[:, 14].to(torch.int32)) < 0
+    return (torch.where(d_neg, ri, li), torch.where(d_neg, li, ri),
+            torch.where(d_neg, hr, hl), torch.where(d_neg, hl, hr))
+
+
+def push(stack, top, rows, entry, commit):
+    """Write ``entry`` at each row's free slot ``top`` and advance ``top``
+    where ``commit`` (slots >= top are free, so the write is harmless
+    where it does not commit)."""
+    t0 = top[rows]
+    stack[rows, t0.clamp(max=stack.shape[1] - 1)] = entry
+    top[rows] = t0 + commit
+
+
+def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
+              fetch_row, fetch_tri, attr16=None, refill=None):
+    """Plain version of the kernels' push-test wide walk: every ray keeps
+    its own stack (a row of an [R, stack_depth] tensor); each step pops
+    one entry for every ray whose stack is not empty and works on just
+    those rays.  ``fetch_row(rows, info)`` gives the popped wide rows
+    [n, 16]; ``refill(rows)``, where given, is called with the rays whose
+    stacks ran empty and returns those it gave a new root row 0 (the
+    stream walk's next brick)."""
+    r, dev = ray.t_max.shape[0], ray.t_max.device
+    stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
+    top = active.to(torch.int64)  # the root row 0 sits in slot 0
     while True:
+        if refill is not None:
+            empty = torch.nonzero(top == 0).squeeze(1)
+            if empty.numel():
+                rows = refill(empty)
+                stack[rows, 0] = 0
+                top[rows] = 1
         idx = torch.nonzero(top > 0).squeeze(1)
         if idx.numel() == 0:
             break
         top[idx] -= 1
         info = stack[idx, top[idx]]
-        stats[0, idx] += 1
+        st.stats[0, idx] += 1
         leaf = info < 0
 
-        # leaf pops: triangle tests in slot order
         lrows = idx[leaf]
         if lrows.numel():
             meta = (-info[leaf] - 1).long()
-            start = torch.div(meta, 16, rounding_mode="floor")
-            count = meta % 16
-            stats[1, lrows] += 1
-            for k in range(int(count.max())):
-                sel = count > k
-                if any_mode:
-                    sel = sel & ~occ[lrows]
-                rows = lrows[sel]
-                if rows.numel() == 0:
-                    continue
-                ti = start[sel] + k
-                stats[2, rows] += 1
-                p = tri9[ti]
-                t_lim = t_max[rows] if any_mode else t_best[rows]
-                hit, t, b1, b2 = intersect_triangle_c(
-                    (p[:, 0], p[:, 1], p[:, 2]), (p[:, 3], p[:, 4], p[:, 5]),
-                    (p[:, 6], p[:, 7], p[:, 8]),
-                    ox[rows], oy[rows], oz[rows], dx[rows], dy[rows],
-                    dz[rows], t_lim, setup=tuple(s[rows] for s in setup))
-                if any_mode:
-                    occ[rows[hit]] = True
-                    continue
-                win = hit & (t < t_lim)
-                w = rows[win]
-                t_best[w] = t[win]
-                tri_best[w] = ti[win].to(i32)
-                b1w, b2w = b1[win], b2[win]
-                b1_best[w] = b1w
-                b2_best[w] = b2w
-                if mode == "attr":
-                    a = attr16[ti[win]]
-                    b0w = 1.0 - b1w - b2w
-                    for j, (c0, c1, c2) in enumerate(
-                            ((0, 3, 6), (1, 4, 7), (2, 5, 8), (9, 11, 13),
-                             (10, 12, 14))):
-                        attrs[j][w] = (a[:, c0] * b0w + a[:, c1] * b1w
-                                       + a[:, c2] * b2w)
-                    attrs[5][w] = a[:, 15].to(i32)
+            st.test_leaves(ray, lrows, torch.div(meta, 16,
+                                                 rounding_mode="floor"),
+                           meta % 16, fetch_tri, attr16)
 
-        # internal pops: slab-test both children, push far then near
         irows = idx[~leaf]
         if irows.numel():
-            row = nodes[info[~leaf].long()]
-            t_lim = t_max[irows] if any_mode else t_best[irows]
-            ray = (ox[irows], oy[irows], oz[irows],
-                   inv_x[irows], inv_y[irows], inv_z[irows], t_lim)
-            hl = intersect_aabb_c((row[:, 0], row[:, 1], row[:, 2]),
-                                  (row[:, 3], row[:, 4], row[:, 5]), *ray)
-            hr = intersect_aabb_c((row[:, 6], row[:, 7], row[:, 8]),
-                                  (row[:, 9], row[:, 10], row[:, 11]), *ray)
-            li, ri = row[:, 12].to(i32), row[:, 13].to(i32)
-            axis = row[:, 14].to(i32)
-            d_ax = torch.where(axis == 0, dx[irows],
-                               torch.where(axis == 1, dy[irows], dz[irows]))
-            d_neg = d_ax < 0
-            near = torch.where(d_neg, ri, li)
-            far = torch.where(d_neg, li, ri)
-            h_near = torch.where(d_neg, hr, hl)
-            h_far = torch.where(d_neg, hl, hr)
-            # slots >= top are free: write, then commit by advancing top
-            t0 = top[irows]
-            stack[irows, t0.clamp(max=stack_depth - 1)] = far
-            t1 = t0 + h_far
-            stack[irows, t1.clamp(max=stack_depth - 1)] = near
-            top[irows] = t1 + h_near
+            near, far, h_near, h_far = order_children(
+                ray, irows, fetch_row(irows, info[~leaf].long()),
+                st.t_lim(ray, irows))
+            push(stack, top, irows, far, h_far)
+            push(stack, top, irows, near, h_near)
 
-        if any_mode:
-            top[occ] = 0
+        if st.any_mode:
+            top[st.occ] = 0
 
-    if any_mode:
-        return occ, stats
-    hit = Hit(tri=tri_best, t=t_best, b1=b1_best, b2=b2_best)
-    return hit, (tuple(attrs) if mode == "attr" else None), stats
+
+def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
+                mode: str):
+    """The resident wide walk of csrc/traverse.cu, plainly: same visit
+    order, same arithmetic, same results.  ``mode``: 'closest', 'attr' or
+    'any'."""
+    ray = Rays.of(o, d, t_max)
+    st = WalkState(ray, mode)
+    active = (torch.ones_like(st.occ) if mask is None else mask)
+    wide_walk(ray, st, active, stack_depth,
+              lambda rows, info: trav.nodes16c[info],
+              lambda rows, ti: (trav.tri9[ti], ti), trav.tri_attr16)
+    return st
+
+
+def _walk_plain_binary(trav: TravData, o: V3, d: V3, t_max, mask,
+                       stack_depth: int, mode: str):
+    """The binary pop-test walk of csrc/traverse.cu, plainly: a popped
+    node tests its own box against the ray's t, then tests its leaf's
+    triangles or pushes both children (left = node + 1), far first."""
+    ray = Rays.of(o, d, t_max)
+    st = WalkState(ray, mode)
+    r, dev = t_max.shape[0], t_max.device
+    stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
+    top = (torch.ones_like(st.occ) if mask is None else mask).to(torch.int64)
+    nodes = trav.nodes8
+    while True:
+        idx = torch.nonzero(top > 0).squeeze(1)
+        if idx.numel() == 0:
+            break
+        top[idx] -= 1
+        node = stack[idx, top[idx]]
+        st.stats[0, idx] += 1
+        row = nodes[node.long()]
+        hit = ray.slab(idx, row[:, 0:3], row[:, 3:6], st.t_lim(ray, idx))
+        enc_right = row[:, 6].to(torch.int32)
+        meta = row[:, 7].to(torch.int64)
+        leaf = hit & (enc_right < 0)
+        lrows = idx[leaf]
+        if lrows.numel():
+            st.test_leaves(ray, lrows, torch.div(meta[leaf], 16,
+                                                 rounding_mode="floor"),
+                           meta[leaf] % 16,
+                           lambda rows, ti: (trav.tri9[ti], ti))
+        inner = hit & (enc_right >= 0)
+        irows = idx[inner]
+        if irows.numel():
+            enc = enc_right[inner]
+            left, right = node[inner] + 1, torch.div(enc, 4,
+                                                     rounding_mode="floor")
+            d_neg = ray.d_on(irows, enc % 4) < 0
+            one = torch.ones_like(irows)
+            push(stack, top, irows, torch.where(d_neg, left, right), one)
+            push(stack, top, irows, torch.where(d_neg, right, left), one)
+        if st.any_mode:
+            top[st.occ] = 0
+    return st
 
 
 def plain_closest_hit_attr(trav, o, d, t_max, mask=None, *, stack_depth=64,
@@ -261,23 +434,36 @@ def plain_closest_hit_attr(trav, o, d, t_max, mask=None, *, stack_depth=64,
     """The plain version of :func:`closest_hit_attr` on any device (also
     for holding the kernel against it on the card); never launches a
     kernel."""
-    hit, attrs, stats = _walk_plain(trav, o, d, t_max, mask, stack_depth,
-                                    "attr")
-    return (hit, attrs, stats) if with_stats else (hit, attrs)
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "attr")
+    out = (st.hit(), tuple(st.attrs))
+    return out + (st.stats,) if with_stats else out
 
 
 def plain_closest_hit(trav, o, d, t_max, mask=None, *, stack_depth=64,
                       with_stats=False):
-    hit, _, stats = _walk_plain(trav, o, d, t_max, mask, stack_depth,
-                                "closest")
-    return (hit, stats) if with_stats else hit
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest")
+    return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit(trav, o, d, t_max, mask=None, *, stack_depth=64,
                   with_stats=False):
-    occ, stats = _walk_plain(trav, o, d, t_max, mask, stack_depth, "any")
-    return (occ, stats) if with_stats else occ
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "any")
+    return (st.occ, st.stats) if with_stats else st.occ
 
+
+def plain_closest_hit_binary(trav, o, d, t_max, mask=None, *,
+                             stack_depth=64, with_stats=False):
+    st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "closest")
+    return (st.hit(), st.stats) if with_stats else st.hit()
+
+
+def plain_any_hit_binary(trav, o, d, t_max, mask=None, *, stack_depth=64,
+                         with_stats=False):
+    st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "any")
+    return (st.occ, st.stats) if with_stats else st.occ
+
+
+# ---- the entry points -----------------------------------------------------
 
 def closest_hit_attr(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                      mask: torch.Tensor | None = None, *,
@@ -285,7 +471,7 @@ def closest_hit_attr(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
     """Closest hit + interaction fill: ``(Hit, (nx, ny, nz, u, v, mt))``
     (+ stats).  ``nx..nz`` is the barycentric-interpolated, unnormalized,
     unflipped shading normal; ``mt`` the int32 material/texture word."""
-    if _check(trav, o, d, t_max, mask, stack_depth).type == "cpu":
+    if _check(trav, o, d, t_max, mask, stack_depth, "attr").type == "cpu":
         return plain_closest_hit_attr(trav, o, d, t_max, mask,
                                       stack_depth=stack_depth,
                                       with_stats=with_stats)
@@ -296,23 +482,37 @@ def closest_hit_attr(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
 
 def closest_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                 mask: torch.Tensor | None = None, *, stack_depth: int = 64,
-                with_stats: bool = False):
-    """Closest hit: ``Hit`` (+ stats)."""
-    if _check(trav, o, d, t_max, mask, stack_depth).type == "cpu":
-        return plain_closest_hit(trav, o, d, t_max, mask,
-                                 stack_depth=stack_depth,
-                                 with_stats=with_stats)
-    hit, _, stats = _kernel_closest(trav, o, d, t_max, mask, False,
+                variant: str = "wide", with_stats: bool = False):
+    """Closest hit: ``Hit`` (+ stats), by the wide or binary walk."""
+    variant = pick_variant(trav, variant)
+    binary = variant == "binary"
+    if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
+        fn = plain_closest_hit_binary if binary else plain_closest_hit
+        return fn(trav, o, d, t_max, mask, stack_depth=stack_depth,
+                  with_stats=with_stats)
+    if binary:
+        hit, stats = _kernel_binary(trav, o, d, t_max, mask, True,
                                     with_stats)
+    else:
+        hit, _, stats = _kernel_closest(trav, o, d, t_max, mask, False,
+                                        with_stats)
     return (hit, stats) if with_stats else hit
 
 
 def any_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
             mask: torch.Tensor | None = None, *, stack_depth: int = 64,
-            with_stats: bool = False):
-    """Occlusion: True where a triangle is hit within ``t_max`` (+ stats)."""
-    if _check(trav, o, d, t_max, mask, stack_depth).type == "cpu":
-        return plain_any_hit(trav, o, d, t_max, mask, stack_depth=stack_depth,
-                             with_stats=with_stats)
-    occ, stats = _kernel_any(trav, o, d, t_max, mask, with_stats)
+            variant: str = "wide", with_stats: bool = False):
+    """Occlusion: True where a triangle is hit within ``t_max`` (+ stats),
+    by the wide or binary walk."""
+    variant = pick_variant(trav, variant)
+    binary = variant == "binary"
+    if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
+        fn = plain_any_hit_binary if binary else plain_any_hit
+        return fn(trav, o, d, t_max, mask, stack_depth=stack_depth,
+                  with_stats=with_stats)
+    if binary:
+        occ, stats = _kernel_binary(trav, o, d, t_max, mask, False,
+                                    with_stats)
+    else:
+        occ, stats = _kernel_any(trav, o, d, t_max, mask, with_stats)
     return (occ, stats) if with_stats else occ

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pnraytracing_tpu_torch.accel.bricks import StreamData
 from pnraytracing_tpu_torch.accel.layout import TravData
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
@@ -29,7 +30,10 @@ from pnraytracing_tpu_torch.core.types import (
 
 _GROUPS = {"mesh": TriangleMesh, "materials": Materials, "bvh": BVH,
            "lights": Lights, "env": EnvMap}
-_TRAV_FIELDS = ("tri9", "nodes16c", "tri_attr16", "treelets")
+_TRAV_FIELDS = ("tri9", "nodes8", "nodes16c", "tri_attr16", "treelets")
+_STREAM_ARRAYS = ("top16", "bricks")
+_STREAM_INTS = ("brick_words", "n_bricks", "n_top_rows", "brick_stack",
+                "n_tris")
 
 
 def _np(x) -> np.ndarray:
@@ -54,6 +58,13 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
                 out[f"{group}.{f.name}"] = _np(v)
     for name in _TRAV_FIELDS:
         out[f"trav.{name}"] = _np(getattr(scene.trav, name))
+    stream = getattr(scene.trav, "stream", None)
+    if stream is not None:
+        for name in _STREAM_ARRAYS:
+            out[f"stream.{name}"] = _np(getattr(stream, name))
+        for name in _STREAM_INTS:
+            out[f"stream.{name}"] = np.asarray(getattr(stream, name),
+                                               np.int64)
     if scene.env_constant is not None:
         out["env_constant"] = _np(scene.env_constant)
     out["bvh_depth"] = np.asarray(scene.bvh_depth, np.int64)
@@ -72,7 +83,12 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
               if f"{group}.{f.name}" in leaves}
         parts[group] = cls(**kw) if kw else None
     depth = int(leaves["bvh_depth"])
-    trav = TravData(bvh_depth=depth,
+    stream = None
+    if "stream.bricks" in leaves:
+        stream = StreamData(
+            **{n: t(leaves[f"stream.{n}"]) for n in _STREAM_ARRAYS},
+            **{n: int(leaves[f"stream.{n}"]) for n in _STREAM_INTS})
+    trav = TravData(bvh_depth=depth, stream=stream,
                     **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS})
     env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
                     else None)

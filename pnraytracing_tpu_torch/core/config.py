@@ -2,9 +2,10 @@
 
 PyTorch counterpart of ``pnraytracing_tpu/core/config.py``: the fields
 this port honours, with the JAX package's defaults.  There is no
-``traversal`` field: the port has one traversal, the hand-written CUDA
-kernel on CUDA tensors and its plain PyTorch version on CPU tensors
-(``accel/traverse_cuda.py``).  Fields whose non-default values belong to
+``traversal`` field: the port always takes the route the JAX package
+takes for ``traversal="pallas"`` (``accel/route.py``), running the
+hand-written CUDA kernels on CUDA tensors and their plain PyTorch
+versions on CPU tensors.  Fields whose non-default values belong to
 later slices of the port are kept so that a config that asks for them
 fails loudly instead of rendering something else.
 """
@@ -64,7 +65,8 @@ class RenderConfig:
 
     # Take the interaction fill (shading normal, uv, material/texture id)
     # from the closest-hit kernel at triangle-test time instead of a
-    # per-ray [T, 26] row gather afterwards.
+    # per-ray [T, 26] row gather afterwards, where the scene's attribute
+    # rows fit the resident budget (accel/route.py).
     kernel_interaction: bool = True
 
     # Trilinear texture LOD: textures are a later slice.

@@ -1,0 +1,212 @@
+// Device-side ray setup, slab test, watertight triangle test and wide-row
+// walk steps shared by traverse.cu and traverse_stream.cu.
+//
+// Arithmetic.  Op for op the component forms of ops/intersect.py
+// (triangle_setup_c, intersect_triangle_c, intersect_aabb_c).  Every file
+// that includes this one MUST be compiled with --fmad=false: an FMA
+// shifts t by ~1 ulp, and at t_scaled == t_max * det that flips a hit, so
+// the plain PyTorch versions (accel/traverse_cuda.py,
+// accel/traverse_stream_cuda.py) would no longer give the same t, tri and
+// b.  Divisions are IEEE (no fast math).
+//
+// Loads.  The helpers take a GLOBAL flag: true reads through __ldg (the
+// read-only path, for tables in device memory), false reads plainly (for
+// a brick staged in shared memory, which __ldg must not address).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define KSTACK 64
+
+namespace pnrt {
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float inv_dx, inv_dy, inv_dz;
+  // watertight setup: axis permutation + shear constants
+  int kx, ky, kz;
+  float sx, sy, sz;
+};
+
+template <bool GLOBAL>
+__device__ __forceinline__ float ldf(const float* p) {
+  if (GLOBAL) return __ldg(p);
+  return *p;
+}
+
+template <bool GLOBAL>
+__device__ __forceinline__ float4 ldf4(const float* p) {
+  if (GLOBAL) return __ldg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float sel3(int k, float x, float y, float z) {
+  return k == 0 ? x : (k == 1 ? y : z);
+}
+
+__device__ __forceinline__ float safe_inv(float d) {
+  return (d >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d), 1e-20f);
+}
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  Ray r;
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.inv_dx = safe_inv(dx);
+  r.inv_dy = safe_inv(dy);
+  r.inv_dz = safe_inv(dz);
+  const float adx = fabsf(dx), ady = fabsf(dy), adz = fabsf(dz);
+  // argmax |d|, first index among maxima (jnp.argmax tie-breaking)
+  r.kz = adx >= ady ? (adx >= adz ? 0 : 2) : (ady >= adz ? 1 : 2);
+  r.kx = (r.kz + 1) % 3;
+  r.ky = (r.kx + 1) % 3;
+  r.sz = 1.0f / sel3(r.kz, dx, dy, dz);
+  r.sx = sel3(r.kx, dx, dy, dz) * r.sz;
+  r.sy = sel3(r.ky, dx, dy, dz) * r.sz;
+  return r;
+}
+
+// Slab test clipped to [0, t_max] (intersect_aabb_c).
+__device__ __forceinline__ bool hit_aabb(const Ray& r, float mnx, float mny,
+                                         float mnz, float mxx, float mxy,
+                                         float mxz, float t_max) {
+  const float fx = (mxx - r.ox) * r.inv_dx;
+  const float nx = (mnx - r.ox) * r.inv_dx;
+  const float fy = (mxy - r.oy) * r.inv_dy;
+  const float ny = (mny - r.oy) * r.inv_dy;
+  const float fz = (mxz - r.oz) * r.inv_dz;
+  const float nz = (mnz - r.oz) * r.inv_dz;
+  const float t1 = fminf(fminf(fmaxf(fx, nx), fmaxf(fy, ny)), fmaxf(fz, nz));
+  const float t0 = fmaxf(fmaxf(fminf(fx, nx), fminf(fy, ny)), fminf(fz, nz));
+  return (t1 >= fmaxf(t0, 0.0f)) && (t0 <= t_max);
+}
+
+// Watertight ray-triangle test (intersect_triangle_c) of the triangle
+// whose nine corner words start at p.
+template <bool GLOBAL>
+__device__ __forceinline__ bool hit_triangle(const Ray& r, const float* p,
+                                             float t_max, float& t,
+                                             float& b1, float& b2) {
+  const float p0x = ldf<GLOBAL>(p + 0) - r.ox, p0y = ldf<GLOBAL>(p + 1) - r.oy,
+              p0z = ldf<GLOBAL>(p + 2) - r.oz;
+  const float p1x = ldf<GLOBAL>(p + 3) - r.ox, p1y = ldf<GLOBAL>(p + 4) - r.oy,
+              p1z = ldf<GLOBAL>(p + 5) - r.oz;
+  const float p2x = ldf<GLOBAL>(p + 6) - r.ox, p2y = ldf<GLOBAL>(p + 7) - r.oy,
+              p2z = ldf<GLOBAL>(p + 8) - r.oz;
+  const float a0 = sel3(r.kx, p0x, p0y, p0z), a1 = sel3(r.ky, p0x, p0y, p0z),
+              a2 = sel3(r.kz, p0x, p0y, p0z);
+  const float c0b = sel3(r.kx, p1x, p1y, p1z), c1b = sel3(r.ky, p1x, p1y, p1z),
+              c2b = sel3(r.kz, p1x, p1y, p1z);
+  const float c0 = sel3(r.kx, p2x, p2y, p2z), c1 = sel3(r.ky, p2x, p2y, p2z),
+              c2 = sel3(r.kz, p2x, p2y, p2z);
+  const float ax = a0 - a2 * r.sx;
+  const float ay = a1 - a2 * r.sy;
+  const float az = a2 * r.sz;
+  const float bx = c0b - c2b * r.sx;
+  const float by = c1b - c2b * r.sy;
+  const float bz = c2b * r.sz;
+  const float cx = c0 - c2 * r.sx;
+  const float cy = c1 - c2 * r.sy;
+  const float cz = c2 * r.sz;
+
+  const float e0 = bx * cy - by * cx;
+  const float e1 = cx * ay - cy * ax;
+  const float e2 = ax * by - ay * bx;
+
+  const bool any_neg = (e0 < 0.0f) || (e1 < 0.0f) || (e2 < 0.0f);
+  const bool any_pos = (e0 > 0.0f) || (e1 > 0.0f) || (e2 > 0.0f);
+  const float det = e0 + e1 + e2;
+  const float t_scaled = e0 * az + e1 * bz + e2 * cz;
+  const bool ok_pos = (det > 0.0f) && (t_scaled > 0.0f) &&
+                      (t_scaled <= t_max * det);
+  const bool ok_neg = (det < 0.0f) && (t_scaled < 0.0f) &&
+                      (t_scaled >= t_max * det);
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  t = t_scaled * inv_det;
+  b1 = e1 * inv_det;
+  b2 = e2 * inv_det;
+  return !(any_neg && any_pos) && (det != 0.0f) && (ok_pos || ok_neg);
+}
+
+// One wide row [lmin(3), lmax(3), rmin(3), rmax(3), left, right, axis,
+// pad] (accel/layout.py::pack_wide_nodes_compact, accel/bricks.py).
+struct Row {
+  float lmn[3], lmx[3], rmn[3], rmx[3];
+  int li, ri, axis;
+};
+
+// The row starting at word p (16-byte aligned), as four float4.
+template <bool GLOBAL>
+__device__ __forceinline__ Row load_row(const float* p) {
+  const float4 a = ldf4<GLOBAL>(p), b = ldf4<GLOBAL>(p + 4),
+               c = ldf4<GLOBAL>(p + 8), d = ldf4<GLOBAL>(p + 12);
+  Row w;
+  w.lmn[0] = a.x; w.lmn[1] = a.y; w.lmn[2] = a.z;
+  w.lmx[0] = a.w; w.lmx[1] = b.x; w.lmx[2] = b.y;
+  w.rmn[0] = b.z; w.rmn[1] = b.w; w.rmn[2] = c.x;
+  w.rmx[0] = c.y; w.rmx[1] = c.z; w.rmx[2] = c.w;
+  w.li = (int)d.x;  // exact small-int floats; truncation is exact
+  w.ri = (int)d.y;
+  w.axis = (int)d.z;
+  return w;
+}
+
+// Slab-test both children of a wide row against t; returns the hit
+// children as (near, far) by this ray's direction sign on the row's axis.
+__device__ __forceinline__ void order_children(const Ray& r, const Row& w,
+                                               float t, int& near_c,
+                                               int& far_c, bool& h_near,
+                                               bool& h_far) {
+  const bool hl = hit_aabb(r, w.lmn[0], w.lmn[1], w.lmn[2], w.lmx[0],
+                           w.lmx[1], w.lmx[2], t);
+  const bool hr = hit_aabb(r, w.rmn[0], w.rmn[1], w.rmn[2], w.rmx[0],
+                           w.rmx[1], w.rmx[2], t);
+  const bool d_neg = sel3(w.axis, r.dx, r.dy, r.dz) < 0.0f;
+  near_c = d_neg ? w.ri : w.li;
+  far_c = d_neg ? w.li : w.ri;
+  h_near = d_neg ? hr : hl;
+  h_far = d_neg ? hl : hr;
+}
+
+// Push the hit children of an internal row, far first (near pops next).
+__device__ __forceinline__ void push_children(const Ray& r, const Row& w,
+                                              float t, int* stack, int& top) {
+  int near_c, far_c;
+  bool h_near, h_far;
+  order_children(r, w, t, near_c, far_c, h_near, h_far);
+  if (h_far) stack[top++] = far_c;
+  if (h_near) stack[top++] = near_c;
+}
+
+struct Rays {
+  const float *ox, *oy, *oz, *dx, *dy, *dz, *t_max;
+  const uint8_t* mask;  // null: every ray active
+  int n;
+};
+
+inline Rays make_rays(const float* ox, const float* oy, const float* oz,
+                      const float* dx, const float* dy, const float* dz,
+                      const float* t_max, const uint8_t* mask, int n) {
+  Rays r;
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.t_max = t_max;
+  r.mask = mask;
+  r.n = n;
+  return r;
+}
+
+__device__ __forceinline__ void write_stats(int* stats, int n, int i,
+                                            int pops, int leaf_pops,
+                                            int tri_tests) {
+  if (stats != nullptr) {
+    stats[i] = pops;
+    stats[n + i] = leaf_pops;
+    stats[2 * n + i] = tri_tests;
+  }
+}
+
+}  // namespace pnrt

@@ -3,13 +3,14 @@
 Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``build/torch_kernels/`` of the
 checkout, then loaded with ``ctypes``.  The library's file name carries a
-hash of its source, so an edited source is rebuilt and a stale library is
-never loaded.  The first call that needs a kernel builds it; ``build_all``
-builds every source at once, one ``nvcc`` process each, in parallel.
+hash of its source and of the shared headers (``csrc/*.cuh``), so an
+edited source is rebuilt and a stale library is never loaded.  The first
+call that needs a kernel builds it; ``build_all`` builds every source at
+once, one ``nvcc`` process each, in parallel.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that the
 kernels' float arithmetic matches their plain PyTorch versions op for op
-(see csrc/traverse.cu).
+(see csrc/intersect.cuh).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("traverse", "entry_key")
+SOURCES = ("traverse", "traverse_stream", "entry_key")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,9 +46,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _ptxas_summary(log: str) -> list[str]:
@@ -84,14 +88,20 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     return info
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every entry point; all return an int CUDA error code except
+# where _RESTYPES says otherwise
 _SIGNATURES = {
-    "pnrt_closest_hit": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 12,
-    "pnrt_any_hit": [ctypes.c_void_p] * 10 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 3,
-    "pnrt_entry_key": [ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2,
+    "pnrt_closest_hit": [_P] * 11 + [_I] * 2 + [_P] * 12,
+    "pnrt_any_hit": [_P] * 10 + [_I] + [_P] * 3,
+    "pnrt_closest_hit_binary": [_P] * 10 + [_I] + [_P] * 6,
+    "pnrt_any_hit_binary": [_P] * 10 + [_I] + [_P] * 3,
+    "pnrt_stream": [_I] + [_P] * 2 + [_I] * 2 + [_P] * 8 + [_I]
+    + [_P] * 8,
+    "pnrt_stream_smem_bytes": [_I] * 2,
+    "pnrt_entry_key": [_P, _I] + [_P] * 6 + [_I] + [_P] * 2,
 }
+_RESTYPES = {"pnrt_stream_smem_bytes": ctypes.c_longlong}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -105,6 +115,6 @@ def library(name: str) -> ctypes.CDLL:
             for fn, argtypes in _SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = _RESTYPES.get(fn, _I)
             _libs[name] = lib
         return lib

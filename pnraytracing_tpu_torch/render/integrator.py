@@ -13,12 +13,17 @@ JAX package:
    whole path state, live rays first, ordered by the treelet-entry key of
    their continuation ray (``ops/compaction.py::entry_key``);
 3. queries and contributions: the two NEE shadow queries in one any-hit
-   launch, then the continuation closest hit (with the interaction fill
-   from the kernel when ``kernel_interaction``).
+   launch, then the continuation closest hit.
 
 RNG words are int64 tensors holding uint32 values (ops/sampling.py).
-Every traversal goes through ``accel/traverse_cuda.py``: the CUDA kernels
-on the card, their plain versions on the CPU.
+The traversal route is the JAX package's (``accel/route.py::
+traversal_route``): the resident kernels of ``accel/traverse_cuda.py``
+(with the interaction fill from the kernel when ``kernel_interaction`` is
+set and the attribute rows fit the budget, else the closest hit +
+``make_interaction``), or the brick-streaming kernels of
+``accel/traverse_stream_cuda.py`` for a scene too large for the resident
+route.  Each runs its CUDA kernel on the card and its plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -26,10 +31,15 @@ from __future__ import annotations
 import torch
 
 from pnraytracing_tpu_torch.accel.layout import ATTR_TEX_BASE
+from pnraytracing_tpu_torch.accel.route import traversal_route
 from pnraytracing_tpu_torch.accel.traverse_cuda import (
     any_hit,
     closest_hit,
     closest_hit_attr,
+)
+from pnraytracing_tpu_torch.accel.traverse_stream_cuda import (
+    any_hit_stream,
+    closest_hit_stream,
 )
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import FLOAT_MAX, SHADOW_EPS
@@ -186,19 +196,22 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     irows = pack_interaction_rows(mesh)
     mat_tbl = materials.sanitized()
     o_v, d_v = _comps(o), _comps(d)
+    route = traversal_route(trav, cfg.kernel_interaction)
+    closest_fn, any_fn = ((closest_hit_stream, any_hit_stream)
+                          if route == "stream" else (closest_hit, any_hit))
 
     def closest_inter(o_: V3, d_: V3, tm_, mask_=None):
         """Closest hit + interaction fill: from the attribute kernel
         (only the backface flip, normalize and hit position remain here)
-        or from the plain closest kernel + make_interaction."""
-        if cfg.kernel_interaction:
+        or from the route's closest kernel + make_interaction."""
+        if route == "attr":
             hit_, (nx, ny, nz, _u, _v, mt) = closest_hit_attr(
                 trav, o_, d_, tm_, mask_, stack_depth=sd)
             nrm_raw = V3(nx, ny, nz)
             nrm_ = vnormalize(vwhere(vdot(nrm_raw, d_) > 0, -nrm_raw,
                                      nrm_raw))
             return hit_, o_ + d_ * hit_.t, nrm_, mt // ATTR_TEX_BASE
-        hit_ = closest_hit(trav, o_, d_, tm_, mask_, stack_depth=sd)
+        hit_ = closest_fn(trav, o_, d_, tm_, mask_, stack_depth=sd)
         pos_, nrm_, _, mat_, _ = make_interaction(hit_, d_, o_, irows)
         return hit_, pos_, nrm_, mat_
 
@@ -343,17 +356,17 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             e_origin = pos + nrm * 1e-4
             facing = vdot(en_l, nrm) > 0
         if has_lights and has_env:
-            occ2 = any_hit(trav, vcat(s_origin, e_origin), vcat(sdir, en_l),
-                           torch.cat([s_tmax, t_max0]),
-                           torch.cat([active, active & facing]),
-                           stack_depth=sd)
+            occ2 = any_fn(trav, vcat(s_origin, e_origin), vcat(sdir, en_l),
+                          torch.cat([s_tmax, t_max0]),
+                          torch.cat([active, active & facing]),
+                          stack_depth=sd)
             occluded, e_occ = occ2[:r], occ2[r:]
         elif has_lights:
-            occluded = any_hit(trav, s_origin, sdir, s_tmax, active,
-                               stack_depth=sd)
+            occluded = any_fn(trav, s_origin, sdir, s_tmax, active,
+                              stack_depth=sd)
         elif has_env:
-            e_occ = any_hit(trav, e_origin, en_l, t_max0, active & facing,
-                            stack_depth=sd)
+            e_occ = any_fn(trav, e_origin, en_l, t_max0, active & facing,
+                           stack_depth=sd)
 
         # NEE contributions (masks applied to the pre-folded terms)
         light_pdf, l_direct = zero_r, zero_v

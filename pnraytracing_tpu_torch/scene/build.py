@@ -16,16 +16,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pnraytracing_tpu_torch.accel.bricks import treelet_cut_aabbs
+from pnraytracing_tpu_torch.accel.bricks import (
+    build_stream_data,
+    treelet_cut_aabbs,
+)
 from pnraytracing_tpu_torch.accel.bvh import build_bvh
 from pnraytracing_tpu_torch.accel.layout import (
     MAX_PACKED_LEAF,
     MAX_PACKED_NODES,
     MAX_PACKED_TRIS,
     TravData,
+    pack_nodes8,
     pack_tri_attr16,
     pack_wide_nodes_compact,
 )
+from pnraytracing_tpu_torch.accel.route import scene_fits_smem
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
     BVH,
@@ -73,7 +78,9 @@ class SceneBuilder:
               env_image: np.ndarray | None = None, env_constant=None,
               device=None) -> Scene:
         """Flatten, build the BVH, light list, environment tables and
-        traversal layout; the result lives on ``device`` (None = cuda)."""
+        traversal layout; the result lives on ``device`` (None = cuda).
+        A scene too large for the resident route (accel/route.py) also
+        gets the brick-streaming layout (accel/bricks.py)."""
         dev = resolve_device(device)
         positions, normals, uvs = [], [], []
         indices, mat_ids = [], []
@@ -159,12 +166,17 @@ class SceneBuilder:
                 f"{len(indices)} triangles)")
         trav = TravData(
             tri9=t(positions[idx_o].reshape(len(order), 9)),
+            nodes8=t(pack_nodes8(built)),
             nodes16c=t(pack_wide_nodes_compact(built)),
             tri_attr16=t(pack_tri_attr16(positions, normals, uvs, idx_o,
                                          mat_ids[order], tex_ids[order])),
             treelets=t(treelet_cut_aabbs(built)),
             bvh_depth=built.max_depth,
         )
+        # scenes too large for the resident kernels get the brick-paged
+        # streaming layout, under the JAX package's condition
+        if not scene_fits_smem(trav, "binary"):
+            trav.stream = build_stream_data(built, mesh, device=dev)
 
         return Scene(
             mesh=mesh,

@@ -1,7 +1,7 @@
-"""Scene catalog: the flagship configuration of this slice of the port.
+"""Scene catalog: the configurations the port renders so far.
 
-PyTorch counterpart of ``config3_teapot_night``, ``night_hdr`` and
-``_camera`` from ``pnraytracing_tpu/scene/scenes.py``.
+PyTorch counterpart of ``config3_teapot_night``, ``config5_large``,
+``night_hdr`` and ``_camera`` from ``pnraytracing_tpu/scene/scenes.py``.
 """
 
 from __future__ import annotations
@@ -64,3 +64,34 @@ def config3_teapot_night(env_height: int = 256, max_leaf_size: int = 4,
     scene = b.build(env_image=night_hdr(env_height, hdr_path),
                     max_leaf_size=max_leaf_size, device=device)
     return scene, _camera((0, 5, 5), (0, 0.8, 0), 45.0)
+
+
+def config5_large(subdiv: int = 6, device=None):
+    """Config 5: green_bunny-class load (102,404 triangles at subdiv=6:
+    icospheres of 81,920 and 20,480 triangles + floor + lamp), HDR env.
+    Its binary packing exceeds the resident budget (accel/route.py), so
+    it carries the brick-streaming layout and renders through the stream
+    kernels.  Returns (scene on ``device``, camera state)."""
+    b = SceneBuilder()
+    b.add(
+        shapes.icosphere(subdiv),
+        dict(base_color=(0.2, 0.7, 0.25), roughness=0.4, metallic=0.1),
+        name="bunny_standin",
+        transform=compose(translate(-1.2, 1.0, 0), scale(1.0)),
+    )
+    b.add(
+        shapes.icosphere(subdiv - 1),
+        dict(base_color=(0.8, 0.75, 0.6), metallic=0.9, roughness=0.1),
+        name="chrome",
+        transform=compose(translate(1.4, 0.8, -0.5), scale(0.8)),
+    )
+    b.add(shapes.quad(), dict(base_color=(0.7, 0.7, 0.7), roughness=0.9),
+          name="floor")
+    b.add(
+        shapes.quad(half=1.5),
+        dict(emissive=(18.0, 18.0, 17.0)),
+        name="lamp",
+        transform=compose(translate(0, 6, 0), rotate(180, (0, 0, 1))),
+    )
+    scene = b.build(env_image=procedural_sky(256, 512), device=device)
+    return scene, _camera((0, 2.5, 6), (0, 1.0, 0), 45.0)

@@ -4,8 +4,9 @@ false (decided inside the fixture, never at import).  On the card:
 ``python -m pytest -m gpu tests/test_torch_cuda.py``.
 
 Bounds: the kernels are built with --fmad=false and repeat their plain
-versions op for op, so hits, barycentrics, attributes, occlusion and
-keys are equal; a triangle id may differ only on an exact-t tie.
+versions op for op, so hits, barycentrics, attributes, occlusion,
+keys and the walk stats are equal; a triangle id may differ only on an
+exact-t tie.
 """
 
 import numpy as np
@@ -13,10 +14,13 @@ import pytest
 import torch
 
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops import compaction
 from pnraytracing_tpu_torch.render.renderer import render_frame
+from pnraytracing_tpu_torch.scene import shapes
+from pnraytracing_tpu_torch.scene.build import SceneBuilder
 from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
 
 pytestmark = pytest.mark.gpu
@@ -29,6 +33,24 @@ def flagship():
                     "false)")
     scene, cam = config3_teapot_night(env_height=64, device="cuda")
     return scene, cam.basis(device="cuda")
+
+
+@pytest.fixture(scope="module")
+def stream_scene():
+    """An icosphere(3) + floor cut into 8 KB bricks, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    b = SceneBuilder()
+    b.add(shapes.icosphere(3), dict(base_color=(0.7, 0.3, 0.2)), name="ball")
+    b.add(shapes.quad(half=4.0), dict(base_color=(0.6, 0.6, 0.6)),
+          name="floor")
+    scene = b.build(env_constant=(0.3, 0.3, 0.3), device="cuda")
+    from pnraytracing_tpu_torch.accel.bricks import build_stream_data
+
+    scene.trav.stream = build_stream_data(scene.bvh, scene.mesh, 8 << 10,
+                                          device="cuda")
+    return scene
 
 
 def _rays(n, seed):
@@ -94,7 +116,8 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
             counts[k] = 0
     img = render_frame(scene, cam, cfg, 0)
     assert trv.LAUNCHES == {"closest_hit_attr": 4, "any_hit": 3,
-                            "closest_hit": 0}
+                            "closest_hit": 0, "closest_hit_binary": 0,
+                            "any_hit_binary": 0}
     assert compaction.LAUNCHES == {"treelet_entry_key": 2}
     monkeypatch.setattr(integrator, "closest_hit_attr",
                         trv.plain_closest_hit_attr)
@@ -104,3 +127,52 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
     want = render_frame(scene, cam, cfg, 0)
     off = (img - want).abs().amax(dim=-1) > 3e-5
     assert int(off.sum()) <= 1
+
+
+def _assert_closest_equal(hit, want, stats=None, wstats=None):
+    same = hit.tri == want.tri
+    assert int((~same).sum()) <= 1
+    for a, b in [(hit.t, want.t), (hit.b1, want.b1), (hit.b2, want.b2)]:
+        assert torch.equal(a[same], b[same])
+    assert bool(want.valid.any())
+    if stats is not None and bool(same.all()):
+        assert torch.equal(stats, wstats)
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_binary_kernels_match_plain(flagship, seed):
+    scene, _ = flagship
+    o, d, t_max, mask = _rays(1 << 15, seed)
+    hit, st = trv.closest_hit(scene.trav, o, d, t_max, mask,
+                              variant="binary", with_stats=True)
+    want, wst = trv.plain_closest_hit_binary(scene.trav, o, d, t_max, mask,
+                                             with_stats=True)
+    _assert_closest_equal(hit, want, st, wst)
+    occ, st = trv.any_hit(scene.trav, o, d, t_max, mask, variant="binary",
+                          with_stats=True)
+    wocc, wst = trv.plain_any_hit_binary(scene.trav, o, d, t_max, mask,
+                                         with_stats=True)
+    assert torch.equal(occ, wocc) and torch.equal(st, wst)
+    assert trv.LAUNCHES["closest_hit_binary"] > 0
+    assert trv.LAUNCHES["any_hit_binary"] > 0
+
+
+@pytest.mark.parametrize("n", [100, 1 << 14])
+def test_stream_kernels_match_plain(stream_scene, n):
+    trav = stream_scene.trav
+    o, d, t_max, mask = _rays(n, 6)
+    hit, st, bst = trs.closest_hit_stream(trav, o, d, t_max, mask,
+                                          with_stats=True)
+    want, wst, wbst = trs.plain_closest_hit_stream(trav, o, d, t_max, mask,
+                                                   with_stats=True)
+    _assert_closest_equal(hit, want, st, wst)
+    assert torch.equal(bst, wbst)
+    occ, st, bst = trs.any_hit_stream(trav, o, d, t_max, mask,
+                                      with_stats=True)
+    wocc, wst, wbst = trs.plain_any_hit_stream(trav, o, d, t_max, mask,
+                                               with_stats=True)
+    assert torch.equal(occ, wocc) and torch.equal(st, wst)
+    assert torch.equal(bst, wbst)
+    # the bricks cover the tree: the resident walk gives the same hits
+    _assert_closest_equal(hit, trv.closest_hit(trav, o, d, t_max, mask))
+    assert torch.equal(occ, trv.any_hit(trav, o, d, t_max, mask))

@@ -69,7 +69,8 @@ def soup(num_tris=120, num_rays=256, seed=3):
     _, _, built = make_mesh_and_bvh(positions, indices)
     jtrav = trav.replace(nodes16c=jnp.asarray(jax_pack_compact(built)),
                          tri_attr16=jax_pack_attr16(mesh))
-    ptrav = TravData(tri9=_t(jtrav.tri9), nodes16c=_t(jtrav.nodes16c),
+    ptrav = TravData(tri9=_t(jtrav.tri9), nodes8=_t(jtrav.nodes8),
+                     nodes16c=_t(jtrav.nodes16c),
                      tri_attr16=_t(jtrav.tri_attr16),
                      treelets=torch.zeros((1, 6)),
                      bvh_depth=built.max_depth)
