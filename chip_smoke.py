@@ -30,15 +30,18 @@ script exits non-zero without printing a result.  Phases:
    point, which the integrator never routes to) against their plain
    versions on the flagship rays of phase 4, timed;
 9. stream_scene: config5_large built by the port on the card, with its
-   brick layout and the shared memory the stream kernel asks for;
+   default brick layout and the registers, block size and blocks an SM
+   of the stream kernels;
 10. stream_parity: the stream kernels against their plain versions on
    the rays of one plain-path config5 frame (primary, bounce-0
-   continuation, bounce-0 fused shadows), and the resident wide kernels
-   on the same rays (the bricks cover the tree);
+   continuation, bounce-0 fused shadows): results and per-ray walk stats
+   equal; and the resident wide kernels on the same rays (the bricks
+   cover the tree);
 11. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
    128x128 depth-4 frame through the kernels against the plain versions,
    ms/frame and rays/s, peak memory, the stream kernels' times beside
-   the resident kernel's, and one profiled frame.
+   the resident kernel's and beside their own on a 96 KB brick layout of
+   the same tree, and one profiled frame.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -46,6 +49,7 @@ Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -61,6 +65,8 @@ FP32_OPS_PER_S = 67e12
 OPS_AABB = 25
 OPS_TRIANGLE = 50
 OPS_ENTRY_BOX = 25
+ROW_BYTES = 64  # one wide row
+TRI_BYTES = 36  # one triangle's nine corner words
 
 RAY_IN = 4 * 7 + 1  # bytes in per ray: ox..dz, t_max (f32) + mask (bool)
 
@@ -147,7 +153,7 @@ def trav_ops(stats, binary=False):
     """Operations of a walk from its per-ray stats: slab tests (two per
     internal pop of a wide walk, one per pop of the binary walk) and
     triangle tests."""
-    pops, leaf, tris = (int(s.sum()) for s in stats)
+    pops, leaf, tris = (int(s.sum()) for s in stats[:3])
     slabs = pops if binary else 2 * (pops - leaf)
     return OPS_AABB * slabs + OPS_TRIANGLE * tris
 
@@ -399,6 +405,7 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     Returns their rows of the kernels line."""
     import torch
 
+    from pnraytracing_tpu_torch.accel.bricks import build_stream_data
     from pnraytracing_tpu_torch.accel.route import traversal_route
     from pnraytracing_tpu_torch.scene.scenes import config5_large
 
@@ -412,11 +419,10 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     trav = scene.trav
     s = trav.stream
     route = traversal_route(trav, True)
-    smem = trs.stream_smem_bytes(trav)
     emit({"phase": "stream_scene", "seconds": build_s,
           "triangles": trav.tri9.shape[0], "bricks": s.n_bricks,
           "brick_kb": s.brick_words * 4 / 1024, "top_rows": s.n_top_rows,
-          "brick_stack": s.brick_stack, "smem_per_block": smem,
+          "brick_stack": s.brick_stack, "kernels": trs.kernel_info(trav),
           "bvh_depth": trav.bvh_depth, "treelets": trav.treelets.shape[0],
           "route": route})
     if route != "stream" or trav.tri9.shape[0] != 102404:
@@ -432,29 +438,30 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     res = {}
     for label, args in (("primary", primary), ("bounce0", cont)):
         o, d, tm, mask = rays_of(args)
-        got, st, bst = trs.closest_hit_stream(trav, o, d, tm, mask,
-                                              with_stats=True)
-        want, wst, wbst = trs.plain_closest_hit_stream(trav, o, d, tm, mask,
-                                                       with_stats=True)
+        got, st = trs.closest_hit_stream(trav, o, d, tm, mask,
+                                         with_stats=True)
+        want, wst = trs.plain_closest_hit_stream(trav, o, d, tm, mask,
+                                                 with_stats=True)
         bad, err = check_closest("closest_hit_stream/" + label, got, want, r)
-        if not (torch.equal(st, wst) and torch.equal(bst, wbst)):
-            raise AssertionError(f"closest_hit_stream/{label}: walk stats "
-                                 "differ from the plain version")
+        if bad or err or st.shape != (4, r) or not torch.equal(st, wst):
+            raise AssertionError(
+                f"closest_hit_stream/{label}: {bad} tri mismatches, max "
+                f"|dt| {err}, stats equal {torch.equal(st, wst)}: the "
+                "kernel must equal its plain version bit for bit")
         res_bad, res_err = check_closest(
             "closest_hit_resident_vs_stream/" + label,
             trv.closest_hit(trav, o, d, tm, mask), want, r)
-        res[label] = {"tri_mismatch": bad, "err": err,
+        res[label] = {"tri_mismatch": bad, "err": err, "stats_equal": True,
                       "resident_tri_mismatch": res_bad,
                       "resident_err": res_err,
-                      "bricks_staged": int(bst.sum()),
-                      "blocks": int(bst.numel())}
+                      "pops_per_ray": float(st[0].sum()) / r,
+                      "bricks_per_ray": float(st[3].sum()) / r}
     so, sd, stm, smask = rays_of(shadow)
-    occ, st, bst = trs.any_hit_stream(trav, so, sd, stm, smask,
-                                      with_stats=True)
-    wocc, wst, wbst = trs.plain_any_hit_stream(trav, so, sd, stm, smask,
-                                               with_stats=True)
+    occ, st = trs.any_hit_stream(trav, so, sd, stm, smask, with_stats=True)
+    wocc, wst = trs.plain_any_hit_stream(trav, so, sd, stm, smask,
+                                         with_stats=True)
     occ_bad = check_occ("any_hit_stream", occ, wocc)
-    if not (torch.equal(st, wst) and torch.equal(bst, wbst)):
+    if not torch.equal(st, wst):
         raise AssertionError("any_hit_stream: walk stats differ from the "
                              "plain version")
     res_occ_bad = check_occ("any_hit_resident_vs_stream", occ,
@@ -464,7 +471,8 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "shadow_rays": int(so.x.shape[0]), "closest": res,
           "any_hit_mismatch": occ_bad,
           "any_hit_resident_mismatch": res_occ_bad,
-          "any_bricks_staged": int(bst.sum())})
+          "any_stats_equal": True,
+          "any_bricks_per_ray": float(st[3].sum()) / int(so.x.shape[0])})
 
     # ---- 11. the config5 frame -----------------------------------------
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
@@ -496,20 +504,29 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     ms_frame = (time.perf_counter() - t0) * 1e3 / n_frames
     peak = torch.cuda.max_memory_allocated()
 
-    # bound: each input read once (rays, the top tree, the brick array);
-    # the bricks the blocks stage again and again come from the L2, so
-    # their bytes (at most brick_words words a staging) are reported
-    # beside it, with the time they would take at the HBM rate
+    # bound: each input read once (rays, the top tree, the brick array).
+    # What the walks touch (a 64 B row per internal pop, 36 B per triangle
+    # test; re-reads come from the L2) is reported beside it, with the
+    # time those bytes would take at the HBM rate.
     scene_bytes = 4 * (s.top16.numel() + s.bricks.numel())
-    brick_bytes = 4 * s.brick_words
-    staged = lambda bst: {
-        "bricks_staged": int(bst.sum()),
-        "staged_bytes": int(bst.sum()) * brick_bytes,
-        "staged_hbm_ms": int(bst.sum()) * brick_bytes / HBM_BYTES_PER_S * 1e3}
+
+    def touched(st):
+        pops, leaf, tris, bricks = (int(x.sum()) for x in st)
+        bytes_ = ROW_BYTES * (pops - leaf) + TRI_BYTES * tris
+        return {"brick_visits": bricks, "pops": pops, "tri_tests": tris,
+                "touched_bytes": bytes_,
+                "touched_hbm_ms": bytes_ / HBM_BYTES_PER_S * 1e3}
+
+    # the same tree cut into 96 KB bricks: the kernel's time should barely
+    # depend on the brick size
+    trav96 = dataclasses.replace(trav, stream=build_stream_data(
+        scene.bvh, scene.mesh, 96 << 10, device=dev))
     rows = []
     o, d, tm, mask = rays_of(cont)
-    _, st, bst = trs.closest_hit_stream(trav, o, d, tm, mask,
-                                        with_stats=True)
+    _, st = trs.closest_hit_stream(trav, o, d, tm, mask, with_stats=True)
+    got96 = trs.closest_hit_stream(trav96, o, d, tm, mask)
+    check_closest("closest_hit_stream/96k", got96, trs.closest_hit_stream(
+        trav, o, d, tm, mask), r)
     bnd = bound(r * (RAY_IN + 16) + scene_bytes, trav_ops(st))
     rows.append(dict(
         name="closest_hit_stream",
@@ -523,10 +540,15 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
             trav, o, d, tm, mask), 1),
         resident_ms=time_ms(lambda: trv.closest_hit(trav, o, d, tm, mask),
                             10),
-        bound_ms=bnd[0], bound_by=bnd[1], **staged(bst)))
+        ms_96k=time_ms(lambda: trs.closest_hit_stream(trav96, o, d, tm,
+                                                      mask), 10),
+        resident_pops=int(trv.closest_hit(trav, o, d, tm, mask,
+                                          with_stats=True)[1][0].sum()),
+        bound_ms=bnd[0], bound_by=bnd[1], **touched(st)))
     rs = so.x.shape[0]
-    _, st, bst = trs.any_hit_stream(trav, so, sd, stm, smask,
-                                    with_stats=True)
+    _, st = trs.any_hit_stream(trav, so, sd, stm, smask, with_stats=True)
+    check_occ("any_hit_stream/96k", trs.any_hit_stream(
+        trav96, so, sd, stm, smask), occ)
     bnd = bound(rs * (RAY_IN + 1) + scene_bytes, trav_ops(st))
     rows.append(dict(
         name="any_hit_stream",
@@ -539,7 +561,11 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
             trav, so, sd, stm, smask), 1),
         resident_ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask),
                             10),
-        bound_ms=bnd[0], bound_by=bnd[1], **staged(bst)))
+        ms_96k=time_ms(lambda: trs.any_hit_stream(trav96, so, sd, stm,
+                                                  smask), 10),
+        resident_pops=int(trv.any_hit(trav, so, sd, stm, smask,
+                                      with_stats=True)[1][0].sum()),
+        bound_ms=bnd[0], bound_by=bnd[1], **touched(st)))
     emit({"phase": "stream_frame", "width": WIDTH, "height": HEIGHT,
           "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
           "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),
@@ -547,6 +573,9 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "enqueue_ms": enqueue_ms,
           "launches_per_frame": launches, "parity_128": parity,
           "mean": float(img.mean()), "max_memory_allocated": peak,
+          "bricks_96k": trav96.stream.n_bricks,
+          "stream_ms": {row["name"]: {k: row[k] for k in (
+              "ms", "ms_96k", "resident_ms")} for row in rows},
           "card": smi})
     emit(dict(phase="stream_profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))

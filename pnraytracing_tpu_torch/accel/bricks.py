@@ -41,13 +41,10 @@ _COUNT_BASE = 16
 
 BRICK_HEADER_WORDS = 4
 
-# The port's default brick budget.  The JAX package cuts 256 KB bricks
-# for the TPU's scalar memory; a Hopper block can opt into at most
-# 227 KB of shared memory, so a brick of that size could not be staged.
-# 96 KB bricks (95.5 KB blobs on config5_large: 170 bricks, 169 top rows,
-# brick_stack 16) fit one slot with room left for a second one, which a
-# double-buffered kernel will need, and let two blocks share an SM.
-BRICK_BUDGET_BYTES = 96 << 10
+# The default brick budget, the JAX package's: the kernels walk the bricks
+# where they lie in device memory, so no on-chip memory bounds their size
+# and the default layouts of the two packages are the same arrays.
+BRICK_BUDGET_BYTES = 256 << 10
 
 
 @dataclasses.dataclass

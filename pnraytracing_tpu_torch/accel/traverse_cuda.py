@@ -124,14 +124,14 @@ def stream_of(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _outputs(r, dev, closest: bool, with_stats: bool):
+def _outputs(r, dev, closest: bool, with_stats: bool, n_stats: int = 3):
     f32 = lambda: torch.empty(r, dtype=torch.float32, device=dev)
     if closest:
         outs = (f32(), torch.empty(r, dtype=torch.int32, device=dev), f32(),
                 f32())
     else:
         outs = (torch.empty(r, dtype=torch.bool, device=dev),)
-    stats = (torch.empty((3, r), dtype=torch.int32, device=dev)
+    stats = (torch.empty((n_stats, r), dtype=torch.int32, device=dev)
              if with_stats else None)
     return outs, stats
 
@@ -243,9 +243,10 @@ class Rays:
 
 class WalkState:
     """The results a plain walk carries per ray: the closest hit (and the
-    attribute fill), the occlusion flag and the stats."""
+    attribute fill), the occlusion flag and the stats (``n_stats`` rows:
+    pops, leaf pops, triangle tests, and what the walk adds)."""
 
-    def __init__(self, ray: Rays, mode: str):
+    def __init__(self, ray: Rays, mode: str, n_stats: int = 3):
         r, dev = ray.t_max.shape[0], ray.t_max.device
         self.mode = mode
         self.any_mode = mode == "any"
@@ -258,7 +259,8 @@ class WalkState:
                       torch.zeros_like(self.b1),
                       torch.zeros(r, dtype=torch.int32, device=dev)]
         self.occ = torch.zeros(r, dtype=torch.bool, device=dev)
-        self.stats = torch.zeros((3, r), dtype=torch.int32, device=dev)
+        self.stats = torch.zeros((n_stats, r), dtype=torch.int32,
+                                 device=dev)
 
     def t_lim(self, ray: Rays, rows):
         return ray.t_max[rows] if self.any_mode else self.t_best[rows]
@@ -326,24 +328,16 @@ def push(stack, top, rows, entry, commit):
 
 
 def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
-              fetch_row, fetch_tri, attr16=None, refill=None):
+              fetch_row, fetch_tri, attr16=None):
     """Plain version of the kernels' push-test wide walk: every ray keeps
     its own stack (a row of an [R, stack_depth] tensor); each step pops
     one entry for every ray whose stack is not empty and works on just
     those rays.  ``fetch_row(rows, info)`` gives the popped wide rows
-    [n, 16]; ``refill(rows)``, where given, is called with the rays whose
-    stacks ran empty and returns those it gave a new root row 0 (the
-    stream walk's next brick)."""
+    [n, 16]."""
     r, dev = ray.t_max.shape[0], ray.t_max.device
     stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
     top = active.to(torch.int64)  # the root row 0 sits in slot 0
     while True:
-        if refill is not None:
-            empty = torch.nonzero(top == 0).squeeze(1)
-            if empty.numel():
-                rows = refill(empty)
-                stack[rows, 0] = 0
-                top[rows] = 1
         idx = torch.nonzero(top > 0).squeeze(1)
         if idx.numel() == 0:
             break

@@ -9,9 +9,9 @@
 // accel/traverse_stream_cuda.py) would no longer give the same t, tri and
 // b.  Divisions are IEEE (no fast math).
 //
-// Loads.  The helpers take a GLOBAL flag: true reads through __ldg (the
-// read-only path, for tables in device memory), false reads plainly (for
-// a brick staged in shared memory, which __ldg must not address).
+// Loads.  Every table (wide rows, triangles, brick blobs) lies in device
+// memory and is read through __ldg, the read-only path; rows as four
+// float4.
 
 #pragma once
 
@@ -30,16 +30,10 @@ struct Ray {
   float sx, sy, sz;
 };
 
-template <bool GLOBAL>
-__device__ __forceinline__ float ldf(const float* p) {
-  if (GLOBAL) return __ldg(p);
-  return *p;
-}
+__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
 
-template <bool GLOBAL>
 __device__ __forceinline__ float4 ldf4(const float* p) {
-  if (GLOBAL) return __ldg(reinterpret_cast<const float4*>(p));
-  return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 
 __device__ __forceinline__ float sel3(int k, float x, float y, float z) {
@@ -86,16 +80,15 @@ __device__ __forceinline__ bool hit_aabb(const Ray& r, float mnx, float mny,
 
 // Watertight ray-triangle test (intersect_triangle_c) of the triangle
 // whose nine corner words start at p.
-template <bool GLOBAL>
 __device__ __forceinline__ bool hit_triangle(const Ray& r, const float* p,
                                              float t_max, float& t,
                                              float& b1, float& b2) {
-  const float p0x = ldf<GLOBAL>(p + 0) - r.ox, p0y = ldf<GLOBAL>(p + 1) - r.oy,
-              p0z = ldf<GLOBAL>(p + 2) - r.oz;
-  const float p1x = ldf<GLOBAL>(p + 3) - r.ox, p1y = ldf<GLOBAL>(p + 4) - r.oy,
-              p1z = ldf<GLOBAL>(p + 5) - r.oz;
-  const float p2x = ldf<GLOBAL>(p + 6) - r.ox, p2y = ldf<GLOBAL>(p + 7) - r.oy,
-              p2z = ldf<GLOBAL>(p + 8) - r.oz;
+  const float p0x = ldf(p + 0) - r.ox, p0y = ldf(p + 1) - r.oy,
+              p0z = ldf(p + 2) - r.oz;
+  const float p1x = ldf(p + 3) - r.ox, p1y = ldf(p + 4) - r.oy,
+              p1z = ldf(p + 5) - r.oz;
+  const float p2x = ldf(p + 6) - r.ox, p2y = ldf(p + 7) - r.oy,
+              p2z = ldf(p + 8) - r.oz;
   const float a0 = sel3(r.kx, p0x, p0y, p0z), a1 = sel3(r.ky, p0x, p0y, p0z),
               a2 = sel3(r.kz, p0x, p0y, p0z);
   const float c0b = sel3(r.kx, p1x, p1y, p1z), c1b = sel3(r.ky, p1x, p1y, p1z),
@@ -138,11 +131,9 @@ struct Row {
   int li, ri, axis;
 };
 
-// The row starting at word p (16-byte aligned), as four float4.
-template <bool GLOBAL>
-__device__ __forceinline__ Row load_row(const float* p) {
-  const float4 a = ldf4<GLOBAL>(p), b = ldf4<GLOBAL>(p + 4),
-               c = ldf4<GLOBAL>(p + 8), d = ldf4<GLOBAL>(p + 12);
+// The row whose sixteen words are the four float4 a, b, c, d.
+__device__ __forceinline__ Row make_row(const float4& a, const float4& b,
+                                        const float4& c, const float4& d) {
   Row w;
   w.lmn[0] = a.x; w.lmn[1] = a.y; w.lmn[2] = a.z;
   w.lmx[0] = a.w; w.lmx[1] = b.x; w.lmx[2] = b.y;
@@ -152,6 +143,11 @@ __device__ __forceinline__ Row load_row(const float* p) {
   w.ri = (int)d.y;
   w.axis = (int)d.z;
   return w;
+}
+
+// The row starting at word p (16-byte aligned), as four float4.
+__device__ __forceinline__ Row load_row(const float* p) {
+  return make_row(ldf4(p), ldf4(p + 4), ldf4(p + 8), ldf4(p + 12));
 }
 
 // Slab-test both children of a wide row against t; returns the hit

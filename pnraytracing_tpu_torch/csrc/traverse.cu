@@ -85,7 +85,7 @@ closest_hit_kernel(const float* __restrict__ nodes,
       for (int k = 0; k < count; ++k) {
         const int ti = start + k;
         float t, b1, b2;
-        if (hit_triangle<true>(r, tri9 + 9 * (int64_t)ti, t_best, t, b1,
+        if (hit_triangle(r, tri9 + 9 * (int64_t)ti, t_best, t, b1,
                                b2) &&
             t < t_best) {
           t_best = t;
@@ -96,8 +96,8 @@ closest_hit_kernel(const float* __restrict__ nodes,
             // interpolate with THIS test's barycentrics (b0 = 1 - b1 - b2)
             const float b0 = 1.0f - b1 - b2;
             const float* q = attr16 + 16 * (int64_t)ti;
-            const float4 a = ldf4<true>(q), b = ldf4<true>(q + 4),
-                         c = ldf4<true>(q + 8), d = ldf4<true>(q + 12);
+            const float4 a = ldf4(q), b = ldf4(q + 4),
+                         c = ldf4(q + 8), d = ldf4(q + 12);
             nx_b = a.x * b0 + a.w * b1 + b.z * b2;
             ny_b = a.y * b0 + b.x * b1 + b.w * b2;
             nz_b = a.z * b0 + b.y * b1 + c.x * b2;
@@ -108,7 +108,7 @@ closest_hit_kernel(const float* __restrict__ nodes,
         }
       }
     } else {
-      push_children(r, load_row<true>(nodes + 16 * (int64_t)info), t_best,
+      push_children(r, load_row(nodes + 16 * (int64_t)info), t_best,
                     stack, top);
     }
   }
@@ -154,14 +154,14 @@ any_hit_kernel(const float* __restrict__ nodes, const float* __restrict__ tri9,
       for (int k = 0; k < count; ++k) {
         float t, b1, b2;
         ++tri_tests;
-        if (hit_triangle<true>(r, tri9 + 9 * (int64_t)(start + k), t_max, t,
+        if (hit_triangle(r, tri9 + 9 * (int64_t)(start + k), t_max, t,
                                b1, b2)) {
           occ = true;  // occluded: stop at once
           break;
         }
       }
     } else {
-      push_children(r, load_row<true>(nodes + 16 * (int64_t)info), t_max,
+      push_children(r, load_row(nodes + 16 * (int64_t)info), t_max,
                     stack, top);
     }
   }
@@ -178,7 +178,7 @@ struct Node8 {
 __device__ __forceinline__ Node8 load_node8(const float* __restrict__ nodes8,
                                             int node) {
   const float* p = nodes8 + 8 * (int64_t)node;
-  const float4 a = ldf4<true>(p), b = ldf4<true>(p + 4);
+  const float4 a = ldf4(p), b = ldf4(p + 4);
   Node8 w;
   w.mn[0] = a.x; w.mn[1] = a.y; w.mn[2] = a.z;
   w.mx[0] = a.w; w.mx[1] = b.x; w.mx[2] = b.y;
@@ -234,7 +234,7 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
       for (int k = 0; k < count; ++k) {
         const int ti = start + k;
         float t, b1, b2;
-        if (hit_triangle<true>(r, tri9 + 9 * (int64_t)ti, t_best, t, b1,
+        if (hit_triangle(r, tri9 + 9 * (int64_t)ti, t_best, t, b1,
                                b2) &&
             t < t_best) {
           t_best = t;
@@ -286,7 +286,7 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
       for (int k = 0; k < count; ++k) {
         float t, b1, b2;
         ++tri_tests;
-        if (hit_triangle<true>(r, tri9 + 9 * (int64_t)(start + k), t_max, t,
+        if (hit_triangle(r, tri9 + 9 * (int64_t)(start + k), t_max, t,
                                b1, b2)) {
           occ = true;  // occluded: stop at once
           break;

@@ -9,6 +9,8 @@ keys and the walk stats are equal; a triangle id may differ only on an
 exact-t tie.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +50,29 @@ def stream_scene():
     scene = b.build(env_constant=(0.3, 0.3, 0.3), device="cuda")
     from pnraytracing_tpu_torch.accel.bricks import build_stream_data
 
+    scene.trav.stream = build_stream_data(scene.bvh, scene.mesh, 8 << 10,
+                                          device="cuda")
+    return scene
+
+
+@pytest.fixture(scope="module")
+def many_brick_scene():
+    """Two icosphere(4) over a floor (10,244 triangles) cut into 8 KB
+    bricks: a few hundred bricks under a deep top tree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.accel.bricks import build_stream_data
+    from pnraytracing_tpu_torch.scene.transform import translate
+
+    b = SceneBuilder()
+    b.add(shapes.icosphere(4), dict(base_color=(0.7, 0.3, 0.2)), name="left",
+          transform=translate(-1.2, 1.0, 0))
+    b.add(shapes.icosphere(4), dict(base_color=(0.8, 0.7, 0.6)),
+          name="right", transform=translate(1.2, 1.0, 0))
+    b.add(shapes.quad(half=4.0), dict(base_color=(0.6, 0.6, 0.6)),
+          name="floor")
+    scene = b.build(env_constant=(0.3, 0.3, 0.3), device="cuda")
     scene.trav.stream = build_stream_data(scene.bvh, scene.mesh, 8 << 10,
                                           device="cuda")
     return scene
@@ -157,22 +182,53 @@ def test_binary_kernels_match_plain(flagship, seed):
     assert trv.LAUNCHES["any_hit_binary"] > 0
 
 
+def _assert_stream_equals_plain(trav, o, d, t_max, mask):
+    """Both stream kernels against their plain versions (results and the
+    [4, R] stats equal) and against the resident walk of the same tree."""
+    hit, st = trs.closest_hit_stream(trav, o, d, t_max, mask,
+                                     with_stats=True)
+    want, wst = trs.plain_closest_hit_stream(trav, o, d, t_max, mask,
+                                             with_stats=True)
+    assert st.shape == (4, o.x.shape[0])
+    _assert_closest_equal(hit, want, st, wst)
+    occ, st = trs.any_hit_stream(trav, o, d, t_max, mask, with_stats=True)
+    wocc, wst = trs.plain_any_hit_stream(trav, o, d, t_max, mask,
+                                         with_stats=True)
+    assert torch.equal(occ, wocc) and torch.equal(st, wst)
+    # the bricks cover the tree: the resident walk gives the same hits
+    res = trv.closest_hit(trav, o, d, t_max, mask)
+    assert torch.equal(hit.t, res.t)
+    assert int((hit.tri != res.tri).sum()) <= 1
+    assert torch.equal(occ, trv.any_hit(trav, o, d, t_max, mask))
+
+
 @pytest.mark.parametrize("n", [100, 1 << 14])
 def test_stream_kernels_match_plain(stream_scene, n):
+    _assert_stream_equals_plain(stream_scene.trav, *_rays(n, 6))
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+def test_stream_kernels_many_bricks(many_brick_scene, order):
+    """A few hundred 8 KB bricks, with the rays as they come and sorted by
+    the treelet their origin enters (neighbouring threads, near bricks)."""
+    trav = many_brick_scene.trav
+    assert trav.stream.n_bricks >= 100
+    o, d, t_max, mask = _rays(1 << 14, 7)
+    if order == "sorted":
+        perm = torch.argsort(compaction.treelet_entry_key(o, d,
+                                                          trav.treelets))
+        take = lambda v: V3(*(c[perm].contiguous() for c in (v.x, v.y, v.z)))
+        o, d, t_max, mask = take(o), take(d), t_max[perm], mask[perm]
+    _assert_stream_equals_plain(trav, o, d, t_max, mask)
+
+
+def test_stream_wrapper_raises_on_too_deep_layout(stream_scene):
     trav = stream_scene.trav
-    o, d, t_max, mask = _rays(n, 6)
-    hit, st, bst = trs.closest_hit_stream(trav, o, d, t_max, mask,
-                                          with_stats=True)
-    want, wst, wbst = trs.plain_closest_hit_stream(trav, o, d, t_max, mask,
-                                                   with_stats=True)
-    _assert_closest_equal(hit, want, st, wst)
-    assert torch.equal(bst, wbst)
-    occ, st, bst = trs.any_hit_stream(trav, o, d, t_max, mask,
-                                      with_stats=True)
-    wocc, wst, wbst = trs.plain_any_hit_stream(trav, o, d, t_max, mask,
-                                               with_stats=True)
-    assert torch.equal(occ, wocc) and torch.equal(st, wst)
-    assert torch.equal(bst, wbst)
-    # the bricks cover the tree: the resident walk gives the same hits
-    _assert_closest_equal(hit, trv.closest_hit(trav, o, d, t_max, mask))
-    assert torch.equal(occ, trv.any_hit(trav, o, d, t_max, mask))
+    deep = dataclasses.replace(trav, stream=dataclasses.replace(
+        trav.stream, brick_stack=trv.KERNEL_STACK // 2 + 1))
+    o, d, t_max, mask = _rays(64, 8)
+    before = dict(trs.LAUNCHES)
+    for fn in (trs.closest_hit_stream, trs.any_hit_stream):
+        with pytest.raises(ValueError, match="64-entry stack"):
+            fn(deep, o, d, t_max, mask)
+    assert trs.LAUNCHES == before

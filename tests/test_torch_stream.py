@@ -2,7 +2,13 @@
 package, on the CPU (plain versions of the kernels).
 
 * the brick layout (``build_stream_data``) and the binary rows
-  (``nodes8``) equal the JAX package's array for array;
+  (``nodes8``) equal the JAX package's array for array, and the two
+  packages' default brick budgets and default layouts are the same;
+* the plain stream walk (top tree and bricks in one near-first walk)
+  against the plain resident wide walk on the same rays: the same ``t``
+  bit for bit, the same occlusion, ``tri`` equal off exact-t ties; its
+  bricks entered against the bricks a ray's ``t_max`` reaches; masked
+  and empty batches; the stack check of a too-deep layout;
 * the plain stream walks against ``closest_hit_stream`` /
   ``any_hit_stream`` and the plain binary walks against
   ``closest_hit_pallas(variant="binary")`` / ``any_hit_pallas``, both run
@@ -15,14 +21,16 @@ package, on the CPU (plain versions of the kernels).
 
 Bounds (tests/test_pallas_trav.py::_assert_hits_close): at most 2 tri
 mismatches (exact-t ties resolve by visit order, which differs: the port
-walks one stack per ray and each ray's bricks in ascending id, the Pallas
-kernel one stack and one brick queue per tile), t rtol 1e-6, b rtol 1e-5
+walks one stack per ray and enters each ray's bricks near first, the
+Pallas kernel one stack and one brick queue per tile), t rtol 1e-6, b
+rtol 1e-5
 / atol 1e-6; occlusion exact; frames within atol 3e-5 on all but 2
 pixels (tests/test_torch_render.py).
 """
 
 import dataclasses
 import functools
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,7 +63,10 @@ from pnraytracing_tpu.scene.transform import compose, rotate, translate
 from pnraytracing_tpu_torch.accel import route
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
 from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
-from pnraytracing_tpu_torch.accel.bricks import build_stream_data
+from pnraytracing_tpu_torch.accel.bricks import (
+    BRICK_BUDGET_BYTES,
+    build_stream_data,
+)
 from pnraytracing_tpu_torch.convert import scene_to_arrays
 from pnraytracing_tpu_torch.core.camera import camera_rays
 from pnraytracing_tpu_torch.core.config import RenderConfig
@@ -191,17 +202,18 @@ def test_plain_stream_closest_matches_pallas(case):
     want = jax_closest_hit_stream(
         js.trav, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max),
         None if mask is None else jnp.asarray(mask), **PALLAS)
-    got, stats, staged = trs.closest_hit_stream(
+    got, stats = trs.closest_hit_stream(
         ps.trav, _v3(o), _v3(d), _t(t_max),
         None if mask is None else torch.from_numpy(mask), with_stats=True)
     _assert_hits_close(got, want, r)
     if mask is not None:
         assert (got.tri.numpy()[~mask] == -1).all()
-    pops, leaf, tris = (s.numpy() for s in stats)
+    assert stats.shape == (4, r) and stats.dtype == torch.int32
+    pops, leaf, tris, entered = (s.numpy() for s in stats)
     assert (pops >= leaf).all() and (tris >= leaf).all()
-    assert staged.shape == ((r + 127) // 128,)
+    assert (pops >= entered).all() and (entered[got.valid.numpy()] > 0).all()
     if case != "padded":  # the 7 live padded rays look at the sky
-        assert got.valid.numpy().sum() >= 50 and staged.min() > 0
+        assert got.valid.numpy().sum() >= 50
 
 
 def test_plain_stream_any_matches_pallas():
@@ -217,6 +229,166 @@ def test_plain_stream_any_matches_pallas():
                              torch.from_numpy(mask))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.numpy().any() and not got.numpy()[~mask].any()
+
+def _with_layout(ps, budget):
+    """The port scene's traversal tables with a brick layout of ``budget``
+    bytes (built whether or not the scene would route to it)."""
+    sd = build_stream_data(ps.bvh, ps.mesh, budget, device="cpu")
+    return dataclasses.replace(ps.trav, stream=sd)
+
+
+@functools.lru_cache(maxsize=4)
+def _layout_case(name: str, budget: int):
+    ps = (config5_large(3, device="cpu")[0] if name == "config5"
+          else port_built(name))
+    return _with_layout(ps, budget)
+
+
+def _walk_rays(kind: str, n: int = 256):
+    """(o, d) [n, 3]: the camera's primary rays, or scattered ones from
+    random points above the floor toward random directions."""
+    if kind == "primary":
+        return _rays(16)
+    rng = np.random.default_rng(11)
+    o = rng.uniform(-3, 3, size=(n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.05, 4, n)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+LAYOUTS = [("small", SMALL_BUDGET), ("two_balls", 16 << 10),
+           ("config5", 16 << 10), ("config5", 64 << 10)]
+
+
+@pytest.mark.parametrize("kind", ["primary", "scattered"])
+@pytest.mark.parametrize("name,budget", LAYOUTS)
+def test_plain_stream_walk_equals_resident_walk(name, budget, kind):
+    """One tree, two packings: the stream walk finds the resident wide
+    walk's closest t bit for bit (tri may differ only where t ties) and
+    its occlusion exactly."""
+    trav = _layout_case(name, budget)
+    assert trav.stream.n_bricks >= 3
+    o, d = _walk_rays(kind)
+    r = o.shape[0]
+    far = np.full((r,), 1e7, np.float32)
+    got, stats = trs.closest_hit_stream(trav, _v3(o), _v3(d), _t(far),
+                                        with_stats=True)
+    want = trv.closest_hit(trav, _v3(o), _v3(d), _t(far))
+    np.testing.assert_array_equal(got.t.numpy(), want.t.numpy())
+    same = got.tri.numpy() == want.tri.numpy()
+    assert (~same).sum() <= 2
+    for f in ("b1", "b2"):
+        np.testing.assert_array_equal(getattr(got, f).numpy()[same],
+                                      getattr(want, f).numpy()[same])
+    assert got.valid.numpy().sum() >= r // 8
+    assert (stats[3].numpy()[got.valid.numpy()] >= 1).all()
+    rng = np.random.default_rng(12)
+    short = rng.uniform(0.3, 6.0, r).astype(np.float32)
+    mask = torch.from_numpy(np.arange(r) % 4 != 0)
+    occ = trs.any_hit_stream(trav, _v3(o), _v3(d), _t(short), mask)
+    wocc = trv.any_hit(trav, _v3(o), _v3(d), _t(short), mask)
+    np.testing.assert_array_equal(occ.numpy(), wocc.numpy())
+    assert occ.numpy().any() and not occ.numpy().all()
+
+
+def _bricks_within_t_max(stream, o, d, t_max):
+    """[R] bricks whose boxes each ray reaches within t_max: the top
+    tree walked against t_max alone, brick refs counted."""
+    ray = trv.Rays.of(_v3(o), _v3(d), _t(t_max))
+    r = o.shape[0]
+    count = torch.zeros(r, dtype=torch.int64)
+    stack = torch.zeros((r, stream.brick_stack), dtype=torch.int32)
+    top = torch.ones(r, dtype=torch.int64)
+    while True:
+        idx = torch.nonzero(top > 0).squeeze(1)
+        if idx.numel() == 0:
+            return count.numpy()
+        top[idx] -= 1
+        row = stream.top16[stack[idx, top[idx]].long()]
+        near, far, h_near, h_far = trv.order_children(ray, idx, row,
+                                                      ray.t_max[idx])
+        for c, h in ((far, h_far), (near, h_near)):
+            count[idx] += (h & (c < 0)).long()
+            trv.push(stack, top, idx, c, h & (c >= 0))
+
+
+@pytest.mark.parametrize("name,budget", LAYOUTS[:3])
+def test_closest_walk_enters_fewer_bricks_than_t_max_reaches(name, budget):
+    """Near first and culled by t_best: a ray never enters more bricks
+    than its t_max reaches, and over a batch it enters fewer."""
+    trav = _layout_case(name, budget)
+    o, d = _walk_rays("primary")
+    far = np.full((o.shape[0],), 1e7, np.float32)
+    _, stats = trs.closest_hit_stream(trav, _v3(o), _v3(d), _t(far),
+                                      with_stats=True)
+    entered = stats[3].numpy()
+    reached = _bricks_within_t_max(trav.stream, o, d, far)
+    assert (entered <= reached).all()
+    assert 0 < entered.sum() < reached.sum()
+    # any mode tests boxes against t_max: it enters those bricks, or
+    # stops early at an occluder
+    _, stats = trs.any_hit_stream(trav, _v3(o), _v3(d), _t(far),
+                                  with_stats=True)
+    assert (stats[3].numpy() <= reached).all()
+
+
+def test_too_deep_layout_raises_on_the_card_only():
+    """The kernel's stack holds 64 entries and the nested walk can need
+    2 x brick_stack: the check raises for a CUDA call and lets the plain
+    version (whose stack follows the layout) run."""
+    s = _layout_case("small", SMALL_BUDGET).stream
+    assert trs.walk_stack_depth(s) == 2 * s.brick_stack <= trv.KERNEL_STACK
+    trs.check_walk_depth(s, torch.device("cuda"))
+    ok = dataclasses.replace(s, brick_stack=trv.KERNEL_STACK // 2)
+    trs.check_walk_depth(ok, torch.device("cuda"))
+    deep = dataclasses.replace(s, brick_stack=trv.KERNEL_STACK // 2 + 1)
+    with pytest.raises(ValueError, match="64-entry stack"):
+        trs.check_walk_depth(deep, torch.device("cuda"))
+    trs.check_walk_depth(deep, torch.device("cpu"))
+    trav = dataclasses.replace(_layout_case("small", SMALL_BUDGET),
+                               stream=deep)
+    o, d = _rays(4)
+    hit = trs.closest_hit_stream(trav, _v3(o), _v3(d),
+                                 _t(np.full((16,), 1e7, np.float32)))
+    assert hit.valid.numpy().any()
+
+
+def test_default_budget_and_layout_equal_jax(monkeypatch):
+    """The port cuts bricks by the JAX package's default budget, so the
+    default layouts are the same arrays."""
+    jax_default = inspect.signature(jax_build_stream_data).parameters[
+        "brick_budget_bytes"].default
+    port_default = inspect.signature(build_stream_data).parameters[
+        "brick_budget_bytes"].default
+    assert port_default == BRICK_BUDGET_BYTES == jax_default == 256 << 10
+    monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    js = jax_config5_large(5)[0]
+    ps = config5_large(5, device="cpu")[0]
+    _assert_stream_equal(ps.trav.stream, js.trav.stream)
+    _assert_stream_equal(build_stream_data(ps.bvh, ps.mesh, device="cpu"),
+                         jax_build_stream_data(js.bvh, js.mesh))
+    assert ps.trav.stream.n_bricks >= 2
+
+
+@pytest.mark.parametrize("case", ["all_masked", "empty"])
+def test_stream_walk_masked_and_empty_batches(case):
+    trav = _layout_case("small", SMALL_BUDGET)
+    o, d = _rays(4)
+    if case == "empty":
+        o, d = o[:0].copy(), d[:0].copy()
+    r = o.shape[0]
+    t_max = _t(np.full((r,), 1e7, np.float32))
+    mask = torch.zeros(r, dtype=torch.bool)
+    hit, stats = trs.closest_hit_stream(trav, _v3(o), _v3(d), t_max, mask,
+                                        with_stats=True)
+    assert hit.tri.shape == (r,) and stats.shape == (4, r)
+    assert (hit.tri.numpy() == -1).all() and int(stats.sum()) == 0
+    np.testing.assert_array_equal(hit.t.numpy(), t_max.numpy())
+    occ, stats = trs.any_hit_stream(trav, _v3(o), _v3(d), t_max, mask,
+                                    with_stats=True)
+    assert occ.shape == (r,) and occ.dtype == torch.bool
+    assert not occ.numpy().any() and int(stats.sum()) == 0
 
 
 @pytest.mark.parametrize("seed", [3, 7])
@@ -345,7 +517,7 @@ def test_config5_large_builds_a_stream_layout():
     ps, cam = config5_large(5, device="cpu")
     s = ps.trav.stream
     assert ps.trav.tri9.shape[0] == 25604 and s is not None
-    assert s.brick_words * 4 <= 96 << 10 and s.n_bricks > 1
+    assert s.brick_words * 4 <= BRICK_BUDGET_BYTES and s.n_bricks > 1
     assert route.traversal_route(ps.trav, True) == "stream"
     leaves = scene_to_arrays(ps)
     assert int(leaves["stream.n_bricks"]) == s.n_bricks
