@@ -93,10 +93,9 @@ def kernel_info(trav: TravData) -> dict:
     from pnraytracing_tpu_torch.cuda_build import library
 
     fn = library("traverse_stream").pnrt_stream_kernel_info
-    n_top = trav.stream.n_top_rows
-    return {name: {"registers": fn(closest, 0, n_top),
-                   "blocks_per_sm": fn(closest, 1, n_top),
-                   "threads": fn(closest, 2, n_top)}
+    return {name: {"registers": fn(closest, 0),
+                   "blocks_per_sm": fn(closest, 1),
+                   "threads": fn(closest, 2)}
             for name, closest in (("closest_hit_stream", 1),
                                   ("any_hit_stream", 0))}
 
@@ -110,8 +109,7 @@ def _kernel(trav, o, d, t_max, mask, closest, with_stats):
     hit_outs = outs if closest else (None,) * 4
     occ = None if closest else outs[0]
     err = library("traverse_stream").pnrt_stream(
-        int(closest), ptr(s.top16), s.n_top_rows, ptr(s.bricks),
-        s.brick_words, ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y),
+        int(closest), ptr(s.top16), ptr(s.bricks), s.brick_words, ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y),
         ptr(d.z), ptr(t_max), ptr(mask), r, *[ptr(x) for x in hit_outs],
         ptr(occ), ptr(stats), stream_of(o.x))
     name = "closest_hit_stream" if closest else "any_hit_stream"

@@ -39,8 +39,10 @@
 // read 1-3 KB, held two blocks an SM and cost 0.6027 ms (closest, 262,144
 // rays) and 0.8106 ms (any, 524,288 rays) against 0.1044 / 0.1280 ms of
 // the resident walk on the same rays (NVIDIA H100 80GB HBM3, 700.00 W).
-// This kernel takes 0.114 / 0.136 ms there, on 256 KB and on 96 KB bricks
-// alike (chip_smoke.py; PERF.md section 6).
+// This kernel takes 0.1143 / 0.1318 ms there, 1.09x / 0.99x the resident
+// walk in its own run (0.1051 / 0.1334 ms), and 0.1137 / 0.1337 ms on
+// 96 KB bricks (chip_smoke.py from a git archive of the tree, same card
+// and limit; PERF.md section 6).
 //
 // Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): bytes = the rays
 // in and out plus the top tree and the brick array once; operations =
@@ -49,50 +51,30 @@
 // traverse.cu, warp divergence and dependent L2 reads of the per-thread
 // walk.
 //
-// Compile-time trials (scripts/torch_stream_trials.py sets them, the
-// build does not).  PNRT_STREAM_THREADS, the block size: 64 and 256
-// measured within 4% of the default 128 (256 faster on closest, slower
-// on any).  PNRT_STREAM_TOP_SMEM = 1 copies a top tree of at most 32 KB
-// into shared memory once a block: it measured 11% (closest) and 25%
-// (any) slower on that scene, whose 57 top rows are hot in L1 anyway,
-// for 18-28 more registers, so the default build reads the top tree in
-// place and uses no shared memory at all.
+// Measured and not kept (same card; PERF.md section 6): blocks of
+// 64 and 256 threads ran within 4% of 128 (256 faster on closest, slower
+// on any); a top tree copied into shared memory once a block ran 11%
+// (closest) and 25% (any) slower, the scene's 57 top rows being hot in L1
+// anyway, for 18-28 more registers.  So the top tree is read in place and
+// the kernel uses no shared memory at all.
 
 #include "intersect.cuh"
-
-#ifndef PNRT_STREAM_THREADS
-#define PNRT_STREAM_THREADS 128
-#endif
-#ifndef PNRT_STREAM_TOP_SMEM
-#define PNRT_STREAM_TOP_SMEM 0
-#endif
 
 using namespace pnrt;
 
 namespace {
 
-constexpr int kThreads = PNRT_STREAM_THREADS;
+constexpr int kThreads = 128;
 constexpr int kHeaderWords = 4;  // tris_off, tri_base, n_rows, n_tris
-constexpr int kTopSmemBytes = 32 << 10;
 
 template <bool CLOSEST>
-__global__ void __launch_bounds__(kThreads, 512 / kThreads)
-stream_kernel(const float* __restrict__ top16, int n_top,
+__global__ void __launch_bounds__(kThreads, 4)
+stream_kernel(const float* __restrict__ top16,
               const float* __restrict__ bricks, int brick_words, Rays rays,
               float* __restrict__ t_out, int* __restrict__ tri_out,
               float* __restrict__ b1_out, float* __restrict__ b2_out,
               uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-#if PNRT_STREAM_TOP_SMEM
-  // trial: the top tree copied into shared memory once a block
-  extern __shared__ float4 s_top[];
-  const bool top_shared = n_top * 64 <= kTopSmemBytes;
-  if (top_shared) {
-    for (int k = threadIdx.x; k < 4 * n_top; k += kThreads)
-      s_top[k] = __ldg(reinterpret_cast<const float4*>(top16) + k);
-    __syncthreads();
-  }
-#endif
   if (i >= rays.n) return;
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
@@ -157,13 +139,6 @@ stream_kernel(const float* __restrict__ top16, int n_top,
       ++entered;
     }
     const float t_lim = CLOSEST ? t_best : t_max;
-#if PNRT_STREAM_TOP_SMEM
-    if (level < 0 && top_shared) {
-      const float4* q = s_top + 4 * info;
-      push_children(r, make_row(q[0], q[1], q[2], q[3]), t_lim, stack, top);
-      continue;
-    }
-#endif
     push_children(r, load_row(rows + 16 * (int64_t)info), t_lim, stack, top);
   }
 
@@ -179,13 +154,6 @@ stream_kernel(const float* __restrict__ top16, int n_top,
   if (stats != nullptr) stats[3 * (int64_t)rays.n + i] = entered;
 }
 
-inline size_t smem_bytes(int n_top) {
-#if PNRT_STREAM_TOP_SMEM
-  if ((size_t)n_top * 64 <= (size_t)kTopSmemBytes) return (size_t)n_top * 64;
-#endif
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -194,8 +162,7 @@ extern "C" {
 // stats may be null, else [4, n] int32 per ray: pops (top tree and
 // bricks), leaf pops, triangle tests, bricks entered.  Returns
 // cudaGetLastError() after the launch.
-int pnrt_stream(int closest, const float* top16, int n_top,
-                const float* bricks, int brick_words, const float* ox,
+int pnrt_stream(int closest, const float* top16, const float* bricks, int brick_words, const float* ox,
                 const float* oy, const float* oz, const float* dx,
                 const float* dy, const float* dz, const float* t_max,
                 const uint8_t* mask, int n, float* t_out, int* tri_out,
@@ -206,9 +173,8 @@ int pnrt_stream(int closest, const float* top16, int n_top,
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto kernel = closest ? stream_kernel<true> : stream_kernel<false>;
-  kernel<<<blocks, kThreads, smem_bytes(n_top), s>>>(
-      top16, n_top, bricks, brick_words, rays, t_out, tri_out, b1_out, b2_out,
-      occ_out, stats);
+  kernel<<<blocks, kThreads, 0, s>>>(top16, bricks, brick_words, rays, t_out,
+                                     tri_out, b1_out, b2_out, occ_out, stats);
   return (int)cudaGetLastError();
 }
 
@@ -216,7 +182,7 @@ int pnrt_stream(int closest, const float* top16, int n_top,
 // thread, what == 1 the blocks an SM can hold at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), what == 2 the threads
 // a block.  A negative value is minus the CUDA error.
-int pnrt_stream_kernel_info(int closest, int what, int n_top) {
+int pnrt_stream_kernel_info(int closest, int what) {
   auto kernel = closest ? stream_kernel<true> : stream_kernel<false>;
   if (what == 2) return kThreads;
   if (what == 0) {
@@ -226,7 +192,7 @@ int pnrt_stream_kernel_info(int closest, int what, int n_top) {
   }
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, kThreads, smem_bytes(n_top));
+      &blocks, kernel, kThreads, 0);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
