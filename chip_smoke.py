@@ -66,7 +66,9 @@ OPS_AABB = 25
 OPS_TRIANGLE = 50
 OPS_ENTRY_BOX = 25
 ROW_BYTES = 64  # one wide row
-TRI_BYTES = 36  # one triangle's nine corner words
+TRI_BYTES = 36  # one triangle's nine corner words (tri9, the bricks)
+TRI12_BYTES = 48  # one padded triangle row (tri12, the resident wide walks)
+ATTR_BYTES = 64  # one tri_attr16 row, read once per ray that hits
 
 RAY_IN = 4 * 7 + 1  # bytes in per ray: ox..dz, t_max (f32) + mask (bool)
 
@@ -156,6 +158,84 @@ def trav_ops(stats, binary=False):
     pops, leaf, tris = (int(s.sum()) for s in stats[:3])
     slabs = pops if binary else 2 * (pops - leaf)
     return OPS_AABB * slabs + OPS_TRIANGLE * tris
+
+
+def spread(x) -> dict:
+    """mean, median, 99th percentile and maximum of a per-ray count."""
+    import torch
+
+    xf = x.to(torch.float32)
+    q = torch.quantile(xf[:: max(1, xf.numel() // (1 << 20))],
+                       torch.tensor([0.5, 0.99], device=x.device))
+    return {"mean": float(xf.mean()), "p50": float(q[0]),
+            "p99": float(q[1]), "max": int(x.max())}
+
+
+def walk_figures(st, tri_bytes=TRI12_BYTES, fills=0) -> dict:
+    """What a walk's per-ray stats ([>=3, R]: pops, leaf pops, triangle
+    tests) say about how it runs, with rays grouped 32 by 32 in launch
+    order as the warps take them:
+
+    * ``simt_efficiency``: sum(x) / (32 * sum over warps of max(x in the
+      warp)) for pops and for triangle tests: the share of lane slots
+      that do work while a warp runs as long as its longest ray;
+    * ``both_branches``: the share of a warp's iterations (max pops in
+      the warp) in which some lane pops a leaf while another pops a row.
+      Per-ray counts do not give the order of pops, so three figures:
+      ``lower`` = (max leaf pops + max row pops - iterations)+, ``upper``
+      = min(iterations, sum of leaf pops, sum of row pops), both summed
+      over warps and divided by the iterations, and ``estimate``, which
+      places each lane's leaf and row pops uniformly at random among the
+      warp's iterations: 1 - P(no leaf lane) - P(no row lane) +
+      P(neither), averaged with the iterations as weights;
+    * ``longest_warp_pops``: the most iterations any warp runs, and
+      ``mean_warp_pops`` the mean over warps;
+    * ``touched_bytes``: 64 B a row pop + ``tri_bytes`` a triangle test +
+      64 B for each of ``fills`` attribute rows, and ``touched_hbm_ms``,
+      those bytes at the HBM rate (they come from L1/L2: the tables are
+      far smaller)."""
+    import torch
+
+    pops, leaf, tris = (s.to(torch.int64) for s in st[:3])
+    r = pops.numel()
+    pad = (-r) % 32
+    warp = lambda x: torch.nn.functional.pad(x, (0, pad)).view(-1, 32)
+    wp, wl, wt = warp(pops), warp(leaf), warp(tris)
+    wn = wp - wl  # row pops
+    iters = wp.amax(dim=1)  # iterations a warp runs
+    tot = max(int(iters.sum()), 1)
+    eff_t = int(tris.sum()) / max(32 * int(wt.amax(dim=1).sum()), 1)
+    lower = (wl.amax(dim=1) + wn.amax(dim=1) - iters).clamp(min=0)
+    upper = torch.minimum(iters, torch.minimum(wl.sum(dim=1), wn.sum(dim=1)))
+    w = iters.clamp(min=1).to(torch.float64)[:, None]
+    p_leaf, p_row = wl / w, wn / w  # a lane's chance to be in that branch
+    no_leaf = (1 - p_leaf).prod(dim=1)
+    no_row = (1 - p_row).prod(dim=1)
+    neither = (1 - p_leaf - p_row).clamp(min=0).prod(dim=1)
+    both = (1 - no_leaf - no_row + neither).clamp(min=0)
+    rows_b = ROW_BYTES * int((pops - leaf).sum())
+    bytes_ = rows_b + tri_bytes * int(tris.sum()) + ATTR_BYTES * int(fills)
+    return {
+        "rays": r, "pops": spread(pops), "leaf_pops": spread(leaf),
+        "tri_tests": spread(tris),
+        "simt_efficiency": {"pops": int(pops.sum()) / (32 * tot),
+                            "tri_tests": eff_t},
+        "both_branches": {"lower": int(lower.sum()) / tot,
+                          "estimate": float((both * iters).sum()) / tot,
+                          "upper": int(upper.sum()) / tot},
+        "longest_warp_pops": int(iters.max()),
+        "mean_warp_pops": tot / iters.numel(),
+        "touched_bytes": bytes_,
+        "touched_hbm_ms": bytes_ / HBM_BYTES_PER_S * 1e3}
+
+
+def check_stats(name, got, want) -> None:
+    """A kernel's per-ray walk stats against its plain version's."""
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: walk stats differ from the plain "
+                             "version")
 
 
 def port_kernel_name(key: str):
@@ -402,7 +482,8 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
 def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                   counts, cfgp) -> list:
     """Phases 9-11: config5_large through the brick-streaming kernels.
-    Returns their rows of the kernels line."""
+    Returns their rows of the kernels line and the times of the resident
+    wide kernels on config5's rays, by wrapper name."""
     import torch
 
     from pnraytracing_tpu_torch.accel.bricks import build_stream_data
@@ -566,6 +647,22 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
         resident_pops=int(trv.any_hit(trav, so, sd, stm, smask,
                                       with_stats=True)[1][0].sum()),
         bound_ms=bnd[0], bound_by=bnd[1], **touched(st)))
+    # kernels 1-3 on the same rays (the resident tables of the large
+    # scene: 3.6 MB of rows, 4.9 MB of padded triangles, all in the L2)
+    hit, _, st = trv.closest_hit_attr(trav, o, d, tm, mask, with_stats=True)
+    figures = {"closest_hit_attr": walk_figures(
+        st, fills=int(hit.valid.sum()))}
+    figures["closest_hit"] = walk_figures(
+        trv.closest_hit(trav, o, d, tm, mask, with_stats=True)[1])
+    figures["any_hit"] = walk_figures(
+        trv.any_hit(trav, so, sd, stm, smask, with_stats=True)[1])
+    on_config5 = {
+        "closest_hit_attr": time_ms(lambda: trv.closest_hit_attr(
+            trav, o, d, tm, mask), 10),
+        "closest_hit": rows[0]["resident_ms"],
+        "any_hit": rows[1]["resident_ms"]}
+    emit({"phase": "walk_figures", "scene": "config5", "ms": on_config5,
+          "kernels": figures})
     emit({"phase": "stream_frame", "width": WIDTH, "height": HEIGHT,
           "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
           "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),
@@ -579,7 +676,7 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "card": smi})
     emit(dict(phase="stream_profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
-    return rows
+    return rows, on_config5
 
 
 def main() -> int:
@@ -614,13 +711,15 @@ def main() -> int:
     scene, cam_state = config3_teapot_night(env_height=256, device=dev)
     camera = cam_state.basis(device=dev)
     trav = scene.trav
-    scene_bytes = 4 * (trav.nodes16c.numel() + trav.tri9.numel())
+    # the tables the resident wide kernels read: rows and padded triangles
+    scene_bytes = 4 * (trav.nodes16c.numel() + trav.tri12.numel())
     emit({"phase": "scene", "seconds": time.perf_counter() - t0,
           "triangles": trav.tri9.shape[0],
           "wide_rows": trav.nodes16c.shape[0],
           "treelets": trav.treelets.shape[0], "bvh_depth": trav.bvh_depth,
           "scene_bytes": scene_bytes,
-          "attr_bytes": 4 * trav.tri_attr16.numel()})
+          "attr_bytes": 4 * trav.tri_attr16.numel(),
+          "wide_kernels": trv.kernel_info()})
 
     # ---- 4. kernel parity on the rays of one plain-path frame ----------
     modules = (integrator, trv, trs, compaction)
@@ -636,22 +735,36 @@ def main() -> int:
     for label, args in (("primary", primary), ("bounce0", cont)):
         o, d, tm = args[1], args[2], args[3]
         mask = args[4] if len(args) > 4 else None
-        want, wattr = trv.plain_closest_hit_attr(trav, o, d, tm, mask)
-        got, gattr = trv.closest_hit_attr(trav, o, d, tm, mask)
+        want, wattr, wst = trv.plain_closest_hit_attr(trav, o, d, tm, mask,
+                                                      with_stats=True)
+        got, gattr, st = trv.closest_hit_attr(trav, o, d, tm, mask,
+                                              with_stats=True)
         bad_a, err_a = check_closest("closest_hit_attr/" + label, got, want,
                                      r, (gattr, wattr))
-        got3 = trv.closest_hit(trav, o, d, tm, mask)
-        bad_c, err_c = check_closest("closest_hit/" + label, got3,
-                                     trv.plain_closest_hit(trav, o, d, tm,
-                                                           mask), r)
+        check_stats("closest_hit_attr/" + label, st, wst)
+        # the fill depends on the winning hit alone: every value equal
+        attr_err = max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(gattr, wattr))
+        got3, st = trv.closest_hit(trav, o, d, tm, mask, with_stats=True)
+        want3, wst = trv.plain_closest_hit(trav, o, d, tm, mask,
+                                           with_stats=True)
+        bad_c, err_c = check_closest("closest_hit/" + label, got3, want3, r)
+        check_stats("closest_hit/" + label, st, wst)
         results[label] = {"attr_tri_mismatch": bad_a, "attr_err": err_a,
-                          "tri_mismatch": bad_c, "err": err_c}
+                          "attr_fill_max_abs_err": attr_err,
+                          "tri_mismatch": bad_c, "err": err_c,
+                          "stats_equal": True}
+        if bad_a or bad_c or err_a or err_c or attr_err:
+            raise AssertionError(f"closest hit/{label}: {results[label]}: "
+                                 "the kernels must equal their plain "
+                                 "versions bit for bit")
     o, d, tm, mask = shadow[1], shadow[2], shadow[3], shadow[4]
-    occ_k = trv.any_hit(trav, o, d, tm, mask)
-    occ_p = trv.plain_any_hit(trav, o, d, tm, mask)
+    occ_k, st = trv.any_hit(trav, o, d, tm, mask, with_stats=True)
+    occ_p, wst = trv.plain_any_hit(trav, o, d, tm, mask, with_stats=True)
     occ_bad = int((occ_k != occ_p).sum())
     if occ_bad:
         raise AssertionError(f"any_hit: {occ_bad} occlusion mismatches")
+    check_stats("any_hit", st, wst)
     ko, kd, tre = key_in
     key_k = compaction.entry_key(ko, kd, tre)
     key_p = compaction.treelet_entry_key(ko, kd, tre)
@@ -661,7 +774,8 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "kernel_parity", "rays": r,
           "shadow_rays": int(o.x.shape[0]), "closest": results,
-          "any_hit_mismatch": occ_bad, "entry_key_mismatch": key_bad})
+          "any_hit_mismatch": occ_bad, "any_stats_equal": True,
+          "entry_key_mismatch": key_bad})
 
     # ---- 5. frame parity: kernels vs plain versions on the card --------
     cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
@@ -721,9 +835,12 @@ def main() -> int:
     rows = []
     o, d, tm = cont[1], cont[2], cont[3]
     mask = cont[4]
-    _, _, st = trv.closest_hit_attr(trav, o, d, tm, mask, with_stats=True)
+    info = trv.kernel_info()
+    figures = {}
+    hit, _, st = trv.closest_hit_attr(trav, o, d, tm, mask, with_stats=True)
     bnd, by = bound(r * (RAY_IN + 40) + scene_bytes + attr_bytes,
                     trav_ops(st))
+    figures["closest_hit_attr"] = walk_figures(st, fills=int(hit.valid.sum()))
     rows.append(dict(
         name="closest_hit_attr", source="pnraytracing_tpu_torch/csrc/"
         "traverse.cu", replaces="pnraytracing_tpu/accel/traverse_pallas.py"
@@ -735,6 +852,7 @@ def main() -> int:
             trav, o, d, tm, mask), 2), bound_ms=bnd, bound_by=by))
     _, st = trv.closest_hit(trav, o, d, tm, mask, with_stats=True)
     bnd, by = bound(r * (RAY_IN + 16) + scene_bytes, trav_ops(st))
+    figures["closest_hit"] = walk_figures(st)
     rows.append(dict(
         name="closest_hit", source="pnraytracing_tpu_torch/csrc/traverse.cu",
         replaces="pnraytracing_tpu/accel/traverse_pallas.py:340",
@@ -748,6 +866,7 @@ def main() -> int:
     _, st = trv.any_hit(trav, so, sd, stm, smask, with_stats=True)
     rs = so.x.shape[0]
     bnd, by = bound(rs * (RAY_IN + 1) + scene_bytes, trav_ops(st))
+    figures["any_hit"] = walk_figures(st)
     rows.append(dict(
         name="any_hit", source="pnraytracing_tpu_torch/csrc/traverse.cu",
         replaces="pnraytracing_tpu/accel/traverse_pallas.py:668",
@@ -756,6 +875,12 @@ def main() -> int:
         ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask), 20),
         plain_ms=time_ms(lambda: trv.plain_any_hit(trav, so, sd, stm, smask),
                          2), bound_ms=bnd, bound_by=by))
+    for row in rows:  # kernels 1-3: how the walk runs on these rays
+        f = figures[row["name"]]
+        row.update(info[row["name"]], touched_bytes=f["touched_bytes"],
+                   touched_hbm_ms=f["touched_hbm_ms"],
+                   simt_efficiency=f["simt_efficiency"]["pops"])
+    emit({"phase": "walk_figures", "scene": "flagship", "kernels": figures})
     k_total = tre.shape[0]
     bnd, by = bound(r * (24 + 4) + 24 * k_total, OPS_ENTRY_BOX * k_total * r)
     rows.append(dict(
@@ -780,8 +905,13 @@ def main() -> int:
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
 
     rows += binary_phase(trv, trav, cont, shadow, primary, launches)
-    rows += stream_phases(render_frame, RenderConfig, dev, smi, modules,
-                          tables, counts, cfgp)
+    stream_rows, on_config5 = stream_phases(render_frame, RenderConfig, dev,
+                                            smi, modules, tables, counts,
+                                            cfgp)
+    for row in rows:  # kernels 1-3 on config5's rays
+        if row["name"] in on_config5:
+            row["config5_ms"] = on_config5[row["name"]]
+    rows += stream_rows
     for row in rows:
         row.update(route="cuda", library_ms=None)
     emit({"kernels": rows})

@@ -5,6 +5,9 @@ that the wide walk uses.  Built on the host in numpy at scene build and
 then moved to the device as tensors:
 
 * ``tri9``       [T, 9]  f32 — the three corner positions per triangle;
+* ``tri12``      [T, 12] f32 — ``tri9`` padded with three zeros to a
+  16-byte aligned 48-byte row, which the resident wide kernels read as
+  three ``float4`` (:func:`pack_tri12`);
 * ``nodes8``     [N, 8]  f32 — one row per node of the flat BVH for the
   binary pop-test walk: min, max, enc(right*4 + axis), enc(start*16 +
   count) (:func:`pack_nodes8`);
@@ -50,12 +53,22 @@ ATTR_TEX_BASE = 4096
 @dataclasses.dataclass
 class TravData(_Movable):
     tri9: torch.Tensor  # [T, 9] f32
+    tri12: torch.Tensor  # [T, 12] f32: tri9, zero-padded
     nodes8: torch.Tensor  # [N, 8] f32
     nodes16c: torch.Tensor  # [N_internal, 16] f32
     tri_attr16: torch.Tensor  # [T, 16] f32
     treelets: torch.Tensor  # [K, 6] f32
     bvh_depth: int  # max node depth (root = 1); bounds the walk's stack
     stream: StreamData | None = None
+
+
+def pack_tri12(tri9: np.ndarray) -> np.ndarray:
+    """[T, 12] rows ``[v0(3), v1(3), v2(3), 0, 0, 0]`` holding exactly the
+    values of ``tri9`` [T, 9]."""
+    tri9 = np.asarray(tri9, np.float32)
+    out = np.zeros((tri9.shape[0], 12), np.float32)
+    out[:, :9] = tri9
+    return out
 
 
 def pack_nodes8(built) -> np.ndarray:

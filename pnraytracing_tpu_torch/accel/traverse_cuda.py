@@ -103,6 +103,9 @@ def _check(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
         check_table("trav.nodes8", trav.nodes8, 8, dev, align=True)
     else:
         check_table("trav.nodes16c", trav.nodes16c, 16, dev, align=True)
+        check_table("trav.tri12", trav.tri12, 12, dev, align=True)
+        if trav.tri12.shape[0] != trav.tri9.shape[0]:
+            raise ValueError("trav.tri12 must have a row per row of tri9")
     if variant == "attr":
         check_table("trav.tri_attr16", trav.tri_attr16, 16, dev, align=True)
     if stack_depth < trav.bvh_depth:
@@ -141,6 +144,37 @@ def _raise_on(err, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+# TRIAL: the triangle table of the loaded build (tri9 for PNRT_TRI12=0)
+TRIAL_TRI9 = False
+TRIAL_PERSIST = False  # the loaded build takes rays from a counter
+
+
+def _tris(trav):
+    return trav.tri9 if TRIAL_TRI9 else trav.tri12
+
+
+_WALK_KERNELS = {"closest_hit_attr": 0, "closest_hit": 1, "any_hit": 2}
+
+
+def kernel_info() -> dict:
+    """What the card gives each resident wide-walk kernel as built:
+    registers and bytes of local memory a thread, threads a block and
+    the blocks an SM holds at once; raises if the card refuses to say."""
+    from pnraytracing_tpu_torch.cuda_build import library
+
+    lib = library("traverse")
+    out = {}
+    for name, which in _WALK_KERNELS.items():
+        vals = {k: lib.pnrt_walk_kernel_info(which, what) for what, k in
+                enumerate(("registers", "blocks_per_sm", "threads",
+                           "local_bytes"))}
+        if min(vals.values()) < 0:
+            raise RuntimeError(f"{name}: CUDA error {-min(vals.values())} "
+                               "reading the kernel's attributes")
+        out[name] = vals
+    return out
+
+
 def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
     from pnraytracing_tpu_torch.cuda_build import library
 
@@ -150,12 +184,14 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
     attrs = (f32(), f32(), f32(), f32(), f32(),
              torch.empty(r, dtype=torch.int32, device=dev)) \
         if attr else (None,) * 6
+    counter = (torch.zeros(1, dtype=torch.int32, device=dev)
+               if TRIAL_PERSIST else None)
     err = library("traverse").pnrt_closest_hit(
-        ptr(trav.nodes16c), ptr(trav.tri9), ptr(trav.tri_attr16),
+        ptr(trav.nodes16c), ptr(_tris(trav)), ptr(trav.tri_attr16),
         ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
         ptr(t_max), ptr(mask), r, int(attr), ptr(t), ptr(tri),
         ptr(b1), ptr(b2), *[ptr(a) for a in attrs], ptr(stats),
-        stream_of(o.x))
+        ptr(counter), stream_of(o.x))
     _raise_on(err, "closest-hit")
     LAUNCHES["closest_hit_attr" if attr else "closest_hit"] += 1
     return Hit(tri=tri, t=t, b1=b1, b2=b2), (attrs if attr else None), stats
@@ -165,10 +201,13 @@ def _kernel_any(trav, o, d, t_max, mask, with_stats):
     from pnraytracing_tpu_torch.cuda_build import library
 
     (occ,), stats = _outputs(o.x.shape[0], o.x.device, False, with_stats)
+    counter = (torch.zeros(1, dtype=torch.int32, device=o.x.device)
+               if TRIAL_PERSIST else None)
     err = library("traverse").pnrt_any_hit(
-        ptr(trav.nodes16c), ptr(trav.tri9), ptr(o.x), ptr(o.y),
+        ptr(trav.nodes16c), ptr(_tris(trav)), ptr(o.x), ptr(o.y),
         ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z), ptr(t_max),
-        ptr(mask), o.x.shape[0], ptr(occ), ptr(stats), stream_of(o.x))
+        ptr(mask), o.x.shape[0], ptr(occ), ptr(stats), ptr(counter),
+        stream_of(o.x))
     _raise_on(err, "any-hit")
     LAUNCHES["any_hit"] += 1
     return occ, stats
@@ -242,22 +281,17 @@ class Rays:
 
 
 class WalkState:
-    """The results a plain walk carries per ray: the closest hit (and the
-    attribute fill), the occlusion flag and the stats (``n_stats`` rows:
+    """The results a plain walk carries per ray: the closest hit, the
+    occlusion flag and the stats (``n_stats`` rows:
     pops, leaf pops, triangle tests, and what the walk adds)."""
 
     def __init__(self, ray: Rays, mode: str, n_stats: int = 3):
         r, dev = ray.t_max.shape[0], ray.t_max.device
-        self.mode = mode
         self.any_mode = mode == "any"
         self.t_best = ray.t_max.clone()
         self.tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
         self.b1 = torch.zeros(r, dtype=torch.float32, device=dev)
         self.b2 = torch.zeros_like(self.b1)
-        self.attrs = [torch.zeros_like(self.b1), torch.zeros_like(self.b1),
-                      torch.ones_like(self.b1), torch.zeros_like(self.b1),
-                      torch.zeros_like(self.b1),
-                      torch.zeros(r, dtype=torch.int32, device=dev)]
         self.occ = torch.zeros(r, dtype=torch.bool, device=dev)
         self.stats = torch.zeros((n_stats, r), dtype=torch.int32,
                                  device=dev)
@@ -265,8 +299,7 @@ class WalkState:
     def t_lim(self, ray: Rays, rows):
         return ray.t_max[rows] if self.any_mode else self.t_best[rows]
 
-    def test_leaves(self, ray: Rays, lrows, start, count, fetch_tri,
-                    attr16=None):
+    def test_leaves(self, ray: Rays, lrows, start, count, fetch_tri):
         """The triangle tests of leaf pops ``lrows`` (leaf k of row j is
         triangle start[j] + k), in slot order; ``fetch_tri(rows, ti)``
         gives their [n, 9] corners and global ids."""
@@ -292,18 +325,32 @@ class WalkState:
             b1w, b2w = b1[win], b2[win]
             self.b1[w] = b1w
             self.b2[w] = b2w
-            if self.mode == "attr":
-                a = attr16[ids[win]]
-                b0w = 1.0 - b1w - b2w
-                for j, (c0, c1, c2) in enumerate(
-                        ((0, 3, 6), (1, 4, 7), (2, 5, 8), (9, 11, 13),
-                         (10, 12, 14))):
-                    self.attrs[j][w] = (a[:, c0] * b0w + a[:, c1] * b1w
-                                        + a[:, c2] * b2w)
-                self.attrs[5][w] = a[:, 15].to(torch.int32)
 
     def hit(self) -> Hit:
         return Hit(tri=self.tri, t=self.t_best, b1=self.b1, b2=self.b2)
+
+
+# tri_attr16 columns of the three corners' values of nx, ny, nz, u, v
+_ATTR_COLUMNS = ((0, 3, 6), (1, 4, 7), (2, 5, 8), (9, 11, 13), (10, 12, 14))
+
+
+def interaction_fill(tri_attr16, tri, b1, b2):
+    """The interaction fill ``(nx, ny, nz, u, v, mt)`` of hits ``tri``
+    [R] int32 at barycentrics ``b1``, ``b2``: each value interpolated as
+    ``a0 * (1 - b1 - b2) + a1 * b1 + a2 * b2`` from the triangle's row of
+    ``tri_attr16``, ``mt`` its material/texture word; on a miss
+    (``tri < 0``) the defaults: normal +z, uv 0, word 0.  It depends on
+    the winning hit alone, so the kernel evaluates it once after its
+    walk, in this order of operations."""
+    valid = tri >= 0
+    a = tri_attr16[tri.clamp(min=0).long()]
+    b0 = 1.0 - b1 - b2
+    default = (0.0, 0.0, 1.0, 0.0, 0.0)
+    out = [torch.where(valid, a[:, c0] * b0 + a[:, c1] * b1 + a[:, c2] * b2,
+                       torch.full_like(b1, miss))
+           for (c0, c1, c2), miss in zip(_ATTR_COLUMNS, default)]
+    word = a[:, 15].to(torch.int32)
+    return (*out, torch.where(valid, word, torch.zeros_like(word)))
 
 
 def order_children(ray: Rays, rows, row, t_lim):
@@ -328,7 +375,7 @@ def push(stack, top, rows, entry, commit):
 
 
 def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
-              fetch_row, fetch_tri, attr16=None):
+              fetch_row, fetch_tri):
     """Plain version of the kernels' push-test wide walk: every ray keeps
     its own stack (a row of an [R, stack_depth] tensor); each step pops
     one entry for every ray whose stack is not empty and works on just
@@ -351,7 +398,7 @@ def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
             meta = (-info[leaf] - 1).long()
             st.test_leaves(ray, lrows, torch.div(meta, 16,
                                                  rounding_mode="floor"),
-                           meta % 16, fetch_tri, attr16)
+                           meta % 16, fetch_tri)
 
         irows = idx[~leaf]
         if irows.numel():
@@ -368,14 +415,13 @@ def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
 def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
                 mode: str):
     """The resident wide walk of csrc/traverse.cu, plainly: same visit
-    order, same arithmetic, same results.  ``mode``: 'closest', 'attr' or
-    'any'."""
+    order, same arithmetic, same results.  ``mode``: 'closest' or 'any'."""
     ray = Rays.of(o, d, t_max)
     st = WalkState(ray, mode)
     active = (torch.ones_like(st.occ) if mask is None else mask)
     wide_walk(ray, st, active, stack_depth,
               lambda rows, info: trav.nodes16c[info],
-              lambda rows, ti: (trav.tri9[ti], ti), trav.tri_attr16)
+              lambda rows, ti: (trav.tri9[ti], ti))
     return st
 
 
@@ -428,8 +474,8 @@ def plain_closest_hit_attr(trav, o, d, t_max, mask=None, *, stack_depth=64,
     """The plain version of :func:`closest_hit_attr` on any device (also
     for holding the kernel against it on the card); never launches a
     kernel."""
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "attr")
-    out = (st.hit(), tuple(st.attrs))
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest")
+    out = (st.hit(), interaction_fill(trav.tri_attr16, st.tri, st.b1, st.b2))
     return out + (st.stats,) if with_stats else out
 
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from pnraytracing_tpu_torch.accel.bricks import StreamData
-from pnraytracing_tpu_torch.accel.layout import TravData
+from pnraytracing_tpu_torch.accel.layout import TravData, pack_tri12
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
     BVH,
@@ -58,6 +58,11 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
                 out[f"{group}.{f.name}"] = _np(v)
     for name in _TRAV_FIELDS:
         out[f"trav.{name}"] = _np(getattr(scene.trav, name))
+    # the padded triangle rows are the port's own table: a scene of the
+    # JAX package has none, and its leaf is then made from tri9
+    tri12 = getattr(scene.trav, "tri12", None)
+    out["trav.tri12"] = (_np(tri12) if tri12 is not None
+                         else pack_tri12(out["trav.tri9"]))
     stream = getattr(scene.trav, "stream", None)
     if stream is not None:
         for name in _STREAM_ARRAYS:
@@ -89,6 +94,7 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
             **{n: t(leaves[f"stream.{n}"]) for n in _STREAM_ARRAYS},
             **{n: int(leaves[f"stream.{n}"]) for n in _STREAM_INTS})
     trav = TravData(bvh_depth=depth, stream=stream,
+                    tri12=t(leaves["trav.tri12"]),
                     **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS})
     env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
                     else None)

@@ -10,12 +10,13 @@
 // b.  Divisions are IEEE (no fast math).
 //
 // Loads.  Every table (wide rows, triangles, brick blobs) lies in device
-// memory and is read through __ldg, the read-only path; rows as four
-// float4.
+// memory and is read through __ldg, the read-only path; wide rows as four
+// float4, padded triangle rows (tri12) as three, tri9 rows word by word.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define KSTACK 64
@@ -79,16 +80,15 @@ __device__ __forceinline__ bool hit_aabb(const Ray& r, float mnx, float mny,
 }
 
 // Watertight ray-triangle test (intersect_triangle_c) of the triangle
-// whose nine corner words start at p.
-__device__ __forceinline__ bool hit_triangle(const Ray& r, const float* p,
-                                             float t_max, float& t,
-                                             float& b1, float& b2) {
-  const float p0x = ldf(p + 0) - r.ox, p0y = ldf(p + 1) - r.oy,
-              p0z = ldf(p + 2) - r.oz;
-  const float p1x = ldf(p + 3) - r.ox, p1y = ldf(p + 4) - r.oy,
-              p1z = ldf(p + 5) - r.oz;
-  const float p2x = ldf(p + 6) - r.ox, p2y = ldf(p + 7) - r.oy,
-              p2z = ldf(p + 8) - r.oz;
+// with corners v0, v1, v2.
+__device__ __forceinline__ bool hit_corners(const Ray& r, float v0x,
+                                            float v0y, float v0z, float v1x,
+                                            float v1y, float v1z, float v2x,
+                                            float v2y, float v2z, float t_max,
+                                            float& t, float& b1, float& b2) {
+  const float p0x = v0x - r.ox, p0y = v0y - r.oy, p0z = v0z - r.oz;
+  const float p1x = v1x - r.ox, p1y = v1y - r.oy, p1z = v1z - r.oz;
+  const float p2x = v2x - r.ox, p2y = v2y - r.oy, p2z = v2z - r.oz;
   const float a0 = sel3(r.kx, p0x, p0y, p0z), a1 = sel3(r.ky, p0x, p0y, p0z),
               a2 = sel3(r.kz, p0x, p0y, p0z);
   const float c0b = sel3(r.kx, p1x, p1y, p1z), c1b = sel3(r.ky, p1x, p1y, p1z),
@@ -122,6 +122,26 @@ __device__ __forceinline__ bool hit_triangle(const Ray& r, const float* p,
   b1 = e1 * inv_det;
   b2 = e2 * inv_det;
   return !(any_neg && any_pos) && (det != 0.0f) && (ok_pos || ok_neg);
+}
+
+// The same test of the triangle whose nine corner words start at p (a
+// tri9 row: 36 bytes, so nine scalar loads).
+__device__ __forceinline__ bool hit_triangle(const Ray& r, const float* p,
+                                             float t_max, float& t,
+                                             float& b1, float& b2) {
+  return hit_corners(r, ldf(p + 0), ldf(p + 1), ldf(p + 2), ldf(p + 3),
+                     ldf(p + 4), ldf(p + 5), ldf(p + 6), ldf(p + 7),
+                     ldf(p + 8), t_max, t, b1, b2);
+}
+
+// The same test of the triangle whose padded row [v0, v1, v2, 0, 0, 0]
+// starts at p (a tri12 row: 48 bytes, 16-byte aligned, three float4).
+__device__ __forceinline__ bool hit_triangle12(const Ray& r, const float* p,
+                                               float t_max, float& t,
+                                               float& b1, float& b2) {
+  const float4 a = ldf4(p), b = ldf4(p + 4), c = ldf4(p + 8);
+  return hit_corners(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, t_max,
+                     t, b1, b2);
 }
 
 // One wide row [lmin(3), lmax(3), rmin(3), rmax(3), left, right, axis,
@@ -175,6 +195,29 @@ __device__ __forceinline__ void push_children(const Ray& r, const Row& w,
   order_children(r, w, t, near_c, far_c, h_near, h_far);
   if (h_far) stack[top++] = far_c;
   if (h_near) stack[top++] = near_c;
+}
+
+// The walk's next node after an internal row: the near child if the ray
+// hits it (the far one, if hit too, is pushed), else the far child if
+// hit, else the stack's top; kWalkDone when the stack is empty.  The
+// order of visits is that of push_children followed by a pop.
+constexpr int kWalkDone = INT_MIN;  // no row id and no leaf info
+
+template <int STRIDE = 1>
+__device__ __forceinline__ int pop_node(const int* stack, int& top) {
+  return top > 0 ? stack[STRIDE * --top] : kWalkDone;
+}
+
+template <int STRIDE = 1>
+__device__ __forceinline__ int next_node(const Ray& r, const Row& w, float t,
+                                         int* stack, int& top) {
+  int near_c, far_c;
+  bool h_near, h_far;
+  order_children(r, w, t, near_c, far_c, h_near, h_far);
+  if (h_near && h_far) stack[STRIDE * top++] = far_c;
+  if (h_near) return near_c;
+  if (h_far) return far_c;
+  return pop_node<STRIDE>(stack, top);
 }
 
 struct Rays {

@@ -1,44 +1,32 @@
-// BVH traversal kernels for Hopper (sm_90a) over a scene resident in
-// device memory: closest hit, closest hit with the interaction fill and
-// any hit over the compact wide rows, and the binary pop-test walks.
-//
-// Replaces the TPU kernels of pnraytracing_tpu/accel/traverse_pallas.py:
-//   closest_hit_kernel<true>   <- _closest_kernel_wide_attr
-//   closest_hit_kernel<false>  <- _closest_kernel_wide (the same template
-//                                 with the attribute stores compiled out)
-//   any_hit_kernel             <- _any_kernel_wide
-//   closest_hit_binary_kernel  <- _closest_kernel
-//   any_hit_binary_kernel      <- _any_kernel
-//
-// Design.  One thread per ray, each with its own stack of KSTACK ints.
-// The Pallas kernels walk one SHARED stack per 128-lane ray tile, because
-// Mosaic cannot index a different node per lane; Hopper can, so the tile
-// stack and its per-tile direction signs / axis flags are gone.  The wide
-// walk is push-test: popping an internal row slab-tests BOTH children
-// against the ray's current t and pushes the hit ones, far child first,
-// so the near child (by this ray's own direction sign on the row's split
-// axis) pops next; popping a leaf runs only its triangle tests.  The
-// binary walk is pop-test over nodes8 [N, 8] rows (min, max,
-// enc(right*4+axis), enc(start*16+count)): a popped node tests its own
-// box, then either tests its leaf's triangles or pushes both children
-// (left = node + 1), far first.  The scene (nodes16c [N,16] or nodes8
-// [N,8], tri9 [T,9], tri_attr16 [T,16] f32) stays in device memory: at
-// ~0.75 MB for the flagship teapot it lives in the 50 MB L2.  Rows are
-// read as float4 through __ldg.  Arithmetic and --fmad=false: see
-// intersect.cuh.
-//
-// Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): bytes = the ray
-// inputs (8 words) and outputs (4 or 10 words, plus stats) per ray; work
-// = the counted AABB tests (2 per internal pop for the wide walk, 1 per
-// pop for the binary walk, ~25 flops each) and triangle tests (~50 flops
-// each) that the per-ray stats output reports.  Both bounds are a few
-// microseconds at the flagship's 262k rays, far below the measured time
-// (PERF.md).  The expected limiter of this design is warp divergence: the
-// 32 rays of a warp walk different paths, so a warp runs as long as its
-// longest ray and idles lanes at every branch.  That is left to a later
-// PR (ray sorting is already done by the integrator; a persistent
-// work-stealing loop or a wider BVH are the next steps).  The binary walk
-// pops about twice as many nodes as the wide one for the same hits.
+// TRIAL BUILD: compile-time switches for measuring the walk's variants
+// side by side (scripts/torch_walk_trials.py).
+#ifndef PNRT_THREADS
+#define PNRT_THREADS 128
+#endif
+#ifndef PNRT_MIN_BLOCKS
+#define PNRT_MIN_BLOCKS 1
+#endif
+#ifndef PNRT_TRI12
+#define PNRT_TRI12 1  // 0: tri9 rows, nine scalar loads
+#endif
+#ifndef PNRT_DEFER
+#define PNRT_DEFER 1  // 0: the interaction fill at every improving hit
+#endif
+#ifndef PNRT_NEARREG
+#define PNRT_NEARREG 1  // 0: both children through the stack
+#endif
+#ifndef PNRT_WHILE
+#define PNRT_WHILE 0  // 1: while-while, same order; 2: one leaf postponed
+#endif
+#ifndef PNRT_PERSIST
+#define PNRT_PERSIST 0  // 1: warps fetch 32 rays at a time from a counter
+#endif
+#ifndef PNRT_SMEM_STACK
+#define PNRT_SMEM_STACK 0  // 1: the stack in shared memory
+#endif
+#ifndef PNRT_WALK_STACK
+#define PNRT_WALK_STACK 64
+#endif
 
 #include "intersect.cuh"
 
@@ -46,127 +34,316 @@ using namespace pnrt;
 
 namespace {
 
+constexpr int kWalkThreads = PNRT_THREADS;
+constexpr int kStride = PNRT_SMEM_STACK ? PNRT_THREADS : 1;
+
+// Where a closest-hit walk writes: the hit, the interaction fill (attr
+// kernels only) and the stats (may be null).
+struct ClosestOut {
+  float *t;
+  int* tri;
+  float *b1, *b2, *nx, *ny, *nz, *u, *v;
+  int *mt, *stats;
+};
+
+__device__ __forceinline__ bool test_tri(const Ray& r, const float* tris,
+                                         int ti, float t_lim, float& t,
+                                         float& b1, float& b2) {
+#if PNRT_TRI12
+  return hit_triangle12(r, tris + 12 * (int64_t)ti, t_lim, t, b1, b2);
+#else
+  return hit_triangle(r, tris + 9 * (int64_t)ti, t_lim, t, b1, b2);
+#endif
+}
+
+__device__ __forceinline__ int walk_step(const Ray& r, const float* nodes,
+                                         int row, float t, int* stack,
+                                         int& top) {
+  const Row w = load_row(nodes + 16 * (int64_t)row);
+#if PNRT_NEARREG
+  return next_node<kStride>(r, w, t, stack, top);
+#else
+  int near_c, far_c;
+  bool h_near, h_far;
+  order_children(r, w, t, near_c, far_c, h_near, h_far);
+  if (h_far) stack[kStride * top++] = far_c;
+  if (h_near) stack[kStride * top++] = near_c;
+  return pop_node<kStride>(stack, top);
+#endif
+}
+
+struct Best {
+  float t;
+  int tri;
+  float b1, b2;
+  float nx, ny, nz, u, v;
+  int mt;
+};
+
+// The interaction fill of triangle ti at barycentrics (b1, b2).
+__device__ __forceinline__ void fill(const float* attr16, int ti, float b1,
+                                     float b2, Best& h) {
+  const float b0 = 1.0f - b1 - b2;
+  const float* q = attr16 + 16 * (int64_t)ti;
+  const float4 a = ldf4(q), b = ldf4(q + 4), c = ldf4(q + 8),
+               d = ldf4(q + 12);
+  h.nx = a.x * b0 + a.w * b1 + b.z * b2;
+  h.ny = a.y * b0 + b.x * b1 + b.w * b2;
+  h.nz = a.z * b0 + b.y * b1 + c.x * b2;
+  h.u = c.y * b0 + c.w * b1 + d.y * b2;
+  h.v = c.z * b0 + d.x * b1 + d.z * b2;
+  h.mt = (int)d.w;
+}
+
 template <bool ATTR>
-__global__ void __launch_bounds__(128)
-closest_hit_kernel(const float* __restrict__ nodes,
-                   const float* __restrict__ tri9,
-                   const float* __restrict__ attr16, Rays rays,
-                   float* __restrict__ t_out, int* __restrict__ tri_out,
-                   float* __restrict__ b1_out, float* __restrict__ b2_out,
-                   float* __restrict__ nx_out, float* __restrict__ ny_out,
-                   float* __restrict__ nz_out, float* __restrict__ u_out,
-                   float* __restrict__ v_out, int* __restrict__ mt_out,
-                   int* __restrict__ stats) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rays.n) return;
+__device__ __forceinline__ void closest_leaf(const Ray& r, const float* tris,
+                                             const float* attr16, int info,
+                                             Best& h, int& tri_tests) {
+  const int meta = -info - 1;
+  const int start = meta >> 4;
+  const int count = meta & 15;
+  tri_tests += count;
+  for (int k = 0; k < count; ++k) {
+    const int ti = start + k;
+    float t, b1, b2;
+    if (test_tri(r, tris, ti, h.t, t, b1, b2) && t < h.t) {
+      h.t = t;
+      h.tri = ti;
+      h.b1 = b1;
+      h.b2 = b2;
+#if !PNRT_DEFER
+      if (ATTR) fill(attr16, ti, b1, b2, h);
+#endif
+    }
+  }
+}
+
+template <bool ATTR>
+__device__ __forceinline__ void closest_ray(const float* __restrict__ nodes,
+                                            const float* __restrict__ tris,
+                                            const float* __restrict__ attr16,
+                                            const Rays& rays,
+                                            const ClosestOut& out, int i,
+                                            int* stack) {
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
   const bool active = rays.mask == nullptr || rays.mask[i] != 0;
-  float t_best = rays.t_max[i];
-  int tri_best = -1;
-  float b1_best = 0.0f, b2_best = 0.0f;
+  Best h;
+  h.t = rays.t_max[i];
+  h.tri = -1;
+  h.b1 = 0.0f; h.b2 = 0.0f;
   // miss defaults of the attribute outputs: normal +z, uv 0, word 0
-  float nx_b = 0.0f, ny_b = 0.0f, nz_b = 1.0f, u_b = 0.0f, v_b = 0.0f;
-  int mt_b = 0;
+  h.nx = 0.0f; h.ny = 0.0f; h.nz = 1.0f; h.u = 0.0f; h.v = 0.0f;
+  h.mt = 0;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
-
-  int stack[KSTACK];
   int top = 0;
-  if (active) stack[top++] = 0;  // root row
-  while (top > 0) {
-    const int info = stack[--top];
+  int cur = active ? 0 : kWalkDone;  // the root row
+#if PNRT_WHILE == 0
+  while (cur != kWalkDone) {
     ++pops;
-    if (info < 0) {
+    if (cur < 0) {
       ++leaf_pops;
-      const int meta = -info - 1;
-      const int start = meta >> 4;
-      const int count = meta & 15;
-      tri_tests += count;
-      for (int k = 0; k < count; ++k) {
-        const int ti = start + k;
-        float t, b1, b2;
-        if (hit_triangle(r, tri9 + 9 * (int64_t)ti, t_best, t, b1,
-                               b2) &&
-            t < t_best) {
-          t_best = t;
-          tri_best = ti;
-          b1_best = b1;
-          b2_best = b2;
-          if (ATTR) {
-            // interpolate with THIS test's barycentrics (b0 = 1 - b1 - b2)
-            const float b0 = 1.0f - b1 - b2;
-            const float* q = attr16 + 16 * (int64_t)ti;
-            const float4 a = ldf4(q), b = ldf4(q + 4),
-                         c = ldf4(q + 8), d = ldf4(q + 12);
-            nx_b = a.x * b0 + a.w * b1 + b.z * b2;
-            ny_b = a.y * b0 + b.x * b1 + b.w * b2;
-            nz_b = a.z * b0 + b.y * b1 + c.x * b2;
-            u_b = c.y * b0 + c.w * b1 + d.y * b2;
-            v_b = c.z * b0 + d.x * b1 + d.z * b2;
-            mt_b = (int)d.w;
-          }
-        }
-      }
+      closest_leaf<ATTR>(r, tris, attr16, cur, h, tri_tests);
+      cur = pop_node<kStride>(stack, top);
     } else {
-      push_children(r, load_row(nodes + 16 * (int64_t)info), t_best,
-                    stack, top);
+      cur = walk_step(r, nodes, cur, h.t, stack, top);
     }
   }
-  t_out[i] = t_best;
-  tri_out[i] = tri_best;
-  b1_out[i] = b1_best;
-  b2_out[i] = b2_best;
-  if (ATTR) {
-    nx_out[i] = nx_b;
-    ny_out[i] = ny_b;
-    nz_out[i] = nz_b;
-    u_out[i] = u_b;
-    v_out[i] = v_b;
-    mt_out[i] = mt_b;
+#elif PNRT_WHILE == 1
+  while (cur != kWalkDone) {
+    while (cur >= 0) {
+      ++pops;
+      cur = walk_step(r, nodes, cur, h.t, stack, top);
+    }
+    if (cur != kWalkDone) {
+      ++pops;
+      ++leaf_pops;
+      closest_leaf<ATTR>(r, tris, attr16, cur, h, tri_tests);
+      cur = pop_node<kStride>(stack, top);
+    }
   }
-  write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
+#else
+  int leaf = kWalkDone;  // the postponed leaf
+  while (cur != kWalkDone || leaf != kWalkDone) {
+    while (cur != kWalkDone) {
+      if (cur < 0) {
+        if (leaf != kWalkDone) break;
+        leaf = cur;
+        cur = pop_node<kStride>(stack, top);
+      } else {
+        ++pops;
+        cur = walk_step(r, nodes, cur, h.t, stack, top);
+      }
+    }
+    while (leaf != kWalkDone) {
+      ++pops;
+      ++leaf_pops;
+      closest_leaf<ATTR>(r, tris, attr16, leaf, h, tri_tests);
+      leaf = kWalkDone;
+      if (cur < 0 && cur != kWalkDone) {
+        leaf = cur;
+        cur = pop_node<kStride>(stack, top);
+      }
+    }
+  }
+#endif
+  out.t[i] = h.t;
+  out.tri[i] = h.tri;
+  out.b1[i] = h.b1;
+  out.b2[i] = h.b2;
+  if (ATTR) {
+#if PNRT_DEFER
+    if (h.tri >= 0) fill(attr16, h.tri, h.b1, h.b2, h);
+#endif
+    out.nx[i] = h.nx;
+    out.ny[i] = h.ny;
+    out.nz[i] = h.nz;
+    out.u[i] = h.u;
+    out.v[i] = h.v;
+    out.mt[i] = h.mt;
+  }
+  write_stats(out.stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
 
-__global__ void __launch_bounds__(128)
-any_hit_kernel(const float* __restrict__ nodes, const float* __restrict__ tri9,
-               Rays rays, uint8_t* __restrict__ occ_out,
-               int* __restrict__ stats) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rays.n) return;
+// True when a triangle of leaf `info` is hit within t_max.
+__device__ __forceinline__ bool any_leaf(const Ray& r, const float* tris,
+                                         int info, float t_max,
+                                         int& tri_tests) {
+  const int meta = -info - 1;
+  const int start = meta >> 4;
+  const int count = meta & 15;
+  for (int k = 0; k < count; ++k) {
+    float t, b1, b2;
+    ++tri_tests;
+    if (test_tri(r, tris, start + k, t_max, t, b1, b2)) return true;
+  }
+  return false;
+}
+
+__device__ __forceinline__ void any_ray(const float* __restrict__ nodes,
+                                        const float* __restrict__ tris,
+                                        const Rays& rays,
+                                        uint8_t* __restrict__ occ_out,
+                                        int* __restrict__ stats, int i,
+                                        int* stack) {
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
   const bool active = rays.mask == nullptr || rays.mask[i] != 0;
   const float t_max = rays.t_max[i];
   bool occ = false;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
-
-  int stack[KSTACK];
   int top = 0;
-  if (active) stack[top++] = 0;
-  while (top > 0 && !occ) {
-    const int info = stack[--top];
+  int cur = active ? 0 : kWalkDone;
+#if PNRT_WHILE == 0
+  while (cur != kWalkDone) {
     ++pops;
-    if (info < 0) {
+    if (cur < 0) {
       ++leaf_pops;
-      const int meta = -info - 1;
-      const int start = meta >> 4;
-      const int count = meta & 15;
-      for (int k = 0; k < count; ++k) {
-        float t, b1, b2;
-        ++tri_tests;
-        if (hit_triangle(r, tri9 + 9 * (int64_t)(start + k), t_max, t,
-                               b1, b2)) {
-          occ = true;  // occluded: stop at once
-          break;
-        }
-      }
+      occ = any_leaf(r, tris, cur, t_max, tri_tests);
+      cur = occ ? kWalkDone : pop_node<kStride>(stack, top);
     } else {
-      push_children(r, load_row(nodes + 16 * (int64_t)info), t_max,
-                    stack, top);
+      cur = walk_step(r, nodes, cur, t_max, stack, top);
     }
   }
+#elif PNRT_WHILE == 1
+  while (cur != kWalkDone) {
+    while (cur >= 0) {
+      ++pops;
+      cur = walk_step(r, nodes, cur, t_max, stack, top);
+    }
+    if (cur != kWalkDone) {
+      ++pops;
+      ++leaf_pops;
+      occ = any_leaf(r, tris, cur, t_max, tri_tests);
+      cur = occ ? kWalkDone : pop_node<kStride>(stack, top);
+    }
+  }
+#else
+  int leaf = kWalkDone;
+  while (cur != kWalkDone || leaf != kWalkDone) {
+    while (cur != kWalkDone) {
+      if (cur < 0) {
+        if (leaf != kWalkDone) break;
+        leaf = cur;
+        cur = pop_node<kStride>(stack, top);
+      } else {
+        ++pops;
+        cur = walk_step(r, nodes, cur, t_max, stack, top);
+      }
+    }
+    while (leaf != kWalkDone) {
+      ++pops;
+      ++leaf_pops;
+      occ = any_leaf(r, tris, leaf, t_max, tri_tests);
+      leaf = kWalkDone;
+      if (occ) {
+        cur = kWalkDone;
+      } else if (cur < 0 && cur != kWalkDone) {
+        leaf = cur;
+        cur = pop_node<kStride>(stack, top);
+      }
+    }
+  }
+#endif
   occ_out[i] = occ ? 1 : 0;
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
+}
+
+// The first of the next 32 rays of this thread's warp, taken from the
+// counter by lane 0 (persistent warps).
+__device__ __forceinline__ int next_warp_rays(int* counter) {
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(counter, 32);
+  return __shfl_sync(0xffffffffu, base, 0);
+}
+
+#if PNRT_SMEM_STACK
+#define WALK_STACK(name)                                          \
+  __shared__ int name##_all[PNRT_WALK_STACK * PNRT_THREADS];      \
+  int* name = name##_all + threadIdx.x
+#else
+#define WALK_STACK(name) int name[PNRT_WALK_STACK]
+#endif
+
+template <bool ATTR>
+__global__ void __launch_bounds__(PNRT_THREADS, PNRT_MIN_BLOCKS)
+closest_hit_kernel(const float* __restrict__ nodes,
+                   const float* __restrict__ tris,
+                   const float* __restrict__ attr16, Rays rays,
+                   ClosestOut out, int* counter) {
+  WALK_STACK(stack);
+#if PNRT_PERSIST
+  for (;;) {
+    const int base = next_warp_rays(counter);
+    if (base >= rays.n) return;
+    const int i = base + (threadIdx.x & 31);
+    if (i < rays.n) closest_ray<ATTR>(nodes, tris, attr16, rays, out, i, stack);
+    __syncwarp();
+  }
+#else
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n) closest_ray<ATTR>(nodes, tris, attr16, rays, out, i, stack);
+#endif
+}
+
+__global__ void __launch_bounds__(PNRT_THREADS, PNRT_MIN_BLOCKS)
+any_hit_kernel(const float* __restrict__ nodes,
+               const float* __restrict__ tris, Rays rays,
+               uint8_t* __restrict__ occ_out, int* __restrict__ stats,
+               int* counter) {
+  WALK_STACK(stack);
+#if PNRT_PERSIST
+  for (;;) {
+    const int base = next_warp_rays(counter);
+    if (base >= rays.n) return;
+    const int i = base + (threadIdx.x & 31);
+    if (i < rays.n) any_ray(nodes, tris, rays, occ_out, stats, i, stack);
+    __syncwarp();
+  }
+#else
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < rays.n) any_ray(nodes, tris, rays, occ_out, stats, i, stack);
+#endif
 }
 
 // One binary node row: its box, and either its leaf range or its children.
@@ -304,14 +481,51 @@ constexpr int kThreads = 128;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// The blocks an SM holds of one wide-walk kernel (which: 0 closest + fill,
+// 1 closest, 2 any), or minus the CUDA error.
+int walk_blocks_per_sm(int which) {
+  int blocks = 0;
+  cudaError_t err;
+  if (which == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, closest_hit_kernel<true>, kWalkThreads, 0);
+  } else if (which == 1) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, closest_hit_kernel<false>, kWalkThreads, 0);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, any_hit_kernel, kWalkThreads, 0);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Blocks of a wide-walk launch over n rays.
+int walk_blocks_for(int n, int which) {
+  const int blocks = (n + kWalkThreads - 1) / kWalkThreads;
+#if PNRT_PERSIST
+  static int resident[3] = {0, 0, 0};
+  if (resident[which] == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident[which] = sms * walk_blocks_per_sm(which);
+  }
+  return blocks < resident[which] ? blocks : resident[which];
+#else
+  return blocks;
+#endif
+}
+
 }  // namespace
 
 extern "C" {
 
-// Closest hit; with attr != 0 also the interaction fill (nx..mt must then
-// be non-null).  stats may be null, else [3, n] int32: pops, leaf pops,
-// triangle tests.  Returns cudaGetLastError() after the launch.
-int pnrt_closest_hit(const float* nodes, const float* tri9,
+// Closest hit over the padded triangle rows tri12; with attr != 0 also the
+// interaction fill (nx..mt must then be non-null).  stats may be null,
+// else [3, n] int32: pops, leaf pops, triangle tests.  counter: one int32
+// of scratch, zero at the launch.  Returns cudaGetLastError() after the
+// launch.
+int pnrt_closest_hit(const float* nodes, const float* tris,
                      const float* attr16, const float* ox, const float* oy,
                      const float* oz, const float* dx, const float* dy,
                      const float* dz, const float* t_max,
@@ -319,33 +533,49 @@ int pnrt_closest_hit(const float* nodes, const float* tri9,
                      int* tri_out, float* b1_out, float* b2_out,
                      float* nx_out, float* ny_out, float* nz_out,
                      float* u_out, float* v_out, int* mt_out, int* stats,
-                     void* stream) {
+                     int* counter, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
+  const ClosestOut out = {t_out,  tri_out, b1_out, b2_out, nx_out, ny_out,
+                          nz_out, u_out,   v_out,  mt_out, stats};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (attr) {
-    closest_hit_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-        nodes, tri9, attr16, rays, t_out, tri_out, b1_out, b2_out, nx_out,
-        ny_out, nz_out, u_out, v_out, mt_out, stats);
+    closest_hit_kernel<true><<<walk_blocks_for(n, 0), kWalkThreads, 0, s>>>(
+        nodes, tris, attr16, rays, out, counter);
   } else {
-    closest_hit_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-        nodes, tri9, nullptr, rays, t_out, tri_out, b1_out, b2_out, nullptr,
-        nullptr, nullptr, nullptr, nullptr, nullptr, stats);
+    closest_hit_kernel<false><<<walk_blocks_for(n, 1), kWalkThreads, 0, s>>>(
+        nodes, tris, nullptr, rays, out, counter);
   }
   return (int)cudaGetLastError();
 }
 
-int pnrt_any_hit(const float* nodes, const float* tri9, const float* ox,
+int pnrt_any_hit(const float* nodes, const float* tris, const float* ox,
                  const float* oy, const float* oz, const float* dx,
                  const float* dy, const float* dz, const float* t_max,
                  const uint8_t* mask, int n, uint8_t* occ_out, int* stats,
-                 void* stream) {
+                 int* counter, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
-  any_hit_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(nodes, tri9, rays,
-                                                        occ_out, stats);
+  any_hit_kernel<<<walk_blocks_for(n, 2), kWalkThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      nodes, tris, rays, occ_out, stats, counter);
   return (int)cudaGetLastError();
+}
+
+// What the card gives a wide-walk kernel (which: 0 closest + fill, 1
+// closest, 2 any): what == 0 the registers a thread, 1 the blocks an SM
+// holds at once, 2 the threads a block, 3 the bytes of local memory a
+// thread.  A negative value is minus the CUDA error.
+int pnrt_walk_kernel_info(int which, int what) {
+  if (what == 1) return walk_blocks_per_sm(which);
+  if (what == 2) return kWalkThreads;
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      which == 0   ? cudaFuncGetAttributes(&a, closest_hit_kernel<true>)
+      : which == 1 ? cudaFuncGetAttributes(&a, closest_hit_kernel<false>)
+                   : cudaFuncGetAttributes(&a, any_hit_kernel);
+  if (err != cudaSuccess) return -(int)err;
+  return what == 0 ? a.numRegs : (int)a.localSizeBytes;
 }
 
 // Binary pop-test closest hit over nodes8 rows; outputs and stats as

@@ -27,6 +27,7 @@ from pnraytracing_tpu_torch.accel.layout import (
     MAX_PACKED_TRIS,
     TravData,
     pack_nodes8,
+    pack_tri12,
     pack_tri_attr16,
     pack_wide_nodes_compact,
 )
@@ -164,8 +165,10 @@ class SceneBuilder:
                 f"scene exceeds the packed traversal layout (leaf of "
                 f"{max_count} triangles, {len(built.start)} nodes, "
                 f"{len(indices)} triangles)")
+        tri9 = positions[idx_o].reshape(len(order), 9)
         trav = TravData(
-            tri9=t(positions[idx_o].reshape(len(order), 9)),
+            tri9=t(tri9),
+            tri12=t(pack_tri12(tri9)),
             nodes8=t(pack_nodes8(built)),
             nodes16c=t(pack_wide_nodes_compact(built)),
             tri_attr16=t(pack_tri_attr16(positions, normals, uvs, idx_o,

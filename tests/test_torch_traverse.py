@@ -11,6 +11,7 @@ contraction on the JAX side), material/texture word exact; occlusion and
 sort keys exact.  Also the guard that the port never imports JAX.
 """
 
+import dataclasses
 import os
 import re
 
@@ -33,7 +34,12 @@ from pnraytracing_tpu.ops.compaction import (
     treelet_entry_key as jax_treelet_entry_key,
 )
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
-from pnraytracing_tpu_torch.accel.layout import TravData, pack_tri_attr16
+from pnraytracing_tpu_torch.accel.layout import (
+    TravData,
+    pack_tri12,
+    pack_tri_attr16,
+)
+from pnraytracing_tpu_torch.convert import scene_from_arrays, scene_to_arrays
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.compaction import entry_key, treelet_entry_key
 from tests.test_packet import setup as soup_setup
@@ -69,7 +75,9 @@ def soup(num_tris=120, num_rays=256, seed=3):
     _, _, built = make_mesh_and_bvh(positions, indices)
     jtrav = trav.replace(nodes16c=jnp.asarray(jax_pack_compact(built)),
                          tri_attr16=jax_pack_attr16(mesh))
-    ptrav = TravData(tri9=_t(jtrav.tri9), nodes8=_t(jtrav.nodes8),
+    ptrav = TravData(tri9=_t(jtrav.tri9),
+                     tri12=_t(pack_tri12(np.asarray(jtrav.tri9))),
+                     nodes8=_t(jtrav.nodes8),
                      nodes16c=_t(jtrav.nodes16c),
                      tri_attr16=_t(jtrav.tri_attr16),
                      treelets=torch.zeros((1, 6)),
@@ -236,6 +244,159 @@ def test_wrappers_reject_bad_inputs():
         trv.closest_hit_attr(ptrav, o3, d3, tm.double())
     with pytest.raises(ValueError, match="mask"):
         trv.any_hit(ptrav, o3, d3, tm, torch.ones(256, dtype=torch.int32))
+
+
+class PerHitFill(trv.WalkState):
+    """The walk's state with the interaction fill done at every improving
+    triangle test, each overwriting the last: the form the fill had
+    inside the walk, kept here to hold the deferred fill against."""
+
+    def __init__(self, ray, attr16):
+        super().__init__(ray, "closest")
+        z = torch.zeros_like(self.b1)
+        self.attr16 = attr16
+        self.attrs = [z.clone(), z.clone(), torch.ones_like(z), z.clone(),
+                      z.clone(), torch.zeros_like(self.tri)]
+        self.fills = torch.zeros_like(self.tri)  # improving hits a ray
+
+    def test_leaves(self, ray, lrows, start, count, fetch_tri):
+        before = self.t_best.clone()
+        for k in range(int(count.max()) if count.numel() else 0):
+            sel = count > k
+            super().test_leaves(ray, lrows[sel], start[sel] + k,
+                                torch.ones_like(count[sel]), fetch_tri)
+            self.stats[1, lrows[sel]] -= 1  # one leaf pop, counted below
+            w = torch.nonzero(self.t_best < before).squeeze(1)
+            a = self.attr16[self.tri[w].long()]
+            b1, b2 = self.b1[w], self.b2[w]
+            b0 = 1.0 - b1 - b2
+            for j, (c0, c1, c2) in enumerate(
+                    ((0, 3, 6), (1, 4, 7), (2, 5, 8), (9, 11, 13),
+                     (10, 12, 14))):
+                self.attrs[j][w] = a[:, c0] * b0 + a[:, c1] * b1 + a[:, c2] * b2
+            self.attrs[5][w] = a[:, 15].to(torch.int32)
+            self.fills[w] += 1
+            before = self.t_best.clone()
+        self.stats[1, lrows] += 1
+
+
+def _per_hit_walk(trav, o, d, t_max, mask):
+    ray = trv.Rays.of(o, d, t_max)
+    st = PerHitFill(ray, trav.tri_attr16)
+    active = torch.ones_like(st.occ) if mask is None else mask
+    trv.wide_walk(ray, st, active, 64, lambda rows, info: trav.nodes16c[info],
+                  lambda rows, ti: (trav.tri9[ti], ti))
+    return st
+
+
+def _bounce_rays(trav, o, d, t_max, seed):
+    """Rays leaving the primary hits in random directions (misses keep
+    their primary ray), and the mask of the rays that hit."""
+    hit = trv.plain_closest_hit(trav, _v3(o), _v3(d), _t(t_max))
+    valid = hit.valid.numpy()
+    t = np.where(valid, hit.t.numpy(), 1.0).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    nd = rng.normal(size=d.shape).astype(np.float32)
+    nd /= np.linalg.norm(nd, axis=1, keepdims=True)
+    bo = np.where(valid[:, None], o + d * t[:, None] + 1e-3 * nd, o)
+    bd = np.where(valid[:, None], nd, d)
+    return bo.astype(np.float32), bd.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("rays", ["primary", "bounce", "masked", "missing",
+                                  "soup"])
+def test_deferred_fill_equals_per_hit_fill(rays):
+    """interaction_fill of the walk's winning (tri, b1, b2) gives, bit for
+    bit, what filling at every improving hit inside the walk left behind;
+    masked and missing rays get the defaults (normal +z, uv 0, word 0)."""
+    mask = None
+    if rays == "soup":  # overlapping boxes: later hits overwrite earlier
+        _, trav, _, _, o, d, t_max = soup(num_tris=300, num_rays=2048, seed=5)
+        o, d, t_max = (np.asarray(a) for a in (o, d, t_max))
+    else:
+        js, o, d, t_max = _teapot_rays()
+        trav = port_scene(js).trav
+    if rays == "bounce":
+        o, d, _ = _bounce_rays(trav, o, d, t_max, seed=2)
+    elif rays == "masked":
+        o, d, valid = _bounce_rays(trav, o, d, t_max, seed=3)
+        mask = torch.from_numpy(valid & (np.arange(len(valid)) % 3 != 0))
+    elif rays == "missing":
+        d = -d  # away from the scene: nothing is hit
+    o3, d3, tm = _v3(o), _v3(d), _t(t_max)
+    want = _per_hit_walk(trav, o3, d3, tm, mask)
+    hit, attrs, stats = trv.closest_hit_attr(trav, o3, d3, tm, mask,
+                                             with_stats=True)
+    assert torch.equal(hit.tri, want.tri) and torch.equal(hit.t, want.t_best)
+    assert torch.equal(stats, want.stats)
+    fill = trv.interaction_fill(trav.tri_attr16, want.tri, want.b1, want.b2)
+    for got, got2, ref in zip(attrs, fill, want.attrs):
+        assert got.dtype == ref.dtype
+        assert torch.equal(got, ref) and torch.equal(got2, ref)
+    miss = (hit.tri < 0).numpy()
+    if rays == "missing":
+        assert miss.all()
+    elif rays == "masked":
+        assert miss[~mask.numpy()].all() and not miss.all()
+    else:
+        assert (~miss).sum() >= 16  # and enough rays do hit
+    for j, default in enumerate((0.0, 0.0, 1.0, 0.0, 0.0, 0)):
+        np.testing.assert_array_equal(attrs[j].numpy()[miss], default)
+    if rays == "soup":  # some fills were overwritten
+        assert int((want.fills > 1).sum()) >= 3
+
+
+def _assert_tri12(tri12, tri9):
+    assert tri12.shape == (tri9.shape[0], 12) and tri12.dtype == torch.float32
+    assert tri12.is_contiguous()
+    assert torch.equal(tri12[:, :9], tri9)
+    assert not tri12[:, 9:].any()
+
+
+@pytest.mark.parametrize("source", ["built", "packed", "from_jax",
+                                    "round_trip"])
+def test_tri12_is_tri9_padded(source):
+    """The padded triangle rows hold exactly tri9's values, zeros in the
+    pad, wherever they are made: at scene build, by the packer, for a
+    scene converted from the JAX package (which has no such table), and
+    through a second round trip of convert.py."""
+    if source == "built":
+        from pnraytracing_tpu_torch.scene import shapes
+        from pnraytracing_tpu_torch.scene.build import SceneBuilder
+
+        b = SceneBuilder()
+        b.add(shapes.icosphere(2), dict(base_color=(0.7, 0.3, 0.2)))
+        trav = b.build(env_constant=(0.3, 0.3, 0.3), device="cpu").trav
+    elif source == "packed":
+        tri9 = np.random.default_rng(5).normal(size=(37, 9)).astype(
+            np.float32)
+        _assert_tri12(_t(pack_tri12(tri9)), _t(tri9))
+        assert pack_tri12(tri9[:0]).shape == (0, 12)
+        return
+    else:
+        js, _ = jax_teapot_night()
+        assert not hasattr(js.trav, "tri12")
+        ps = port_scene(js)
+        if source == "round_trip":
+            leaves = scene_to_arrays(ps)
+            np.testing.assert_array_equal(leaves["trav.tri12"],
+                                          ps.trav.tri12.numpy())
+            ps = scene_from_arrays(leaves, device="cpu")
+        trav = ps.trav
+        np.testing.assert_array_equal(trav.tri9.numpy(),
+                                      np.asarray(js.trav.tri9))
+    _assert_tri12(trav.tri12, trav.tri9)
+
+
+def test_wrappers_reject_bad_tri12():
+    _, ptrav, _, _, o, d, t_max = soup()
+    o3, d3, tm = _v3(o), _v3(d), _t(t_max)
+    with pytest.raises(ValueError, match="tri12"):
+        trv.closest_hit(dataclasses.replace(ptrav, tri12=ptrav.tri9), o3, d3,
+                        tm)
+    with pytest.raises(ValueError, match="row per row"):
+        trv.any_hit(dataclasses.replace(ptrav, tri12=ptrav.tri12[:-1]), o3,
+                    d3, tm)
 
 
 _FORBIDDEN = re.compile(
