@@ -134,14 +134,26 @@ __device__ __forceinline__ bool hit_triangle(const Ray& r, const float* p,
                      ldf(p + 8), t_max, t, b1, b2);
 }
 
-// The same test of the triangle whose padded row [v0, v1, v2, 0, 0, 0]
-// starts at p (a tri12 row: 48 bytes, 16-byte aligned, three float4).
-__device__ __forceinline__ bool hit_triangle12(const Ray& r, const float* p,
-                                               float t_max, float& t,
-                                               float& b1, float& b2) {
-  const float4 a = ldf4(p), b = ldf4(p + 4), c = ldf4(p + 8);
-  return hit_corners(r, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, t_max,
-                     t, b1, b2);
+// A padded triangle row [v0, v1, v2, 0, 0, 0] (tri12: 48 bytes, 16-byte
+// aligned), read as three float4.
+struct Tri {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ Tri load_tri12(const float* p) {
+  Tri v;
+  v.a = ldf4(p);
+  v.b = ldf4(p + 4);
+  v.c = ldf4(p + 8);
+  return v;
+}
+
+// The same test of a loaded tri12 row.
+__device__ __forceinline__ bool hit_tri(const Ray& r, const Tri& v,
+                                        float t_max, float& t, float& b1,
+                                        float& b2) {
+  return hit_corners(r, v.a.x, v.a.y, v.a.z, v.a.w, v.b.x, v.b.y, v.b.z,
+                     v.b.w, v.c.x, t_max, t, b1, b2);
 }
 
 // One wide row [lmin(3), lmax(3), rmin(3), rmax(3), left, right, axis,

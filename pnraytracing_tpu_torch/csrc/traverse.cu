@@ -27,6 +27,15 @@
 #ifndef PNRT_WALK_STACK
 #define PNRT_WALK_STACK 64
 #endif
+#ifndef PNRT_PREFETCH
+#define PNRT_PREFETCH 0  // 1: prefetch both children's rows into L1
+#endif
+#ifndef PNRT_PIPE
+#define PNRT_PIPE 0  // closest: rows of the next n triangles in flight
+#endif
+#ifndef PNRT_PIPE_ANY
+#define PNRT_PIPE_ANY 0  // the same for the any-hit walk
+#endif
 
 #include "intersect.cuh"
 
@@ -50,7 +59,7 @@ __device__ __forceinline__ bool test_tri(const Ray& r, const float* tris,
                                          int ti, float t_lim, float& t,
                                          float& b1, float& b2) {
 #if PNRT_TRI12
-  return hit_triangle12(r, tris + 12 * (int64_t)ti, t_lim, t, b1, b2);
+  return hit_tri(r, load_tri12(tris + 12 * (int64_t)ti), t_lim, t, b1, b2);
 #else
   return hit_triangle(r, tris + 9 * (int64_t)ti, t_lim, t, b1, b2);
 #endif
@@ -60,6 +69,18 @@ __device__ __forceinline__ int walk_step(const Ray& r, const float* nodes,
                                          int row, float t, int* stack,
                                          int& top) {
   const Row w = load_row(nodes + 16 * (int64_t)row);
+#if PNRT_PREFETCH
+  if (w.li >= 0) {
+    const float* q = nodes + 16 * (int64_t)w.li;
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(q));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(q + 8));
+  }
+  if (w.ri >= 0) {
+    const float* q = nodes + 16 * (int64_t)w.ri;
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(q));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(q + 8));
+  }
+#endif
 #if PNRT_NEARREG
   return next_node<kStride>(r, w, t, stack, top);
 #else
@@ -103,6 +124,30 @@ __device__ __forceinline__ void closest_leaf(const Ray& r, const float* tris,
   const int start = meta >> 4;
   const int count = meta & 15;
   tri_tests += count;
+#if PNRT_PIPE && PNRT_TRI12
+  if (count == 0) return;
+  // the next PNRT_PIPE triangles' rows are in flight while one is tested
+  // (a leaf's rows are contiguous; past its end the last row is re-read)
+  const float* p = tris + 12 * (int64_t)start;
+  const int last = count - 1;
+  Tri q[PNRT_PIPE + 1];
+#pragma unroll
+  for (int j = 0; j <= PNRT_PIPE; ++j) q[j] = load_tri12(p + 12 * min(j, last));
+  for (int k = 0; k < count; ++k) {
+    const Tri v = q[0];
+#pragma unroll
+    for (int j = 0; j < PNRT_PIPE; ++j) q[j] = q[j + 1];
+    q[PNRT_PIPE] = load_tri12(p + 12 * min(k + PNRT_PIPE + 1, last));
+    float t, b1, b2;
+    if (hit_tri(r, v, h.t, t, b1, b2) && t < h.t) {
+      h.t = t;
+      h.tri = start + k;
+      h.b1 = b1;
+      h.b2 = b2;
+    }
+  }
+  return;
+#endif
   for (int k = 0; k < count; ++k) {
     const int ti = start + k;
     float t, b1, b2;
@@ -212,6 +257,26 @@ __device__ __forceinline__ bool any_leaf(const Ray& r, const float* tris,
   const int meta = -info - 1;
   const int start = meta >> 4;
   const int count = meta & 15;
+#if PNRT_PIPE_ANY && PNRT_TRI12
+  if (count == 0) return false;
+  const float* p = tris + 12 * (int64_t)start;
+  const int last = count - 1;
+  Tri q[PNRT_PIPE_ANY + 1];
+#pragma unroll
+  for (int j = 0; j <= PNRT_PIPE_ANY; ++j) {
+    q[j] = load_tri12(p + 12 * min(j, last));
+  }
+  for (int k = 0; k < count; ++k) {
+    const Tri v = q[0];
+#pragma unroll
+    for (int j = 0; j < PNRT_PIPE_ANY; ++j) q[j] = q[j + 1];
+    q[PNRT_PIPE_ANY] = load_tri12(p + 12 * min(k + PNRT_PIPE_ANY + 1, last));
+    float t, b1, b2;
+    ++tri_tests;
+    if (hit_tri(r, v, t_max, t, b1, b2)) return true;
+  }
+  return false;
+#endif
   for (int k = 0; k < count; ++k) {
     float t, b1, b2;
     ++tri_tests;

@@ -4,7 +4,7 @@ one NVIDIA card (the PyTorch/CUDA port; imports nothing of JAX).
 
 Run from the root of a checkout:  python3 scripts/torch_walk_trials.py
 (``--quick``: build the default variant, check it, print the walk figures
-and stop).
+and stop; ``--round2``: the second list of variants).
 
 Builds ``csrc/traverse.cu`` once per variant (the ``PNRT_*`` switches at
 its top) and times ``closest_hit_attr``, ``closest_hit`` and ``any_hit``
@@ -27,7 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 
-VARIANTS = {
+# First round: each switch alone against the default build.
+ROUND1 = {
     "base": (),
     "parent_like": ("PNRT_TRI12=0", "PNRT_DEFER=0", "PNRT_NEARREG=0"),
     "tri9": ("PNRT_TRI12=0",),
@@ -44,6 +45,28 @@ VARIANTS = {
     "persistent": ("PNRT_PERSIST=1",),
     "persistent_while": ("PNRT_PERSIST=1", "PNRT_WHILE=1"),
     "threads_256_while": ("PNRT_THREADS=256", "PNRT_WHILE=1"),
+    "prefetch_children": ("PNRT_PREFETCH=1",),
+    "min_blocks_16_t64": ("PNRT_MIN_BLOCKS=32", "PNRT_THREADS=64"),
+}
+# Second round (--round2): the while-while walk with the leaf's triangle
+# rows kept in flight, and the first round's switches on top of it.
+W = ("PNRT_WHILE=1",)
+ROUND2 = {
+    "base": (),
+    "while_while": W,
+    "ww_pipe1": W + ("PNRT_PIPE=1",),
+    "ww_pipe2": W + ("PNRT_PIPE=2",),
+    "ww_pipe3": W + ("PNRT_PIPE=3",),
+    "ww_pipe1_any1": W + ("PNRT_PIPE=1", "PNRT_PIPE_ANY=1"),
+    "ww_pipe2_any2": W + ("PNRT_PIPE=2", "PNRT_PIPE_ANY=2"),
+    "pipe1": ("PNRT_PIPE=1",),
+    "pipe2": ("PNRT_PIPE=2",),
+    "ww_pipe1_t256": W + ("PNRT_PIPE=1", "PNRT_THREADS=256"),
+    "ww_pipe2_t256": W + ("PNRT_PIPE=2", "PNRT_THREADS=256"),
+    "ww_pipe2_t64": W + ("PNRT_PIPE=2", "PNRT_THREADS=64"),
+    "ww_pipe2_persist": W + ("PNRT_PIPE=2", "PNRT_PERSIST=1"),
+    "ww_pipe2_both_on_stack": W + ("PNRT_PIPE=2", "PNRT_NEARREG=0"),
+    "ww_tri9": W + ("PNRT_TRI12=0",),
 }
 
 
@@ -67,6 +90,7 @@ def main() -> int:
     )
 
     quick = "--quick" in sys.argv[1:]
+    VARIANTS = ROUND2 if "--round2" in sys.argv[1:] else ROUND1
     dev = torch.device("cuda")
     cs.emit({"phase": "device", "nvidia_smi": cs.nvidia_smi_line()})
     build = cuda_build.use_variant("traverse")
@@ -125,6 +149,32 @@ def main() -> int:
     if quick:
         print(cs.nvidia_smi_line(), flush=True)
         return 0
+
+    # What sets the time: the same launch without the 1% of rays whose
+    # chain of dependent reads (pops + triangle tests) is longest, and
+    # with every ray twice.  A time set by the longest chains falls
+    # sharply in the first and barely rises in the second; one set by
+    # throughput does the opposite.
+    for name, ((hit, attrs, st), _, (occ, ast)) in ref.items():
+        trav, cont, shadow = sets[name]
+        out = {}
+        for key, rays, stats, fn in (("attr", cont, st,
+                                      trv.closest_hit_attr),
+                                     ("any", shadow, ast, trv.any_hit)):
+            o, d, tm, mask = rays
+            chain = (stats[0] + stats[2]).float()
+            cut = torch.quantile(chain[::4], 0.99)
+            short = mask & (chain <= cut)
+            twice = lambda x: torch.cat([x, x]).contiguous()
+            v2 = lambda v: type(v)(twice(v.x), twice(v.y), twice(v.z))
+            o2, d2, tm2, m2 = v2(o), v2(d), twice(tm), twice(mask)
+            out[key] = {
+                "all": cs.time_ms(lambda: fn(trav, o, d, tm, mask), 50),
+                "without_longest_1pct": cs.time_ms(
+                    lambda: fn(trav, o, d, tm, short), 50),
+                "chain_cut": float(cut), "chain_max": float(chain.max()),
+                "twice": cs.time_ms(lambda: fn(trav, o2, d2, tm2, m2), 50)}
+        cs.emit({"phase": "tail", "scene": name, "ms": out})
 
     def same_results(a, b, stats):
         (h, at, st), (h3, st3), (occ, ast) = a
