@@ -13,16 +13,21 @@ script exits non-zero without printing a result.  Phases:
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: every ``csrc/*.cu`` compiled by ``nvcc`` in parallel, with the
    registers and spills ``-Xptxas -v`` reports;
-3. scene: the flagship scene built by the port on the card;
+3. scene: the flagship scene built by the port on the card, with the
+   registers, local memory and blocks an SM of the resident wide kernels;
 4. kernel parity: each kernel against its plain version on the rays one
    plain-path frame hands it (primary rays, the bounce-0 sort-key rays,
-   the bounce-0 fused shadow batch and continuation rays);
+   the bounce-0 fused shadow batch and continuation rays): results, the
+   interaction fill and the per-ray walk stats equal;
 5. frame parity: a 128x128 depth-4 frame through the kernels and through
    the plain versions;
 6. flagship: launch counts of one frame (counters zeroed just before),
    ms/frame and rays/s over 10 frames after 2 warm-up frames, each
    kernel's time by CUDA events at its path shapes beside its plain
-   version's time and its bound, and peak device memory;
+   version's time and its bound, and peak device memory; a
+   ``walk_figures`` line says how the wide walks run on those rays
+   (pops, leaf pops and triangle tests a ray, SIMT efficiency, the share
+   of warp iterations with lanes in both branches, bytes touched);
 7. profile: one flagship frame under torch.profiler — device busy time,
    the top device kernels, and the idle share: busy time over the
    unprofiled ms/frame of phase 6 (the profiler slows the host);
@@ -41,7 +46,8 @@ script exits non-zero without printing a result.  Phases:
    128x128 depth-4 frame through the kernels against the plain versions,
    ms/frame and rays/s, peak memory, the stream kernels' times beside
    the resident kernel's and beside their own on a 96 KB brick layout of
-   the same tree, and one profiled frame.
+   the same tree, the resident wide kernels' times and ``walk_figures``
+   on config5's rays, and one profiled frame.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -179,6 +185,9 @@ def walk_figures(st, tri_bytes=TRI12_BYTES, fills=0) -> dict:
     * ``simt_efficiency``: sum(x) / (32 * sum over warps of max(x in the
       warp)) for pops and for triangle tests: the share of lane slots
       that do work while a warp runs as long as its longest ray;
+      ``pops_packed`` is the same with the idle rays (``idle_share``: no
+      pop at all, so masked) taken out and the rest kept in order, which
+      says how much of the loss is masked lanes and how much divergence;
     * ``both_branches``: the share of a warp's iterations (max pops in
       the warp) in which some lane pops a leaf while another pops a row.
       Per-ray counts do not give the order of pops, so three figures:
@@ -205,6 +214,10 @@ def walk_figures(st, tri_bytes=TRI12_BYTES, fills=0) -> dict:
     iters = wp.amax(dim=1)  # iterations a warp runs
     tot = max(int(iters.sum()), 1)
     eff_t = int(tris.sum()) / max(32 * int(wt.amax(dim=1).sum()), 1)
+    busy = pops[pops > 0]
+    packed = torch.nn.functional.pad(busy, (0, (-busy.numel()) % 32))
+    eff_packed = int(busy.sum()) / max(
+        32 * int(packed.view(-1, 32).amax(dim=1).sum()), 1)
     lower = (wl.amax(dim=1) + wn.amax(dim=1) - iters).clamp(min=0)
     upper = torch.minimum(iters, torch.minimum(wl.sum(dim=1), wn.sum(dim=1)))
     w = iters.clamp(min=1).to(torch.float64)[:, None]
@@ -218,8 +231,9 @@ def walk_figures(st, tri_bytes=TRI12_BYTES, fills=0) -> dict:
     return {
         "rays": r, "pops": spread(pops), "leaf_pops": spread(leaf),
         "tri_tests": spread(tris),
+        "idle_share": 1.0 - busy.numel() / max(r, 1),
         "simt_efficiency": {"pops": int(pops.sum()) / (32 * tot),
-                            "tri_tests": eff_t},
+                            "pops_packed": eff_packed, "tri_tests": eff_t},
         "both_branches": {"lower": int(lower.sum()) / tot,
                           "estimate": float((both * iters).sum()) / tot,
                           "upper": int(upper.sum()) / tot},

@@ -20,7 +20,12 @@ and then
 ``closest_hit`` and ``any_hit`` take ``variant="wide"`` (push-test walk
 over the compact wide rows ``nodes16c``) or ``"binary"`` (pop-test walk
 over ``nodes8``), resolved by ``accel/route.py::pick_variant`` as the
-JAX package resolves it.
+JAX package resolves it.  The wide kernels read triangles from the
+padded rows ``tri12``, the binary kernels and every plain version from
+``tri9`` (the same values).  The interaction fill is a function of the
+winning hit alone (:func:`interaction_fill`); kernel and plain version
+evaluate it once after the walk.  :func:`kernel_info` reports the wide
+kernels' registers and blocks an SM.
 
 Results: the closest ``t`` (``t_max`` on a miss), ``tri`` (-1 on a miss)
 and barycentrics; the attribute variant also the raw interpolated shading
@@ -144,15 +149,6 @@ def _raise_on(err, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-# TRIAL: the triangle table of the loaded build (tri9 for PNRT_TRI12=0)
-TRIAL_TRI9 = False
-TRIAL_PERSIST = False  # the loaded build takes rays from a counter
-
-
-def _tris(trav):
-    return trav.tri9 if TRIAL_TRI9 else trav.tri12
-
-
 _WALK_KERNELS = {"closest_hit_attr": 0, "closest_hit": 1, "any_hit": 2}
 
 
@@ -184,14 +180,12 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
     attrs = (f32(), f32(), f32(), f32(), f32(),
              torch.empty(r, dtype=torch.int32, device=dev)) \
         if attr else (None,) * 6
-    counter = (torch.zeros(1, dtype=torch.int32, device=dev)
-               if TRIAL_PERSIST else None)
     err = library("traverse").pnrt_closest_hit(
-        ptr(trav.nodes16c), ptr(_tris(trav)), ptr(trav.tri_attr16),
+        ptr(trav.nodes16c), ptr(trav.tri12), ptr(trav.tri_attr16),
         ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
         ptr(t_max), ptr(mask), r, int(attr), ptr(t), ptr(tri),
         ptr(b1), ptr(b2), *[ptr(a) for a in attrs], ptr(stats),
-        ptr(counter), stream_of(o.x))
+        stream_of(o.x))
     _raise_on(err, "closest-hit")
     LAUNCHES["closest_hit_attr" if attr else "closest_hit"] += 1
     return Hit(tri=tri, t=t, b1=b1, b2=b2), (attrs if attr else None), stats
@@ -201,13 +195,10 @@ def _kernel_any(trav, o, d, t_max, mask, with_stats):
     from pnraytracing_tpu_torch.cuda_build import library
 
     (occ,), stats = _outputs(o.x.shape[0], o.x.device, False, with_stats)
-    counter = (torch.zeros(1, dtype=torch.int32, device=o.x.device)
-               if TRIAL_PERSIST else None)
     err = library("traverse").pnrt_any_hit(
-        ptr(trav.nodes16c), ptr(_tris(trav)), ptr(o.x), ptr(o.y),
+        ptr(trav.nodes16c), ptr(trav.tri12), ptr(o.x), ptr(o.y),
         ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z), ptr(t_max),
-        ptr(mask), o.x.shape[0], ptr(occ), ptr(stats), ptr(counter),
-        stream_of(o.x))
+        ptr(mask), o.x.shape[0], ptr(occ), ptr(stats), stream_of(o.x))
     _raise_on(err, "any-hit")
     LAUNCHES["any_hit"] += 1
     return occ, stats

@@ -215,21 +215,19 @@ __device__ __forceinline__ void push_children(const Ray& r, const Row& w,
 // order of visits is that of push_children followed by a pop.
 constexpr int kWalkDone = INT_MIN;  // no row id and no leaf info
 
-template <int STRIDE = 1>
 __device__ __forceinline__ int pop_node(const int* stack, int& top) {
-  return top > 0 ? stack[STRIDE * --top] : kWalkDone;
+  return top > 0 ? stack[--top] : kWalkDone;
 }
 
-template <int STRIDE = 1>
 __device__ __forceinline__ int next_node(const Ray& r, const Row& w, float t,
                                          int* stack, int& top) {
   int near_c, far_c;
   bool h_near, h_far;
   order_children(r, w, t, near_c, far_c, h_near, h_far);
-  if (h_near && h_far) stack[STRIDE * top++] = far_c;
+  if (h_near && h_far) stack[top++] = far_c;
   if (h_near) return near_c;
   if (h_far) return far_c;
-  return pop_node<STRIDE>(stack, top);
+  return pop_node(stack, top);
 }
 
 struct Rays {

@@ -1,143 +1,192 @@
-// TRIAL BUILD: compile-time switches for measuring the walk's variants
-// side by side (scripts/torch_walk_trials.py).
-#ifndef PNRT_THREADS
-#define PNRT_THREADS 128
-#endif
-#ifndef PNRT_MIN_BLOCKS
-#define PNRT_MIN_BLOCKS 1
-#endif
-#ifndef PNRT_TRI12
-#define PNRT_TRI12 1  // 0: tri9 rows, nine scalar loads
-#endif
-#ifndef PNRT_DEFER
-#define PNRT_DEFER 1  // 0: the interaction fill at every improving hit
-#endif
-#ifndef PNRT_NEARREG
-#define PNRT_NEARREG 1  // 0: both children through the stack
-#endif
-#ifndef PNRT_WHILE
-#define PNRT_WHILE 0  // 1: while-while, same order; 2: one leaf postponed
-#endif
-#ifndef PNRT_PERSIST
-#define PNRT_PERSIST 0  // 1: warps fetch 32 rays at a time from a counter
-#endif
-#ifndef PNRT_SMEM_STACK
-#define PNRT_SMEM_STACK 0  // 1: the stack in shared memory
-#endif
-#ifndef PNRT_WALK_STACK
-#define PNRT_WALK_STACK 64
-#endif
-#ifndef PNRT_PREFETCH
-#define PNRT_PREFETCH 0  // 1: prefetch both children's rows into L1
-#endif
-#ifndef PNRT_PIPE
-#define PNRT_PIPE 0  // closest: rows of the next n triangles in flight
-#endif
-#ifndef PNRT_PIPE_ANY
-#define PNRT_PIPE_ANY 0  // the same for the any-hit walk
-#endif
+// BVH traversal kernels for Hopper (sm_90a) over a scene resident in
+// device memory: closest hit, closest hit with the interaction fill and
+// any hit over the compact wide rows, and the binary pop-test walks.
+//
+// Replaces the TPU kernels of pnraytracing_tpu/accel/traverse_pallas.py:
+//   closest_hit_kernel<true>   <- _closest_kernel_wide_attr
+//   closest_hit_kernel<false>  <- _closest_kernel_wide (the same template
+//                                 with the fill compiled out)
+//   any_hit_kernel             <- _any_kernel_wide
+//   closest_hit_binary_kernel  <- _closest_kernel
+//   any_hit_binary_kernel      <- _any_kernel
+//
+// What they compute.  The wide walk is push-test over nodes16c [N, 16]
+// rows: visiting an internal row slab-tests BOTH children against the
+// ray's current t, goes on into the near hit child (by this ray's own
+// direction sign on the row's split axis) and keeps the far hit child for
+// later; visiting a leaf runs its triangle tests.  The binary walk is
+// pop-test over nodes8 [N, 8] rows (min, max, enc(right*4+axis),
+// enc(start*16+count)): a popped node tests its own box, then tests its
+// leaf's triangles or pushes both children (left = node + 1), far first.
+// The Pallas kernels walk one SHARED stack per 128-lane ray tile, because
+// Mosaic cannot index a different node per lane; Hopper can, so every
+// thread walks its own ray.  The tables stay in device memory and are read
+// through __ldg: ~0.7 MB for the flagship teapot, ~8.5 MB for the 102k-
+// triangle scene, all within the 50 MB L2.  Arithmetic and --fmad=false:
+// see intersect.cuh.
+//
+// What bounds the wide walks.  Not bytes and not operations: the byte
+// bound (rays in and out, each table once at 3.35 TB/s) and the operation
+// bound (the counted slab and triangle tests at 67 TFLOP/s fp32) are both
+// ~0.005 ms at the flagship's 262,144 bounce-0 rays, and even the bytes
+// the walks touch would take 0.05 ms from HBM but come from L1/L2.  The
+// time is set by the LONGEST CHAINS OF DEPENDENT READS: each visit waits
+// for a row or a triangle from the L2 before it knows the next address
+// (~450 cycles a step), and a ray's visits cannot overlap.  Measured on an
+// NVIDIA H100 80GB HBM3, 700.00 W (scripts of PERF.md section 6): the
+// closest walk without the 1% of rays with the longest chains (> 45
+// visits + tests; the longest is 196) takes 0.039 ms instead of 0.081,
+// the same launch with every ray twice only 0.102.  Lane idleness is not
+// the limiter: 70% of a closest warp's lane slots do work (40% of an
+// any-hit warp's, whose batch is half masked).
+//
+// What the design does about it: it shortens the chain of the slowest
+// rays and keeps other lanes' work out of it.
+//   * While-while: an inner loop descends rows until this lane holds a
+//     leaf, then the warp's lanes test their leaves together, so a long
+//     ray's descent no longer waits for its neighbours' triangle tests at
+//     every step (the one-loop form ran both branches in ~half of a
+//     warp's iterations).  The order of visits, the results and the
+//     per-ray stats are unchanged.
+//   * In a closest-hit leaf the next triangle's row is already in flight
+//     while one is tested (a leaf's rows are contiguous), which takes one
+//     L2 latency out of every test but a leaf's first.  Not in the any-hit
+//     leaf, which stops at its first hit and gained nothing from it.
+//   * The current node lives in a register: the walk goes into the near
+//     child directly and only the far child goes through the stack in
+//     local memory (before: two dependent stores and a load per row).
+//   * Triangles are read from tri12 [T, 12], the corners padded to three
+//     aligned float4, instead of nine scalar words of a 36-byte row.
+//   * The interaction fill (four float4 of tri_attr16 and the
+//     interpolation) depends only on the winning (tri, b1, b2), so it runs
+//     once after the walk; inside the walk it cost 8 registers and a
+//     block an SM.
+// Measured and not kept (same card, PERF.md section 6): blocks of 64 and
+// 256 threads, a register cap for 12 or 16 blocks an SM (spills; 23-42%
+// slower), a 32-entry stack, the stack in shared memory, warps that fetch
+// their next 32 rays from a counter, prefetch instructions for both
+// children's rows, two or three triangles in flight, and the walk that
+// postpones a leaf and goes on descending (more visits, slower any-hit).
+// The binary walk visits about twice as many nodes as the wide one for
+// the same hits; its kernels keep the one-loop form.
 
 #include "intersect.cuh"
+
+// TRIAL switches (scripts/torch_walk_trials.py)
+#ifndef PNRT_PACK
+#define PNRT_PACK 0  // 1: any hit packs a block's active rays; 2: both
+#endif
+#ifndef PNRT_SPEC
+#define PNRT_SPEC 0  // 1: the near child's row is loaded before the tests
+#endif
+#ifndef PNRT_CARVE
+#define PNRT_CARVE 0  // 1: ask for the largest L1
+#endif
 
 using namespace pnrt;
 
 namespace {
 
-constexpr int kWalkThreads = PNRT_THREADS;
-constexpr int kStride = PNRT_SMEM_STACK ? PNRT_THREADS : 1;
+constexpr int kThreads = 128;
 
-// Where a closest-hit walk writes: the hit, the interaction fill (attr
-// kernels only) and the stats (may be null).
+// The ray this thread walks when the block's active rays are packed into
+// its first threads, in order (-1: none).  Inactive rays are left to the
+// caller, which writes their miss.
+__device__ __forceinline__ int packed_ray(bool active, int i) {
+  __shared__ int s_count[kThreads / 32];
+  __shared__ int s_ray[kThreads];
+  const unsigned ballot = __ballot_sync(0xffffffffu, active);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s_count[warp] = __popc(ballot);
+  __syncthreads();
+  int base = 0, total = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < warp) base += s_count[w];
+    total += s_count[w];
+  }
+  if (active) s_ray[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+  __syncthreads();
+  return (int)threadIdx.x < total ? s_ray[threadIdx.x] : -1;
+}
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// Descend from internal row `cur` until the walk holds a leaf (returned,
+// < 0) or nothing is left (kWalkDone), counting the rows visited.  t does
+// not change on the way: only a leaf's tests move it.
+__device__ __forceinline__ int descend(const Ray& r,
+                                       const float* __restrict__ nodes,
+                                       int cur, float t, int* stack,
+                                       int& top, int& pops) {
+#if PNRT_SPEC
+  Row w = load_row(nodes + 16 * (int64_t)cur);
+  for (;;) {
+    ++pops;
+    const bool d_neg = sel3(w.axis, r.dx, r.dy, r.dz) < 0.0f;
+    const int near_c = d_neg ? w.ri : w.li;
+    const int far_c = d_neg ? w.li : w.ri;
+    // the near child's row is requested before the slab tests say whether
+    // the ray enters it, so its latency overlaps them
+    Row nw = w;
+    if (near_c >= 0) nw = load_row(nodes + 16 * (int64_t)near_c);
+    const bool hl = hit_aabb(r, w.lmn[0], w.lmn[1], w.lmn[2], w.lmx[0],
+                             w.lmx[1], w.lmx[2], t);
+    const bool hr = hit_aabb(r, w.rmn[0], w.rmn[1], w.rmn[2], w.rmx[0],
+                             w.rmx[1], w.rmx[2], t);
+    const bool h_near = d_neg ? hr : hl;
+    const bool h_far = d_neg ? hl : hr;
+    if (h_near && h_far) stack[top++] = far_c;
+    if (h_near) {
+      cur = near_c;
+      if (cur < 0) return cur;
+      w = nw;
+      continue;
+    }
+    cur = h_far ? far_c : pop_node(stack, top);
+    if (cur < 0) return cur;
+    w = load_row(nodes + 16 * (int64_t)cur);
+  }
+#else
+  while (cur >= 0) {
+    ++pops;
+    cur = next_node(r, load_row(nodes + 16 * (int64_t)cur), t, stack, top);
+  }
+  return cur;
+#endif
+}
+
+// Where a closest-hit walk writes: the hit, the interaction fill (null
+// without it) and the stats (may be null).
 struct ClosestOut {
-  float *t;
+  float* t;
   int* tri;
   float *b1, *b2, *nx, *ny, *nz, *u, *v;
   int *mt, *stats;
 };
 
-__device__ __forceinline__ bool test_tri(const Ray& r, const float* tris,
-                                         int ti, float t_lim, float& t,
-                                         float& b1, float& b2) {
-#if PNRT_TRI12
-  return hit_tri(r, load_tri12(tris + 12 * (int64_t)ti), t_lim, t, b1, b2);
-#else
-  return hit_triangle(r, tris + 9 * (int64_t)ti, t_lim, t, b1, b2);
-#endif
-}
-
-__device__ __forceinline__ int walk_step(const Ray& r, const float* nodes,
-                                         int row, float t, int* stack,
-                                         int& top) {
-  const Row w = load_row(nodes + 16 * (int64_t)row);
-#if PNRT_PREFETCH
-  if (w.li >= 0) {
-    const float* q = nodes + 16 * (int64_t)w.li;
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(q));
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(q + 8));
-  }
-  if (w.ri >= 0) {
-    const float* q = nodes + 16 * (int64_t)w.ri;
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(q));
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(q + 8));
-  }
-#endif
-#if PNRT_NEARREG
-  return next_node<kStride>(r, w, t, stack, top);
-#else
-  int near_c, far_c;
-  bool h_near, h_far;
-  order_children(r, w, t, near_c, far_c, h_near, h_far);
-  if (h_far) stack[kStride * top++] = far_c;
-  if (h_near) stack[kStride * top++] = near_c;
-  return pop_node<kStride>(stack, top);
-#endif
-}
-
 struct Best {
   float t;
   int tri;
   float b1, b2;
-  float nx, ny, nz, u, v;
-  int mt;
 };
 
-// The interaction fill of triangle ti at barycentrics (b1, b2).
-__device__ __forceinline__ void fill(const float* attr16, int ti, float b1,
-                                     float b2, Best& h) {
-  const float b0 = 1.0f - b1 - b2;
-  const float* q = attr16 + 16 * (int64_t)ti;
-  const float4 a = ldf4(q), b = ldf4(q + 4), c = ldf4(q + 8),
-               d = ldf4(q + 12);
-  h.nx = a.x * b0 + a.w * b1 + b.z * b2;
-  h.ny = a.y * b0 + b.x * b1 + b.w * b2;
-  h.nz = a.z * b0 + b.y * b1 + c.x * b2;
-  h.u = c.y * b0 + c.w * b1 + d.y * b2;
-  h.v = c.z * b0 + d.x * b1 + d.z * b2;
-  h.mt = (int)d.w;
-}
-
-template <bool ATTR>
-__device__ __forceinline__ void closest_leaf(const Ray& r, const float* tris,
-                                             const float* attr16, int info,
-                                             Best& h, int& tri_tests) {
+// The triangle tests of leaf `info` against the closest hit so far.  The
+// next triangle's row is loaded before this one is tested (past the
+// leaf's end the last row is read again).
+__device__ __forceinline__ void closest_leaf(const Ray& r,
+                                             const float* __restrict__ tris,
+                                             int info, Best& h,
+                                             int& tri_tests) {
   const int meta = -info - 1;
   const int start = meta >> 4;
   const int count = meta & 15;
-  tri_tests += count;
-#if PNRT_PIPE && PNRT_TRI12
   if (count == 0) return;
-  // the next PNRT_PIPE triangles' rows are in flight while one is tested
-  // (a leaf's rows are contiguous; past its end the last row is re-read)
+  tri_tests += count;
   const float* p = tris + 12 * (int64_t)start;
-  const int last = count - 1;
-  Tri q[PNRT_PIPE + 1];
-#pragma unroll
-  for (int j = 0; j <= PNRT_PIPE; ++j) q[j] = load_tri12(p + 12 * min(j, last));
+  Tri next = load_tri12(p);
   for (int k = 0; k < count; ++k) {
-    const Tri v = q[0];
-#pragma unroll
-    for (int j = 0; j < PNRT_PIPE; ++j) q[j] = q[j + 1];
-    q[PNRT_PIPE] = load_tri12(p + 12 * min(k + PNRT_PIPE + 1, last));
+    const Tri v = next;
+    next = load_tri12(p + 12 * min(k + 1, count - 1));
     float t, b1, b2;
     if (hit_tri(r, v, h.t, t, b1, b2) && t < h.t) {
       h.t = t;
@@ -146,269 +195,147 @@ __device__ __forceinline__ void closest_leaf(const Ray& r, const float* tris,
       h.b2 = b2;
     }
   }
-  return;
-#endif
-  for (int k = 0; k < count; ++k) {
-    const int ti = start + k;
-    float t, b1, b2;
-    if (test_tri(r, tris, ti, h.t, t, b1, b2) && t < h.t) {
-      h.t = t;
-      h.tri = ti;
-      h.b1 = b1;
-      h.b2 = b2;
-#if !PNRT_DEFER
-      if (ATTR) fill(attr16, ti, b1, b2, h);
-#endif
-    }
-  }
 }
 
-template <bool ATTR>
-__device__ __forceinline__ void closest_ray(const float* __restrict__ nodes,
-                                            const float* __restrict__ tris,
-                                            const float* __restrict__ attr16,
-                                            const Rays& rays,
-                                            const ClosestOut& out, int i,
-                                            int* stack) {
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
-  Best h;
-  h.t = rays.t_max[i];
-  h.tri = -1;
-  h.b1 = 0.0f; h.b2 = 0.0f;
-  // miss defaults of the attribute outputs: normal +z, uv 0, word 0
-  h.nx = 0.0f; h.ny = 0.0f; h.nz = 1.0f; h.u = 0.0f; h.v = 0.0f;
-  h.mt = 0;
-  int pops = 0, leaf_pops = 0, tri_tests = 0;
-  int top = 0;
-  int cur = active ? 0 : kWalkDone;  // the root row
-#if PNRT_WHILE == 0
-  while (cur != kWalkDone) {
-    ++pops;
-    if (cur < 0) {
-      ++leaf_pops;
-      closest_leaf<ATTR>(r, tris, attr16, cur, h, tri_tests);
-      cur = pop_node<kStride>(stack, top);
-    } else {
-      cur = walk_step(r, nodes, cur, h.t, stack, top);
-    }
-  }
-#elif PNRT_WHILE == 1
-  while (cur != kWalkDone) {
-    while (cur >= 0) {
-      ++pops;
-      cur = walk_step(r, nodes, cur, h.t, stack, top);
-    }
-    if (cur != kWalkDone) {
-      ++pops;
-      ++leaf_pops;
-      closest_leaf<ATTR>(r, tris, attr16, cur, h, tri_tests);
-      cur = pop_node<kStride>(stack, top);
-    }
-  }
-#else
-  int leaf = kWalkDone;  // the postponed leaf
-  while (cur != kWalkDone || leaf != kWalkDone) {
-    while (cur != kWalkDone) {
-      if (cur < 0) {
-        if (leaf != kWalkDone) break;
-        leaf = cur;
-        cur = pop_node<kStride>(stack, top);
-      } else {
-        ++pops;
-        cur = walk_step(r, nodes, cur, h.t, stack, top);
-      }
-    }
-    while (leaf != kWalkDone) {
-      ++pops;
-      ++leaf_pops;
-      closest_leaf<ATTR>(r, tris, attr16, leaf, h, tri_tests);
-      leaf = kWalkDone;
-      if (cur < 0 && cur != kWalkDone) {
-        leaf = cur;
-        cur = pop_node<kStride>(stack, top);
-      }
-    }
-  }
-#endif
-  out.t[i] = h.t;
-  out.tri[i] = h.tri;
-  out.b1[i] = h.b1;
-  out.b2[i] = h.b2;
-  if (ATTR) {
-#if PNRT_DEFER
-    if (h.tri >= 0) fill(attr16, h.tri, h.b1, h.b2, h);
-#endif
-    out.nx[i] = h.nx;
-    out.ny[i] = h.ny;
-    out.nz[i] = h.nz;
-    out.u[i] = h.u;
-    out.v[i] = h.v;
-    out.mt[i] = h.mt;
-  }
-  write_stats(out.stats, rays.n, i, pops, leaf_pops, tri_tests);
-}
-
-// True when a triangle of leaf `info` is hit within t_max.
-__device__ __forceinline__ bool any_leaf(const Ray& r, const float* tris,
+// True when a triangle of leaf `info` is hit within t_max; stops at the
+// first.
+__device__ __forceinline__ bool any_leaf(const Ray& r,
+                                         const float* __restrict__ tris,
                                          int info, float t_max,
                                          int& tri_tests) {
   const int meta = -info - 1;
   const int start = meta >> 4;
   const int count = meta & 15;
-#if PNRT_PIPE_ANY && PNRT_TRI12
-  if (count == 0) return false;
-  const float* p = tris + 12 * (int64_t)start;
-  const int last = count - 1;
-  Tri q[PNRT_PIPE_ANY + 1];
-#pragma unroll
-  for (int j = 0; j <= PNRT_PIPE_ANY; ++j) {
-    q[j] = load_tri12(p + 12 * min(j, last));
-  }
-  for (int k = 0; k < count; ++k) {
-    const Tri v = q[0];
-#pragma unroll
-    for (int j = 0; j < PNRT_PIPE_ANY; ++j) q[j] = q[j + 1];
-    q[PNRT_PIPE_ANY] = load_tri12(p + 12 * min(k + PNRT_PIPE_ANY + 1, last));
-    float t, b1, b2;
-    ++tri_tests;
-    if (hit_tri(r, v, t_max, t, b1, b2)) return true;
-  }
-  return false;
-#endif
   for (int k = 0; k < count; ++k) {
     float t, b1, b2;
     ++tri_tests;
-    if (test_tri(r, tris, start + k, t_max, t, b1, b2)) return true;
+    if (hit_tri(r, load_tri12(tris + 12 * (int64_t)(start + k)), t_max, t,
+                b1, b2)) {
+      return true;
+    }
   }
   return false;
 }
 
-__device__ __forceinline__ void any_ray(const float* __restrict__ nodes,
-                                        const float* __restrict__ tris,
-                                        const Rays& rays,
-                                        uint8_t* __restrict__ occ_out,
-                                        int* __restrict__ stats, int i,
-                                        int* stack) {
+// The wide kernels state one block an SM as their least, which leaves
+// the compiler every register it wants (occupancy is not what limits
+// them; capped at 40 registers they ran 10-23% slower).
+template <bool ATTR>
+__global__ void __launch_bounds__(kThreads, 1)
+closest_hit_kernel(const float* __restrict__ nodes,
+                   const float* __restrict__ tris,
+                   const float* __restrict__ attr16, Rays rays,
+                   ClosestOut out) {
+#if PNRT_PACK == 2
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool act0 = i0 < rays.n && (rays.mask == nullptr || rays.mask[i0]);
+  if (i0 < rays.n && !act0) {
+    out.t[i0] = rays.t_max[i0];
+    out.tri[i0] = -1;
+    out.b1[i0] = 0.0f;
+    out.b2[i0] = 0.0f;
+    if (ATTR) {
+      out.nx[i0] = 0.0f; out.ny[i0] = 0.0f; out.nz[i0] = 1.0f;
+      out.u[i0] = 0.0f; out.v[i0] = 0.0f; out.mt[i0] = 0;
+    }
+    write_stats(out.stats, rays.n, i0, 0, 0, 0);
+  }
+  const int i = packed_ray(act0, i0);
+  if (i < 0) return;
+  const bool active = true;
+#else
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+#endif
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
+  Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
+  int pops = 0, leaf_pops = 0, tri_tests = 0;
+
+  int stack[KSTACK];  // the far children still to visit
+  int top = 0;
+  int cur = active ? 0 : kWalkDone;  // the root row
+  while (cur != kWalkDone) {
+    // descend rows until this lane holds a leaf
+    if (cur >= 0) cur = descend(r, nodes, cur, h.t, stack, top, pops);
+    if (cur != kWalkDone) {
+      ++pops;
+      ++leaf_pops;
+      closest_leaf(r, tris, cur, h, tri_tests);
+      cur = pop_node(stack, top);
+    }
+  }
+  out.t[i] = h.t;
+  out.tri[i] = h.tri;
+  out.b1[i] = h.b1;
+  out.b2[i] = h.b2;
+  if (ATTR) {
+    // the interaction fill of the winning hit; on a miss normal +z, uv 0,
+    // word 0
+    float nx = 0.0f, ny = 0.0f, nz = 1.0f, u = 0.0f, v = 0.0f;
+    int mt = 0;
+    if (h.tri >= 0) {
+      const float b0 = 1.0f - h.b1 - h.b2;
+      const float* q = attr16 + 16 * (int64_t)h.tri;
+      const float4 a = ldf4(q), b = ldf4(q + 4), c = ldf4(q + 8),
+                   d = ldf4(q + 12);
+      nx = a.x * b0 + a.w * h.b1 + b.z * h.b2;
+      ny = a.y * b0 + b.x * h.b1 + b.w * h.b2;
+      nz = a.z * b0 + b.y * h.b1 + c.x * h.b2;
+      u = c.y * b0 + c.w * h.b1 + d.y * h.b2;
+      v = c.z * b0 + d.x * h.b1 + d.z * h.b2;
+      mt = (int)d.w;
+    }
+    out.nx[i] = nx;
+    out.ny[i] = ny;
+    out.nz[i] = nz;
+    out.u[i] = u;
+    out.v[i] = v;
+    out.mt[i] = mt;
+  }
+  write_stats(out.stats, rays.n, i, pops, leaf_pops, tri_tests);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+any_hit_kernel(const float* __restrict__ nodes,
+               const float* __restrict__ tris, Rays rays,
+               uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
+#if PNRT_PACK
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool act0 = i0 < rays.n && (rays.mask == nullptr || rays.mask[i0]);
+  if (i0 < rays.n && !act0) {
+    occ_out[i0] = 0;
+    write_stats(stats, rays.n, i0, 0, 0, 0);
+  }
+  const int i = packed_ray(act0, i0);
+  if (i < 0) return;
+  const bool active = true;
+#else
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
   const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+#endif
+  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
+                         rays.dy[i], rays.dz[i]);
   const float t_max = rays.t_max[i];
   bool occ = false;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
+
+  int stack[KSTACK];
   int top = 0;
   int cur = active ? 0 : kWalkDone;
-#if PNRT_WHILE == 0
   while (cur != kWalkDone) {
-    ++pops;
-    if (cur < 0) {
-      ++leaf_pops;
-      occ = any_leaf(r, tris, cur, t_max, tri_tests);
-      cur = occ ? kWalkDone : pop_node<kStride>(stack, top);
-    } else {
-      cur = walk_step(r, nodes, cur, t_max, stack, top);
-    }
-  }
-#elif PNRT_WHILE == 1
-  while (cur != kWalkDone) {
-    while (cur >= 0) {
-      ++pops;
-      cur = walk_step(r, nodes, cur, t_max, stack, top);
-    }
+    if (cur >= 0) cur = descend(r, nodes, cur, t_max, stack, top, pops);
     if (cur != kWalkDone) {
       ++pops;
       ++leaf_pops;
       occ = any_leaf(r, tris, cur, t_max, tri_tests);
-      cur = occ ? kWalkDone : pop_node<kStride>(stack, top);
+      cur = occ ? kWalkDone : pop_node(stack, top);  // occluded: stop
     }
   }
-#else
-  int leaf = kWalkDone;
-  while (cur != kWalkDone || leaf != kWalkDone) {
-    while (cur != kWalkDone) {
-      if (cur < 0) {
-        if (leaf != kWalkDone) break;
-        leaf = cur;
-        cur = pop_node<kStride>(stack, top);
-      } else {
-        ++pops;
-        cur = walk_step(r, nodes, cur, t_max, stack, top);
-      }
-    }
-    while (leaf != kWalkDone) {
-      ++pops;
-      ++leaf_pops;
-      occ = any_leaf(r, tris, leaf, t_max, tri_tests);
-      leaf = kWalkDone;
-      if (occ) {
-        cur = kWalkDone;
-      } else if (cur < 0 && cur != kWalkDone) {
-        leaf = cur;
-        cur = pop_node<kStride>(stack, top);
-      }
-    }
-  }
-#endif
   occ_out[i] = occ ? 1 : 0;
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
-}
-
-// The first of the next 32 rays of this thread's warp, taken from the
-// counter by lane 0 (persistent warps).
-__device__ __forceinline__ int next_warp_rays(int* counter) {
-  int base = 0;
-  if ((threadIdx.x & 31) == 0) base = atomicAdd(counter, 32);
-  return __shfl_sync(0xffffffffu, base, 0);
-}
-
-#if PNRT_SMEM_STACK
-#define WALK_STACK(name)                                          \
-  __shared__ int name##_all[PNRT_WALK_STACK * PNRT_THREADS];      \
-  int* name = name##_all + threadIdx.x
-#else
-#define WALK_STACK(name) int name[PNRT_WALK_STACK]
-#endif
-
-template <bool ATTR>
-__global__ void __launch_bounds__(PNRT_THREADS, PNRT_MIN_BLOCKS)
-closest_hit_kernel(const float* __restrict__ nodes,
-                   const float* __restrict__ tris,
-                   const float* __restrict__ attr16, Rays rays,
-                   ClosestOut out, int* counter) {
-  WALK_STACK(stack);
-#if PNRT_PERSIST
-  for (;;) {
-    const int base = next_warp_rays(counter);
-    if (base >= rays.n) return;
-    const int i = base + (threadIdx.x & 31);
-    if (i < rays.n) closest_ray<ATTR>(nodes, tris, attr16, rays, out, i, stack);
-    __syncwarp();
-  }
-#else
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n) closest_ray<ATTR>(nodes, tris, attr16, rays, out, i, stack);
-#endif
-}
-
-__global__ void __launch_bounds__(PNRT_THREADS, PNRT_MIN_BLOCKS)
-any_hit_kernel(const float* __restrict__ nodes,
-               const float* __restrict__ tris, Rays rays,
-               uint8_t* __restrict__ occ_out, int* __restrict__ stats,
-               int* counter) {
-  WALK_STACK(stack);
-#if PNRT_PERSIST
-  for (;;) {
-    const int base = next_warp_rays(counter);
-    if (base >= rays.n) return;
-    const int i = base + (threadIdx.x & 31);
-    if (i < rays.n) any_ray(nodes, tris, rays, occ_out, stats, i, stack);
-    __syncwarp();
-  }
-#else
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < rays.n) any_ray(nodes, tris, rays, occ_out, stats, i, stack);
-#endif
 }
 
 // One binary node row: its box, and either its leaf range or its children.
@@ -542,55 +469,15 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
 
-constexpr int kThreads = 128;
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-// The blocks an SM holds of one wide-walk kernel (which: 0 closest + fill,
-// 1 closest, 2 any), or minus the CUDA error.
-int walk_blocks_per_sm(int which) {
-  int blocks = 0;
-  cudaError_t err;
-  if (which == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, closest_hit_kernel<true>, kWalkThreads, 0);
-  } else if (which == 1) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, closest_hit_kernel<false>, kWalkThreads, 0);
-  } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, any_hit_kernel, kWalkThreads, 0);
-  }
-  return err == cudaSuccess ? blocks : -(int)err;
-}
-
-// Blocks of a wide-walk launch over n rays.
-int walk_blocks_for(int n, int which) {
-  const int blocks = (n + kWalkThreads - 1) / kWalkThreads;
-#if PNRT_PERSIST
-  static int resident[3] = {0, 0, 0};
-  if (resident[which] == 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    resident[which] = sms * walk_blocks_per_sm(which);
-  }
-  return blocks < resident[which] ? blocks : resident[which];
-#else
-  return blocks;
-#endif
-}
-
 }  // namespace
 
 extern "C" {
 
-// Closest hit over the padded triangle rows tri12; with attr != 0 also the
-// interaction fill (nx..mt must then be non-null).  stats may be null,
-// else [3, n] int32: pops, leaf pops, triangle tests.  counter: one int32
-// of scratch, zero at the launch.  Returns cudaGetLastError() after the
-// launch.
-int pnrt_closest_hit(const float* nodes, const float* tris,
+// Closest hit over the wide rows and the padded triangle rows tri12; with
+// attr != 0 also the interaction fill (nx..mt must then be non-null).
+// stats may be null, else [3, n] int32: pops, leaf pops, triangle tests.
+// Returns cudaGetLastError() after the launch.
+int pnrt_closest_hit(const float* nodes, const float* tri12,
                      const float* attr16, const float* ox, const float* oy,
                      const float* oz, const float* dx, const float* dy,
                      const float* dz, const float* t_max,
@@ -598,47 +485,67 @@ int pnrt_closest_hit(const float* nodes, const float* tris,
                      int* tri_out, float* b1_out, float* b2_out,
                      float* nx_out, float* ny_out, float* nz_out,
                      float* u_out, float* v_out, int* mt_out, int* stats,
-                     int* counter, void* stream) {
+                     void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   const ClosestOut out = {t_out,  tri_out, b1_out, b2_out, nx_out, ny_out,
                           nz_out, u_out,   v_out,  mt_out, stats};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if PNRT_CARVE
+  cudaFuncSetAttribute(closest_hit_kernel<true>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxL1);
+  cudaFuncSetAttribute(closest_hit_kernel<false>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxL1);
+#endif
   if (attr) {
-    closest_hit_kernel<true><<<walk_blocks_for(n, 0), kWalkThreads, 0, s>>>(
-        nodes, tris, attr16, rays, out, counter);
+    closest_hit_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+        nodes, tri12, attr16, rays, out);
   } else {
-    closest_hit_kernel<false><<<walk_blocks_for(n, 1), kWalkThreads, 0, s>>>(
-        nodes, tris, nullptr, rays, out, counter);
+    closest_hit_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+        nodes, tri12, nullptr, rays, out);
   }
   return (int)cudaGetLastError();
 }
 
-int pnrt_any_hit(const float* nodes, const float* tris, const float* ox,
+int pnrt_any_hit(const float* nodes, const float* tri12, const float* ox,
                  const float* oy, const float* oz, const float* dx,
                  const float* dy, const float* dz, const float* t_max,
                  const uint8_t* mask, int n, uint8_t* occ_out, int* stats,
-                 int* counter, void* stream) {
+                 void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
-  any_hit_kernel<<<walk_blocks_for(n, 2), kWalkThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      nodes, tris, rays, occ_out, stats, counter);
+#if PNRT_CARVE
+  cudaFuncSetAttribute(any_hit_kernel,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxL1);
+#endif
+  any_hit_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(nodes, tri12, rays,
+                                                        occ_out, stats);
   return (int)cudaGetLastError();
 }
 
 // What the card gives a wide-walk kernel (which: 0 closest + fill, 1
 // closest, 2 any): what == 0 the registers a thread, 1 the blocks an SM
-// holds at once, 2 the threads a block, 3 the bytes of local memory a
-// thread.  A negative value is minus the CUDA error.
+// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 2 the
+// threads a block, 3 the bytes of local memory a thread.  A negative
+// value is minus the CUDA error.
 int pnrt_walk_kernel_info(int which, int what) {
-  if (what == 1) return walk_blocks_per_sm(which);
-  if (what == 2) return kWalkThreads;
+  const void* kernel =
+      which == 0   ? (const void*)closest_hit_kernel<true>
+      : which == 1 ? (const void*)closest_hit_kernel<false>
+                   : (const void*)any_hit_kernel;
+  if (what == 2) return kThreads;
+  if (what == 1) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kThreads, 0);
+    return err == cudaSuccess ? blocks : -(int)err;
+  }
   cudaFuncAttributes a;
-  const cudaError_t err =
-      which == 0   ? cudaFuncGetAttributes(&a, closest_hit_kernel<true>)
-      : which == 1 ? cudaFuncGetAttributes(&a, closest_hit_kernel<false>)
-                   : cudaFuncGetAttributes(&a, any_hit_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return -(int)err;
   return what == 0 ? a.numRegs : (int)a.localSizeBytes;
 }

@@ -92,8 +92,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every entry point; all return an int (the launchers a CUDA
 # error code)
 _SIGNATURES = {
-    "pnrt_closest_hit": [_P] * 11 + [_I] * 2 + [_P] * 13,
-    "pnrt_any_hit": [_P] * 10 + [_I] + [_P] * 4,
+    "pnrt_closest_hit": [_P] * 11 + [_I] * 2 + [_P] * 12,
+    "pnrt_any_hit": [_P] * 10 + [_I] + [_P] * 3,
     "pnrt_walk_kernel_info": [_I] * 2,
     "pnrt_closest_hit_binary": [_P] * 10 + [_I] + [_P] * 6,
     "pnrt_any_hit_binary": [_P] * 10 + [_I] + [_P] * 3,

@@ -48,6 +48,21 @@ ROUND1 = {
     "prefetch_children": ("PNRT_PREFETCH=1",),
     "min_blocks_16_t64": ("PNRT_MIN_BLOCKS=32", "PNRT_THREADS=64"),
 }
+# Third round (--round3), on the final walk: a block's active rays packed
+# into its first threads.
+ROUND3 = {
+    "base": (),
+    "pack_any": ("PNRT_PACK=1",),
+    "pack_both": ("PNRT_PACK=2",),
+}
+# Fourth round (--round4): the near child's row requested before the slab
+# tests, and the largest L1.
+ROUND4 = {
+    "base": (),
+    "spec_near": ("PNRT_SPEC=1",),
+    "max_l1": ("PNRT_CARVE=1",),
+    "spec_near_max_l1": ("PNRT_SPEC=1", "PNRT_CARVE=1"),
+}
 # Second round (--round2): the while-while walk with the leaf's triangle
 # rows kept in flight, and the first round's switches on top of it.
 W = ("PNRT_WHILE=1",)
@@ -90,7 +105,9 @@ def main() -> int:
     )
 
     quick = "--quick" in sys.argv[1:]
-    VARIANTS = ROUND2 if "--round2" in sys.argv[1:] else ROUND1
+    VARIANTS = (ROUND4 if "--round4" in sys.argv[1:] else
+                ROUND3 if "--round3" in sys.argv[1:] else
+                ROUND2 if "--round2" in sys.argv[1:] else ROUND1)
     dev = torch.device("cuda")
     cs.emit({"phase": "device", "nvidia_smi": cs.nvidia_smi_line()})
     build = cuda_build.use_variant("traverse")
@@ -197,8 +214,6 @@ def main() -> int:
         for v in order:
             defines = VARIANTS[v]
             build = cuda_build.use_variant("traverse", defines)
-            trv.TRIAL_TRI9 = "PNRT_TRI12=0" in defines
-            trv.TRIAL_PERSIST = "PNRT_PERSIST=1" in defines
             rec = results.setdefault(v, {"variant": v, "defines": defines,
                                          "info": trv.kernel_info(),
                                          "passes": []})
@@ -218,7 +233,6 @@ def main() -> int:
                         "base_attr": int(ref[name][0][2][0].sum()),
                         "base_any": int(ref[name][2][1][0].sum())}
             rec["passes"].append({name: time_all(name) for name in sets})
-    trv.TRIAL_TRI9 = trv.TRIAL_PERSIST = False
     cuda_build.use_variant("traverse")
     for rec in results.values():
         cs.emit(dict(phase="variant", **rec))

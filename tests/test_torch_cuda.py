@@ -154,6 +154,86 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
     assert int(off.sum()) <= 1
 
 
+def _wide_case(case):
+    """(rays, mask) of one edge case of the resident wide kernels."""
+    n = {"one_ray": 1, "ragged": 128 * 37 + 5}.get(case, 1 << 14)
+    o, d, t_max, mask = _rays(n, 20)
+    if case == "t_max_zero":
+        t_max = torch.zeros_like(t_max)
+    elif case == "t_max_inf":
+        t_max = torch.full_like(t_max, float("inf"))
+    elif case == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif case == "no_mask":
+        mask = None
+    elif case == "one_ray":
+        mask = torch.ones_like(mask)
+    return o, d, t_max, mask
+
+
+@pytest.mark.parametrize("case", ["random", "no_mask", "t_max_zero",
+                                  "t_max_inf", "all_masked", "one_ray",
+                                  "ragged"])
+def test_wide_kernels_equal_plain_with_stats(flagship, case):
+    """Kernels 1-3 against their plain versions: hits, barycentrics, the
+    interaction fill, occlusion and the [3, R] walk stats all equal."""
+    trav = flagship[0].trav
+    o, d, t_max, mask = _wide_case(case)
+    before = dict(trv.LAUNCHES)
+    hit, attrs, st = trv.closest_hit_attr(trav, o, d, t_max, mask,
+                                          with_stats=True)
+    want, wattrs, wst = trv.plain_closest_hit_attr(trav, o, d, t_max, mask,
+                                                   with_stats=True)
+    hit3, st3 = trv.closest_hit(trav, o, d, t_max, mask, with_stats=True)
+    occ, ast = trv.any_hit(trav, o, d, t_max, mask, with_stats=True)
+    wocc, wast = trv.plain_any_hit(trav, o, d, t_max, mask, with_stats=True)
+    torch.cuda.synchronize()
+    for h in (hit, hit3):
+        for a, b in [(h.tri, want.tri), (h.t, want.t), (h.b1, want.b1),
+                     (h.b2, want.b2)]:
+            assert torch.equal(a, b)
+    for a, b in zip(attrs, wattrs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert st.shape == (3, o.x.shape[0])
+    assert torch.equal(st, wst) and torch.equal(st3, wst)
+    assert torch.equal(occ, wocc) and torch.equal(ast, wast)
+    for name in ("closest_hit_attr", "closest_hit", "any_hit"):
+        assert trv.LAUNCHES[name] == before[name] + 1
+    if case in ("t_max_zero", "all_masked"):
+        assert not bool(want.valid.any()) and not bool(occ.any())
+        assert torch.equal(hit.t, t_max)
+        assert bool((attrs[2] == 1.0).all()) and not bool(attrs[5].any())
+    if case == "all_masked":
+        assert not bool(st.any()) and not bool(ast.any())
+    if case in ("random", "no_mask", "t_max_inf", "ragged"):
+        assert bool(want.valid.any()) and bool(occ.any())
+        assert int(st[0].max()) > 20
+
+
+def test_wide_wrappers_raise_on_too_deep_bvh(flagship):
+    """A BVH deeper than the kernels' 64-entry stack: no stack_depth is
+    both deep enough for the scene and within the kernel, so the wrappers
+    raise and launch nothing."""
+    trav = flagship[0].trav
+    deep = dataclasses.replace(trav, bvh_depth=trv.KERNEL_STACK + 1)
+    o, d, t_max, mask = _rays(64, 21)
+    before = dict(trv.LAUNCHES)
+    for fn in (trv.closest_hit_attr, trv.closest_hit, trv.any_hit):
+        with pytest.raises(ValueError, match="too shallow"):
+            fn(deep, o, d, t_max, mask)
+        with pytest.raises(ValueError, match="64-entry stack"):
+            fn(deep, o, d, t_max, mask, stack_depth=trv.KERNEL_STACK + 1)
+    assert trv.LAUNCHES == before
+
+
+def test_wide_kernel_info(flagship):
+    info = trv.kernel_info()
+    assert set(info) == {"closest_hit_attr", "closest_hit", "any_hit"}
+    for v in info.values():
+        assert v["threads"] == 128 and 0 < v["registers"] <= 255
+        assert v["blocks_per_sm"] >= 1 and v["local_bytes"] >= 256
+
+
 def _assert_closest_equal(hit, want, stats=None, wstats=None):
     same = hit.tri == want.tri
     assert int((~same).sum()) <= 1
