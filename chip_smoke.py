@@ -727,13 +727,14 @@ def main() -> int:
     trav = scene.trav
     # the tables the resident wide kernels read: rows and padded triangles
     scene_bytes = 4 * (trav.nodes16c.numel() + trav.tri12.numel())
+    info = trv.kernel_info()
     emit({"phase": "scene", "seconds": time.perf_counter() - t0,
           "triangles": trav.tri9.shape[0],
           "wide_rows": trav.nodes16c.shape[0],
           "treelets": trav.treelets.shape[0], "bvh_depth": trav.bvh_depth,
           "scene_bytes": scene_bytes,
           "attr_bytes": 4 * trav.tri_attr16.numel(),
-          "wide_kernels": trv.kernel_info()})
+          "wide_kernels": info})
 
     # ---- 4. kernel parity on the rays of one plain-path frame ----------
     modules = (integrator, trv, trs, compaction)
@@ -849,7 +850,6 @@ def main() -> int:
     rows = []
     o, d, tm = cont[1], cont[2], cont[3]
     mask = cont[4]
-    info = trv.kernel_info()
     figures = {}
     hit, _, st = trv.closest_hit_attr(trav, o, d, tm, mask, with_stats=True)
     bnd, by = bound(r * (RAY_IN + 40) + scene_bytes + attr_bytes,

@@ -72,88 +72,13 @@
 
 #include "intersect.cuh"
 
-// TRIAL switches (scripts/torch_walk_trials.py)
-#ifndef PNRT_PACK
-#define PNRT_PACK 0  // 1: any hit packs a block's active rays; 2: both
-#endif
-#ifndef PNRT_SPEC
-#define PNRT_SPEC 0  // 1: the near child's row is loaded before the tests
-#endif
-#ifndef PNRT_CARVE
-#define PNRT_CARVE 0  // 1: ask for the largest L1
-#endif
-
 using namespace pnrt;
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// The ray this thread walks when the block's active rays are packed into
-// its first threads, in order (-1: none).  Inactive rays are left to the
-// caller, which writes their miss.
-__device__ __forceinline__ int packed_ray(bool active, int i) {
-  __shared__ int s_count[kThreads / 32];
-  __shared__ int s_ray[kThreads];
-  const unsigned ballot = __ballot_sync(0xffffffffu, active);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_count[warp] = __popc(ballot);
-  __syncthreads();
-  int base = 0, total = 0;
-  for (int w = 0; w < kThreads / 32; ++w) {
-    if (w < warp) base += s_count[w];
-    total += s_count[w];
-  }
-  if (active) s_ray[base + __popc(ballot & ((1u << lane) - 1u))] = i;
-  __syncthreads();
-  return (int)threadIdx.x < total ? s_ray[threadIdx.x] : -1;
-}
-
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-// Descend from internal row `cur` until the walk holds a leaf (returned,
-// < 0) or nothing is left (kWalkDone), counting the rows visited.  t does
-// not change on the way: only a leaf's tests move it.
-__device__ __forceinline__ int descend(const Ray& r,
-                                       const float* __restrict__ nodes,
-                                       int cur, float t, int* stack,
-                                       int& top, int& pops) {
-#if PNRT_SPEC
-  Row w = load_row(nodes + 16 * (int64_t)cur);
-  for (;;) {
-    ++pops;
-    const bool d_neg = sel3(w.axis, r.dx, r.dy, r.dz) < 0.0f;
-    const int near_c = d_neg ? w.ri : w.li;
-    const int far_c = d_neg ? w.li : w.ri;
-    // the near child's row is requested before the slab tests say whether
-    // the ray enters it, so its latency overlaps them
-    Row nw = w;
-    if (near_c >= 0) nw = load_row(nodes + 16 * (int64_t)near_c);
-    const bool hl = hit_aabb(r, w.lmn[0], w.lmn[1], w.lmn[2], w.lmx[0],
-                             w.lmx[1], w.lmx[2], t);
-    const bool hr = hit_aabb(r, w.rmn[0], w.rmn[1], w.rmn[2], w.rmx[0],
-                             w.rmx[1], w.rmx[2], t);
-    const bool h_near = d_neg ? hr : hl;
-    const bool h_far = d_neg ? hl : hr;
-    if (h_near && h_far) stack[top++] = far_c;
-    if (h_near) {
-      cur = near_c;
-      if (cur < 0) return cur;
-      w = nw;
-      continue;
-    }
-    cur = h_far ? far_c : pop_node(stack, top);
-    if (cur < 0) return cur;
-    w = load_row(nodes + 16 * (int64_t)cur);
-  }
-#else
-  while (cur >= 0) {
-    ++pops;
-    cur = next_node(r, load_row(nodes + 16 * (int64_t)cur), t, stack, top);
-  }
-  return cur;
-#endif
-}
 
 // Where a closest-hit walk writes: the hit, the interaction fill (null
 // without it) and the stats (may be null).
@@ -226,30 +151,11 @@ closest_hit_kernel(const float* __restrict__ nodes,
                    const float* __restrict__ tris,
                    const float* __restrict__ attr16, Rays rays,
                    ClosestOut out) {
-#if PNRT_PACK == 2
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool act0 = i0 < rays.n && (rays.mask == nullptr || rays.mask[i0]);
-  if (i0 < rays.n && !act0) {
-    out.t[i0] = rays.t_max[i0];
-    out.tri[i0] = -1;
-    out.b1[i0] = 0.0f;
-    out.b2[i0] = 0.0f;
-    if (ATTR) {
-      out.nx[i0] = 0.0f; out.ny[i0] = 0.0f; out.nz[i0] = 1.0f;
-      out.u[i0] = 0.0f; out.v[i0] = 0.0f; out.mt[i0] = 0;
-    }
-    write_stats(out.stats, rays.n, i0, 0, 0, 0);
-  }
-  const int i = packed_ray(act0, i0);
-  if (i < 0) return;
-  const bool active = true;
-#else
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
-#endif
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
+  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
   Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
   int pops = 0, leaf_pops = 0, tri_tests = 0;
 
@@ -257,8 +163,11 @@ closest_hit_kernel(const float* __restrict__ nodes,
   int top = 0;
   int cur = active ? 0 : kWalkDone;  // the root row
   while (cur != kWalkDone) {
-    // descend rows until this lane holds a leaf
-    if (cur >= 0) cur = descend(r, nodes, cur, h.t, stack, top, pops);
+    while (cur >= 0) {  // descend rows until this lane holds a leaf
+      ++pops;
+      cur = next_node(r, load_row(nodes + 16 * (int64_t)cur), h.t, stack,
+                      top);
+    }
     if (cur != kWalkDone) {
       ++pops;
       ++leaf_pops;
@@ -301,23 +210,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 any_hit_kernel(const float* __restrict__ nodes,
                const float* __restrict__ tris, Rays rays,
                uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
-#if PNRT_PACK
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool act0 = i0 < rays.n && (rays.mask == nullptr || rays.mask[i0]);
-  if (i0 < rays.n && !act0) {
-    occ_out[i0] = 0;
-    write_stats(stats, rays.n, i0, 0, 0, 0);
-  }
-  const int i = packed_ray(act0, i0);
-  if (i < 0) return;
-  const bool active = true;
-#else
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
-#endif
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
+  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
   const float t_max = rays.t_max[i];
   bool occ = false;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
@@ -326,7 +223,11 @@ any_hit_kernel(const float* __restrict__ nodes,
   int top = 0;
   int cur = active ? 0 : kWalkDone;
   while (cur != kWalkDone) {
-    if (cur >= 0) cur = descend(r, nodes, cur, t_max, stack, top, pops);
+    while (cur >= 0) {
+      ++pops;
+      cur = next_node(r, load_row(nodes + 16 * (int64_t)cur), t_max, stack,
+                      top);
+    }
     if (cur != kWalkDone) {
       ++pops;
       ++leaf_pops;
@@ -491,14 +392,6 @@ int pnrt_closest_hit(const float* nodes, const float* tri12,
   const ClosestOut out = {t_out,  tri_out, b1_out, b2_out, nx_out, ny_out,
                           nz_out, u_out,   v_out,  mt_out, stats};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if PNRT_CARVE
-  cudaFuncSetAttribute(closest_hit_kernel<true>,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxL1);
-  cudaFuncSetAttribute(closest_hit_kernel<false>,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxL1);
-#endif
   if (attr) {
     closest_hit_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
         nodes, tri12, attr16, rays, out);
@@ -516,11 +409,6 @@ int pnrt_any_hit(const float* nodes, const float* tri12, const float* ox,
                  void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
-#if PNRT_CARVE
-  cudaFuncSetAttribute(any_hit_kernel,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxL1);
-#endif
   any_hit_kernel<<<blocks_for(n), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(nodes, tri12, rays,
                                                         occ_out, stats);

@@ -361,12 +361,10 @@ def test_tri12_is_tri9_padded(source):
     scene converted from the JAX package (which has no such table), and
     through a second round trip of convert.py."""
     if source == "built":
-        from pnraytracing_tpu_torch.scene import shapes
-        from pnraytracing_tpu_torch.scene.build import SceneBuilder
+        from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
 
-        b = SceneBuilder()
-        b.add(shapes.icosphere(2), dict(base_color=(0.7, 0.3, 0.2)))
-        trav = b.build(env_constant=(0.3, 0.3, 0.3), device="cpu").trav
+        trav = config3_teapot_night(env_height=16, device="cpu")[0].trav
+        assert trav.tri12.shape[0] == 5692
     elif source == "packed":
         tri9 = np.random.default_rng(5).normal(size=(37, 9)).astype(
             np.float32)
