@@ -109,7 +109,9 @@ class Recorder:
             "any_hit": traverse.plain_any_hit,
             "closest_hit_stream": stream.plain_closest_hit_stream,
             "any_hit_stream": stream.plain_any_hit_stream,
-            "entry_key": compaction.treelet_entry_key,
+            # the all-K plain version keys from the boxes alone
+            "entry_key": lambda o, d, treelets, tree:
+                compaction.treelet_entry_key(o, d, treelets),
         }
         self.saved = {n: getattr(integrator, n) for n in plain}
         self.calls: list[tuple[str, tuple]] = []
@@ -241,6 +243,124 @@ def walk_figures(st, tri_bytes=TRI12_BYTES, fills=0) -> dict:
         "mean_warp_pops": tot / iters.numel(),
         "touched_bytes": bytes_,
         "touched_hbm_ms": bytes_ / HBM_BYTES_PER_S * 1e3}
+
+
+def key_figures(counts, key, o, d, tree, k_total) -> dict:
+    """What the key walk's per-ray counts ([2, R]: union tests, member
+    tests) say about how it runs: tests a ray; ``warp_tests``, the tests
+    a warp of 32 consecutive rays executes (one test an iteration, so as
+    many as its longest lane); ``simt_efficiency`` = sum(tests) / (32 *
+    sum of warp_tests); the share of rays that end at a best entry of 0
+    (the winning box holds the origin) and the share that enter no box
+    (key ``K*8 + octant``)."""
+    import torch
+
+    from pnraytracing_tpu_torch.ops.compaction import _safe_inv, slab_entry
+
+    unions, members = counts[0].to(torch.int64), counts[1].to(torch.int64)
+    tot = unions + members
+    r = tot.numel()
+    p = tree.shape[0] // 2
+    per_warp = torch.nn.functional.pad(tot, (0, (-r) % 32)).view(
+        -1, 32).amax(dim=1)
+    k = (key // 8).to(torch.int64)
+    none = k >= k_total
+    t_near, _ = slab_entry(tree[p + k.clamp(max=k_total - 1)], o.x, o.y, o.z,
+                           _safe_inv(d.x), _safe_inv(d.y), _safe_inv(d.z))
+    return {"rays": r, "union_tests": spread(unions),
+            "member_tests": spread(members), "tests": spread(tot),
+            "warp_tests": spread(per_warp),
+            "simt_efficiency": int(tot.sum()) / max(
+                32 * int(per_warp.sum()), 1),
+            "ends_at_zero_share": float(((t_near == 0) & ~none).sum()) / r,
+            "enters_none_share": float(none.sum()) / r}
+
+
+def synthetic_key_rays(treelets, device, n=4096, seed=0):
+    """``(o, d)`` of ``n`` key rays (a multiple of 8) that the frames do
+    not send, in eighths: origins outside the scene's box aimed into it;
+    axis-parallel directions (one and two zero components) from inside;
+    rays aimed away that enter nothing; origins on box corners; all-zero
+    directions; then three eighths of rays from inside with one
+    non-finite component each (a NaN or an infinity in the origin or the
+    direction, and both infinite on one axis)."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.vec import V3
+
+    g = torch.Generator().manual_seed(seed)
+    tre = treelets.detach().cpu()
+    lo, hi = tre[:, :3].amin(dim=0), tre[:, 3:].amax(dim=0)
+    mid, half = (lo + hi) / 2, (hi - lo) / 2 + 1e-3
+    m = n // 8
+    unit = lambda v: v / v.norm(dim=1, keepdim=True)
+    rand = lambda k: torch.rand((k, 3), generator=g) * 2 - 1
+    inside = lambda k: mid + rand(k) * half
+    shell = lambda k: mid + unit(rand(k)) * half.norm() * 3
+    o_out = shell(m)
+    d_in = unit(inside(m) - o_out)
+    d_axis = unit(rand(m))
+    d_axis[torch.arange(m), torch.randint(0, 3, (m,), generator=g)] = 0.0
+    d_axis[: m // 2, 0] = 0.0
+    o_away = shell(m)
+    corner = tre[torch.randint(0, tre.shape[0], (m,), generator=g)]
+    pick = torch.rand((m, 3), generator=g) < 0.5
+    o_corner = torch.where(pick, corner[:, :3], corner[:, 3:])
+    o_bad, d_bad = inside(3 * m), unit(rand(3 * m))
+    inf, nan = float("inf"), float("nan")
+    row = torch.arange(3 * m)
+    col = torch.randint(0, 3, (3 * m,), generator=g)
+    kind = row % 6
+    for j, (tensor, value) in enumerate(((o_bad, nan), (d_bad, nan),
+                                         (o_bad, inf), (d_bad, -inf),
+                                         (o_bad, -inf), (d_bad, inf))):
+        sel = kind == j
+        tensor[row[sel], col[sel]] = value
+    both = kind == 4  # an infinite origin AND direction on that axis
+    d_bad[row[both], col[both]] = inf
+    o = torch.cat([o_out, inside(m), o_away, o_corner, inside(m), o_bad])
+    d = torch.cat([d_in, d_axis, unit(o_away - mid), unit(rand(m)),
+                   torch.zeros((m, 3)), d_bad])
+    v3 = lambda a: V3(*(a[:, k].contiguous().to(device) for k in range(3)))
+    return v3(o.float()), v3(d.float())
+
+
+def check_key(name, compaction, o, d, treelets, tree) -> dict:
+    """The key kernel on these rays against the all-K plain version
+    (keys) and against the plain version of its own walk (keys and
+    counts): 0 mismatches demanded."""
+    import torch
+
+    key, counts = compaction.entry_key(o, d, treelets, tree, with_stats=True)
+    want = compaction.treelet_entry_key(o, d, treelets)
+    wkey, wcounts = compaction.entry_key_walk(o, d, tree, treelets.shape[0])
+    out = {"rays": int(key.numel()),
+           "mismatch_all_k": int((key != want).sum()),
+           "mismatch_walk": int((key != wkey).sum()),
+           "counts_equal": bool(torch.equal(counts, wcounts)),
+           "tests_per_ray": float(counts.sum()) / max(key.numel(), 1)}
+    if out["mismatch_all_k"] or out["mismatch_walk"] or not (
+            out["counts_equal"] and counts.shape == (2, key.numel())):
+        raise AssertionError(f"entry_key/{name}: {out}: the kernel must "
+                             "equal both plain versions, counts included")
+    return out
+
+
+def record_key_rays(render_frame, scene, camera, cfg, dev, integrator):
+    """The inputs of every ``entry_key`` call of one frame through the
+    kernels."""
+    saved, calls = integrator.entry_key, []
+
+    def call(*args, **kw):
+        calls.append(_clone(args))
+        return saved(*args, **kw)
+
+    integrator.entry_key = call
+    try:
+        render_frame(scene, camera, cfg, 0, device=dev)
+    finally:
+        integrator.entry_key = saved
+    return calls
 
 
 def check_stats(name, got, want) -> None:
@@ -429,12 +549,16 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
     import torch
 
     r = primary[1].x.shape[0]
+    info = trv.kernel_info()
     res = {}
     for label, args in (("primary", primary), ("bounce0", cont)):
         o, d, tm, mask = rays_of(args)
-        got = trv.closest_hit(trav, o, d, tm, mask, variant="binary")
-        want = trv.plain_closest_hit_binary(trav, o, d, tm, mask)
+        got, st = trv.closest_hit(trav, o, d, tm, mask, variant="binary",
+                                  with_stats=True)
+        want, wst = trv.plain_closest_hit_binary(trav, o, d, tm, mask,
+                                                 with_stats=True)
         bad, err = check_closest("closest_hit_binary/" + label, got, want, r)
+        check_stats("closest_hit_binary/" + label, st, wst)
         # the same tree as the wide walk: the same hits
         wide_bad, _ = check_closest("closest_hit_binary_vs_wide/" + label,
                                     got, trv.closest_hit(trav, o, d, tm,
@@ -442,9 +566,12 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
         res[label] = {"tri_mismatch": bad, "err": err,
                       "tri_mismatch_vs_wide": wide_bad}
     so, sd, stm, smask = rays_of(shadow)
-    occ = trv.any_hit(trav, so, sd, stm, smask, variant="binary")
-    occ_bad = check_occ("any_hit_binary", occ, trv.plain_any_hit_binary(
-        trav, so, sd, stm, smask))
+    occ, st = trv.any_hit(trav, so, sd, stm, smask, variant="binary",
+                          with_stats=True)
+    wocc, wst = trv.plain_any_hit_binary(trav, so, sd, stm, smask,
+                                         with_stats=True)
+    occ_bad = check_occ("any_hit_binary", occ, wocc)
+    check_stats("any_hit_binary", st, wst)
     check_occ("any_hit_binary_vs_wide", occ,
               trv.any_hit(trav, so, sd, stm, smask))
     torch.cuda.synchronize()
@@ -472,7 +599,8 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
                  trav, o, d, tm, mask), 2),
              wide_ms=time_ms(lambda: trv.closest_hit(trav, o, d, tm, mask),
                              20),
-             pops=pops_c, bound_ms=bnd_c[0], bound_by=bnd_c[1]),
+             pops=pops_c, bound_ms=bnd_c[0], bound_by=bnd_c[1],
+             **info["closest_hit_binary"]),
         dict(name="any_hit_binary",
              source="pnraytracing_tpu_torch/csrc/traverse.cu",
              replaces="pnraytracing_tpu/accel/traverse_pallas.py:233",
@@ -484,10 +612,10 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
                  trav, so, sd, stm, smask), 2),
              wide_ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask),
                              20),
-             bound_ms=bnd_a[0], bound_by=bnd_a[1]),
+             bound_ms=bnd_a[0], bound_by=bnd_a[1], **info["any_hit_binary"]),
     ]
     emit({"phase": "binary", "rays": r, "shadow_rays": rs, "closest": res,
-          "any_hit_mismatch": occ_bad,
+          "any_hit_mismatch": occ_bad, "stats_equal": True,
           "ms": {row["name"]: row["ms"] for row in rows},
           "wide_ms": {row["name"]: row["wide_ms"] for row in rows}})
     return rows
@@ -504,7 +632,7 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     from pnraytracing_tpu_torch.accel.route import traversal_route
     from pnraytracing_tpu_torch.scene.scenes import config5_large
 
-    _, trv, trs, _ = modules
+    _, trv, trs, compaction = modules
 
     # ---- 9. the scene ---------------------------------------------------
     t0 = time.perf_counter()
@@ -561,10 +689,16 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                              "plain version")
     res_occ_bad = check_occ("any_hit_resident_vs_stream", occ,
                             trv.any_hit(trav, so, sd, stm, smask))
+    # the key kernel on config5's bounce-0 key rays (K = 388)
+    ko, kd, tre, tree = calls["entry_key"][0]
+    key_res = check_key("config5", compaction, ko, kd, tre, tree)
+    key, kcounts = compaction.entry_key(ko, kd, tre, tree, with_stats=True)
+    emit({"phase": "key_figures", "scene": "config5", "rays_of": "bounce0",
+          **key_figures(kcounts, key, ko, kd, tree, tre.shape[0])})
     torch.cuda.synchronize()
     emit({"phase": "stream_parity", "rays": r,
           "shadow_rays": int(so.x.shape[0]), "closest": res,
-          "any_hit_mismatch": occ_bad,
+          "entry_key": key_res, "any_hit_mismatch": occ_bad,
           "any_hit_resident_mismatch": res_occ_bad,
           "any_stats_equal": True,
           "any_bricks_per_ray": float(st[3].sum()) / int(so.x.shape[0])})
@@ -674,7 +808,9 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
         "closest_hit_attr": time_ms(lambda: trv.closest_hit_attr(
             trav, o, d, tm, mask), 10),
         "closest_hit": rows[0]["resident_ms"],
-        "any_hit": rows[1]["resident_ms"]}
+        "any_hit": rows[1]["resident_ms"],
+        "treelet_entry_key": time_ms(lambda: compaction.entry_key(
+            ko, kd, tre, tree), 20)}
     emit({"phase": "walk_figures", "scene": "config5", "ms": on_config5,
           "kernels": figures})
     emit({"phase": "stream_frame", "width": WIDTH, "height": HEIGHT,
@@ -780,17 +916,28 @@ def main() -> int:
     if occ_bad:
         raise AssertionError(f"any_hit: {occ_bad} occlusion mismatches")
     check_stats("any_hit", st, wst)
-    ko, kd, tre = key_in
-    key_k = compaction.entry_key(ko, kd, tre)
-    key_p = compaction.treelet_entry_key(ko, kd, tre)
-    key_bad = int((key_k != key_p).sum())
-    if key_bad:
-        raise AssertionError(f"entry_key: {key_bad} key mismatches")
+    # the key kernel on the bounce-0 and bounce-1 key rays and on rays no
+    # frame sends, against both of its plain versions
+    ko, kd, tre, tree = key_in
+    cfg2 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=2)
+    key_sets = {"bounce0": (ko, kd), "bounce1": record_key_rays(
+        render_frame, scene, camera, cfg2, dev, integrator)[1][:2],
+        "synthetic": synthetic_key_rays(tre, dev)}
+    key_res = {label: check_key(label, compaction, *od, tre, tree)
+               for label, od in key_sets.items()}
+    key_bad = sum(v["mismatch_all_k"] + v["mismatch_walk"]
+                  for v in key_res.values())
     torch.cuda.synchronize()
     emit({"phase": "kernel_parity", "rays": r,
           "shadow_rays": int(o.x.shape[0]), "closest": results,
           "any_hit_mismatch": occ_bad, "any_stats_equal": True,
-          "entry_key_mismatch": key_bad})
+          "entry_key_mismatch": key_bad, "entry_key": key_res})
+    for label in ("bounce0", "bounce1"):
+        ko_, kd_ = key_sets[label]
+        key, kcounts = compaction.entry_key(ko_, kd_, tre, tree,
+                                            with_stats=True)
+        emit({"phase": "key_figures", "scene": "flagship", "rays_of": label,
+              **key_figures(kcounts, key, ko_, kd_, tree, tre.shape[0])})
 
     # ---- 5. frame parity: kernels vs plain versions on the card --------
     cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
@@ -895,16 +1042,26 @@ def main() -> int:
                    touched_hbm_ms=f["touched_hbm_ms"],
                    simt_efficiency=f["simt_efficiency"]["pops"])
     emit({"phase": "walk_figures", "scene": "flagship", "kernels": figures})
+    # the key kernel: each input once (rays, the tree) and the slab tests
+    # this run's rays need; the bound of all K tests a ray beside it
     k_total = tre.shape[0]
-    bnd, by = bound(r * (24 + 4) + 24 * k_total, OPS_ENTRY_BOX * k_total * r)
+    _, kcounts = compaction.entry_key(ko, kd, tre, tree, with_stats=True)
+    tests = int(kcounts.sum())
+    bnd, by = bound(r * (24 + 4) + 4 * tree.numel(), OPS_ENTRY_BOX * tests)
     rows.append(dict(
         name="treelet_entry_key", source="pnraytracing_tpu_torch/csrc/"
         "entry_key.cu", replaces="pnraytracing_tpu/ops/compaction.py:177",
         launches=launches["treelet_entry_key"],
-        max_abs_err=float((key_k - key_p).abs().max()), mismatches=key_bad,
-        ms=time_ms(lambda: compaction.entry_key(ko, kd, tre), 20),
-        plain_ms=time_ms(lambda: compaction.treelet_entry_key(ko, kd, tre),
-                         2), bound_ms=bnd, bound_by=by))
+        max_abs_err=float(key_bad), mismatches=key_bad,
+        ms=time_ms(lambda: compaction.entry_key(ko, kd, tre, tree), 20),
+        plain_ms=time_ms(lambda: compaction.entry_key_walk(
+            ko, kd, tree, k_total), 2),
+        all_k_plain_ms=time_ms(lambda: compaction.treelet_entry_key(
+            ko, kd, tre), 2),
+        bound_ms=bnd, bound_by=by, tests_per_ray=tests / r,
+        all_k_bound_ms=bound(r * (24 + 4) + 24 * k_total,
+                             OPS_ENTRY_BOX * k_total * r)[0],
+        **compaction.kernel_info(k_total)))
     emit({"phase": "flagship", "width": WIDTH, "height": HEIGHT,
           "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
           "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),

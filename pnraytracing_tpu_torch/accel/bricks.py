@@ -101,6 +101,72 @@ def treelet_cut_aabbs(bvh, n_target: int = 256, cap: int = 512
                           axis=1).astype(np.float32)
 
 
+TREELET_COORD_LIMIT = 1e30  # |box coordinate| bound of the key's tables
+
+
+def _checked_treelets(treelets) -> np.ndarray:
+    """``treelets`` as a [K, 6] f32 array of valid boxes (lo <= hi, finite,
+    |coordinate| < 1e30 so that ``box - origin`` never overflows for a
+    finite origin); raises otherwise.  The pruned key walk is exact only
+    for such boxes."""
+    tre = _np(treelets, np.float32)
+    if tre.ndim != 2 or tre.shape[1] != 6 or not 0 < tre.shape[0] <= 512:
+        raise ValueError("treelets must be [K, 6] with 0 < K <= 512")
+    if not (np.all(np.abs(tre) < TREELET_COORD_LIMIT)
+            and np.all(tre[:, :3] <= tre[:, 3:])):
+        raise ValueError("treelet boxes must be finite with lo <= hi")
+    return tre
+
+
+def treelet_index_tree(treelets) -> np.ndarray:
+    """[2P, 8] f32 implicit binary tree over the INDEX RANGES of the K
+    treelet boxes, the table the key kernel walks (csrc/entry_key.cu).
+
+    P is the least power of two >= K.  Row i (1 <= i < 2P, heap order:
+    children 2i and 2i + 1; row 0 is unused) is ``[lo.xyz, 0, hi.xyz, 0]``,
+    two ``float4``.  Leaf row P + k is box k; an inner row is the union
+    (componentwise min / max) of the leaves under it, that is of a
+    contiguous index range, which is tight because ``treelet_cut_aabbs``
+    returns the boxes in depth-first order of the BVH (neighbours in index
+    are neighbours in space).  Leaves P + k for k >= K repeat box K - 1:
+    visited after it, with the same entry t, a copy can never win the
+    strict ``<`` of the argmin, so the padding needs no index check (an
+    inverted "empty" box would NOT do: under this slab test it is entered
+    at t = 0)."""
+    tre = _checked_treelets(treelets)
+    k = tre.shape[0]
+    p = 1
+    while p < k:
+        p *= 2
+    lo = np.empty((2 * p, 3), np.float32)
+    hi = np.empty((2 * p, 3), np.float32)
+    lo[0] = hi[0] = 0.0
+    lo[p:p + k], hi[p:p + k] = tre[:, :3], tre[:, 3:]
+    lo[p + k:], hi[p + k:] = tre[k - 1, :3], tre[k - 1, 3:]
+    for i in range(p - 1, 0, -1):
+        lo[i] = np.minimum(lo[2 * i], lo[2 * i + 1])
+        hi[i] = np.maximum(hi[2 * i], hi[2 * i + 1])
+    out = np.zeros((2 * p, 8), np.float32)
+    out[:, 0:3], out[:, 4:7] = lo, hi
+    return out
+
+
+def treelet_groups(treelets, g: int) -> np.ndarray:
+    """[ceil(K/g) * (1 + g), 8] f32: per group of ``g`` consecutive boxes
+    one union row then its ``g`` member rows (the last group padded with
+    copies of box K - 1), rows as in :func:`treelet_index_tree`."""
+    tre = _checked_treelets(treelets)
+    k = tre.shape[0]
+    n = -(-k // g)
+    mem = np.concatenate([tre, np.repeat(tre[-1:], n * g - k, axis=0)])
+    mem = mem.reshape(n, g, 6)
+    out = np.zeros((n, 1 + g, 8), np.float32)
+    out[:, 0, 0:3] = mem[:, :, :3].min(axis=1)
+    out[:, 0, 4:7] = mem[:, :, 3:].max(axis=1)
+    out[:, 1:, 0:3], out[:, 1:, 4:7] = mem[:, :, :3], mem[:, :, 3:]
+    return out.reshape(n * (1 + g), 8)
+
+
 def _subtree_extents(right_child: np.ndarray, start: np.ndarray,
                      end: np.ndarray):
     """Per-node (id_end, tri_lo, tri_hi) via one reverse pass (children

@@ -18,6 +18,9 @@ then moved to the device as tensors:
   encoded material/texture word (:func:`pack_tri_attr16`);
 * ``treelets``   [K, 6]  f32 — treelet AABBs for the coherence sort key
   (accel/bricks.py::treelet_cut_aabbs);
+* ``treelet_tree`` [2P, 8] f32 — the implicit binary tree of unions over
+  the index ranges of ``treelets`` that the key kernel walks
+  (accel/bricks.py::treelet_index_tree; made from ``treelets`` alone);
 * ``stream``     the brick-streaming layout (accel/bricks.py::StreamData)
   of a scene too large for the resident route (accel/route.py), else
   None.
@@ -58,6 +61,7 @@ class TravData(_Movable):
     nodes16c: torch.Tensor  # [N_internal, 16] f32
     tri_attr16: torch.Tensor  # [T, 16] f32
     treelets: torch.Tensor  # [K, 6] f32
+    treelet_tree: torch.Tensor  # [2P, 8] f32 union tree over treelets
     bvh_depth: int  # max node depth (root = 1); bounds the walk's stack
     stream: StreamData | None = None
 

@@ -20,12 +20,12 @@ and then
 ``closest_hit`` and ``any_hit`` take ``variant="wide"`` (push-test walk
 over the compact wide rows ``nodes16c``) or ``"binary"`` (pop-test walk
 over ``nodes8``), resolved by ``accel/route.py::pick_variant`` as the
-JAX package resolves it.  The wide kernels read triangles from the
-padded rows ``tri12``, the binary kernels and every plain version from
-``tri9`` (the same values).  The interaction fill is a function of the
+JAX package resolves it.  The wide kernels and the binary closest kernel
+read triangles from the padded rows ``tri12``, the binary any-hit kernel
+and every plain version from ``tri9`` (the same values).  The interaction fill is a function of the
 winning hit alone (:func:`interaction_fill`); kernel and plain version
-evaluate it once after the walk.  :func:`kernel_info` reports the wide
-kernels' registers and blocks an SM.
+evaluate it once after the walk.  :func:`kernel_info` reports the
+resident kernels' registers and blocks an SM.
 
 Results: the closest ``t`` (``t_max`` on a miss), ``tri`` (-1 on a miss)
 and barycentrics; the attribute variant also the raw interpolated shading
@@ -104,13 +104,13 @@ def _check(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
     r, dev = check_rays(o, d, t_max)
     check_mask(mask, r, dev)
     check_table("trav.tri9", trav.tri9, 9, dev)
+    check_table("trav.tri12", trav.tri12, 12, dev, align=True)
+    if trav.tri12.shape[0] != trav.tri9.shape[0]:
+        raise ValueError("trav.tri12 must have a row per row of tri9")
     if variant == "binary":
         check_table("trav.nodes8", trav.nodes8, 8, dev, align=True)
     else:
         check_table("trav.nodes16c", trav.nodes16c, 16, dev, align=True)
-        check_table("trav.tri12", trav.tri12, 12, dev, align=True)
-        if trav.tri12.shape[0] != trav.tri9.shape[0]:
-            raise ValueError("trav.tri12 must have a row per row of tri9")
     if variant == "attr":
         check_table("trav.tri_attr16", trav.tri_attr16, 16, dev, align=True)
     if stack_depth < trav.bvh_depth:
@@ -149,11 +149,12 @@ def _raise_on(err, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-_WALK_KERNELS = {"closest_hit_attr": 0, "closest_hit": 1, "any_hit": 2}
+_WALK_KERNELS = {"closest_hit_attr": 0, "closest_hit": 1, "any_hit": 2,
+                 "closest_hit_binary": 3, "any_hit_binary": 4}
 
 
 def kernel_info() -> dict:
-    """What the card gives each resident wide-walk kernel as built:
+    """What the card gives each resident walk kernel as built:
     registers and bytes of local memory a thread, threads a block and
     the blocks an SM holds at once; raises if the card refuses to say."""
     from pnraytracing_tpu_torch.cuda_build import library
@@ -212,9 +213,12 @@ def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
     rays = (ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
             ptr(t_max), ptr(mask), r)
     lib = library("traverse")
+    # the closest walk reads its leaves' triangles from the padded rows
+    tables = ((ptr(trav.nodes8), ptr(trav.tri9), ptr(trav.tri12)) if closest
+              else (ptr(trav.nodes8), ptr(trav.tri9)))
     fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
-    err = fn(ptr(trav.nodes8), ptr(trav.tri9), *rays,
-             *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
+    err = fn(*tables, *rays, *[ptr(x) for x in outs], ptr(stats),
+             stream_of(o.x))
     name = "closest_hit_binary" if closest else "any_hit_binary"
     _raise_on(err, name)
     LAUNCHES[name] += 1

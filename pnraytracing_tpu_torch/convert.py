@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pnraytracing_tpu_torch.accel.bricks import StreamData
+from pnraytracing_tpu_torch.accel.bricks import StreamData, treelet_index_tree
 from pnraytracing_tpu_torch.accel.layout import TravData, pack_tri12
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
@@ -58,11 +58,15 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
                 out[f"{group}.{f.name}"] = _np(v)
     for name in _TRAV_FIELDS:
         out[f"trav.{name}"] = _np(getattr(scene.trav, name))
-    # the padded triangle rows are the port's own table: a scene of the
-    # JAX package has none, and its leaf is then made from tri9
+    # the padded triangle rows and the key kernel's union tree are the
+    # port's own tables: a scene of the JAX package has none, and their
+    # leaves are then made from tri9 and from treelets
     tri12 = getattr(scene.trav, "tri12", None)
     out["trav.tri12"] = (_np(tri12) if tri12 is not None
                          else pack_tri12(out["trav.tri9"]))
+    tree = getattr(scene.trav, "treelet_tree", None)
+    out["trav.treelet_tree"] = (_np(tree) if tree is not None else
+                                treelet_index_tree(out["trav.treelets"]))
     stream = getattr(scene.trav, "stream", None)
     if stream is not None:
         for name in _STREAM_ARRAYS:
@@ -95,6 +99,7 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
             **{n: int(leaves[f"stream.{n}"]) for n in _STREAM_INTS})
     trav = TravData(bvh_depth=depth, stream=stream,
                     tri12=t(leaves["trav.tri12"]),
+                    treelet_tree=t(leaves["trav.treelet_tree"]),
                     **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS})
     env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
                     else None)

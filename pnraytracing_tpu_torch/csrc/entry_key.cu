@@ -8,20 +8,61 @@
 // octant(d).  The argmin keeps the FIRST minimum (strict <), like the
 // Pallas fori_loop and jnp.argmin in the XLA form.
 //
-// Design.  One thread per ray.  Each block copies the [K, 6] table into
-// shared memory once (<= 12 KB at K = 512); every thread then reads the
-// same box at the same time (a broadcast, no bank conflicts).  Compiled
-// with --fmad=false, like traverse.cu, so t_near equals the plain
-// PyTorch version (ops/compaction.py::treelet_entry_key) bit for bit.
+// What held the first form back.  It ran all K slab tests for every ray
+// (98.3M tests for the flagship's 262,144 key rays at K = 375) at about
+// the rate the SMs issue instructions: ~30 instructions a test with
+// --fmad=false, none of them an FMA.  Only fewer tests could give a
+// factor, and the result needs most boxes only to be ruled out.
 //
-// Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s fp32): 6 input words
-// and 1 output word per ray against K slab tests of ~25 flops per ray —
-// at K = 375 the operation side is far larger, so it is compute bound.
-// Warp divergence is small here (every lane runs the same K iterations);
-// a later PR could cut the work with a coarse top-level box test.
+// Design.  One thread per ray walks an implicit binary tree over the
+// INDEX RANGES of the boxes (accel/bricks.py::treelet_index_tree: heap
+// order, leaf P + k is box k, an inner row the union of the leaves under
+// it, padding leaves repeat box K - 1), depth first, left child first,
+// without a stack: past a row's subtree the next row is (i + 1) with its
+// trailing zero bits shifted out.  A row the ray misses, or enters no
+// earlier than its best entry so far, is skipped with everything under
+// it.  Three facts make that exact, not approximate:
+//   1. treelet_cut_aabbs returns the boxes in depth-first order of the
+//      BVH, so boxes with consecutive indices are neighbours in space and
+//      the union of an index range is tight.
+//   2. The slab test is monotone in the box under float rounding:
+//      subtracting the same o, multiplying by the same 1/d, min and max
+//      all keep order.  For a union U of boxes B, by the same expression,
+//      t_near(U) <= t_near(B) and t_far(U) >= t_far(B) bit for bit: a ray
+//      that misses U misses every B, and enters no B before U.
+//   3. The first minimum wins and t_near is clamped at 0.  Left child
+//      first is ascending box index, so a range whose union is entered no
+//      earlier than the best so far holds no winner, and at a best entry
+//      of 0 (the ray starts inside a box, as bounce rays do) the walk
+//      ends.  A padding leaf comes after the box it repeats and cannot
+//      beat it.
+// Each block copies the tree into shared memory once (32 KB at K > 256);
+// a row is two float4.  Compiled with --fmad=false, so t_near equals the
+// plain PyTorch versions (ops/compaction.py::treelet_entry_key over all K
+// boxes, entry_key_walk over this walk) bit for bit; fmaxf / fminf drop a
+// NaN where torch keeps it, so the rays whose every test is a NaN
+// (ops/compaction.py::never_enters) are keyed K up front and no other ray
+// produces one.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+// TRIAL switches: PNRT_KEY_GROUPS = 0 the tree walk, 8 / 16 / 32 flat
+// groups of that many boxes, -1 all K boxes (the first form, on the
+// leaves of the tree table).
+#ifndef PNRT_KEY_GROUPS
+#define PNRT_KEY_GROUPS 0
+#endif
+#ifndef PNRT_KEY_GLOBAL
+#define PNRT_KEY_GLOBAL 0  // 1: rows read from device memory, no copy
+#endif
+#ifndef PNRT_KEY_SELECT
+#define PNRT_KEY_SELECT 0  // 1: the tree walk's leaf / inner cases by selects
+#endif
+#ifndef PNRT_KEY_THREADS
+#define PNRT_KEY_THREADS 256
+#endif
 
 namespace {
 
@@ -29,64 +70,181 @@ __device__ __forceinline__ float safe_inv(float d) {
   return (d >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d), 1e-20f);
 }
 
-constexpr int kThreads = 256;
+constexpr int kThreads = PNRT_KEY_THREADS;
+
+struct KeyRay {
+  float ox, oy, oz, ix, iy, iz;
+};
+
+// The slab test of ray r against the box [lo.xyz, hi.xyz]: true when the
+// ray enters it (t_far >= t_near), with its entry t clamped at 0.
+__device__ __forceinline__ bool enters(const KeyRay& r, const float4& lo,
+                                       const float4& hi, float& t_near) {
+  const float nx = (lo.x - r.ox) * r.ix;
+  const float ny = (lo.y - r.oy) * r.iy;
+  const float nz = (lo.z - r.oz) * r.iz;
+  const float fx = (hi.x - r.ox) * r.ix;
+  const float fy = (hi.y - r.oy) * r.iy;
+  const float fz = (hi.z - r.oz) * r.iz;
+  const float t_far =
+      fminf(fminf(fmaxf(fx, nx), fmaxf(fy, ny)), fmaxf(fz, nz));
+  t_near = fmaxf(fmaxf(fminf(fx, nx), fminf(fy, ny)),
+                 fmaxf(fminf(fz, nz), 0.0f));
+  return t_far >= t_near;
+}
+
+// True when every test of this ray is a NaN (never_enters of
+// ops/compaction.py).
+__device__ __forceinline__ bool never_enters(float o, float d) {
+  return isnan(o) || isnan(d) || (isinf(o) && isinf(d));
+}
 
 __global__ void __launch_bounds__(kThreads)
-entry_key_kernel(const float* __restrict__ treelets, int k_total,
-                 const float* __restrict__ ox, const float* __restrict__ oy,
-                 const float* __restrict__ oz, const float* __restrict__ dx,
-                 const float* __restrict__ dy, const float* __restrict__ dz,
-                 int n, int* __restrict__ key_out) {
-  extern __shared__ float tre[];
-  for (int j = threadIdx.x; j < 6 * k_total; j += blockDim.x) {
-    tre[j] = treelets[j];
+entry_key_kernel(const float4* __restrict__ table, int n_rows, int p,
+                 int k_total, const float* __restrict__ ox,
+                 const float* __restrict__ oy, const float* __restrict__ oz,
+                 const float* __restrict__ dx, const float* __restrict__ dy,
+                 const float* __restrict__ dz, int n,
+                 int* __restrict__ key_out, int* __restrict__ counts) {
+#if PNRT_KEY_GLOBAL
+  const float4* __restrict__ rows = table;
+#else
+  extern __shared__ float4 rows[];
+  for (int j = threadIdx.x; j < 2 * n_rows; j += blockDim.x) {
+    rows[j] = table[j];
   }
   __syncthreads();
+#endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float rox = ox[i], roy = oy[i], roz = oz[i];
   const float rdx = dx[i], rdy = dy[i], rdz = dz[i];
-  const float ix = safe_inv(rdx), iy = safe_inv(rdy), iz = safe_inv(rdz);
+  KeyRay r;
+  r.ox = ox[i];
+  r.oy = oy[i];
+  r.oz = oz[i];
+  r.ix = safe_inv(rdx);
+  r.iy = safe_inv(rdy);
+  r.iz = safe_inv(rdz);
   float best_t = 3e38f;
   int best_k = k_total;
-  for (int k = 0; k < k_total; ++k) {
-    const float* b = tre + 6 * k;
-    const float nx = (b[0] - rox) * ix;
-    const float ny = (b[1] - roy) * iy;
-    const float nz = (b[2] - roz) * iz;
-    const float fx = (b[3] - rox) * ix;
-    const float fy = (b[4] - roy) * iy;
-    const float fz = (b[5] - roz) * iz;
-    const float t_far =
-        fminf(fminf(fmaxf(fx, nx), fmaxf(fy, ny)), fmaxf(fz, nz));
-    const float t_near = fmaxf(fmaxf(fminf(fx, nx), fminf(fy, ny)),
-                               fmaxf(fminf(fz, nz), 0.0f));
-    if (t_far >= t_near && t_near < best_t) {
-      best_t = t_near;
-      best_k = k;
+  int unions = 0, members = 0;
+  if (!(never_enters(r.ox, rdx) || never_enters(r.oy, rdy) ||
+        never_enters(r.oz, rdz))) {
+#if PNRT_KEY_GROUPS == 0 && PNRT_KEY_SELECT
+    int node = 1, tests = 0;
+    do {
+      float t_near;
+      const bool enter =
+          enters(r, rows[2 * node], rows[2 * node + 1], t_near) &&
+          t_near < best_t;
+      const bool leaf = node >= p;
+      const bool win = enter && leaf;
+      ++tests;
+      members += leaf ? 1 : 0;
+      best_t = win ? t_near : best_t;
+      best_k = win ? node - p : best_k;
+      if (win && t_near == 0.0f) break;
+      node = (enter && !leaf) ? 2 * node
+                              : (node + 1) >> (__ffs(node + 1) - 1);
+    } while (node != 1);
+    unions = tests - members;
+#elif PNRT_KEY_GROUPS == 0
+    int node = 1;
+    do {
+      float t_near;
+      const bool enter =
+          enters(r, rows[2 * node], rows[2 * node + 1], t_near) &&
+          t_near < best_t;
+      const int past = (node + 1) >> (__ffs(node + 1) - 1);
+      if (node >= p) {
+        ++members;
+        if (enter) {
+          best_t = t_near;
+          best_k = node - p;
+          if (t_near == 0.0f) break;
+        }
+        node = past;
+      } else {
+        ++unions;
+        node = enter ? 2 * node : past;
+      }
+    } while (node != 1);
+#elif PNRT_KEY_GROUPS > 0
+    constexpr int G = PNRT_KEY_GROUPS;
+    const int n_groups = n_rows / (1 + G);
+    for (int g = 0; g < n_groups && best_t != 0.0f; ++g) {
+      const float4* grp = rows + 2 * (1 + G) * g;
+      float t_near;
+      ++unions;
+      if (enters(r, grp[0], grp[1], t_near) && t_near < best_t) {
+        members += G;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (enters(r, grp[2 + 2 * j], grp[3 + 2 * j], t_near) &&
+              t_near < best_t) {
+            best_t = t_near;
+            best_k = g * G + j;
+          }
+        }
+      }
     }
+#else
+    for (int k = 0; k < k_total; ++k) {
+      float t_near;
+      ++members;
+      if (enters(r, rows[2 * (p + k)], rows[2 * (p + k) + 1], t_near) &&
+          t_near < best_t) {
+        best_t = t_near;
+        best_k = k;
+      }
+    }
+#endif
   }
   const int oct = (rdx > 0.0f ? 4 : 0) + (rdy > 0.0f ? 2 : 0) +
                   (rdz > 0.0f ? 1 : 0);
   key_out[i] = best_k * 8 + oct;
+  if (counts != nullptr) {
+    counts[i] = unions;
+    counts[n + i] = members;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch.
-int pnrt_entry_key(const float* treelets, int k_total, const float* ox,
-                   const float* oy, const float* oz, const float* dx,
-                   const float* dy, const float* dz, int n, int* key_out,
-                   void* stream) {
+// table: [n_rows, 8] f32 rows (16-byte aligned); p: the tree's leaf count
+// (row p + k is box k).  counts may be null, else [2, n] int32: union and
+// member tests.  Returns cudaGetLastError() after the launch.
+int pnrt_entry_key(const float* table, int n_rows, int p, int k_total,
+                   const float* ox, const float* oy, const float* oz,
+                   const float* dx, const float* dy, const float* dz, int n,
+                   int* key_out, int* counts, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * 6 * (size_t)k_total;
+  const size_t smem =
+      PNRT_KEY_GLOBAL ? 0 : sizeof(float4) * 2 * (size_t)n_rows;
   entry_key_kernel<<<blocks, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      treelets, k_total, ox, oy, oz, dx, dy, dz, n, key_out);
+      reinterpret_cast<const float4*>(table), n_rows, p, k_total, ox, oy, oz,
+      dx, dy, dz, n, key_out, counts);
   return (int)cudaGetLastError();
+}
+
+// what == 0 the registers a thread, 1 the blocks an SM holds at once with
+// smem_bytes of shared memory a block, 2 the threads a block.  A negative
+// value is minus the CUDA error.
+int pnrt_entry_key_kernel_info(int what, int smem_bytes) {
+  if (what == 2) return kThreads;
+  if (what == 1) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, entry_key_kernel, kThreads, (size_t)smem_bytes);
+    return err == cudaSuccess ? blocks : -(int)err;
+  }
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, entry_key_kernel);
+  return err == cudaSuccess ? a.numRegs : -(int)err;
 }
 
 }  // extern "C"

@@ -268,9 +268,37 @@ __device__ __forceinline__ void push_binary(const Ray& r, const Node8& w,
   stack[top++] = d_neg ? right : left;  // near
 }
 
+// TRIAL switches of the binary closest walk: PNRT_BIN_OLD = 1 the
+// first one-loop form; PNRT_BIN_FORM / PNRT_BIN_VOTE see below; PNRT_BIN_BOUNDS1 = 0 plain __launch_bounds__(128);
+// PNRT_BIN_TRI9 = 1 nine scalar loads of a tri9 row, none in flight;
+// PNRT_BIN_PUSHBOTH = 1 both children through the stack.
+#ifndef PNRT_BIN_OLD
+#define PNRT_BIN_OLD 0
+#endif
+#ifndef PNRT_BIN_FORM
+#define PNRT_BIN_FORM 2
+#endif
+#ifndef PNRT_BIN_VOTE
+#define PNRT_BIN_VOTE 8
+#endif
+#ifndef PNRT_BIN_WAIT
+#define PNRT_BIN_WAIT 4
+#endif
+#ifndef PNRT_BIN_BOUNDS1
+#define PNRT_BIN_BOUNDS1 1
+#endif
+#ifndef PNRT_BIN_TRI9
+#define PNRT_BIN_TRI9 0
+#endif
+#ifndef PNRT_BIN_PUSHBOTH
+#define PNRT_BIN_PUSHBOTH 0
+#endif
+
+#if PNRT_BIN_OLD
 __global__ void __launch_bounds__(128)
 closest_hit_binary_kernel(const float* __restrict__ nodes8,
-                          const float* __restrict__ tri9, Rays rays,
+                          const float* __restrict__ tri9,
+                          const float* __restrict__ tri12, Rays rays,
                           float* __restrict__ t_out, int* __restrict__ tri_out,
                           float* __restrict__ b1_out,
                           float* __restrict__ b2_out,
@@ -323,6 +351,159 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
   b2_out[i] = b2_best;
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
+
+#else
+// One pop of the binary closest walk at node cur: a node whose box the
+// ray misses gives the stack's top; a leaf whose box it hits sets meta
+// (start*16 + count) and stays; an inner node goes on into its near child
+// (left = node + 1) and pushes the far one.
+__device__ __forceinline__ int binary_pop(const Ray& r,
+                                          const float* __restrict__ nodes8,
+                                          int cur, float t, int* stack,
+                                          int& top, int& meta) {
+  const Node8 w = load_node8(nodes8, cur);
+  if (!hit_aabb(r, w.mn[0], w.mn[1], w.mn[2], w.mx[0], w.mx[1], w.mx[2],
+                t)) {
+    return pop_node(stack, top);
+  }
+  if (w.enc_right < 0) {
+    meta = w.meta;
+    return cur;
+  }
+#if PNRT_BIN_PUSHBOTH
+  push_binary(r, w, cur, stack, top);
+  return pop_node(stack, top);
+#else
+  const int right = w.enc_right >> 2;
+  const bool d_neg = sel3(w.enc_right & 3, r.dx, r.dy, r.dz) < 0.0f;
+  stack[top++] = d_neg ? cur + 1 : right;  // far
+  return d_neg ? right : cur + 1;          // near
+#endif
+}
+
+__device__ __forceinline__ void binary_leaf(const Ray& r,
+                                            const float* __restrict__ tri9,
+                                            const float* __restrict__ tri12,
+                                            int meta, Best& h,
+                                            int& tri_tests) {
+#if PNRT_BIN_TRI9
+  const int start = meta >> 4;
+  const int count = meta & 15;
+  tri_tests += count;
+  for (int k = 0; k < count; ++k) {
+    const int ti = start + k;
+    float t, b1, b2;
+    if (hit_triangle(r, tri9 + 9 * (int64_t)ti, h.t, t, b1, b2) && t < h.t) {
+      h.t = t;
+      h.tri = ti;
+      h.b1 = b1;
+      h.b2 = b2;
+    }
+  }
+#else
+  closest_leaf(r, tri12, -meta - 1, h, tri_tests);
+#endif
+}
+
+// PNRT_BIN_FORM: 1 one loop, 2 while-while, 3 the warp votes: lanes that
+// hold a leaf wait until PNRT_BIN_VOTE lanes do (or no lane walks on).
+#if PNRT_BIN_BOUNDS1
+__global__ void __launch_bounds__(kThreads, 1)
+#else
+__global__ void __launch_bounds__(kThreads)
+#endif
+closest_hit_binary_kernel(const float* __restrict__ nodes8,
+                          const float* __restrict__ tri9,
+                          const float* __restrict__ tri12, Rays rays,
+                          float* __restrict__ t_out, int* __restrict__ tri_out,
+                          float* __restrict__ b1_out,
+                          float* __restrict__ b2_out,
+                          int* __restrict__ stats) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+#if PNRT_BIN_FORM == 3
+  const bool in_range = i < rays.n;
+  const int ii = in_range ? i : 0;
+#else
+  if (i >= rays.n) return;
+  const bool in_range = true;
+  const int ii = i;
+#endif
+  const Ray r = make_ray(rays.ox[ii], rays.oy[ii], rays.oz[ii], rays.dx[ii],
+                         rays.dy[ii], rays.dz[ii]);
+  const bool active =
+      in_range && (rays.mask == nullptr || rays.mask[ii] != 0);
+  Best h = {rays.t_max[ii], -1, 0.0f, 0.0f};
+  int pops = 0, leaf_pops = 0, tri_tests = 0;
+
+  int stack[KSTACK];  // the far children still to visit
+  int top = 0;
+  int cur = active ? 0 : kWalkDone;  // the root node
+#if PNRT_BIN_FORM == 1
+  while (cur != kWalkDone) {
+    int meta = -1;
+    ++pops;
+    cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
+    if (meta >= 0) {
+      ++leaf_pops;
+      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
+      cur = pop_node(stack, top);
+    }
+  }
+#elif PNRT_BIN_FORM == 4
+  while (cur != kWalkDone) {
+    int meta = -1;
+#pragma unroll 1
+    for (int step = 0; step < PNRT_BIN_WAIT && cur != kWalkDone && meta < 0;
+         ++step) {
+      ++pops;
+      cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
+    }
+    if (meta >= 0) {
+      ++leaf_pops;
+      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
+      cur = pop_node(stack, top);
+    }
+  }
+#elif PNRT_BIN_FORM == 2
+  while (cur != kWalkDone) {
+    int meta = -1;  // start*16 + count of the leaf this lane holds
+    while (cur != kWalkDone && meta < 0) {
+      ++pops;
+      cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
+    }
+    if (meta >= 0) {
+      ++leaf_pops;
+      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
+      cur = pop_node(stack, top);
+    }
+  }
+#else
+  int meta = -1;
+  while (true) {
+    if (meta < 0 && cur != kWalkDone) {
+      ++pops;
+      cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
+    }
+    const unsigned leaves = __ballot_sync(0xffffffffu, meta >= 0);
+    const unsigned walks =
+        __ballot_sync(0xffffffffu, meta < 0 && cur != kWalkDone);
+    if ((leaves | walks) == 0) break;
+    if ((__popc(leaves) >= PNRT_BIN_VOTE || walks == 0) && meta >= 0) {
+      ++leaf_pops;
+      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
+      meta = -1;
+      cur = pop_node(stack, top);
+    }
+  }
+  if (!in_range) return;
+#endif
+  t_out[i] = h.t;
+  tri_out[i] = h.tri;
+  b1_out[i] = h.b1;
+  b2_out[i] = h.b2;
+  write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
+}
+#endif
 
 __global__ void __launch_bounds__(128)
 any_hit_binary_kernel(const float* __restrict__ nodes8,
@@ -415,8 +596,8 @@ int pnrt_any_hit(const float* nodes, const float* tri12, const float* ox,
   return (int)cudaGetLastError();
 }
 
-// What the card gives a wide-walk kernel (which: 0 closest + fill, 1
-// closest, 2 any): what == 0 the registers a thread, 1 the blocks an SM
+// What the card gives a resident walk kernel (which: 0 closest + fill, 1
+// closest, 2 any, 3 binary closest, 4 binary any): what == 0 the registers a thread, 1 the blocks an SM
 // holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 2 the
 // threads a block, 3 the bytes of local memory a thread.  A negative
 // value is minus the CUDA error.
@@ -424,7 +605,9 @@ int pnrt_walk_kernel_info(int which, int what) {
   const void* kernel =
       which == 0   ? (const void*)closest_hit_kernel<true>
       : which == 1 ? (const void*)closest_hit_kernel<false>
-                   : (const void*)any_hit_kernel;
+      : which == 2 ? (const void*)any_hit_kernel
+      : which == 3 ? (const void*)closest_hit_binary_kernel
+                   : (const void*)any_hit_binary_kernel;
   if (what == 2) return kThreads;
   if (what == 1) {
     int blocks = 0;
@@ -441,7 +624,7 @@ int pnrt_walk_kernel_info(int which, int what) {
 // Binary pop-test closest hit over nodes8 rows; outputs and stats as
 // pnrt_closest_hit without the fill.
 int pnrt_closest_hit_binary(const float* nodes8, const float* tri9,
-                            const float* ox, const float* oy, const float* oz,
+                            const float* tri12, const float* ox, const float* oy, const float* oz,
                             const float* dx, const float* dy, const float* dz,
                             const float* t_max, const uint8_t* mask, int n,
                             float* t_out, int* tri_out, float* b1_out,
@@ -450,7 +633,7 @@ int pnrt_closest_hit_binary(const float* nodes8, const float* tri9,
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   closest_hit_binary_kernel<<<blocks_for(n), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      nodes8, tri9, rays, t_out, tri_out, b1_out, b2_out, stats);
+      nodes8, tri9, tri12, rays, t_out, tri_out, b1_out, b2_out, stats);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from pnraytracing_tpu_torch.accel.traverse_cuda import check_rays
+from pnraytracing_tpu_torch.accel.traverse_cuda import (
+    check_rays,
+    check_table,
+    ptr,
+)
 from pnraytracing_tpu_torch.core.vec import V3
 
 # Launches of the key kernel since the last reset (the caller zeroes it).
@@ -64,9 +68,119 @@ def treelet_entry_key(o: V3, d: V3, treelets: torch.Tensor) -> torch.Tensor:
     return best_k * 8 + _octant(d.x, d.y, d.z)
 
 
-def entry_key(o: V3, d: V3, treelets: torch.Tensor) -> torch.Tensor:
-    """The treelet-entry key: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors.  Rays are contiguous float32 [R] components."""
+def _safe_inv(c):
+    return torch.where(c >= 0, 1.0, -1.0) / torch.clamp_min(torch.abs(c),
+                                                            1e-20)
+
+
+def never_enters(o: V3, d: V3) -> torch.Tensor:
+    """[R] bool: rays for which every slab test of
+    :func:`treelet_entry_key` yields a NaN and so fails, whatever the
+    (finite) box: a NaN component of the origin or the direction, or an
+    axis on which both are infinite (``(box - o) * (1 / d)`` is then
+    ``inf * 0``).  Their key is ``K*8 + octant(d)``.  No other ray
+    produces a NaN anywhere in the test."""
+    bad = torch.zeros_like(o.x, dtype=torch.bool)
+    for oc, dc in ((o.x, d.x), (o.y, d.y), (o.z, d.z)):
+        bad |= torch.isnan(oc) | torch.isnan(dc) | (torch.isinf(oc)
+                                                    & torch.isinf(dc))
+    return bad
+
+
+def slab_entry(rows, ox, oy, oz, ix, iy, iz):
+    """(t_near clamped at 0, t_far) of rays against the boxes ``rows``
+    [n, 8] (``[lo.xyz, _, hi.xyz, _]``), the expression of
+    :func:`treelet_entry_key` op for op."""
+    nx = (rows[:, 0] - ox) * ix
+    ny = (rows[:, 1] - oy) * iy
+    nz = (rows[:, 2] - oz) * iz
+    fx = (rows[:, 4] - ox) * ix
+    fy = (rows[:, 5] - oy) * iy
+    fz = (rows[:, 6] - oz) * iz
+    t_far = torch.minimum(
+        torch.minimum(torch.maximum(fx, nx), torch.maximum(fy, ny)),
+        torch.maximum(fz, nz))
+    t_near = torch.maximum(
+        torch.maximum(torch.minimum(fx, nx), torch.minimum(fy, ny)),
+        torch.clamp_min(torch.minimum(fz, nz), 0.0))
+    return t_near, t_far
+
+
+def entry_key_walk(o: V3, d: V3, tree: torch.Tensor, k_total: int):
+    """Plain version of the key kernel's walk: ``(key, counts)`` with
+    ``counts`` [2, R] int32, the union (inner row) and member (leaf row)
+    slab tests of each ray.
+
+    ``tree`` is ``accel/bricks.py::treelet_index_tree`` of the K boxes.
+    Every ray walks it in depth-first order, left child first, which is
+    ascending box index: at a row it runs the slab test of
+    :func:`treelet_entry_key`; a row the ray misses or enters no earlier
+    than its best entry so far is skipped with everything under it (no
+    box inside a union is entered before the union, bit for bit: the test
+    is monotone in the box); an entered inner row is followed by its left
+    child, an entered leaf becomes the best.  The walk ends at a best
+    entry of 0 (t_near is clamped at 0 and the first minimum wins) or
+    when it is back at the root.  Rays of :func:`never_enters` walk
+    nothing.  The key equals :func:`treelet_entry_key`'s for every ray."""
+    p = tree.shape[0] // 2
+    dev = o.x.device
+    r = o.x.shape[0]
+    ix, iy, iz = _safe_inv(d.x), _safe_inv(d.y), _safe_inv(d.z)
+    best_t = torch.full_like(o.x, 3e38)
+    best_k = torch.full((r,), k_total, dtype=torch.int32, device=dev)
+    counts = torch.zeros((2, r), dtype=torch.int32, device=dev)
+    node = torch.ones(r, dtype=torch.int64, device=dev)
+    live = ~never_enters(o, d)
+    while True:
+        idx = torch.nonzero(live).squeeze(1)
+        if idx.numel() == 0:
+            break
+        i = node[idx]
+        t_near, t_far = slab_entry(tree[i], o.x[idx], o.y[idx], o.z[idx],
+                                   ix[idx], iy[idx], iz[idx])
+        enter = (t_far >= t_near) & (t_near < best_t[idx])
+        leaf = i >= p
+        counts[0, idx] += (~leaf).to(torch.int32)
+        counts[1, idx] += leaf.to(torch.int32)
+        win = enter & leaf
+        w = idx[win]
+        best_t[w] = t_near[win]
+        best_k[w] = (i[win] - p).to(torch.int32)
+        # the next row in depth-first order: the left child, or past this
+        # row's subtree (up while a right child, then the right sibling)
+        skip = i + 1
+        skip = skip >> _trailing_zeros(skip)
+        nxt = torch.where(enter & ~leaf, 2 * i, skip)
+        node[idx] = nxt
+        live[idx] = (nxt != 1) & ~(win & (t_near == 0))
+    return best_k * 8 + _octant(d.x, d.y, d.z), counts
+
+
+def _trailing_zeros(x: torch.Tensor) -> torch.Tensor:
+    """Count of trailing zero bits of positive int64 values below 2^31."""
+    low = x & -x  # the lowest set bit, a power of two: exact in float32
+    return (torch.frexp(low.to(torch.float32))[1] - 1).to(torch.int64)
+
+
+def _tree_leaves(k_total: int) -> int:
+    """P of ``treelet_index_tree``: the least power of two >= K."""
+    return 1 << (k_total - 1).bit_length()
+
+
+def entry_key(o: V3, d: V3, treelets: torch.Tensor, tree: torch.Tensor, *,
+              with_stats: bool = False):
+    """The treelet-entry key ``k*8 + octant(d)`` [R] int32 of
+    :func:`treelet_entry_key`: the CUDA kernel on CUDA tensors, its plain
+    version :func:`entry_key_walk` on CPU tensors.  Rays are contiguous
+    float32 [R] components; ``tree`` is ``treelet_index_tree(treelets)``
+    (``TravData.treelet_tree``), and a table of another shape than
+    ``treelets`` gives is refused (on the CPU also one of other values;
+    on the card the values are not read back).  Every lane is keyed.  A
+    ray with a NaN component, or with an infinite origin and an infinite
+    direction on one axis, enters nothing and gets ``K*8 + octant(d)``;
+    any other ray, infinite components included, gets what
+    :func:`treelet_entry_key` gives it.  ``with_stats`` adds a [2, R]
+    int32 tensor: the union and the member slab tests of each ray."""
     r, dev = check_rays(o, d)
     k_total = int(treelets.shape[0])
     if not (treelets.dtype == torch.float32 and treelets.dim() == 2
@@ -74,17 +188,43 @@ def entry_key(o: V3, d: V3, treelets: torch.Tensor) -> torch.Tensor:
             and treelets.device == dev and 0 < k_total <= 512):
         raise ValueError("treelets must be a contiguous float32 [K, 6] "
                          "tensor (0 < K <= 512) on the rays' device")
+    p = _tree_leaves(k_total)
+    check_table("tree", tree, 8, dev, align=True)
+    if tree.shape[0] != 2 * p or (dev.type == "cpu" and not (
+            torch.equal(tree[p:p + k_total, 0:3], treelets[:, 0:3])
+            and torch.equal(tree[p:p + k_total, 4:7], treelets[:, 3:6]))):
+        raise ValueError("tree is not treelet_index_tree(treelets)")
     if dev.type == "cpu":
-        return treelet_entry_key(o, d, treelets)
+        key, counts = entry_key_walk(o, d, tree, k_total)
+        return (key, counts) if with_stats else key
     from pnraytracing_tpu_torch.cuda_build import library
 
     key = torch.empty(r, dtype=torch.int32, device=dev)
+    counts = (torch.empty((2, r), dtype=torch.int32, device=dev)
+              if with_stats else None)
     err = library("entry_key").pnrt_entry_key(
-        treelets.data_ptr(), k_total, o.x.data_ptr(), o.y.data_ptr(),
+        tree.data_ptr(), 2 * p, p, k_total, o.x.data_ptr(), o.y.data_ptr(),
         o.z.data_ptr(), d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(), r,
-        key.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        key.data_ptr(), ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"entry-key kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["treelet_entry_key"] += 1
-    return key
+    return (key, counts) if with_stats else key
+
+
+def kernel_info(k_total: int = 512) -> dict:
+    """Registers a thread, threads a block and the blocks an SM holds of
+    the key kernel as built, with the shared memory a K-box tree takes."""
+    from pnraytracing_tpu_torch.cuda_build import library
+
+    lib = library("entry_key")
+    smem = 2 * _tree_leaves(k_total) * 32
+    vals = {"registers": lib.pnrt_entry_key_kernel_info(0, smem),
+            "blocks_per_sm": lib.pnrt_entry_key_kernel_info(1, smem),
+            "threads": lib.pnrt_entry_key_kernel_info(2, smem),
+            "shared_bytes": smem}
+    if min(vals.values()) < 0:
+        raise RuntimeError(f"entry_key: CUDA error {-min(vals.values())} "
+                           "reading the kernel's attributes")
+    return vals

@@ -308,7 +308,8 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         # phase 2: one live-first permutation of the whole path state, as
         # ONE gather of a [C, R] pack (each row comes out contiguous)
         if bounce < cfg.sort_max_bounce:
-            key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets)
+            key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
+                            trav.treelet_tree)
             perm, _ = sort_live_first(active, key)
             f32 = lambda a: a.to(torch.float32)
             v3s = lambda v: [v.x, v.y, v.z]

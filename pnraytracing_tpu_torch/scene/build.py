@@ -19,6 +19,7 @@ import torch
 from pnraytracing_tpu_torch.accel.bricks import (
     build_stream_data,
     treelet_cut_aabbs,
+    treelet_index_tree,
 )
 from pnraytracing_tpu_torch.accel.bvh import build_bvh
 from pnraytracing_tpu_torch.accel.layout import (
@@ -166,6 +167,7 @@ class SceneBuilder:
                 f"{max_count} triangles, {len(built.start)} nodes, "
                 f"{len(indices)} triangles)")
         tri9 = positions[idx_o].reshape(len(order), 9)
+        treelets = treelet_cut_aabbs(built)
         trav = TravData(
             tri9=t(tri9),
             tri12=t(pack_tri12(tri9)),
@@ -173,7 +175,8 @@ class SceneBuilder:
             nodes16c=t(pack_wide_nodes_compact(built)),
             tri_attr16=t(pack_tri_attr16(positions, normals, uvs, idx_o,
                                          mat_ids[order], tex_ids[order])),
-            treelets=t(treelet_cut_aabbs(built)),
+            treelets=t(treelets),
+            treelet_tree=t(treelet_index_tree(treelets)),
             bvh_depth=built.max_depth,
         )
         # scenes too large for the resident kernels get the brick-paged

@@ -19,7 +19,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
+from chip_smoke import synthetic_key_rays
 from pnraytracing_tpu.accel.layout import pack_tri_attr16 as jax_pack_attr16
 from pnraytracing_tpu.accel.layout import (
     pack_wide_nodes_compact as jax_pack_compact,
@@ -41,7 +44,13 @@ from pnraytracing_tpu_torch.accel.layout import (
 )
 from pnraytracing_tpu_torch.convert import scene_from_arrays, scene_to_arrays
 from pnraytracing_tpu_torch.core.vec import V3
-from pnraytracing_tpu_torch.ops.compaction import entry_key, treelet_entry_key
+from pnraytracing_tpu_torch.accel.bricks import treelet_index_tree
+from pnraytracing_tpu_torch.ops.compaction import (
+    entry_key,
+    never_enters,
+    slab_entry,
+    treelet_entry_key,
+)
 from tests.test_packet import setup as soup_setup
 from tests.test_torch_scene import (  # noqa: F401
     _torch_threads,
@@ -81,6 +90,7 @@ def soup(num_tris=120, num_rays=256, seed=3):
                      nodes16c=_t(jtrav.nodes16c),
                      tri_attr16=_t(jtrav.tri_attr16),
                      treelets=torch.zeros((1, 6)),
+                     treelet_tree=torch.zeros((2, 8)),
                      bvh_depth=built.max_depth)
     return jtrav, ptrav, mesh, built, o, d, t_max
 
@@ -227,7 +237,8 @@ def test_entry_key_matches_xla_form():
     got = treelet_entry_key(_v3(o), _v3(d), ps.trav.treelets)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     np.testing.assert_array_equal(
-        entry_key(_v3(o), _v3(d), ps.trav.treelets).numpy(), got.numpy())
+        entry_key(_v3(o), _v3(d), ps.trav.treelets,
+                  ps.trav.treelet_tree).numpy(), got.numpy())
     k = got.numpy() // 8
     assert (k < ps.trav.treelets.shape[0]).any() and (k <= 375).all()
 
@@ -395,6 +406,290 @@ def test_wrappers_reject_bad_tri12():
     with pytest.raises(ValueError, match="row per row"):
         trv.any_hit(dataclasses.replace(ptrav, tri12=ptrav.tri12[:-1]), o3,
                     d3, tm)
+
+
+# ---- the key kernel's walk of the union tree --------------------------------
+
+def _key_tables(boxes):
+    """(treelets, tree) tensors of [K, 6] boxes given as numpy."""
+    boxes = np.ascontiguousarray(boxes, np.float32)
+    return _t(boxes), _t(treelet_index_tree(boxes))
+
+
+def _assert_walk_equals_all_k(o, d, treelets, tree, jax_too=True):
+    """The walk's keys equal the all-K plain version's and the JAX
+    package's exactly; returns the [2, R] counts."""
+    want = treelet_entry_key(_v3(o), _v3(d), treelets)
+    key, counts = entry_key(_v3(o), _v3(d), treelets, tree, with_stats=True)
+    np.testing.assert_array_equal(key.numpy(), want.numpy())
+    assert key.dtype == torch.int32 and counts.dtype == torch.int32
+    assert counts.shape == (2, len(o))
+    if jax_too:
+        jkey = jax_treelet_entry_key(jnp.asarray(o), jnp.asarray(d),
+                                     jnp.asarray(treelets.numpy()))
+        np.testing.assert_array_equal(key.numpy(), np.asarray(jkey))
+    return counts.numpy()
+
+
+def _surface_rays(n, seed):
+    """Bounce-like rays of config5: origins 1e-4 off its two spheres and
+    its floor, directions over the hemisphere."""
+    rng = np.random.default_rng(seed)
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    which = rng.integers(0, 3, n)
+    centre = np.where((which == 0)[:, None], (-1.2, 1.0, 0.0),
+                      (1.4, 0.8, -0.5))
+    radius = np.where(which == 0, 1.0, 0.8)[:, None]
+    pos = centre + radius * nrm
+    floor = which == 2
+    pos[floor] = rng.uniform(-4, 4, size=(int(floor.sum()), 3)) * (1, 0, 1)
+    nrm[floor] = (0.0, 1.0, 0.0)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d *= np.sign((d * nrm).sum(axis=1, keepdims=True))
+    return (pos + 1e-4 * nrm).astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("rays", ["primary", "bounce", "config5"])
+def test_entry_key_walk_equals_all_k(rays):
+    """The pruned walk gives the all-K key of both packages on the
+    teapot's camera and bounce rays and on config5's table (K = 388), and
+    tests a fraction of the K boxes."""
+    if rays == "config5":
+        from pnraytracing_tpu_torch.scene.scenes import config5_large
+
+        trav = config5_large(6, device="cpu")[0].trav
+        assert trav.treelets.shape == (388, 6)
+        o, d = _surface_rays(3000, 11)
+    else:
+        js, o, d, t_max = _teapot_rays()
+        trav = port_scene(js).trav
+        if rays == "bounce":
+            o, d, _ = _bounce_rays(trav, o, d, t_max, seed=6)
+    counts = _assert_walk_equals_all_k(o, d, trav.treelets,
+                                       trav.treelet_tree)
+    k = trav.treelets.shape[0]
+    assert counts.sum(axis=0).mean() < k / 4
+    assert counts[0].min() >= 0 and counts.sum(axis=0).min() >= 1
+
+
+def _random_boxes(rng, k):
+    """K boxes that overlap, some nested in their predecessor, some
+    exact duplicates of it."""
+    lo = rng.uniform(-2, 2, size=(k, 3))
+    hi = lo + rng.uniform(0.0, 1.5, size=(k, 3))  # flat boxes too
+    for j in range(1, k):
+        kind = rng.integers(0, 6)
+        if kind == 0:  # a duplicate
+            lo[j], hi[j] = lo[j - 1], hi[j - 1]
+        elif kind == 1:  # nested in the one before
+            a, b = np.sort(rng.uniform(0, 1, size=(2, 3)), axis=0)
+            size = hi[j - 1] - lo[j - 1]
+            lo[j], hi[j] = lo[j - 1] + a * size, lo[j - 1] + b * size
+    return np.concatenate([lo, hi], axis=1).astype(np.float32)
+
+
+@settings(max_examples=12, deadline=None, derandomize=True)
+@given(k=st.sampled_from([1, 2, 3, 7, 8, 9, 31, 32, 33, 375, 512]),
+       seed=st.integers(0, 2 ** 16))
+def test_entry_key_walk_property(k, seed):
+    """pruned == all K on random boxes (overlapping, nested, duplicated)
+    and rays from inside, outside, and with zero direction components,
+    for K around the tree's powers of two, K = 1 and the cap."""
+    rng = np.random.default_rng(seed)
+    treelets, tree = _key_tables(_random_boxes(rng, k))
+    assert tree.shape == (2 * (1 << (k - 1).bit_length()), 8)
+    n = 256
+    o = rng.uniform(-3, 3, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:32, rng.integers(0, 3)] = 0.0
+    d[:8] = 0.0
+    o[32:64] = treelets.numpy()[rng.integers(0, k, 32), :3]  # on a corner
+    counts = _assert_walk_equals_all_k(o, d, treelets, tree, jax_too=False)
+    assert counts.sum(axis=0).max() <= tree.shape[0] - 1
+
+
+@pytest.mark.parametrize("case", ["identical_boxes", "inside_several",
+                                  "enters_none", "zero_direction",
+                                  "padded_tail", "single_box",
+                                  "non_finite"])
+def test_entry_key_walk_constructed(case):
+    """The trouble spots of the pruned walk, one by one."""
+    unit = np.array([[0, 0, 0, 1, 1, 1]], np.float32)
+    o = np.array([[0.5, 0.5, 0.5], [-1.0, 0.5, 0.5], [0.5, 3.0, 0.5]],
+                 np.float32)
+    d = np.array([[1, 0, 0], [1, 0, 0], [0, -1, 0]], np.float32)
+    if case == "identical_boxes":  # the lower index wins, inside and out
+        boxes = np.repeat(unit, 5, axis=0)
+        boxes[0] += 5.0
+        want_k = [1, 1, 1]
+    elif case == "inside_several":  # nested: all hold the origin, first wins
+        boxes = np.array([[9, 9, 9, 10, 10, 10], [-1, -1, -1, 2, 2, 2],
+                          [0, 0, 0, 1, 1, 1], [0.4, 0.4, 0.4, 0.6, 0.6, 0.6]],
+                         np.float32)
+        want_k = [1, 1, 1]
+    elif case == "enters_none":
+        boxes = np.repeat(unit, 3, axis=0) + np.float32(7.0)
+        want_k = [3, 3, 3]
+    elif case == "zero_direction":  # all-zero direction: inside = entered
+        boxes = np.concatenate([unit + 4.0, unit])
+        d = np.zeros_like(d)
+        want_k = [1, 2, 2]
+    elif case == "padded_tail":  # K = 5 of P = 8: rays that enter only the
+        boxes = np.repeat(unit, 5, axis=0) + 7.0  # last box, or nothing
+        boxes[4] = unit[0]
+        want_k = [4, 4, 4]
+        o = np.concatenate([o, [[0.5, 0.5, -9.0]]]).astype(np.float32)
+        d = np.concatenate([d, [[0, 1, 0]]]).astype(np.float32)
+        want_k.append(5)
+    elif case == "single_box":
+        boxes, want_k = unit, [0, 0, 0]
+    else:  # non-finite lanes: the all-K plain version is the rule
+        boxes = _random_boxes(np.random.default_rng(0), 40)
+        o3, d3 = synthetic_key_rays(_t(boxes), "cpu", n=1024, seed=3)
+        o = np.stack([c.numpy() for c in (o3.x, o3.y, o3.z)], axis=1)
+        d = np.stack([c.numpy() for c in (d3.x, d3.y, d3.z)], axis=1)
+        bad = never_enters(o3, d3).numpy()
+        assert bad.sum() == 192 and not bad[:640].any()
+        want_k = None
+    treelets, tree = _key_tables(boxes)
+    counts = _assert_walk_equals_all_k(o, d, treelets, tree)
+    key = entry_key(_v3(o), _v3(d), treelets, tree).numpy()
+    if want_k is not None:
+        np.testing.assert_array_equal(key // 8, want_k)
+        oct_ = (d[:, 0] > 0) * 4 + (d[:, 1] > 0) * 2 + (d[:, 2] > 0)
+        np.testing.assert_array_equal(key % 8, oct_)
+    else:  # a NaN ray enters nothing and walks nothing
+        assert (key[bad] // 8 == 40).all() and not counts[:, bad].any()
+        assert (key[~bad] // 8 < 40).any()
+    if case == "padded_tail":  # ray 1 enters box 4 from outside at t = 1,
+        p = tree.shape[0] // 2  # then tests its copy in leaf 5, in vain
+        assert torch.equal(tree[p + 5:], tree[p + 4].expand(3, 8))
+        assert counts[1, 1] >= 2 and key[1] // 8 == 4
+
+
+def test_slab_entry_is_monotone_in_the_box():
+    """Fact 2 of the key kernel: for a box U that contains a box B, the
+    same float32 expression gives t_near(U) <= t_near(B) and t_far(U) >=
+    t_far(B) bit for bit, so a ray that misses U misses B."""
+    rng = np.random.default_rng(8)
+    n = 20000
+    lo_u = rng.uniform(-3, 3, size=(n, 3))
+    hi_u = lo_u + rng.uniform(0, 3, size=(n, 3))
+    a, b = np.sort(rng.uniform(0, 1, size=(2, n, 3)), axis=0)
+    a[: n // 4] = 0.0  # shared faces
+    lo_b = lo_u + a * (hi_u - lo_u)
+    hi_b = lo_u + b * (hi_u - lo_u)
+    lo_u, hi_u, lo_b, hi_b = (x.astype(np.float32) for x in
+                              (lo_u, hi_u, lo_b, hi_b))
+    lo_u, hi_u = np.minimum(lo_u, lo_b), np.maximum(hi_u, hi_b)
+    o = rng.uniform(-4, 4, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[: n // 8, 0] = 0.0
+    d[n // 8: n // 4] *= 1e-12  # huge inverses: products overflow to inf
+    o[n // 4: n // 4 + 100, 1] = np.inf
+    d[n // 4 + 100: n // 4 + 200, 2] = -np.inf
+    rows = lambda lo, hi: _t(np.concatenate(
+        [lo, np.zeros((n, 1), np.float32), hi, np.zeros((n, 1), np.float32)],
+        axis=1))
+    o3, d3 = _v3(o), _v3(d)
+    assert not never_enters(o3, d3).any()
+    inv = [torch.where(c >= 0, 1.0, -1.0) / torch.clamp_min(c.abs(), 1e-20)
+           for c in (d3.x, d3.y, d3.z)]
+    near_u, far_u = slab_entry(rows(lo_u, hi_u), o3.x, o3.y, o3.z, *inv)
+    near_b, far_b = slab_entry(rows(lo_b, hi_b), o3.x, o3.y, o3.z, *inv)
+    for x in (near_u, far_u, near_b, far_b):
+        assert not torch.isnan(x).any()
+    assert bool((near_u <= near_b).all()) and bool((far_u >= far_b).all())
+    miss_u = ~(far_u >= near_u)
+    assert bool(miss_u.any()) and not bool((far_b >= near_b)[miss_u].any())
+
+
+def test_treelets_come_in_depth_first_order():
+    """Fact 1: the treelet boxes are subtree roots in ascending node id
+    (depth-first order), so unions of consecutive boxes are tight: far
+    smaller than unions of as many boxes picked at random."""
+    js, _ = jax_teapot_night()
+    ps = port_scene(js)
+    tre = ps.trav.treelets.numpy()
+    node_min, node_max = ps.bvh.node_min.numpy(), ps.bvh.node_max.numpy()
+    nodes = np.concatenate([node_min, node_max], axis=1)
+    ids, last = [], -1
+    for row in tre:  # the first node after the last one with this box
+        match = np.nonzero((nodes == row).all(axis=1))[0]
+        assert (match > last).any(), "boxes are not in ascending node id"
+        last = int(match[match > last][0])
+        ids.append(last)
+    assert len(ids) == 375
+
+    def union_volume(order):
+        g = tre[order][: len(tre) // 8 * 8].reshape(-1, 8, 6)
+        size = g[:, :, 3:].max(axis=1) - g[:, :, :3].min(axis=1)
+        return float(np.median(np.prod(size, axis=1)))
+
+    shuffled = np.random.default_rng(0).permutation(len(tre))
+    assert union_volume(np.arange(len(tre))) < 0.1 * union_volume(shuffled)
+
+
+def _assert_tree(tree, treelets):
+    k = treelets.shape[0]
+    p = 1 << (k - 1).bit_length()
+    assert tree.shape == (2 * p, 8) and tree.dtype == torch.float32
+    assert tree.is_contiguous()
+    np.testing.assert_array_equal(tree.numpy(),
+                                  treelet_index_tree(treelets.numpy()))
+    t = tree.numpy()
+    np.testing.assert_array_equal(t[p:p + k, [0, 1, 2, 4, 5, 6]],
+                                  treelets.numpy())
+    for i in range(1, p):  # a row holds both rows under it
+        assert (t[i, 0:3] <= t[2 * i:2 * i + 2, 0:3]).all()
+        assert (t[i, 4:7] >= t[2 * i:2 * i + 2, 4:7]).all()
+
+
+@pytest.mark.parametrize("source", ["built", "from_jax", "round_trip"])
+def test_treelet_tree_belongs_to_treelets(source):
+    """The key kernel's union tree is made from ``treelets`` alone,
+    wherever the scene comes from: SceneBuilder, a scene converted from
+    the JAX package (which has no such table), a second round trip."""
+    if source == "built":
+        from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
+
+        trav = config3_teapot_night(env_height=16, device="cpu")[0].trav
+        assert trav.treelets.shape == (375, 6)
+    else:
+        js, _ = jax_teapot_night()
+        assert not hasattr(js.trav, "treelet_tree")
+        ps = port_scene(js)
+        if source == "round_trip":
+            leaves = scene_to_arrays(ps)
+            np.testing.assert_array_equal(leaves["trav.treelet_tree"],
+                                          ps.trav.treelet_tree.numpy())
+            ps = scene_from_arrays(leaves, device="cpu")
+        trav = ps.trav
+        np.testing.assert_array_equal(trav.treelets.numpy(),
+                                      np.asarray(js.trav.treelets))
+    _assert_tree(trav.treelet_tree, trav.treelets)
+
+
+def test_entry_key_rejects_a_foreign_tree():
+    boxes = _random_boxes(np.random.default_rng(1), 20)
+    treelets, tree = _key_tables(boxes)
+    o = _v3(np.zeros((4, 3), np.float32))
+    d = _v3(np.ones((4, 3), np.float32))
+    other = _key_tables(_random_boxes(np.random.default_rng(2), 20))[1]
+    small = _key_tables(boxes[:10])[1]
+    for bad in (other, small, tree[:, :6].contiguous(), tree.double()):
+        with pytest.raises(ValueError, match="tree"):
+            entry_key(o, d, treelets, bad)
+    with pytest.raises(ValueError, match="treelets"):
+        entry_key(o, d, treelets[:, :5].contiguous(), tree)
+    with pytest.raises(ValueError, match="lo <= hi"):
+        treelet_index_tree(boxes[:, [3, 4, 5, 0, 1, 2]] + np.float32(
+            [0, 0, 0, -9, 0, 0]))
+    with pytest.raises(ValueError, match="finite"):
+        treelet_index_tree(np.array([[0, 0, 0, 1, np.inf, 1]], np.float32))
 
 
 _FORBIDDEN = re.compile(
