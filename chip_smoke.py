@@ -18,7 +18,13 @@ script exits non-zero without printing a result.  Phases:
 4. kernel parity: each kernel against its plain version on the rays one
    plain-path frame hands it (primary rays, the bounce-0 sort-key rays,
    the bounce-0 fused shadow batch and continuation rays): results, the
-   interaction fill and the per-ray walk stats equal;
+   interaction fill and the per-ray walk stats equal; the key kernel
+   against the all-K plain version and against the plain version of its
+   own walk (keys and test counts) on the bounce-0 and bounce-1 key rays
+   and on a synthetic set (origins outside the scene, axis-parallel and
+   zero directions, rays that enter nothing, non-finite lanes), then
+   ``key_figures`` lines: union and member tests a ray and a warp, the
+   share of rays that end at an entry of 0 or enter no box;
 5. frame parity: a 128x128 depth-4 frame through the kernels and through
    the plain versions;
 6. flagship: launch counts of one frame (counters zeroed just before),
@@ -33,15 +39,15 @@ script exits non-zero without printing a result.  Phases:
    unprofiled ms/frame of phase 6 (the profiler slows the host);
 8. binary: the binary pop-test kernels (the ``variant="binary"`` entry
    point, which the integrator never routes to) against their plain
-   versions on the flagship rays of phase 4, timed;
+   versions on the flagship rays of phase 4, stats included, timed;
 9. stream_scene: config5_large built by the port on the card, with its
    default brick layout and the registers, block size and blocks an SM
    of the stream kernels;
 10. stream_parity: the stream kernels against their plain versions on
    the rays of one plain-path config5 frame (primary, bounce-0
    continuation, bounce-0 fused shadows): results and per-ray walk stats
-   equal; and the resident wide kernels on the same rays (the bricks
-   cover the tree);
+   equal; the resident wide kernels on the same rays (the bricks
+   cover the tree); the key kernel on config5's bounce-0 key rays;
 11. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
    128x128 depth-4 frame through the kernels against the plain versions,
    ms/frame and rays/s, peak memory, the stream kernels' times beside
@@ -67,7 +73,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Operations per test, counted from csrc/traverse.cu and entry_key.cu:
 # slab test 6 sub + 6 mul + 11 min/max + 2 compares; watertight triangle
-# test 9+6+3+2+2 add/sub, 6+3+6+3+1 mul, 1 div, ~8 compares.
+# test 9+6+3+2+2 add/sub, 6+3+6+3+1 mul, 1 div, ~8 compares.  The fp32
+# rate counts an FMA as two operations; the kernels are built without
+# FMAs, so the time to dispatch their instructions is about twice this
+# bound.
 OPS_AABB = 25
 OPS_TRIANGLE = 50
 OPS_ENTRY_BOX = 25
@@ -255,7 +264,8 @@ def key_figures(counts, key, o, d, tree, k_total) -> dict:
     (key ``K*8 + octant``)."""
     import torch
 
-    from pnraytracing_tpu_torch.ops.compaction import _safe_inv, slab_entry
+    from pnraytracing_tpu_torch.ops.compaction import slab_entry
+    from pnraytracing_tpu_torch.ops.intersect import safe_inv_dir
 
     unions, members = counts[0].to(torch.int64), counts[1].to(torch.int64)
     tot = unions + members
@@ -266,7 +276,8 @@ def key_figures(counts, key, o, d, tree, k_total) -> dict:
     k = (key // 8).to(torch.int64)
     none = k >= k_total
     t_near, _ = slab_entry(tree[p + k.clamp(max=k_total - 1)], o.x, o.y, o.z,
-                           _safe_inv(d.x), _safe_inv(d.y), _safe_inv(d.z))
+                           safe_inv_dir(d.x), safe_inv_dir(d.y),
+                           safe_inv_dir(d.z))
     return {"rays": r, "union_tests": spread(unions),
             "member_tests": spread(members), "tests": spread(tot),
             "warp_tests": spread(per_warp),

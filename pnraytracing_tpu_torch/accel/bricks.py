@@ -151,22 +151,6 @@ def treelet_index_tree(treelets) -> np.ndarray:
     return out
 
 
-def treelet_groups(treelets, g: int) -> np.ndarray:
-    """[ceil(K/g) * (1 + g), 8] f32: per group of ``g`` consecutive boxes
-    one union row then its ``g`` member rows (the last group padded with
-    copies of box K - 1), rows as in :func:`treelet_index_tree`."""
-    tre = _checked_treelets(treelets)
-    k = tre.shape[0]
-    n = -(-k // g)
-    mem = np.concatenate([tre, np.repeat(tre[-1:], n * g - k, axis=0)])
-    mem = mem.reshape(n, g, 6)
-    out = np.zeros((n, 1 + g, 8), np.float32)
-    out[:, 0, 0:3] = mem[:, :, :3].min(axis=1)
-    out[:, 0, 4:7] = mem[:, :, 3:].max(axis=1)
-    out[:, 1:, 0:3], out[:, 1:, 4:7] = mem[:, :, :3], mem[:, :, 3:]
-    return out.reshape(n * (1 + g), 8)
-
-
 def _subtree_extents(right_child: np.ndarray, start: np.ndarray,
                      end: np.ndarray):
     """Per-node (id_end, tri_lo, tri_hi) via one reverse pass (children

@@ -22,10 +22,11 @@ over the compact wide rows ``nodes16c``) or ``"binary"`` (pop-test walk
 over ``nodes8``), resolved by ``accel/route.py::pick_variant`` as the
 JAX package resolves it.  The wide kernels and the binary closest kernel
 read triangles from the padded rows ``tri12``, the binary any-hit kernel
-and every plain version from ``tri9`` (the same values).  The interaction fill is a function of the
-winning hit alone (:func:`interaction_fill`); kernel and plain version
-evaluate it once after the walk.  :func:`kernel_info` reports the
-resident kernels' registers and blocks an SM.
+and every plain version from ``tri9`` (the same values).  The interaction
+fill is a function of the winning hit alone (:func:`interaction_fill`);
+kernel and plain version evaluate it once after the walk.
+:func:`kernel_info` reports the resident kernels' registers and blocks an
+SM.
 
 Results: the closest ``t`` (``t_max`` on a miss), ``tri`` (-1 on a miss)
 and barycentrics; the attribute variant also the raw interpolated shading
@@ -214,11 +215,9 @@ def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
             ptr(t_max), ptr(mask), r)
     lib = library("traverse")
     # the closest walk reads its leaves' triangles from the padded rows
-    tables = ((ptr(trav.nodes8), ptr(trav.tri9), ptr(trav.tri12)) if closest
-              else (ptr(trav.nodes8), ptr(trav.tri9)))
     fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
-    err = fn(*tables, *rays, *[ptr(x) for x in outs], ptr(stats),
-             stream_of(o.x))
+    err = fn(ptr(trav.nodes8), ptr(trav.tri12 if closest else trav.tri9),
+             *rays, *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
     name = "closest_hit_binary" if closest else "any_hit_binary"
     _raise_on(err, name)
     LAUNCHES[name] += 1

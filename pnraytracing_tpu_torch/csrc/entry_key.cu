@@ -10,7 +10,7 @@
 //
 // What held the first form back.  It ran all K slab tests for every ray
 // (98.3M tests for the flagship's 262,144 key rays at K = 375) at about
-// the rate the SMs issue instructions: ~30 instructions a test with
+// the rate the SMs dispatch instructions: ~30 instructions a test with
 // --fmad=false, none of them an FMA.  Only fewer tests could give a
 // factor, and the result needs most boxes only to be ruled out.
 //
@@ -43,26 +43,24 @@
 // NaN where torch keeps it, so the rays whose every test is a NaN
 // (ops/compaction.py::never_enters) are keyed K up front and no other ray
 // produces one.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): on the
+// flagship's 262,144 bounce-0 key rays a ray runs 23 tests instead of 375
+// and a warp as many as its longest lane, 54 in the mean (SIMT efficiency
+// 0.43); 0.039 ms against 0.133 for all K boxes over the same rows.  What
+// holds it back now: a warp's longest lane, and ~52 instructions an
+// iteration (the test, the row index, the leaf / inner branch).  Measured
+// beside it and not kept: unions of flat groups of 8 / 16 / 32 consecutive
+// boxes (uniform control and broadcast loads, but a warp runs 100-170
+// tests: 0.049 / 0.060 / 0.069 ms), the rows read from device memory
+// instead of the shared copy (within 3%, slower on two of three ray
+// sets), blocks of 128 threads (11% slower) and of 512 (5% faster to 2%
+// slower), the leaf / inner cases by selects instead of a branch (9%
+// slower).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-// TRIAL switches: PNRT_KEY_GROUPS = 0 the tree walk, 8 / 16 / 32 flat
-// groups of that many boxes, -1 all K boxes (the first form, on the
-// leaves of the tree table).
-#ifndef PNRT_KEY_GROUPS
-#define PNRT_KEY_GROUPS 0
-#endif
-#ifndef PNRT_KEY_GLOBAL
-#define PNRT_KEY_GLOBAL 0  // 1: rows read from device memory, no copy
-#endif
-#ifndef PNRT_KEY_SELECT
-#define PNRT_KEY_SELECT 0  // 1: the tree walk's leaf / inner cases by selects
-#endif
-#ifndef PNRT_KEY_THREADS
-#define PNRT_KEY_THREADS 256
-#endif
 
 namespace {
 
@@ -70,7 +68,7 @@ __device__ __forceinline__ float safe_inv(float d) {
   return (d >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d), 1e-20f);
 }
 
-constexpr int kThreads = PNRT_KEY_THREADS;
+constexpr int kThreads = 256;
 
 struct KeyRay {
   float ox, oy, oz, ix, iy, iz;
@@ -106,15 +104,11 @@ entry_key_kernel(const float4* __restrict__ table, int n_rows, int p,
                  const float* __restrict__ dx, const float* __restrict__ dy,
                  const float* __restrict__ dz, int n,
                  int* __restrict__ key_out, int* __restrict__ counts) {
-#if PNRT_KEY_GLOBAL
-  const float4* __restrict__ rows = table;
-#else
   extern __shared__ float4 rows[];
   for (int j = threadIdx.x; j < 2 * n_rows; j += blockDim.x) {
     rows[j] = table[j];
   }
   __syncthreads();
-#endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float rdx = dx[i], rdy = dy[i], rdz = dz[i];
@@ -130,25 +124,6 @@ entry_key_kernel(const float4* __restrict__ table, int n_rows, int p,
   int unions = 0, members = 0;
   if (!(never_enters(r.ox, rdx) || never_enters(r.oy, rdy) ||
         never_enters(r.oz, rdz))) {
-#if PNRT_KEY_GROUPS == 0 && PNRT_KEY_SELECT
-    int node = 1, tests = 0;
-    do {
-      float t_near;
-      const bool enter =
-          enters(r, rows[2 * node], rows[2 * node + 1], t_near) &&
-          t_near < best_t;
-      const bool leaf = node >= p;
-      const bool win = enter && leaf;
-      ++tests;
-      members += leaf ? 1 : 0;
-      best_t = win ? t_near : best_t;
-      best_k = win ? node - p : best_k;
-      if (win && t_near == 0.0f) break;
-      node = (enter && !leaf) ? 2 * node
-                              : (node + 1) >> (__ffs(node + 1) - 1);
-    } while (node != 1);
-    unions = tests - members;
-#elif PNRT_KEY_GROUPS == 0
     int node = 1;
     do {
       float t_near;
@@ -169,36 +144,6 @@ entry_key_kernel(const float4* __restrict__ table, int n_rows, int p,
         node = enter ? 2 * node : past;
       }
     } while (node != 1);
-#elif PNRT_KEY_GROUPS > 0
-    constexpr int G = PNRT_KEY_GROUPS;
-    const int n_groups = n_rows / (1 + G);
-    for (int g = 0; g < n_groups && best_t != 0.0f; ++g) {
-      const float4* grp = rows + 2 * (1 + G) * g;
-      float t_near;
-      ++unions;
-      if (enters(r, grp[0], grp[1], t_near) && t_near < best_t) {
-        members += G;
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          if (enters(r, grp[2 + 2 * j], grp[3 + 2 * j], t_near) &&
-              t_near < best_t) {
-            best_t = t_near;
-            best_k = g * G + j;
-          }
-        }
-      }
-    }
-#else
-    for (int k = 0; k < k_total; ++k) {
-      float t_near;
-      ++members;
-      if (enters(r, rows[2 * (p + k)], rows[2 * (p + k) + 1], t_near) &&
-          t_near < best_t) {
-        best_t = t_near;
-        best_k = k;
-      }
-    }
-#endif
   }
   const int oct = (rdx > 0.0f ? 4 : 0) + (rdy > 0.0f ? 2 : 0) +
                   (rdz > 0.0f ? 1 : 0);
@@ -222,8 +167,7 @@ int pnrt_entry_key(const float* table, int n_rows, int p, int k_total,
                    int* key_out, int* counts, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t smem =
-      PNRT_KEY_GLOBAL ? 0 : sizeof(float4) * 2 * (size_t)n_rows;
+  const size_t smem = sizeof(float4) * 2 * (size_t)n_rows;
   entry_key_kernel<<<blocks, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(table), n_rows, p, k_total, ox, oy, oz,

@@ -68,7 +68,9 @@
 // children's rows, two or three triangles in flight, and the walk that
 // postpones a leaf and goes on descending (more visits, slower any-hit).
 // The binary walk visits about twice as many nodes as the wide one for
-// the same hits; its kernels keep the one-loop form.
+// the same hits.  Its closest-hit kernel has the while-while form with a
+// bounded descent (see closest_hit_binary_kernel); its any-hit kernel
+// keeps the one-loop form.
 
 #include "intersect.cuh"
 
@@ -268,91 +270,6 @@ __device__ __forceinline__ void push_binary(const Ray& r, const Node8& w,
   stack[top++] = d_neg ? right : left;  // near
 }
 
-// TRIAL switches of the binary closest walk: PNRT_BIN_OLD = 1 the
-// first one-loop form; PNRT_BIN_FORM / PNRT_BIN_VOTE see below; PNRT_BIN_BOUNDS1 = 0 plain __launch_bounds__(128);
-// PNRT_BIN_TRI9 = 1 nine scalar loads of a tri9 row, none in flight;
-// PNRT_BIN_PUSHBOTH = 1 both children through the stack.
-#ifndef PNRT_BIN_OLD
-#define PNRT_BIN_OLD 0
-#endif
-#ifndef PNRT_BIN_FORM
-#define PNRT_BIN_FORM 2
-#endif
-#ifndef PNRT_BIN_VOTE
-#define PNRT_BIN_VOTE 8
-#endif
-#ifndef PNRT_BIN_WAIT
-#define PNRT_BIN_WAIT 4
-#endif
-#ifndef PNRT_BIN_BOUNDS1
-#define PNRT_BIN_BOUNDS1 1
-#endif
-#ifndef PNRT_BIN_TRI9
-#define PNRT_BIN_TRI9 0
-#endif
-#ifndef PNRT_BIN_PUSHBOTH
-#define PNRT_BIN_PUSHBOTH 0
-#endif
-
-#if PNRT_BIN_OLD
-__global__ void __launch_bounds__(128)
-closest_hit_binary_kernel(const float* __restrict__ nodes8,
-                          const float* __restrict__ tri9,
-                          const float* __restrict__ tri12, Rays rays,
-                          float* __restrict__ t_out, int* __restrict__ tri_out,
-                          float* __restrict__ b1_out,
-                          float* __restrict__ b2_out,
-                          int* __restrict__ stats) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rays.n) return;
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
-  float t_best = rays.t_max[i];
-  int tri_best = -1;
-  float b1_best = 0.0f, b2_best = 0.0f;
-  int pops = 0, leaf_pops = 0, tri_tests = 0;
-
-  int stack[KSTACK];
-  int top = 0;
-  if (active) stack[top++] = 0;  // root node
-  while (top > 0) {
-    const int node = stack[--top];
-    ++pops;
-    const Node8 w = load_node8(nodes8, node);
-    if (!hit_aabb(r, w.mn[0], w.mn[1], w.mn[2], w.mx[0], w.mx[1], w.mx[2],
-                  t_best)) {
-      continue;
-    }
-    if (w.enc_right < 0) {
-      ++leaf_pops;
-      const int start = w.meta >> 4;
-      const int count = w.meta & 15;
-      tri_tests += count;
-      for (int k = 0; k < count; ++k) {
-        const int ti = start + k;
-        float t, b1, b2;
-        if (hit_triangle(r, tri9 + 9 * (int64_t)ti, t_best, t, b1,
-                               b2) &&
-            t < t_best) {
-          t_best = t;
-          tri_best = ti;
-          b1_best = b1;
-          b2_best = b2;
-        }
-      }
-    } else {
-      push_binary(r, w, node, stack, top);
-    }
-  }
-  t_out[i] = t_best;
-  tri_out[i] = tri_best;
-  b1_out[i] = b1_best;
-  b2_out[i] = b2_best;
-  write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
-}
-
-#else
 // One pop of the binary closest walk at node cur: a node whose box the
 // ray misses gives the stack's top; a leaf whose box it hits sets meta
 // (start*16 + count) and stays; an inner node goes on into its near child
@@ -370,140 +287,67 @@ __device__ __forceinline__ int binary_pop(const Ray& r,
     meta = w.meta;
     return cur;
   }
-#if PNRT_BIN_PUSHBOTH
-  push_binary(r, w, cur, stack, top);
-  return pop_node(stack, top);
-#else
   const int right = w.enc_right >> 2;
   const bool d_neg = sel3(w.enc_right & 3, r.dx, r.dy, r.dz) < 0.0f;
   stack[top++] = d_neg ? cur + 1 : right;  // far
   return d_neg ? right : cur + 1;          // near
-#endif
 }
 
-__device__ __forceinline__ void binary_leaf(const Ray& r,
-                                            const float* __restrict__ tri9,
-                                            const float* __restrict__ tri12,
-                                            int meta, Best& h,
-                                            int& tri_tests) {
-#if PNRT_BIN_TRI9
-  const int start = meta >> 4;
-  const int count = meta & 15;
-  tri_tests += count;
-  for (int k = 0; k < count; ++k) {
-    const int ti = start + k;
-    float t, b1, b2;
-    if (hit_triangle(r, tri9 + 9 * (int64_t)ti, h.t, t, b1, b2) && t < h.t) {
-      h.t = t;
-      h.tri = ti;
-      h.b1 = b1;
-      h.b2 = b2;
-    }
-  }
-#else
-  closest_leaf(r, tri12, -meta - 1, h, tri_tests);
-#endif
-}
+// The binary closest walk, while-while with a bounded descent: an inner
+// loop pops and box-tests nodes until this lane holds a leaf whose box it
+// hit, but for at most kBinaryDescent pops; then the warp's lanes that
+// hold a leaf test it together.  The bound is what makes the form pay
+// here.  A lane that holds a leaf waits for the others' descents, and a
+// binary walk pops twice as many nodes between two leaves as the wide one:
+// unbounded, the wait lengthens the longest rays' chains (2% faster on the
+// flagship's rays, 16% slower on the large scene's than one loop); bounded
+// at 4, a leaf-holder waits three pops at most and the walk is 1.10x /
+// 1.11x faster than one loop (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+// section 6; 2, 3, 5, 6, 8 and 16 pops and warp votes measured beside it).
+// The near child is entered directly and only the far one pushed (a child
+// entered directly counts as a pop); the leaf's triangles come from tri12
+// with the next row in flight (closest_leaf).  The order of visits, the
+// hit and the stats are those of the one-loop pop-test walk.
+constexpr int kBinaryDescent = 4;
 
-// PNRT_BIN_FORM: 1 one loop, 2 while-while, 3 the warp votes: lanes that
-// hold a leaf wait until PNRT_BIN_VOTE lanes do (or no lane walks on).
-#if PNRT_BIN_BOUNDS1
 __global__ void __launch_bounds__(kThreads, 1)
-#else
-__global__ void __launch_bounds__(kThreads)
-#endif
 closest_hit_binary_kernel(const float* __restrict__ nodes8,
-                          const float* __restrict__ tri9,
                           const float* __restrict__ tri12, Rays rays,
                           float* __restrict__ t_out, int* __restrict__ tri_out,
                           float* __restrict__ b1_out,
                           float* __restrict__ b2_out,
                           int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-#if PNRT_BIN_FORM == 3
-  const bool in_range = i < rays.n;
-  const int ii = in_range ? i : 0;
-#else
   if (i >= rays.n) return;
-  const bool in_range = true;
-  const int ii = i;
-#endif
-  const Ray r = make_ray(rays.ox[ii], rays.oy[ii], rays.oz[ii], rays.dx[ii],
-                         rays.dy[ii], rays.dz[ii]);
-  const bool active =
-      in_range && (rays.mask == nullptr || rays.mask[ii] != 0);
-  Best h = {rays.t_max[ii], -1, 0.0f, 0.0f};
+  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
+                         rays.dy[i], rays.dz[i]);
+  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+  Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
   int pops = 0, leaf_pops = 0, tri_tests = 0;
 
   int stack[KSTACK];  // the far children still to visit
   int top = 0;
   int cur = active ? 0 : kWalkDone;  // the root node
-#if PNRT_BIN_FORM == 1
   while (cur != kWalkDone) {
-    int meta = -1;
-    ++pops;
-    cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
-    if (meta >= 0) {
-      ++leaf_pops;
-      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
-      cur = pop_node(stack, top);
-    }
-  }
-#elif PNRT_BIN_FORM == 4
-  while (cur != kWalkDone) {
-    int meta = -1;
+    int meta = -1;  // start*16 + count of the leaf this lane holds
 #pragma unroll 1
-    for (int step = 0; step < PNRT_BIN_WAIT && cur != kWalkDone && meta < 0;
+    for (int step = 0; step < kBinaryDescent && cur != kWalkDone && meta < 0;
          ++step) {
       ++pops;
       cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
     }
     if (meta >= 0) {
       ++leaf_pops;
-      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
+      closest_leaf(r, tri12, -meta - 1, h, tri_tests);
       cur = pop_node(stack, top);
     }
   }
-#elif PNRT_BIN_FORM == 2
-  while (cur != kWalkDone) {
-    int meta = -1;  // start*16 + count of the leaf this lane holds
-    while (cur != kWalkDone && meta < 0) {
-      ++pops;
-      cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
-    }
-    if (meta >= 0) {
-      ++leaf_pops;
-      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
-      cur = pop_node(stack, top);
-    }
-  }
-#else
-  int meta = -1;
-  while (true) {
-    if (meta < 0 && cur != kWalkDone) {
-      ++pops;
-      cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
-    }
-    const unsigned leaves = __ballot_sync(0xffffffffu, meta >= 0);
-    const unsigned walks =
-        __ballot_sync(0xffffffffu, meta < 0 && cur != kWalkDone);
-    if ((leaves | walks) == 0) break;
-    if ((__popc(leaves) >= PNRT_BIN_VOTE || walks == 0) && meta >= 0) {
-      ++leaf_pops;
-      binary_leaf(r, tri9, tri12, meta, h, tri_tests);
-      meta = -1;
-      cur = pop_node(stack, top);
-    }
-  }
-  if (!in_range) return;
-#endif
   t_out[i] = h.t;
   tri_out[i] = h.tri;
   b1_out[i] = h.b1;
   b2_out[i] = h.b2;
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
-#endif
 
 __global__ void __launch_bounds__(128)
 any_hit_binary_kernel(const float* __restrict__ nodes8,
@@ -597,7 +441,8 @@ int pnrt_any_hit(const float* nodes, const float* tri12, const float* ox,
 }
 
 // What the card gives a resident walk kernel (which: 0 closest + fill, 1
-// closest, 2 any, 3 binary closest, 4 binary any): what == 0 the registers a thread, 1 the blocks an SM
+// closest, 2 any, 3 binary closest, 4 binary any): what == 0 the
+// registers a thread, 1 the blocks an SM
 // holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 2 the
 // threads a block, 3 the bytes of local memory a thread.  A negative
 // value is minus the CUDA error.
@@ -623,8 +468,8 @@ int pnrt_walk_kernel_info(int which, int what) {
 
 // Binary pop-test closest hit over nodes8 rows; outputs and stats as
 // pnrt_closest_hit without the fill.
-int pnrt_closest_hit_binary(const float* nodes8, const float* tri9,
-                            const float* tri12, const float* ox, const float* oy, const float* oz,
+int pnrt_closest_hit_binary(const float* nodes8, const float* tri12,
+                            const float* ox, const float* oy, const float* oz,
                             const float* dx, const float* dy, const float* dz,
                             const float* t_max, const uint8_t* mask, int n,
                             float* t_out, int* tri_out, float* b1_out,
@@ -633,7 +478,7 @@ int pnrt_closest_hit_binary(const float* nodes8, const float* tri9,
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   closest_hit_binary_kernel<<<blocks_for(n), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      nodes8, tri9, tri12, rays, t_out, tri_out, b1_out, b2_out, stats);
+      nodes8, tri12, rays, t_out, tri_out, b1_out, b2_out, stats);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``pnraytracing_tpu/ops/compaction.py``:
 ``sort_live_first`` (the permutation that packs live rays first, in key
-order), the plain ``treelet_entry_key`` and the wrapper
-:func:`entry_key` over its hand-written CUDA kernel
-(``csrc/entry_key.cu``, replacing ``treelet_entry_key_pallas``).
+order), the plain ``treelet_entry_key`` (all K boxes: the definition of
+the key) and the wrapper :func:`entry_key` over its hand-written CUDA
+kernel (``csrc/entry_key.cu``, replacing ``treelet_entry_key_pallas``),
+which walks a tree of unions over the boxes and tests a fraction of
+them; :func:`entry_key_walk` is the plain version of that walk.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
     check_rays,
     check_table,
     ptr,
+    stream_of,
 )
 from pnraytracing_tpu_torch.core.vec import V3
+from pnraytracing_tpu_torch.ops.intersect import safe_inv_dir
 
 # Launches of the key kernel since the last reset (the caller zeroes it).
 LAUNCHES = {"treelet_entry_key": 0}
@@ -66,11 +70,6 @@ def treelet_entry_key(o: V3, d: V3, treelets: torch.Tensor) -> torch.Tensor:
         best_t = torch.where(win, t_near, best_t)
         best_k = torch.where(win, k, best_k)
     return best_k * 8 + _octant(d.x, d.y, d.z)
-
-
-def _safe_inv(c):
-    return torch.where(c >= 0, 1.0, -1.0) / torch.clamp_min(torch.abs(c),
-                                                            1e-20)
 
 
 def never_enters(o: V3, d: V3) -> torch.Tensor:
@@ -125,7 +124,7 @@ def entry_key_walk(o: V3, d: V3, tree: torch.Tensor, k_total: int):
     p = tree.shape[0] // 2
     dev = o.x.device
     r = o.x.shape[0]
-    ix, iy, iz = _safe_inv(d.x), _safe_inv(d.y), _safe_inv(d.z)
+    ix, iy, iz = safe_inv_dir(d.x), safe_inv_dir(d.y), safe_inv_dir(d.z)
     best_t = torch.full_like(o.x, 3e38)
     best_k = torch.full((r,), k_total, dtype=torch.int32, device=dev)
     counts = torch.zeros((2, r), dtype=torch.int32, device=dev)
@@ -205,7 +204,7 @@ def entry_key(o: V3, d: V3, treelets: torch.Tensor, tree: torch.Tensor, *,
     err = library("entry_key").pnrt_entry_key(
         tree.data_ptr(), 2 * p, p, k_total, o.x.data_ptr(), o.y.data_ptr(),
         o.z.data_ptr(), d.x.data_ptr(), d.y.data_ptr(), d.z.data_ptr(), r,
-        key.data_ptr(), ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
+        key.data_ptr(), ptr(counts), stream_of(key))
     if err:
         raise RuntimeError(f"entry-key kernel launch failed: CUDA error "
                            f"{err}")

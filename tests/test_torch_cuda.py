@@ -10,13 +10,16 @@ exact-t tie.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import synthetic_key_rays
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
 from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
+from pnraytracing_tpu_torch.accel.bricks import treelet_index_tree
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops import compaction
@@ -126,9 +129,61 @@ def test_any_hit_kernel_matches_plain(flagship):
 def test_entry_key_kernel_matches_plain(flagship):
     scene, _ = flagship
     o, d, _, _ = _rays(1 << 16, 3)
-    key = compaction.entry_key(o, d, scene.trav.treelets)
+    key = compaction.entry_key(o, d, scene.trav.treelets,
+                               scene.trav.treelet_tree)
     assert torch.equal(key, compaction.treelet_entry_key(
         o, d, scene.trav.treelets))
+
+
+def _key_case(case, trav):
+    """(o, d, treelets, tree) of one edge case of the key kernel."""
+    tre, tree = trav.treelets, trav.treelet_tree
+    if case == "synthetic":
+        return (*synthetic_key_rays(tre, "cuda"), tre, tree)
+    if case in ("one_box", "cap"):  # K = 1 and K = 512 random boxes
+        k = 1 if case == "one_box" else 512
+        rng = np.random.default_rng(31)
+        lo = rng.uniform(-3, 3, size=(k, 3))
+        boxes = np.concatenate([lo, lo + rng.uniform(0, 2, size=(k, 3))],
+                               axis=1).astype(np.float32)
+        tre = torch.from_numpy(boxes).cuda()
+        tree = torch.from_numpy(treelet_index_tree(boxes)).cuda()
+    n = {"one_ray": 1, "ragged": 256 * 19 + 7}.get(case, 1 << 14)
+    o, d, _, _ = _rays(n, 30)
+    return o, d, tre, tree
+
+
+@pytest.mark.parametrize("case", ["random", "one_ray", "ragged", "one_box",
+                                  "cap", "synthetic"])
+def test_entry_key_kernel_equals_both_plain_versions(flagship, case):
+    """The key kernel against the all-K plain version (keys) and the plain
+    version of its walk (keys and the [2, R] counts), non-finite lanes
+    included."""
+    o, d, tre, tree = _key_case(case, flagship[0].trav)
+    before = compaction.LAUNCHES["treelet_entry_key"]
+    key, counts = compaction.entry_key(o, d, tre, tree, with_stats=True)
+    wkey, wcounts = compaction.entry_key_walk(o, d, tree, tre.shape[0])
+    assert compaction.LAUNCHES["treelet_entry_key"] == before + 1
+    assert key.dtype == torch.int32 and counts.shape == (2, o.x.shape[0])
+    assert torch.equal(key, compaction.treelet_entry_key(o, d, tre))
+    assert torch.equal(key, wkey) and torch.equal(counts, wcounts)
+    assert torch.equal(key, compaction.entry_key(o, d, tre, tree))
+    if case == "synthetic":
+        bad = compaction.never_enters(o, d)
+        assert int(bad.sum()) == 768
+        assert bool((key[bad] // 8 == tre.shape[0]).all())
+        assert not bool(counts[:, bad].any())
+    if case in ("random", "cap"):
+        assert bool((key // 8 < tre.shape[0]).any())
+        # boxes in depth-first order prune well, boxes in random order less
+        frac = 3 if case == "random" else 1
+        assert float(counts.sum()) / o.x.shape[0] < tre.shape[0] / frac
+
+
+def test_entry_key_kernel_info(flagship):
+    info = compaction.kernel_info(flagship[0].trav.treelets.shape[0])
+    assert info["threads"] == 256 and 0 < info["registers"] <= 64
+    assert info["blocks_per_sm"] >= 4 and info["shared_bytes"] == 32768
 
 
 def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
@@ -148,7 +203,8 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
                         trv.plain_closest_hit_attr)
     monkeypatch.setattr(integrator, "any_hit", trv.plain_any_hit)
     monkeypatch.setattr(integrator, "entry_key",
-                        compaction.treelet_entry_key)
+                        lambda o, d, treelets, tree:
+                        compaction.treelet_entry_key(o, d, treelets))
     want = render_frame(scene, cam, cfg, 0)
     off = (img - want).abs().amax(dim=-1) > 3e-5
     assert int(off.sum()) <= 1
@@ -171,9 +227,45 @@ def _wide_case(case):
     return o, d, t_max, mask
 
 
-@pytest.mark.parametrize("case", ["random", "no_mask", "t_max_zero",
-                                  "t_max_inf", "all_masked", "one_ray",
-                                  "ragged"])
+_CASES = ["random", "no_mask", "t_max_zero", "t_max_inf", "all_masked",
+          "one_ray", "ragged"]
+
+
+@pytest.mark.parametrize("case", _CASES)
+def test_binary_kernels_equal_plain_with_stats(flagship, case):
+    """Kernels 5-6 (``variant="binary"``) against their plain versions on
+    the edge cases of the wide walks: hits, barycentrics, occlusion and
+    the [3, R] walk stats all equal."""
+    trav = flagship[0].trav
+    o, d, t_max, mask = _wide_case(case)
+    before = dict(trv.LAUNCHES)
+    hit, st = trv.closest_hit(trav, o, d, t_max, mask, variant="binary",
+                              with_stats=True)
+    want, wst = trv.plain_closest_hit_binary(trav, o, d, t_max, mask,
+                                             with_stats=True)
+    occ, ast = trv.any_hit(trav, o, d, t_max, mask, variant="binary",
+                           with_stats=True)
+    wocc, wast = trv.plain_any_hit_binary(trav, o, d, t_max, mask,
+                                          with_stats=True)
+    torch.cuda.synchronize()
+    for a, b in [(hit.tri, want.tri), (hit.t, want.t), (hit.b1, want.b1),
+                 (hit.b2, want.b2)]:
+        assert torch.equal(a, b)
+    assert st.shape == (3, o.x.shape[0]) and torch.equal(st, wst)
+    assert torch.equal(occ, wocc) and torch.equal(ast, wast)
+    for name in ("closest_hit_binary", "any_hit_binary"):
+        assert trv.LAUNCHES[name] == before[name] + 1
+    if case in ("t_max_zero", "all_masked"):
+        assert not bool(want.valid.any()) and not bool(occ.any())
+        assert torch.equal(hit.t, t_max)
+    if case == "all_masked":
+        assert not bool(st.any()) and not bool(ast.any())
+    if case in ("random", "no_mask", "t_max_inf", "ragged"):
+        assert bool(want.valid.any()) and bool(occ.any())
+        assert int(st[0].max()) > 40
+
+
+@pytest.mark.parametrize("case", _CASES)
 def test_wide_kernels_equal_plain_with_stats(flagship, case):
     """Kernels 1-3 against their plain versions: hits, barycentrics, the
     interaction fill, occlusion and the [3, R] walk stats all equal."""
@@ -210,7 +302,8 @@ def test_wide_kernels_equal_plain_with_stats(flagship, case):
         assert int(st[0].max()) > 20
 
 
-def test_wide_wrappers_raise_on_too_deep_bvh(flagship):
+@pytest.mark.parametrize("variant", ["wide", "binary"])
+def test_wide_wrappers_raise_on_too_deep_bvh(flagship, variant):
     """A BVH deeper than the kernels' 64-entry stack: no stack_depth is
     both deep enough for the scene and within the kernel, so the wrappers
     raise and launch nothing."""
@@ -218,7 +311,11 @@ def test_wide_wrappers_raise_on_too_deep_bvh(flagship):
     deep = dataclasses.replace(trav, bvh_depth=trv.KERNEL_STACK + 1)
     o, d, t_max, mask = _rays(64, 21)
     before = dict(trv.LAUNCHES)
-    for fn in (trv.closest_hit_attr, trv.closest_hit, trv.any_hit):
+    binary = functools.partial(trv.closest_hit, variant="binary")
+    binary_any = functools.partial(trv.any_hit, variant="binary")
+    fns = ((binary, binary_any) if variant == "binary" else
+           (trv.closest_hit_attr, trv.closest_hit, trv.any_hit))
+    for fn in fns:
         with pytest.raises(ValueError, match="too shallow"):
             fn(deep, o, d, t_max, mask)
         with pytest.raises(ValueError, match="64-entry stack"):
@@ -228,7 +325,8 @@ def test_wide_wrappers_raise_on_too_deep_bvh(flagship):
 
 def test_wide_kernel_info(flagship):
     info = trv.kernel_info()
-    assert set(info) == {"closest_hit_attr", "closest_hit", "any_hit"}
+    assert set(info) == {"closest_hit_attr", "closest_hit", "any_hit",
+                         "closest_hit_binary", "any_hit_binary"}
     for v in info.values():
         assert v["threads"] == 128 and 0 < v["registers"] <= 255
         assert v["blocks_per_sm"] >= 1 and v["local_bytes"] >= 256

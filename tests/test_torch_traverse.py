@@ -37,6 +37,7 @@ from pnraytracing_tpu.ops.compaction import (
     treelet_entry_key as jax_treelet_entry_key,
 )
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+from pnraytracing_tpu_torch.accel.bricks import treelet_index_tree
 from pnraytracing_tpu_torch.accel.layout import (
     TravData,
     pack_tri12,
@@ -44,13 +45,13 @@ from pnraytracing_tpu_torch.accel.layout import (
 )
 from pnraytracing_tpu_torch.convert import scene_from_arrays, scene_to_arrays
 from pnraytracing_tpu_torch.core.vec import V3
-from pnraytracing_tpu_torch.accel.bricks import treelet_index_tree
 from pnraytracing_tpu_torch.ops.compaction import (
     entry_key,
     never_enters,
     slab_entry,
     treelet_entry_key,
 )
+from pnraytracing_tpu_torch.ops.intersect import safe_inv_dir
 from tests.test_packet import setup as soup_setup
 from tests.test_torch_scene import (  # noqa: F401
     _torch_threads,
@@ -596,8 +597,7 @@ def test_slab_entry_is_monotone_in_the_box():
         axis=1))
     o3, d3 = _v3(o), _v3(d)
     assert not never_enters(o3, d3).any()
-    inv = [torch.where(c >= 0, 1.0, -1.0) / torch.clamp_min(c.abs(), 1e-20)
-           for c in (d3.x, d3.y, d3.z)]
+    inv = [safe_inv_dir(c) for c in (d3.x, d3.y, d3.z)]
     near_u, far_u = slab_entry(rows(lo_u, hi_u), o3.x, o3.y, o3.z, *inv)
     near_b, far_b = slab_entry(rows(lo_b, hi_b), o3.x, o3.y, o3.z, *inv)
     for x in (near_u, far_u, near_b, far_b):
