@@ -17,10 +17,13 @@ then moved to the device as tensors:
 * ``tri_attr16`` [T, 16] f32 — corner shading normals, corner uvs and the
   encoded material/texture word (:func:`pack_tri_attr16`);
 * ``treelets``   [K, 6]  f32 — treelet AABBs for the coherence sort key
-  (accel/bricks.py::treelet_cut_aabbs);
+  (accel/bricks.py::treelet_cut_aabbs); None in a scene carried over
+  from one without them, which then sorts by the 'pos' key as in the
+  JAX package;
 * ``treelet_tree`` [2P, 8] f32 — the implicit binary tree of unions over
   the index ranges of ``treelets`` that the key kernel walks
-  (accel/bricks.py::treelet_index_tree; made from ``treelets`` alone);
+  (accel/bricks.py::treelet_index_tree; made from ``treelets`` alone;
+  None without them);
 * ``stream``     the brick-streaming layout (accel/bricks.py::StreamData)
   of a scene too large for the resident route (accel/route.py), else
   None.
@@ -60,8 +63,8 @@ class TravData(_Movable):
     nodes8: torch.Tensor  # [N, 8] f32
     nodes16c: torch.Tensor  # [N_internal, 16] f32
     tri_attr16: torch.Tensor  # [T, 16] f32
-    treelets: torch.Tensor  # [K, 6] f32
-    treelet_tree: torch.Tensor  # [2P, 8] f32 union tree over treelets
+    treelets: torch.Tensor | None  # [K, 6] f32
+    treelet_tree: torch.Tensor | None  # [2P, 8] f32 union tree over treelets
     bvh_depth: int  # max node depth (root = 1); bounds the walk's stack
     stream: StreamData | None = None
 

@@ -20,9 +20,8 @@ and then
 ``closest_hit`` and ``any_hit`` take ``variant="wide"`` (push-test walk
 over the compact wide rows ``nodes16c``) or ``"binary"`` (pop-test walk
 over ``nodes8``), resolved by ``accel/route.py::pick_variant`` as the
-JAX package resolves it.  The wide kernels and the binary closest kernel
-read triangles from the padded rows ``tri12``, the binary any-hit kernel
-and every plain version from ``tri9`` (the same values).  The interaction
+JAX package resolves it.  Every kernel reads triangles from the padded
+rows ``tri12``, every plain version from ``tri9`` (the same values).  The interaction
 fill is a function of the winning hit alone (:func:`interaction_fill`);
 kernel and plain version evaluate it once after the walk.
 :func:`kernel_info` reports the resident kernels' registers and blocks an
@@ -32,7 +31,9 @@ Results: the closest ``t`` (``t_max`` on a miss), ``tri`` (-1 on a miss)
 and barycentrics; the attribute variant also the raw interpolated shading
 normal ((0, 0, 1) on a miss), ``u``, ``v`` and the encoded
 material/texture word (layout.py::ATTR_TEX_BASE; 0 on a miss); the any
-hit an occlusion flag.  Masked rays report a miss.  ``with_stats`` adds
+hit an occlusion flag.  Masked rays, and rays of
+``ops/intersect.py::never_enters`` (a NaN component, or an infinite
+origin and direction on one axis), walk nothing and report a miss.  ``with_stats`` adds
 an ``[3, R]`` int32 tensor of per-ray pops, leaf pops and triangle tests.
 """
 
@@ -49,6 +50,7 @@ from pnraytracing_tpu_torch.ops.intersect import (
     Hit,
     intersect_aabb_c,
     intersect_triangle_c,
+    never_enters,
     safe_inv_dir,
     triangle_setup_c,
 )
@@ -58,6 +60,10 @@ LAUNCHES = {"closest_hit_attr": 0, "closest_hit": 0, "any_hit": 0,
             "closest_hit_binary": 0, "any_hit_binary": 0}
 
 KERNEL_STACK = 64  # KSTACK of csrc/intersect.cuh
+
+# TRIAL: the binary any-hit kernel's build reads tri9 (set by
+# scripts/torch_any_trials.py for the variants that read tri9)
+TRIAL_ANY_TRI9 = False
 
 
 def check_rays(o: V3, d: V3, *more: torch.Tensor):
@@ -214,10 +220,10 @@ def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
     rays = (ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
             ptr(t_max), ptr(mask), r)
     lib = library("traverse")
-    # the closest walk reads its leaves' triangles from the padded rows
     fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
-    err = fn(ptr(trav.nodes8), ptr(trav.tri12 if closest else trav.tri9),
-             *rays, *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
+    tris = trav.tri9 if (TRIAL_ANY_TRI9 and not closest) else trav.tri12
+    err = fn(ptr(trav.nodes8), ptr(tris), *rays,
+             *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
     name = "closest_hit_binary" if closest else "any_hit_binary"
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -359,6 +365,13 @@ def order_children(ray: Rays, rows, row, t_lim):
             torch.where(d_neg, hr, hl), torch.where(d_neg, hl, hr))
 
 
+def walking(mask, o: V3, d: V3) -> torch.Tensor:
+    """[R] bool: the rays a walk starts, those of ``mask`` (all when None)
+    that are not :func:`never_enters` rays, as in the kernels."""
+    ok = ~never_enters(o, d)
+    return ok if mask is None else ok & mask
+
+
 def push(stack, top, rows, entry, commit):
     """Write ``entry`` at each row's free slot ``top`` and advance ``top``
     where ``commit`` (slots >= top are free, so the write is harmless
@@ -412,8 +425,7 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
     order, same arithmetic, same results.  ``mode``: 'closest' or 'any'."""
     ray = Rays.of(o, d, t_max)
     st = WalkState(ray, mode)
-    active = (torch.ones_like(st.occ) if mask is None else mask)
-    wide_walk(ray, st, active, stack_depth,
+    wide_walk(ray, st, walking(mask, o, d), stack_depth,
               lambda rows, info: trav.nodes16c[info],
               lambda rows, ti: (trav.tri9[ti], ti))
     return st
@@ -428,7 +440,7 @@ def _walk_plain_binary(trav: TravData, o: V3, d: V3, t_max, mask,
     st = WalkState(ray, mode)
     r, dev = t_max.shape[0], t_max.device
     stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
-    top = (torch.ones_like(st.occ) if mask is None else mask).to(torch.int64)
+    top = walking(mask, o, d).to(torch.int64)
     nodes = trav.nodes8
     while True:
         idx = torch.nonzero(top > 0).squeeze(1)

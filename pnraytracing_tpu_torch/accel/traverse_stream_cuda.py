@@ -43,6 +43,7 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
     ptr,
     push,
     stream_of,
+    walking,
 )
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import Hit
@@ -139,7 +140,7 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str):
     depth = walk_stack_depth(s)
     stack = torch.zeros((r, depth), dtype=torch.int32, device=dev)
     owner = torch.full((r, depth), -1, dtype=torch.int32, device=dev)
-    top = (torch.ones_like(st.occ) if mask is None else mask).to(torch.int64)
+    top = walking(mask, o, d).to(torch.int64)
 
     flat = s.bricks.reshape(-1)
     w = s.brick_words

@@ -57,16 +57,21 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
             if v is not None:
                 out[f"{group}.{f.name}"] = _np(v)
     for name in _TRAV_FIELDS:
-        out[f"trav.{name}"] = _np(getattr(scene.trav, name))
+        v = getattr(scene.trav, name)
+        if v is not None or name != "treelets":
+            out[f"trav.{name}"] = _np(v)
     # the padded triangle rows and the key kernel's union tree are the
     # port's own tables: a scene of the JAX package has none, and their
-    # leaves are then made from tri9 and from treelets
+    # leaves are then made from tri9 and from treelets (a scene without
+    # treelets has no tree either)
     tri12 = getattr(scene.trav, "tri12", None)
     out["trav.tri12"] = (_np(tri12) if tri12 is not None
                          else pack_tri12(out["trav.tri9"]))
     tree = getattr(scene.trav, "treelet_tree", None)
-    out["trav.treelet_tree"] = (_np(tree) if tree is not None else
-                                treelet_index_tree(out["trav.treelets"]))
+    if tree is not None:
+        out["trav.treelet_tree"] = _np(tree)
+    elif "trav.treelets" in out:
+        out["trav.treelet_tree"] = treelet_index_tree(out["trav.treelets"])
     stream = getattr(scene.trav, "stream", None)
     if stream is not None:
         for name in _STREAM_ARRAYS:
@@ -97,10 +102,13 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
         stream = StreamData(
             **{n: t(leaves[f"stream.{n}"]) for n in _STREAM_ARRAYS},
             **{n: int(leaves[f"stream.{n}"]) for n in _STREAM_INTS})
+    opt = lambda k: t(leaves[k]) if k in leaves else None
     trav = TravData(bvh_depth=depth, stream=stream,
                     tri12=t(leaves["trav.tri12"]),
-                    treelet_tree=t(leaves["trav.treelet_tree"]),
-                    **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS})
+                    treelets=opt("trav.treelets"),
+                    treelet_tree=opt("trav.treelet_tree"),
+                    **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS
+                       if n != "treelets"})
     env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
                     else None)
     return Scene(trav=trav, env_constant=env_constant, bvh_depth=depth,

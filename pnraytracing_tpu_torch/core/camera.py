@@ -58,11 +58,14 @@ def make_camera(eye, center, up, fov_deg: float, aspect: float,
                   horizontal=2.0 * half_w * u, vertical=2.0 * half_h * v)
 
 
-def camera_rays(camera: Camera, width: int, height: int):
+def camera_rays(camera: Camera, width: int, height: int,
+                jitter: torch.Tensor | None = None):
     """One primary ray per pixel through the pixel corner
     (s, t) = (x/W, y/H), y = 0 at the bottom row (comp:980).  Returns
     (origins [P,3], dirs [P,3], t_max [P]); pixel order is row-major from
-    the top row, so reshape(H, W, 3) is a top-down image."""
+    the top row, so reshape(H, W, 3) is a top-down image.  ``jitter``:
+    optional [P, 2] sub-pixel offsets in [0, 1), added to (x, y) before
+    the division (``RenderConfig.jitter_primary``)."""
     dev = camera.eye.device
     xs = torch.arange(width, dtype=torch.float32, device=dev)
     ys = torch.arange(height, dtype=torch.float32, device=dev)
@@ -70,6 +73,9 @@ def camera_rays(camera: Camera, width: int, height: int):
     gy = float(height - 1) - gy
     px = gx.reshape(-1)
     py = gy.reshape(-1)
+    if jitter is not None:
+        px = px + jitter[:, 0]
+        py = py + jitter[:, 1]
     s = px / float(width)
     t = py / float(height)
     d = (camera.lower_left[None, :] + s[:, None] * camera.horizontal[None, :]

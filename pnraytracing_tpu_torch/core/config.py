@@ -5,8 +5,13 @@ this port honours, with the JAX package's defaults.  There is no
 ``traversal`` field: the port always takes the route the JAX package
 takes for ``traversal="pallas"`` (``accel/route.py``), running the
 hand-written CUDA kernels on CUDA tensors and their plain PyTorch
-versions on CPU tensors.  Fields whose non-default values belong to
-later slices of the port are kept so that a config that asks for them
+versions on CPU tensors.  ``trav_tile``, ``trav_chunk``,
+``trav_leaf_buffer`` and ``max_leaf_size`` are absent for the same
+reason: they tune the JAX package's XLA walks (the packet tile, the
+chunked while loop, the 4-wide leaf buffer) and the leaf size those
+walks assume, which the kernels do not read.  Fields whose non-default
+values belong to later slices of the port (``compat_pnrt``,
+``texture_lod_scale``) are kept so that a config that asks for them
 fails loudly instead of rendering something else.
 """
 
@@ -31,24 +36,34 @@ class RenderConfig:
     # 'sobol' = Sobol + Cranley-Patterson for the BRDF lobe sample like the
     # reference (ray_tracing.comp:928-929); 'hash' = counter-hash streams.
     sampler: str = "sobol"
-    # Sub-pixel primary jitter: a later slice (the reference casts
-    # pixel-corner rays, comp:980).
+    # Sub-pixel primary jitter from a salted hash stream
+    # (render/renderer.py::primary_jitter); off like the reference, which
+    # casts pixel-corner rays (comp:980).
     jitter_primary: bool = False
     clamp_radiance: bool = True  # clamp color to [0,1] (comp:988)
 
-    # Pack live rays to the front between bounces, ordered by the
-    # treelet-entry key of their continuation ray (ops/compaction.py), for
-    # the first sort_max_bounce bounces.  Turning either off is a later
-    # slice.
+    # Pack live rays to the front between bounces (compact_rays), ordered
+    # by a coherence key (sort_rays; else in their order), for the first
+    # sort_max_bounce bounces.  Pure permutations: the image does not
+    # depend on them.
     compact_rays: bool = True
     sort_rays: bool = True
     sort_max_bounce: int = 2
 
-    # 'unroll' only in this port; 'scan' is a later slice.
+    # The sort key (ops/compaction.py): 'entry' = the treelet the
+    # continuation ray enters first, direction octant in the low bits
+    # (the key kernel); 'dir' = normal octant, |n| and position cell;
+    # 'pos' = Morton code of the position cell above the normal octant.
+    # A scene without a treelet table falls back to 'pos'.
+    sort_key: str = "entry"
+
+    # 'unroll' and 'scan' run the same bounce loop in this port (the JAX
+    # package's scan gives the unrolled loop's permutations and images).
     loop: str = "unroll"
 
     # Both NEE shadow batches in ONE any-hit launch (2R rays) when the
-    # scene has lights and an env map.  The unfused pair is a later slice.
+    # scene has lights and an env map, else one launch each; the same
+    # queries either way.
     fuse_shadows: bool = True
 
     rr_start: int | None = None  # Russian roulette from this bounce on
@@ -82,24 +97,20 @@ class RenderConfig:
         if self.loop not in ("unroll", "scan"):
             raise ValueError(f"loop must be 'unroll' or 'scan', got "
                              f"{self.loop!r}")
+        if self.sort_key not in ("dir", "pos", "entry"):
+            raise ValueError(f"sort_key must be 'dir', 'pos' or 'entry', "
+                             f"got {self.sort_key!r}")
         if self.max_depth < 1 or self.stack_depth < 2:
             raise ValueError("max_depth must be >= 1 and stack_depth >= 2")
         if self.compat_pnrt:
             raise NotImplementedError(
                 "compat_pnrt=True (reference-quirk mode) is not ported yet; "
                 "it is the compat slice of the port (ROADMAP.md)")
-        if self.loop == "scan":
-            raise NotImplementedError(
-                "loop='scan' is not ported yet; it is the scan slice of the "
-                "port (ROADMAP.md)")
-        for name, want in (("compact_rays", True), ("sort_rays", True),
-                           ("fuse_shadows", True), ("jitter_primary", False)):
-            if getattr(self, name) != want:
-                raise NotImplementedError(
-                    f"{name}={not want} is not ported yet; it is the "
-                    "ray-ordering and sampling options slice of the port "
-                    "(ROADMAP.md)")
         if self.texture_lod_scale is not None:
             raise NotImplementedError(
                 "texture_lod_scale needs the texture slice of the port "
                 "(ROADMAP.md), which is not ported yet")
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height

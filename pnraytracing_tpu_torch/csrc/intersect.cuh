@@ -17,6 +17,7 @@
 
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 #define KSTACK 64
@@ -62,6 +63,23 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   r.sx = sel3(r.kx, dx, dy, dz) * r.sz;
   r.sy = sel3(r.ky, dx, dy, dz) * r.sz;
   return r;
+}
+
+// True for a ray whose slab tests are NaN whatever the (finite) box: a
+// NaN component of the origin or the direction, or an axis on which both
+// are infinite ((box - o) * (1 / d) is then inf * 0); never_enters of
+// ops/intersect.py.  fminf / fmaxf drop a NaN where torch.minimum /
+// maximum keep it, so such a ray would walk otherwise than in the plain
+// versions.  Every walk gives it no pop at all, as they do: it can hit no
+// triangle either (its watertight test is NaN, and every comparison of
+// it fails), so only its stats change.
+__device__ __forceinline__ bool nan_axis(float o, float d) {
+  return isnan(o) || isnan(d) || (isinf(o) && isinf(d));
+}
+
+__device__ __forceinline__ bool never_enters(const Ray& r) {
+  return nan_axis(r.ox, r.dx) || nan_axis(r.oy, r.dy) ||
+         nan_axis(r.oz, r.dz);
 }
 
 // Slab test clipped to [0, t_max] (intersect_aabb_c).
@@ -235,6 +253,13 @@ struct Rays {
   const uint8_t* mask;  // null: every ray active
   int n;
 };
+
+// Whether ray i walks at all: not masked out, and not a ray that
+// never_enters any box.
+__device__ __forceinline__ bool walks(const Rays& rays, int i,
+                                      const Ray& r) {
+  return (rays.mask == nullptr || rays.mask[i] != 0) && !never_enters(r);
+}
 
 inline Rays make_rays(const float* ox, const float* oy, const float* oz,
                       const float* dx, const float* dy, const float* dz,

@@ -68,9 +68,12 @@
 // children's rows, two or three triangles in flight, and the walk that
 // postpones a leaf and goes on descending (more visits, slower any-hit).
 // The binary walk visits about twice as many nodes as the wide one for
-// the same hits.  Its closest-hit kernel has the while-while form with a
-// bounded descent (see closest_hit_binary_kernel); its any-hit kernel
-// keeps the one-loop form.
+// the same hits.  Both binary kernels have the while-while form with a
+// bounded descent (see closest_hit_binary_kernel).
+//
+// Rays of never_enters (a NaN component, or an infinite origin and
+// direction on one axis) walk nothing in every kernel, as in the plain
+// versions (intersect.cuh).
 
 #include "intersect.cuh"
 
@@ -157,7 +160,7 @@ closest_hit_kernel(const float* __restrict__ nodes,
   if (i >= rays.n) return;
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+  const bool active = walks(rays, i, r);
   Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
   int pops = 0, leaf_pops = 0, tri_tests = 0;
 
@@ -216,7 +219,7 @@ any_hit_kernel(const float* __restrict__ nodes,
   if (i >= rays.n) return;
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+  const bool active = walks(rays, i, r);
   const float t_max = rays.t_max[i];
   bool occ = false;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
@@ -259,18 +262,7 @@ __device__ __forceinline__ Node8 load_node8(const float* __restrict__ nodes8,
   return w;
 }
 
-// Push both children of an internal binary node, far first.
-__device__ __forceinline__ void push_binary(const Ray& r, const Node8& w,
-                                            int node, int* stack, int& top) {
-  const int right = w.enc_right >> 2;
-  const int axis = w.enc_right & 3;
-  const int left = node + 1;
-  const bool d_neg = sel3(axis, r.dx, r.dy, r.dz) < 0.0f;
-  stack[top++] = d_neg ? left : right;  // far
-  stack[top++] = d_neg ? right : left;  // near
-}
-
-// One pop of the binary closest walk at node cur: a node whose box the
+// One pop of a binary walk at node cur, against t: a node whose box the
 // ray misses gives the stack's top; a leaf whose box it hits sets meta
 // (start*16 + count) and stays; an inner node goes on into its near child
 // (left = node + 1) and pushes the far one.
@@ -321,7 +313,7 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
   if (i >= rays.n) return;
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+  const bool active = walks(rays, i, r);
   Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
   int pops = 0, leaf_pops = 0, tri_tests = 0;
 
@@ -349,22 +341,61 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
 
-__global__ void __launch_bounds__(128)
+// TRIAL switches of the binary any-hit walk (for measuring only):
+// PNRT_ANY_OLD=1 the first form (one loop, both children pushed, tri9);
+// PNRT_ANY_DESCENT the bound of the descent; PNRT_ANY_TRI9=1 leaves read
+// as nine scalar tri9 words; PNRT_ANY_BOUNDS1=0 plain launch bounds.
+#ifndef PNRT_ANY_OLD
+#define PNRT_ANY_OLD 0
+#endif
+#ifndef PNRT_ANY_DESCENT
+#define PNRT_ANY_DESCENT 4
+#endif
+#ifndef PNRT_ANY_TRI9
+#define PNRT_ANY_TRI9 0
+#endif
+#ifndef PNRT_ANY_BOUNDS1
+#define PNRT_ANY_BOUNDS1 1
+#endif
+
+__device__ __forceinline__ bool any_leaf9(const Ray& r,
+                                          const float* __restrict__ tri9,
+                                          int info, float t_max,
+                                          int& tri_tests) {
+  const int meta = -info - 1;
+  const int start = meta >> 4;
+  const int count = meta & 15;
+  for (int k = 0; k < count; ++k) {
+    float t, b1, b2;
+    ++tri_tests;
+    if (hit_triangle(r, tri9 + 9 * (int64_t)(start + k), t_max, t, b1, b2)) {
+      return true;
+    }
+  }
+  return false;
+}
+
+#if PNRT_ANY_BOUNDS1 && !PNRT_ANY_OLD
+__global__ void __launch_bounds__(kThreads, 1)
+#else
+__global__ void __launch_bounds__(kThreads)
+#endif
 any_hit_binary_kernel(const float* __restrict__ nodes8,
-                      const float* __restrict__ tri9, Rays rays,
+                      const float* __restrict__ tris, Rays rays,
                       uint8_t* __restrict__ occ_out,
                       int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+  const bool active = walks(rays, i, r);
   const float t_max = rays.t_max[i];
   bool occ = false;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
 
   int stack[KSTACK];
   int top = 0;
+#if PNRT_ANY_OLD
   if (active) stack[top++] = 0;
   while (top > 0 && !occ) {
     const int node = stack[--top];
@@ -381,16 +412,42 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
       for (int k = 0; k < count; ++k) {
         float t, b1, b2;
         ++tri_tests;
-        if (hit_triangle(r, tri9 + 9 * (int64_t)(start + k), t_max, t,
-                               b1, b2)) {
-          occ = true;  // occluded: stop at once
+        if (hit_triangle(r, tris + 9 * (int64_t)(start + k), t_max, t,
+                         b1, b2)) {
+          occ = true;
           break;
         }
       }
     } else {
-      push_binary(r, w, node, stack, top);
+      const int right = w.enc_right >> 2;
+      const int left = node + 1;
+      const bool d_neg = sel3(w.enc_right & 3, r.dx, r.dy, r.dz) < 0.0f;
+      stack[top++] = d_neg ? left : right;
+      stack[top++] = d_neg ? right : left;
     }
   }
+#else
+  int cur = active ? 0 : kWalkDone;
+  while (cur != kWalkDone) {
+    int meta = -1;
+#pragma unroll 1
+    for (int step = 0; step < PNRT_ANY_DESCENT && cur != kWalkDone &&
+                       meta < 0;
+         ++step) {
+      ++pops;
+      cur = binary_pop(r, nodes8, cur, t_max, stack, top, meta);
+    }
+    if (meta >= 0) {
+      ++leaf_pops;
+#if PNRT_ANY_TRI9
+      occ = any_leaf9(r, tris, -meta - 1, t_max, tri_tests);
+#else
+      occ = any_leaf(r, tris, -meta - 1, t_max, tri_tests);
+#endif
+      cur = occ ? kWalkDone : pop_node(stack, top);
+    }
+  }
+#endif
   occ_out[i] = occ ? 1 : 0;
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
@@ -466,8 +523,8 @@ int pnrt_walk_kernel_info(int which, int what) {
   return what == 0 ? a.numRegs : (int)a.localSizeBytes;
 }
 
-// Binary pop-test closest hit over nodes8 rows; outputs and stats as
-// pnrt_closest_hit without the fill.
+// Binary pop-test closest hit over nodes8 rows and tri12; outputs and
+// stats as pnrt_closest_hit without the fill.
 int pnrt_closest_hit_binary(const float* nodes8, const float* tri12,
                             const float* ox, const float* oy, const float* oz,
                             const float* dx, const float* dy, const float* dz,
@@ -482,7 +539,7 @@ int pnrt_closest_hit_binary(const float* nodes8, const float* tri12,
   return (int)cudaGetLastError();
 }
 
-int pnrt_any_hit_binary(const float* nodes8, const float* tri9,
+int pnrt_any_hit_binary(const float* nodes8, const float* tri12,
                         const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
                         const float* t_max, const uint8_t* mask, int n,
@@ -491,7 +548,7 @@ int pnrt_any_hit_binary(const float* nodes8, const float* tri9,
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   any_hit_binary_kernel<<<blocks_for(n), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      nodes8, tri9, rays, occ_out, stats);
+      nodes8, tri12, rays, occ_out, stats);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,8 @@
 // barrier and no per-block state; rays of a warp that sit in different
 // bricks read different addresses.  The plain version
 // (accel/traverse_stream_cuda.py) walks in the same order and gives the
-// same t, tri, b and stats bit for bit (--fmad=false, see intersect.cuh).
+// same t, tri, b and stats bit for bit (--fmad=false, see intersect.cuh);
+// both give a ray of never_enters (intersect.cuh) no pop at all.
 //
 // Why the bricks are not staged.  The Pallas kernel pages each brick
 // through fast scalar memory because Mosaic cannot index device memory
@@ -78,7 +79,7 @@ stream_kernel(const float* __restrict__ top16,
   if (i >= rays.n) return;
   const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
                          rays.dy[i], rays.dz[i]);
-  const bool active = rays.mask == nullptr || rays.mask[i] != 0;
+  const bool active = walks(rays, i, r);
   const float t_max = rays.t_max[i];
   float t_best = t_max;
   int tri_best = -1;

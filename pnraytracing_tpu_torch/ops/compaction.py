@@ -1,12 +1,15 @@
-"""Live-ray compaction and the treelet-entry coherence sort key.
+"""Live-ray compaction and the coherence sort keys.
 
-PyTorch counterpart of ``pnraytracing_tpu/ops/compaction.py``:
-``sort_live_first`` (the permutation that packs live rays first, in key
-order), the plain ``treelet_entry_key`` (all K boxes: the definition of
-the key) and the wrapper :func:`entry_key` over its hand-written CUDA
-kernel (``csrc/entry_key.cu``, replacing ``treelet_entry_key_pallas``),
-which walks a tree of unions over the boxes and tests a fraction of
-them; :func:`entry_key_walk` is the plain version of that walk.
+PyTorch counterpart of ``pnraytracing_tpu/ops/compaction.py``: the prefix
+scans, ``compact_indices`` (live lanes first, in order) and
+``scatter_back``; ``sort_live_first`` (the permutation that packs live
+rays first, in key order); the position / direction keys
+``coherence_key`` and ``coherence_key_pos``; the plain
+``treelet_entry_key`` (all K boxes: the definition of the key) and the
+wrapper :func:`entry_key` over its hand-written CUDA kernel
+(``csrc/entry_key.cu``, replacing ``treelet_entry_key_pallas``), which
+walks a tree of unions over the boxes and tests a fraction of them;
+:func:`entry_key_walk` is the plain version of that walk.
 """
 
 from __future__ import annotations
@@ -20,10 +23,77 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
     stream_of,
 )
 from pnraytracing_tpu_torch.core.vec import V3
-from pnraytracing_tpu_torch.ops.intersect import safe_inv_dir
+from pnraytracing_tpu_torch.ops.intersect import never_enters, safe_inv_dir
 
 # Launches of the key kernel since the last reset (the caller zeroes it).
 LAUNCHES = {"treelet_entry_key": 0}
+
+
+def inclusive_scan(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inclusive prefix sum along ``axis``, in ``x``'s dtype (the
+    operation of prefix_sum.comp:10-23).  Integers are exact; float sums
+    round in another order than the JAX package's log-depth scan."""
+    return torch.cumsum(x, dim=axis, dtype=x.dtype)
+
+
+def exclusive_scan(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    return inclusive_scan(x, axis=axis) - x
+
+
+def compact_indices(mask: torch.Tensor):
+    """``(perm, count)``: the indices of the True lanes of ``mask`` in
+    order, then those of the False lanes in order ([R] int64, a
+    permutation, so ``x[perm]`` gathers in bounds), and the number of
+    True lanes.  The JAX package's permutation, by a stable sort."""
+    perm = torch.argsort((~mask).to(torch.int32), stable=True)
+    return perm, mask.sum()
+
+
+def scatter_back(values: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Undo ``x[perm]``: ``y`` with ``y[perm[i]] = values[i]``."""
+    return torch.zeros_like(values).index_put_((perm,), values)
+
+
+def _cell(x: torch.Tensor, hi: int) -> torch.Tensor:
+    """``clip(uint32(x), 0, hi)`` of the JAX keys, as int64: clamped in
+    float before the conversion (a negative, huge or NaN float has no
+    defined integer; NaN counts as 0).  Equal to the JAX value wherever
+    that is defined, which covers every live lane (x >= 0 there)."""
+    return torch.clamp(torch.nan_to_num(x, nan=0.0), 0.0,
+                       float(hi)).to(torch.int64)
+
+
+def _normal_octant(nx, ny, nz) -> torch.Tensor:
+    return ((nx > 0).to(torch.int64) * 4 + (ny > 0).to(torch.int64) * 2
+            + (nz > 0).to(torch.int64))
+
+
+def coherence_key(nrm: V3, pos: V3, lo: torch.Tensor,
+                  inv_extent: torch.Tensor) -> torch.Tensor:
+    """Direction-major key (the JAX package's ``'dir'``), int64 below
+    2^15, most significant first: the 3-bit normal octant, 2 bits per
+    axis of the quantized |n|, 2 bits per axis of the position cell
+    within the box ``lo`` + [0, 1 / inv_extent]."""
+    key = _normal_octant(nrm.x, nrm.y, nrm.z)
+    for nc in (nrm.x, nrm.y, nrm.z):
+        key = key * 4 + _cell(torch.abs(nc) * 4, 3)
+    for i, pc in enumerate((pos.x, pos.y, pos.z)):
+        key = key * 4 + _cell((pc - lo[i]) * inv_extent[i] * 4, 3)
+    return key
+
+
+def coherence_key_pos(nrm: V3, pos: V3, lo: torch.Tensor,
+                      inv_extent: torch.Tensor) -> torch.Tensor:
+    """Position-major key (``'pos'``), int64 below 2^15: the 12-bit
+    Morton code of the position cell (4 bits an axis, interleaved, most
+    significant bit first) above the 3-bit normal octant."""
+    qp = [_cell((pc - lo[i]) * inv_extent[i] * 16, 15)
+          for i, pc in enumerate((pos.x, pos.y, pos.z))]
+    morton = torch.zeros_like(qp[0])
+    for bit in range(3, -1, -1):
+        for ax in range(3):
+            morton = morton * 2 + ((qp[ax] >> bit) & 1)
+    return morton * 8 + _normal_octant(nrm.x, nrm.y, nrm.z)
 
 
 def sort_live_first(mask: torch.Tensor, key: torch.Tensor):
@@ -70,20 +140,6 @@ def treelet_entry_key(o: V3, d: V3, treelets: torch.Tensor) -> torch.Tensor:
         best_t = torch.where(win, t_near, best_t)
         best_k = torch.where(win, k, best_k)
     return best_k * 8 + _octant(d.x, d.y, d.z)
-
-
-def never_enters(o: V3, d: V3) -> torch.Tensor:
-    """[R] bool: rays for which every slab test of
-    :func:`treelet_entry_key` yields a NaN and so fails, whatever the
-    (finite) box: a NaN component of the origin or the direction, or an
-    axis on which both are infinite (``(box - o) * (1 / d)`` is then
-    ``inf * 0``).  Their key is ``K*8 + octant(d)``.  No other ray
-    produces a NaN anywhere in the test."""
-    bad = torch.zeros_like(o.x, dtype=torch.bool)
-    for oc, dc in ((o.x, d.x), (o.y, d.y), (o.z, d.z)):
-        bad |= torch.isnan(oc) | torch.isnan(dc) | (torch.isinf(oc)
-                                                    & torch.isinf(dc))
-    return bad
 
 
 def slab_entry(rows, ox, oy, oz, ix, iy, iz):

@@ -118,3 +118,22 @@ def intersect_aabb_c(bmin, bmax, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_max):
         torch.maximum(torch.minimum(fx, nx), torch.minimum(fy, ny)),
         torch.minimum(fz, nz))
     return (t1 >= torch.clamp_min(t0, 0.0)) & (t0 <= t_max)
+
+
+def never_enters(o, d) -> torch.Tensor:
+    """[R] bool: rays for which every slab test (:func:`intersect_aabb_c`,
+    the treelet-entry key's) yields a NaN, whatever the (finite) box: a
+    NaN component of the origin or the direction, or an axis on which
+    both are infinite (``(box - o) * (1 / d)`` is then ``inf * 0``).  No
+    other ray produces a NaN anywhere in the slab test.  Such a ray hits
+    no triangle either (its watertight test is NaN and every comparison
+    of it fails).  The CUDA kernels' ``fminf`` / ``fmaxf`` drop a NaN where
+    ``torch.minimum`` / ``maximum`` keep it, so the rule of every walk,
+    kernel and plain version alike: such a ray walks nothing (a miss, no
+    occlusion, zero stats), and its treelet-entry key is
+    ``K*8 + octant(d)``."""
+    bad = torch.zeros_like(o.x, dtype=torch.bool)
+    for oc, dc in ((o.x, d.x), (o.y, d.y), (o.z, d.z)):
+        bad |= torch.isnan(oc) | torch.isnan(dc) | (torch.isinf(oc)
+                                                    & torch.isinf(dc))
+    return bad

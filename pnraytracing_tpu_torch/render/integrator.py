@@ -2,18 +2,26 @@
 
 PyTorch counterpart of ``_render_rays`` in
 ``pnraytracing_tpu/render/integrator.py`` (the estimator of
-ray_tracing.comp:861-992) with ``loop="unroll"``: all rays advance one
-bounce per step of a Python loop, and every stage is a masked operation
-over the whole ray batch.  Each bounce runs in three phases, as in the
-JAX package:
+ray_tracing.comp:861-992): all rays advance one bounce per step of a
+Python loop, and every stage is a masked operation over the whole ray
+batch.  Each bounce runs in three phases, as in the JAX package:
 
 1. draws and weights: every RNG draw and every pdf/BRDF weight of the
    bounce (NEE area light, NEE environment, BRDF sample);
-2. sort: for bounces below ``sort_max_bounce``, one permutation of the
-   whole path state, live rays first, ordered by the treelet-entry key of
-   their continuation ray (``ops/compaction.py::entry_key``);
+2. sort: with ``compact_rays``, for bounces below ``sort_max_bounce``,
+   one permutation of the whole path state, live rays first, ordered by
+   the ``sort_key`` of ``ops/compaction.py`` (the treelet-entry key of
+   their continuation ray by default) or, without ``sort_rays``, in their
+   order (``compact_indices``);
 3. queries and contributions: the two NEE shadow queries in one any-hit
-   launch, then the continuation closest hit.
+   launch (two with ``fuse_shadows`` off), then the continuation closest
+   hit.
+
+``loop="scan"`` runs the same loop.  The JAX package's scan runs the
+first ``min(sort_max_bounce, max_depth)`` bounces as an unrolled, sorted
+prologue when ``compact_rays`` is on and scans the rest unsorted
+(``render/integrator.py:979-1021`` there): exactly the unrolled loop's
+permutations, and so its images.
 
 RNG words are int64 tensors holding uint32 values (ops/sampling.py).
 The traversal route is the JAX package's (``accel/route.py::
@@ -58,7 +66,13 @@ from pnraytracing_tpu_torch.ops.brdf import (
     disney_pdf_v,
     disney_sample_v,
 )
-from pnraytracing_tpu_torch.ops.compaction import entry_key, sort_live_first
+from pnraytracing_tpu_torch.ops.compaction import (
+    coherence_key,
+    coherence_key_pos,
+    compact_indices,
+    entry_key,
+    sort_live_first,
+)
 from pnraytracing_tpu_torch.ops.envmap import (
     envmap_lookup_v,
     envmap_pdf_v,
@@ -307,10 +321,21 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
         # phase 2: one live-first permutation of the whole path state, as
         # ONE gather of a [C, R] pack (each row comes out contiguous)
-        if bounce < cfg.sort_max_bounce:
-            key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
-                            trav.treelet_tree)
-            perm, _ = sort_live_first(active, key)
+        if cfg.compact_rays and bounce < cfg.sort_max_bounce:
+            if not cfg.sort_rays:
+                perm, _ = compact_indices(active)
+            elif cfg.sort_key == "entry" and trav.treelets is not None:
+                key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
+                                trav.treelet_tree)
+                perm, _ = sort_live_first(active, key)
+            else:  # 'dir' / 'pos', and 'entry' without a treelet table
+                root = trav.nodes8[0]
+                lo_b, hi_b = root[0:3], root[3:6]
+                inv_ext = 1.0 / torch.clamp_min(hi_b - lo_b, 1e-6)
+                key_fn = (coherence_key if cfg.sort_key == "dir"
+                          else coherence_key_pos)
+                perm, _ = sort_live_first(active,
+                                          key_fn(nrm, pos, lo_b, inv_ext))
             f32 = lambda a: a.to(torch.float32)
             v3s = lambda v: [v.x, v.y, v.z]
             cols = ([f32(active)] + v3s(pos) + v3s(nrm) + [f32(mat_id)]
@@ -348,7 +373,7 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                     p_b_env = nxt()
 
         # phase 3: occlusion queries — both NEE classes in one launch when
-        # the scene has both, else the one class it has
+        # the scene has both and fuse_shadows is on, else one each
         if has_lights:
             s_origin = pos + nrm * 1e-4
             s_tmax = torch.full((r,), 1.0 - SHADOW_EPS, dtype=torch.float32,
@@ -356,18 +381,19 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         if has_env:
             e_origin = pos + nrm * 1e-4
             facing = vdot(en_l, nrm) > 0
-        if has_lights and has_env:
+        if has_lights and has_env and cfg.fuse_shadows:
             occ2 = any_fn(trav, vcat(s_origin, e_origin), vcat(sdir, en_l),
                           torch.cat([s_tmax, t_max0]),
                           torch.cat([active, active & facing]),
                           stack_depth=sd)
             occluded, e_occ = occ2[:r], occ2[r:]
-        elif has_lights:
-            occluded = any_fn(trav, s_origin, sdir, s_tmax, active,
-                              stack_depth=sd)
-        elif has_env:
-            e_occ = any_fn(trav, e_origin, en_l, t_max0, active & facing,
-                           stack_depth=sd)
+        else:
+            if has_lights:
+                occluded = any_fn(trav, s_origin, sdir, s_tmax, active,
+                                  stack_depth=sd)
+            if has_env:
+                e_occ = any_fn(trav, e_origin, en_l, t_max0,
+                               active & facing, stack_depth=sd)
 
         # NEE contributions (masks applied to the pre-folded terms)
         light_pdf, l_direct = zero_r, zero_v

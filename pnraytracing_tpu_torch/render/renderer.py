@@ -1,7 +1,7 @@
 """Frame rendering and progressive averaging.
 
-PyTorch counterpart of ``render_frame``, ``render`` and ``pixel_coords``
-of ``pnraytracing_tpu/render/renderer.py`` (the frame loop of
+PyTorch counterpart of ``render_frame``, ``render``, ``pixel_coords`` and
+``primary_jitter`` of ``pnraytracing_tpu/render/renderer.py`` (the frame loop of
 main.cpp:569-630).  Entry points take ``device=None``, which means the
 card; the CPU runs only when the caller passes ``device="cpu"``.
 """
@@ -13,6 +13,7 @@ import torch
 from pnraytracing_tpu_torch.core.camera import camera_rays, resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.types import Camera, Scene
+from pnraytracing_tpu_torch.ops.sampling import M32, pixel_seed, rand01
 from pnraytracing_tpu_torch.render.integrator import render_rays
 
 
@@ -27,13 +28,28 @@ def pixel_coords(cfg: RenderConfig, device=None):
     return gx.reshape(-1), (cfg.height - 1 - gy).reshape(-1)
 
 
+def primary_jitter(px: torch.Tensor, py: torch.Tensor, frame: int,
+                   cfg: RenderConfig):
+    """[P, 2] sub-pixel offsets in [0, 1) when ``cfg.jitter_primary``,
+    else None: two draws from the pixel's stream seed salted with
+    0x9E3779B9 (uint32 words in int64, ops/sampling.py), so they are
+    decorrelated from the path's RNG; ``frame`` counts as uint32."""
+    if not cfg.jitter_primary:
+        return None
+    s = pixel_seed(px, py, int(frame) & M32) ^ 0x9E3779B9
+    s, jx = rand01(s)
+    _, jy = rand01(s)
+    return torch.stack([jx, jy], dim=-1)
+
+
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig,
                  frame: int, device=None) -> torch.Tensor:
     """One 1-spp sample image [H, W, 3] for frame index ``frame``."""
     dev = resolve_device(device)
     scene, camera = scene.to(dev), camera.to(dev)
     px, py = pixel_coords(cfg, dev)
-    o, d, _ = camera_rays(camera, cfg.width, cfg.height)
+    o, d, _ = camera_rays(camera, cfg.width, cfg.height,
+                          jitter=primary_jitter(px, py, frame, cfg))
     p = o.shape[0]
     tile = min(cfg.tile_pixels, p)
     if p % tile != 0:

@@ -1,7 +1,13 @@
 """Scene catalog: the configurations the port renders so far.
 
-PyTorch counterpart of ``config3_teapot_night``, ``config5_large``,
-``night_hdr`` and ``_camera`` from ``pnraytracing_tpu/scene/scenes.py``.
+PyTorch counterpart of the untextured scenes of
+``pnraytracing_tpu/scene/scenes.py``: the reference's hardcoded scenes
+``cornell_box``, ``scene_flat`` and ``teapot_scene`` (each returns its
+:class:`SceneBuilder` unbuilt, with the camera state, as the JAX package
+does), and ``config2_teapot``, ``config3_teapot_night`` and
+``config5_large`` (built on ``device``), with ``night_hdr`` and
+``_camera``.  The textured configurations 1 and 4 wait for the texture
+slice.
 """
 
 from __future__ import annotations
@@ -42,6 +48,115 @@ def _camera(eye, center, fov, aspect=1.0) -> CameraState:
         fov_deg=fov,
         aspect=aspect,
     )
+
+
+def cornell_box(aspect: float = 1.0, centerpiece: str = "teapot"):
+    """CornellBox (main.cpp:198-247): five walls + ceiling light + an
+    object (the teapot, else an icosphere), camera at (0, 2.8, 7) looking
+    at (0, 2.8, 0), fov 45.  Returns (builder, camera state)."""
+    b = SceneBuilder()
+    grey = dict(base_color=(0.65, 0.65, 0.65))
+    floor_s = compose(scale(0.1))  # quad(27.5) * 0.1 -> half-size 2.75
+    wall = shapes.quad()
+    if centerpiece == "teapot":
+        b.add(shapes.teapot(), grey, name="teapot",
+              transform=compose(translate(0, 0, -1), scale(0.55)))
+    else:
+        b.add(shapes.icosphere(4), grey, name="sphere",
+              transform=compose(translate(0, 1.0, -1.5), scale(1.0)))
+    b.add(wall, grey, name="floor", transform=floor_s)
+    b.add(wall, grey, name="front_wall",
+          transform=compose(translate(0, 2.75, -2.75), rotate(90, (1, 0, 0)),
+                            scale(0.1)))
+    b.add(wall, dict(base_color=(0.12, 0.45, 0.15)), name="right_wall",
+          transform=compose(translate(2.75, 2.75, 0), rotate(90, (0, 0, 1)),
+                            scale(0.1)))
+    b.add(wall, dict(base_color=(0.65, 0.05, 0.05)), name="left_wall",
+          transform=compose(translate(-2.75, 2.75, 0),
+                            rotate(-90, (0, 0, 1)), scale(0.1)))
+    b.add(wall, dict(base_color=(0.73, 0.73, 0.73)), name="ceiling",
+          transform=compose(translate(0, 5.54, 0), rotate(180, (0, 0, 1)),
+                            scale(0.1)))
+    b.add(wall, dict(base_color=(0.73, 0.73, 0.73),
+                     emissive=(60.0, 60.0, 60.0)),
+          name="ceiling_light",
+          transform=compose(translate(0, 5.53, 0), rotate(180, (0, 0, 1)),
+                            scale(0.02)))
+    return b, _camera((0, 2.8, 7), (0, 2.8, 0), 45.0, aspect)
+
+
+def scene_flat(aspect: float = 1.0):
+    """SceneFlat (main.cpp:249-327): metallic boards of varying roughness
+    lit by four coloured cube lights.  Returns (builder, camera state)."""
+    b = SceneBuilder()
+    base = dict(base_color=(0.73, 0.73, 0.73), roughness=0.95, metallic=0.05)
+    b.add(shapes.quad(), base, name="floor", transform=scale(0.5))
+    b.add(shapes.quad(), base, name="front_wall",
+          transform=compose(translate(0, 13.85, -13.85),
+                            rotate(90, (1, 0, 0)), scale(0.5)))
+    boards = [
+        (0.95, 0.02, (0, 2.8, -12), 50),
+        (0.80, 0.15, (0, 2.2, -9), 35),
+        (0.60, 0.35, (0, 1.6, -6), 20),
+        (0.30, 0.65, (0, 1.0, -3), 10),
+    ]
+    for i, (metal, rough, pos, ang) in enumerate(boards):
+        b.add(shapes.quad(),
+              dict(base_color=(0.83, 0.83, 0.83), metallic=metal,
+                   roughness=rough),
+              name=f"board{i+1}",
+              transform=compose(translate(*pos), rotate(ang, (1, 0, 0)),
+                                scale(0.4, 2.0, 0.04)))
+    lights = [
+        ((0.2, 0.5, 0.7), (-9, 10, -8), 0.25),
+        ((0.6, 0.5, 0.2), (-3, 10, -8), 0.5),
+        ((0.4, 0.7, 0.2), (3, 10, -8), 1.0),
+        ((0.8, 0.1, 0.2), (9, 10, -8), 1.5),
+    ]
+    for i, (tint, pos, s) in enumerate(lights):
+        b.add(shapes.cube(),
+              dict(base_color=tint, emissive=tuple(3.0 * c for c in tint),
+                   roughness=1.0),
+              name=f"light{i+1}", transform=compose(translate(*pos),
+                                                    scale(s)))
+    return b, _camera((0, 13, 12), (0, 11, 7), 64.0, aspect)
+
+
+def teapot_scene(aspect: float = 1.0):
+    """teapot() (main.cpp:329-347): metallic teapot on a matte floor,
+    camera (0, 5, 5) -> origin, fov 45.  Returns (builder, camera
+    state)."""
+    b = SceneBuilder()
+    b.add(shapes.teapot(),
+          dict(base_color=(0.6, 0.7, 0.2), metallic=0.7, roughness=0.3),
+          name="teapot", transform=scale(0.55))
+    b.add(shapes.quad(),
+          dict(base_color=(0.73, 0.73, 0.73), metallic=0.2, roughness=0.85),
+          name="floor")
+    return b, _camera((0, 5, 5), (0, 0, 0), 45.0, aspect)
+
+
+def config2_teapot(flat_bvh: bool = False, device=None):
+    """Config 2: teapot (~6k triangles) + floor, diffuse materials, an
+    area light and a constant environment.  Returns (scene on ``device``,
+    camera state).  ``flat_bvh=True`` (one leaf of every triangle, an
+    A/B control of the JAX package's XLA walks) is not ported: it is
+    queue-1 item 20 of ROADMAP.md."""
+    if flat_bvh:
+        raise NotImplementedError(
+            "config2_teapot(flat_bvh=True) needs SceneBuilder.build("
+            "flat_bvh=True), queue-1 item 20 of ROADMAP.md, which is not "
+            "ported yet")
+    b = SceneBuilder()
+    b.add(shapes.teapot(), dict(base_color=(0.6, 0.7, 0.2), roughness=0.8),
+          name="teapot", transform=scale(0.55))
+    b.add(shapes.quad(), dict(base_color=(0.73, 0.73, 0.73), roughness=0.9),
+          name="floor")
+    b.add(shapes.quad(half=1.5), dict(emissive=(20.0, 20.0, 20.0)),
+          name="key_light",
+          transform=compose(translate(2.5, 6, 2.5), rotate(180, (0, 0, 1))))
+    scene = b.build(env_constant=(0.15, 0.18, 0.22), device=device)
+    return scene, _camera((0, 5, 5), (0, 0.8, 0), 45.0)
 
 
 def config3_teapot_night(env_height: int = 256, max_leaf_size: int = 4,

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import synthetic_key_rays
+from chip_smoke import Recorder, synthetic_key_rays
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
 from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
 from pnraytracing_tpu_torch.accel.bricks import treelet_index_tree
@@ -410,3 +410,91 @@ def test_stream_wrapper_raises_on_too_deep_layout(stream_scene):
         with pytest.raises(ValueError, match="64-entry stack"):
             fn(deep, o, d, t_max, mask)
     assert trs.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def config5_shadow():
+    """config5_large on the card (102,404 triangles, streamed) and the
+    fused shadow batch of a 128x128 bounce-0 frame, recorded through the
+    plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.render import integrator
+    from pnraytracing_tpu_torch.scene.scenes import config5_large
+
+    scene, cam = config5_large(device="cuda")
+    rec = Recorder(integrator, trv, trs, compaction)
+    try:
+        render_frame(scene, cam.basis(device="cuda"),
+                     RenderConfig(width=128, height=128, max_depth=1), 0)
+    finally:
+        rec.restore()
+    _, o, d, t_max, mask = rec.by_name()["any_hit_stream"][0]
+    return scene.trav, (o, d, t_max, mask)
+
+
+def test_any_hit_binary_on_config5_shadow_rays(config5_shadow):
+    """Kernel 6 against its plain version on the large scene's fused
+    shadow batch over its 7.3 MB of binary rows: occlusion and the
+    [3, R] stats equal, and the same occlusion as the stream walk."""
+    trav, (o, d, t_max, mask) = config5_shadow
+    occ, st = trv.any_hit(trav, o, d, t_max, mask, variant="binary",
+                          with_stats=True)
+    wocc, wst = trv.plain_any_hit_binary(trav, o, d, t_max, mask,
+                                         with_stats=True)
+    assert occ.shape == (2 * 128 * 128,)
+    assert torch.equal(occ, wocc) and torch.equal(st, wst)
+    assert torch.equal(occ, trs.any_hit_stream(trav, o, d, t_max, mask))
+    assert bool(occ.any()) and bool((~occ & mask).any())
+
+
+_WALKS = ["closest_hit_attr", "closest_hit", "any_hit", "closest_hit_binary",
+          "any_hit_binary", "closest_hit_stream", "any_hit_stream"]
+
+
+def _walk_pair(name):
+    """(kernel wrapper, plain version) of one walk, both returning
+    (result, stats)."""
+    binary = name.endswith("_binary")
+    base = name.replace("_binary", "")
+    mod = trs if name.endswith("_stream") else trv
+    kern = getattr(mod, base)
+    if binary:
+        kern = functools.partial(kern, variant="binary")
+    return kern, getattr(mod, "plain_" + name)
+
+
+@pytest.mark.parametrize("walk", _WALKS)
+def test_walks_on_non_finite_rays(flagship, stream_scene, walk):
+    """Every walk against its plain version on rays with NaN and infinite
+    components (chip_smoke.synthetic_key_rays: outside origins, axis-
+    parallel and zero directions, and 3/8 non-finite lanes).  Rays of
+    ``never_enters`` walk nothing in both (a miss, zero stats); every
+    other result and stat is equal."""
+    trav = (stream_scene if walk.endswith("_stream") else flagship[0]).trav
+    o, d = synthetic_key_rays(trav.treelets, "cuda")
+    n = o.x.shape[0]
+    rng = np.random.default_rng(40)
+    t_max = torch.from_numpy(rng.uniform(0.5, 10, n).astype(
+        np.float32)).cuda()
+    mask = torch.from_numpy(rng.uniform(size=n) < 0.9).cuda()
+    kern, plain = _walk_pair(walk)
+    got = kern(trav, o, d, t_max, mask, with_stats=True)
+    want = plain(trav, o, d, t_max, mask, with_stats=True)
+    torch.cuda.synchronize()
+    res, st, wres, wst = got[0], got[-1], want[0], want[-1]
+    assert torch.equal(st, wst)
+    bad = compaction.never_enters(o, d)
+    assert int(bad.sum()) == 768 and not bool(st[:, bad].any())
+    if walk.startswith("any_hit"):
+        assert torch.equal(res, wres) and not bool(res[bad].any())
+    else:
+        for a, b in [(res.tri, wres.tri), (res.t, wres.t), (res.b1, wres.b1),
+                     (res.b2, wres.b2)]:
+            assert torch.equal(a, b)
+        assert not bool(res.valid[bad].any())
+        if walk == "closest_hit_attr":
+            for a, b in zip(got[1], want[1]):
+                assert torch.equal(a, b)
+    assert bool((st[0][~bad] > 0).any())  # the other lanes do walk

@@ -157,10 +157,7 @@ def test_outside_the_slice_raises():
     b = SceneBuilder()
     with pytest.raises(NotImplementedError, match="texture"):
         b.add(shapes.triangle(), {}, texture=np.zeros((4, 4, 3), np.float32))
-    for kw in (dict(compat_pnrt=True), dict(loop="scan"),
-               dict(texture_lod_scale=0.01), dict(compact_rays=False),
-               dict(sort_rays=False), dict(fuse_shadows=False),
-               dict(jitter_primary=True)):
+    for kw in (dict(compat_pnrt=True), dict(texture_lod_scale=0.01)):
         with pytest.raises(NotImplementedError):
             RenderConfig(**kw)
     with pytest.raises(ValueError):
