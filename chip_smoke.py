@@ -40,20 +40,32 @@ script exits non-zero without printing a result.  Phases:
 8. binary: the binary pop-test kernels (the ``variant="binary"`` entry
    point, which the integrator never routes to) against their plain
    versions on the flagship rays of phase 4, stats included, timed;
-9. stream_scene: config5_large built by the port on the card, with its
+9. options: each ray-ordering and sampling option of ``RenderConfig``
+   (``compact_rays``, ``sort_rays``, ``sort_key``, ``fuse_shadows``,
+   ``jitter_primary``, ``loop``) on the flagship: a 128x128 depth-4
+   frame through the kernels against the plain versions, the launches of
+   its 512x512 frame against the expected table, and for the default and
+   four options ms/frame (two rounds of opposite order) and one profiled
+   frame's device busy time and port kernels' sum;
+10. catalog: each untextured catalog scene (``cornell_box`` with both
+   centerpieces, ``scene_flat``, ``teapot_scene``, ``config2_teapot``)
+   built on the card, the launches of one 128x128 depth-4 frame and that
+   frame through the kernels against the plain versions;
+11. stream_scene: config5_large built by the port on the card, with its
    default brick layout and the registers, block size and blocks an SM
    of the stream kernels;
-10. stream_parity: the stream kernels against their plain versions on
+12. stream_parity: the stream kernels against their plain versions on
    the rays of one plain-path config5 frame (primary, bounce-0
    continuation, bounce-0 fused shadows): results and per-ray walk stats
    equal; the resident wide kernels on the same rays (the bricks
-   cover the tree); the key kernel on config5's bounce-0 key rays;
-11. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
+   cover the tree); the binary kernels against their plain versions,
+   stats included; the key kernel on config5's bounce-0 key rays;
+13. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
    128x128 depth-4 frame through the kernels against the plain versions,
    ms/frame and rays/s, peak memory, the stream kernels' times beside
    the resident kernel's and beside their own on a 96 KB brick layout of
-   the same tree, the resident wide kernels' times and ``walk_figures``
-   on config5's rays, and one profiled frame.
+   the same tree, the resident wide and the binary kernels' times and
+   ``walk_figures`` on config5's rays, and one profiled frame.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -552,6 +564,41 @@ def rays_of(args):
     return args[1], args[2], args[3], (args[4] if len(args) > 4 else None)
 
 
+def binary_parity(trv, trav, cont, shadow, scene: str) -> dict:
+    """Kernels 5 and 6 against their plain versions on one scene's
+    bounce-0 continuation rays and fused shadow batch: hits, occlusion
+    and the [3, R] stats equal, and the resident wide walk's results."""
+    import torch
+
+    o, d, tm, mask = rays_of(cont)
+    r = o.x.shape[0]
+    got, st = trv.closest_hit(trav, o, d, tm, mask, variant="binary",
+                              with_stats=True)
+    want, wst = trv.plain_closest_hit_binary(trav, o, d, tm, mask,
+                                             with_stats=True)
+    bad, err = check_closest(f"closest_hit_binary/{scene}", got, want, r)
+    check_stats(f"closest_hit_binary/{scene}", st, wst)
+    so, sd, stm, smask = rays_of(shadow)
+    occ, ast = trv.any_hit(trav, so, sd, stm, smask, variant="binary",
+                           with_stats=True)
+    wocc, wast = trv.plain_any_hit_binary(trav, so, sd, stm, smask,
+                                          with_stats=True)
+    occ_bad = check_occ(f"any_hit_binary/{scene}", occ, wocc)
+    check_stats(f"any_hit_binary/{scene}", ast, wast)
+    check_occ(f"any_hit_binary_vs_wide/{scene}", occ,
+              trv.any_hit(trav, so, sd, stm, smask))
+    torch.cuda.synchronize()
+    per_ray = lambda x, n: float(x.to(torch.int64).sum()) / n
+    rs = so.x.shape[0]
+    return {"tri_mismatch": bad, "err": err, "any_hit_mismatch": occ_bad,
+            "stats_equal": True,
+            "closest_pops_per_ray": per_ray(st[0], r),
+            "closest_tri_tests_per_ray": per_ray(st[2], r),
+            "any_pops_per_ray": per_ray(ast[0], rs),
+            "any_leaf_pops_per_ray": per_ray(ast[1], rs),
+            "any_tri_tests_per_ray": per_ray(ast[2], rs)}
+
+
 def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
     """Phase 8: the binary kernels against their plain versions on the
     flagship rays, and their rows of the kernels line.  The integrator
@@ -597,6 +644,9 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
     _, st = trv.any_hit(trav, so, sd, stm, smask, variant="binary",
                         with_stats=True)
     bnd_a = bound(rs * (RAY_IN + 1) + scene_bytes, trav_ops(st, binary=True))
+    per_ray_a = {"pops_per_ray": float(st[0].sum()) / rs,
+                 "leaf_pops_per_ray": float(st[1].sum()) / rs,
+                 "tri_tests_per_ray": float(st[2].sum()) / rs}
     rows = [
         dict(name="closest_hit_binary",
              source="pnraytracing_tpu_torch/csrc/traverse.cu",
@@ -610,7 +660,8 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
                  trav, o, d, tm, mask), 2),
              wide_ms=time_ms(lambda: trv.closest_hit(trav, o, d, tm, mask),
                              20),
-             pops=pops_c, bound_ms=bnd_c[0], bound_by=bnd_c[1],
+             pops=pops_c, pops_per_ray=pops_c / r,
+             bound_ms=bnd_c[0], bound_by=bnd_c[1],
              **info["closest_hit_binary"]),
         dict(name="any_hit_binary",
              source="pnraytracing_tpu_torch/csrc/traverse.cu",
@@ -623,7 +674,8 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
                  trav, so, sd, stm, smask), 2),
              wide_ms=time_ms(lambda: trv.any_hit(trav, so, sd, stm, smask),
                              20),
-             bound_ms=bnd_a[0], bound_by=bnd_a[1], **info["any_hit_binary"]),
+             bound_ms=bnd_a[0], bound_by=bnd_a[1], **per_ray_a,
+             **info["any_hit_binary"]),
     ]
     emit({"phase": "binary", "rays": r, "shadow_rays": rs, "closest": res,
           "any_hit_mismatch": occ_bad, "stats_equal": True,
@@ -632,9 +684,161 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
     return rows
 
 
+# RenderConfig options of the options phase, by name; the first five are
+# also timed
+OPTIONS = {
+    "default": {},
+    "compact_rays=False": dict(compact_rays=False),
+    "sort_rays=False": dict(sort_rays=False),
+    "sort_key=pos": dict(sort_key="pos"),
+    "fuse_shadows=False": dict(fuse_shadows=False),
+    "sort_key=dir": dict(sort_key="dir"),
+    "jitter_primary=True": dict(jitter_primary=True),
+    "loop=scan": dict(loop="scan"),
+}
+TIMED_OPTIONS = tuple(OPTIONS)[:5]
+
+
+def frame_launches(render_frame, scene, camera, cfg, dev, tables, counts):
+    """(image, launches) of one frame, the counters zeroed just before."""
+    import torch
+
+    zero_counts(*tables)
+    img = render_frame(scene, camera, cfg, 1, device=dev)
+    torch.cuda.synchronize()
+    return img, counts()
+
+
+def check_image(name, img, cfg) -> None:
+    import torch
+
+    if not (img.shape == (cfg.height, cfg.width, 3)
+            and torch.isfinite(img).all() and float(img.min()) >= 0.0
+            and float(img.max()) <= 1.0):
+        raise AssertionError(f"{name}: the frame is not a finite [0,1] "
+                             "image")
+
+
+def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
+                  tables, counts, smi) -> None:
+    """Phase 9: the ray-ordering and sampling options on the flagship.
+    Each option's 128x128 depth-4 frame through the kernels against the
+    plain versions; its 512x512 frame's launches against the table (any
+    ordering but the entry sort launches no key kernel, unfused shadows
+    two any-hits a bounce); then ms/frame of the timed options over 5
+    frames after a warm-up, in two rounds of opposite order, and one
+    profiled frame each: device busy ms and the port's kernels' sum."""
+    import torch
+
+    parity, launches = {}, {}
+    for name, kw in OPTIONS.items():
+        if kw:  # the default's parity is phase 5
+            parity[name] = frame_parity(render_frame, scene, camera,
+                                        RenderConfig(width=PARITY_SIZE,
+                                                     height=PARITY_SIZE,
+                                                     max_depth=DEPTH, **kw),
+                                        dev, modules)
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH, **kw)
+        img, got = frame_launches(render_frame, scene, camera, cfg, dev,
+                                  tables, counts)
+        keyed = (cfg.compact_rays and cfg.sort_rays
+                 and cfg.sort_key == "entry")
+        want = dict({k: 0 for k in got}, closest_hit_attr=1 + DEPTH,
+                    any_hit=DEPTH * (1 if cfg.fuse_shadows else 2),
+                    treelet_entry_key=cfg.sort_max_bounce if keyed else 0)
+        if got != want:
+            raise AssertionError(f"{name}: launches per frame {got}, "
+                                 f"expected {want}")
+        check_image(name, img, cfg)
+        launches[name] = {k: v for k, v in got.items() if v}
+    emit({"phase": "options_parity", "parity_128": parity,
+          "launches_per_frame": launches})
+
+    cfgs = {n: RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH,
+                            **OPTIONS[n]) for n in TIMED_OPTIONS}
+    ms = {n: [] for n in TIMED_OPTIONS}
+    for order in (TIMED_OPTIONS, TIMED_OPTIONS[::-1]):
+        for n in order:
+            render_frame(scene, camera, cfgs[n], 2, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(5):
+                render_frame(scene, camera, cfgs[n], 3 + f, device=dev)
+            torch.cuda.synchronize()
+            ms[n].append((time.perf_counter() - t0) * 1e3 / 5)
+    prof = {}
+    for n in TIMED_OPTIONS:
+        p = profile_frame(lambda: render_frame(scene, camera, cfgs[n], 12,
+                                               device=dev),
+                          sum(ms[n]) / len(ms[n]))
+        ours = p.get("port_kernels") or {}
+        prof[n] = {"device_busy_ms": p["device_busy_ms"],
+                   "device_idle_share": p["device_idle_share"],
+                   "device_kernel_calls": p.get("device_kernel_calls"),
+                   "port_kernels_ms": sum(v["device_ms"]
+                                          for v in ours.values()),
+                   "port_kernels": ours}
+    emit({"phase": "options", "width": WIDTH, "height": HEIGHT,
+          "depth": DEPTH, "ms_per_frame": ms, "profile": prof, "card": smi})
+
+
+# the untextured catalog: (function of scene/scenes.py, its arguments)
+CATALOG = {
+    "cornell_box": ("cornell_box", {}),
+    "cornell_box/sphere": ("cornell_box", dict(centerpiece="sphere")),
+    "scene_flat": ("scene_flat", {}),
+    "teapot_scene": ("teapot_scene", {}),
+    "config2_teapot": ("config2_teapot", {}),
+}
+
+
+def catalog_phase(render_frame, RenderConfig, dev, modules, tables,
+                  counts) -> None:
+    """Phase 10: each scene of the untextured catalog built on the card,
+    the launches of one 128x128 depth-4 frame (a scene with lights or an
+    environment launches any_hit once a bounce, one without none), and
+    that frame through the kernels against the plain versions."""
+    from pnraytracing_tpu_torch.accel.route import traversal_route
+    from pnraytracing_tpu_torch.scene import scenes
+
+    out = {}
+    cfg = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                       max_depth=DEPTH)
+    for name, (fn, kw) in CATALOG.items():
+        t0 = time.perf_counter()
+        if fn == "config2_teapot":
+            scene, cam_state = scenes.config2_teapot(device=dev, **kw)
+        else:
+            builder, cam_state = getattr(scenes, fn)(**kw)
+            scene = builder.build(device=dev)
+        camera = cam_state.basis(device=dev)
+        build_s = time.perf_counter() - t0
+        route = traversal_route(scene.trav, cfg.kernel_interaction)
+        img, got = frame_launches(render_frame, scene, camera, cfg, dev,
+                                  tables, counts)
+        shadows = scene.lights.count > 0 or scene.env is not None
+        want = dict({k: 0 for k in got}, treelet_entry_key=2,
+                    any_hit=DEPTH if shadows else 0)
+        want["closest_hit_attr" if route == "attr" else "closest_hit"] = (
+            1 + DEPTH)
+        if got != want:
+            raise AssertionError(f"{name}: launches per frame {got}, "
+                                 f"expected {want}")
+        check_image(name, img, cfg)
+        out[name] = {"seconds": build_s,
+                     "triangles": int(scene.trav.tri9.shape[0]),
+                     "light_triangles": int(scene.lights.count),
+                     "env": scene.env is not None, "route": route,
+                     "launches_per_frame": {k: v for k, v in got.items()
+                                            if v},
+                     "parity_128": frame_parity(render_frame, scene, camera,
+                                                cfg, dev, modules)}
+    emit({"phase": "catalog", "scenes": out})
+
+
 def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                   counts, cfgp) -> list:
-    """Phases 9-11: config5_large through the brick-streaming kernels.
+    """Phases 11-13: config5_large through the brick-streaming kernels.
     Returns their rows of the kernels line and the times of the resident
     wide kernels on config5's rays, by wrapper name."""
     import torch
@@ -700,6 +904,9 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                              "plain version")
     res_occ_bad = check_occ("any_hit_resident_vs_stream", occ,
                             trv.any_hit(trav, so, sd, stm, smask))
+    # the binary kernels on the same rays, over config5's 7.3 MB of
+    # binary rows: hits, occlusion and stats equal their plain versions
+    bin_res = binary_parity(trv, trav, cont, shadow, "config5")
     # the key kernel on config5's bounce-0 key rays (K = 388)
     ko, kd, tre, tree = calls["entry_key"][0]
     key_res = check_key("config5", compaction, ko, kd, tre, tree)
@@ -711,7 +918,7 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "shadow_rays": int(so.x.shape[0]), "closest": res,
           "entry_key": key_res, "any_hit_mismatch": occ_bad,
           "any_hit_resident_mismatch": res_occ_bad,
-          "any_stats_equal": True,
+          "any_stats_equal": True, "binary": bin_res,
           "any_bricks_per_ray": float(st[3].sum()) / int(so.x.shape[0])})
 
     # ---- 11. the config5 frame -----------------------------------------
@@ -821,7 +1028,11 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
         "closest_hit": rows[0]["resident_ms"],
         "any_hit": rows[1]["resident_ms"],
         "treelet_entry_key": time_ms(lambda: compaction.entry_key(
-            ko, kd, tre, tree), 20)}
+            ko, kd, tre, tree), 20),
+        "closest_hit_binary": time_ms(lambda: trv.closest_hit(
+            trav, o, d, tm, mask, variant="binary"), 20),
+        "any_hit_binary": time_ms(lambda: trv.any_hit(
+            trav, so, sd, stm, smask, variant="binary"), 20)}
     emit({"phase": "walk_figures", "scene": "config5", "ms": on_config5,
           "kernels": figures})
     emit({"phase": "stream_frame", "width": WIDTH, "height": HEIGHT,
@@ -1087,6 +1298,9 @@ def main() -> int:
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
 
     rows += binary_phase(trv, trav, cont, shadow, primary, launches)
+    options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
+                  tables, counts, smi)
+    catalog_phase(render_frame, RenderConfig, dev, modules, tables, counts)
     stream_rows, on_config5 = stream_phases(render_frame, RenderConfig, dev,
                                             smi, modules, tables, counts,
                                             cfgp)

@@ -21,9 +21,10 @@ and then
 over the compact wide rows ``nodes16c``) or ``"binary"`` (pop-test walk
 over ``nodes8``), resolved by ``accel/route.py::pick_variant`` as the
 JAX package resolves it.  Every kernel reads triangles from the padded
-rows ``tri12``, every plain version from ``tri9`` (the same values).  The interaction
-fill is a function of the winning hit alone (:func:`interaction_fill`);
-kernel and plain version evaluate it once after the walk.
+rows ``tri12``, every plain version from ``tri9`` (the same values).
+The interaction fill is a function of the winning hit alone
+(:func:`interaction_fill`); kernel and plain version evaluate it once
+after the walk.
 :func:`kernel_info` reports the resident kernels' registers and blocks an
 SM.
 
@@ -33,8 +34,9 @@ normal ((0, 0, 1) on a miss), ``u``, ``v`` and the encoded
 material/texture word (layout.py::ATTR_TEX_BASE; 0 on a miss); the any
 hit an occlusion flag.  Masked rays, and rays of
 ``ops/intersect.py::never_enters`` (a NaN component, or an infinite
-origin and direction on one axis), walk nothing and report a miss.  ``with_stats`` adds
-an ``[3, R]`` int32 tensor of per-ray pops, leaf pops and triangle tests.
+origin and direction on one axis), walk nothing and report a miss.
+``with_stats`` adds an ``[3, R]`` int32 tensor of per-ray pops, leaf
+pops and triangle tests.
 """
 
 from __future__ import annotations
@@ -60,10 +62,6 @@ LAUNCHES = {"closest_hit_attr": 0, "closest_hit": 0, "any_hit": 0,
             "closest_hit_binary": 0, "any_hit_binary": 0}
 
 KERNEL_STACK = 64  # KSTACK of csrc/intersect.cuh
-
-# TRIAL: the binary any-hit kernel's build reads tri9 (set by
-# scripts/torch_any_trials.py for the variants that read tri9)
-TRIAL_ANY_TRI9 = False
 
 
 def check_rays(o: V3, d: V3, *more: torch.Tensor):
@@ -221,8 +219,7 @@ def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
             ptr(t_max), ptr(mask), r)
     lib = library("traverse")
     fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
-    tris = trav.tri9 if (TRIAL_ANY_TRI9 and not closest) else trav.tri12
-    err = fn(ptr(trav.nodes8), ptr(tris), *rays,
+    err = fn(ptr(trav.nodes8), ptr(trav.tri12), *rays,
              *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
     name = "closest_hit_binary" if closest else "any_hit_binary"
     _raise_on(err, name)

@@ -69,7 +69,8 @@
 // postpones a leaf and goes on descending (more visits, slower any-hit).
 // The binary walk visits about twice as many nodes as the wide one for
 // the same hits.  Both binary kernels have the while-while form with a
-// bounded descent (see closest_hit_binary_kernel).
+// bounded descent (see closest_hit_binary_kernel and
+// any_hit_binary_kernel).
 //
 // Rays of never_enters (a NaN component, or an infinite origin and
 // direction on one axis) walk nothing in every kernel, as in the plain
@@ -341,47 +342,24 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
 
-// TRIAL switches of the binary any-hit walk (for measuring only):
-// PNRT_ANY_OLD=1 the first form (one loop, both children pushed, tri9);
-// PNRT_ANY_DESCENT the bound of the descent; PNRT_ANY_TRI9=1 leaves read
-// as nine scalar tri9 words; PNRT_ANY_BOUNDS1=0 plain launch bounds.
-#ifndef PNRT_ANY_OLD
-#define PNRT_ANY_OLD 0
-#endif
-#ifndef PNRT_ANY_DESCENT
-#define PNRT_ANY_DESCENT 4
-#endif
-#ifndef PNRT_ANY_TRI9
-#define PNRT_ANY_TRI9 0
-#endif
-#ifndef PNRT_ANY_BOUNDS1
-#define PNRT_ANY_BOUNDS1 1
-#endif
+// The binary any-hit walk in the same form: the descent bounded at
+// kAnyDescent pops against the fixed t_max, the near child entered
+// directly, and the warp's leaf-holders test their leaves together
+// (any_leaf over tri12: three aligned float4 a triangle, no row in flight,
+// which did not pay in the wide any-hit leaf).  A hit ends the walk.  The
+// order of visits, the occlusion and the stats are those of the one-loop
+// walk that pushed both children, far first.  Its rays reach a leaf far
+// more rarely than the closest walk's (0.24 / 0.52 leaf pops a ray on the
+// flagship's / the large scene's shadow batch against 14.6 / 13.4 pops),
+// so it takes a longer bound: 8 pops ran 1.04x / 1.01x faster than the
+// one-loop form on those batches, 4 pops 1.02x / 1.01x, 2 pops slower on
+// both; tri9 leaves within 0.8% of tri12, plain launch bounds 2.3% slower
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
+constexpr int kAnyDescent = 8;
 
-__device__ __forceinline__ bool any_leaf9(const Ray& r,
-                                          const float* __restrict__ tri9,
-                                          int info, float t_max,
-                                          int& tri_tests) {
-  const int meta = -info - 1;
-  const int start = meta >> 4;
-  const int count = meta & 15;
-  for (int k = 0; k < count; ++k) {
-    float t, b1, b2;
-    ++tri_tests;
-    if (hit_triangle(r, tri9 + 9 * (int64_t)(start + k), t_max, t, b1, b2)) {
-      return true;
-    }
-  }
-  return false;
-}
-
-#if PNRT_ANY_BOUNDS1 && !PNRT_ANY_OLD
 __global__ void __launch_bounds__(kThreads, 1)
-#else
-__global__ void __launch_bounds__(kThreads)
-#endif
 any_hit_binary_kernel(const float* __restrict__ nodes8,
-                      const float* __restrict__ tris, Rays rays,
+                      const float* __restrict__ tri12, Rays rays,
                       uint8_t* __restrict__ occ_out,
                       int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -393,61 +371,23 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
   bool occ = false;
   int pops = 0, leaf_pops = 0, tri_tests = 0;
 
-  int stack[KSTACK];
+  int stack[KSTACK];  // the far children still to visit
   int top = 0;
-#if PNRT_ANY_OLD
-  if (active) stack[top++] = 0;
-  while (top > 0 && !occ) {
-    const int node = stack[--top];
-    ++pops;
-    const Node8 w = load_node8(nodes8, node);
-    if (!hit_aabb(r, w.mn[0], w.mn[1], w.mn[2], w.mx[0], w.mx[1], w.mx[2],
-                  t_max)) {
-      continue;
-    }
-    if (w.enc_right < 0) {
-      ++leaf_pops;
-      const int start = w.meta >> 4;
-      const int count = w.meta & 15;
-      for (int k = 0; k < count; ++k) {
-        float t, b1, b2;
-        ++tri_tests;
-        if (hit_triangle(r, tris + 9 * (int64_t)(start + k), t_max, t,
-                         b1, b2)) {
-          occ = true;
-          break;
-        }
-      }
-    } else {
-      const int right = w.enc_right >> 2;
-      const int left = node + 1;
-      const bool d_neg = sel3(w.enc_right & 3, r.dx, r.dy, r.dz) < 0.0f;
-      stack[top++] = d_neg ? left : right;
-      stack[top++] = d_neg ? right : left;
-    }
-  }
-#else
-  int cur = active ? 0 : kWalkDone;
+  int cur = active ? 0 : kWalkDone;  // the root node
   while (cur != kWalkDone) {
-    int meta = -1;
+    int meta = -1;  // start*16 + count of the leaf this lane holds
 #pragma unroll 1
-    for (int step = 0; step < PNRT_ANY_DESCENT && cur != kWalkDone &&
-                       meta < 0;
+    for (int step = 0; step < kAnyDescent && cur != kWalkDone && meta < 0;
          ++step) {
       ++pops;
       cur = binary_pop(r, nodes8, cur, t_max, stack, top, meta);
     }
     if (meta >= 0) {
       ++leaf_pops;
-#if PNRT_ANY_TRI9
-      occ = any_leaf9(r, tris, -meta - 1, t_max, tri_tests);
-#else
-      occ = any_leaf(r, tris, -meta - 1, t_max, tri_tests);
-#endif
-      cur = occ ? kWalkDone : pop_node(stack, top);
+      occ = any_leaf(r, tri12, -meta - 1, t_max, tri_tests);
+      cur = occ ? kWalkDone : pop_node(stack, top);  // occluded: stop
     }
   }
-#endif
   occ_out[i] = occ ? 1 : 0;
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }

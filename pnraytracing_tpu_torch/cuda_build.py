@@ -45,8 +45,8 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str, defines=()) -> str:
-    h = hashlib.sha1(" ".join(defines).encode())
+def _lib_path(name: str) -> str:
+    h = hashlib.sha1()
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for f in [name + ".cu", *headers]:
         with open(os.path.join(CSRC_DIR, f), "rb") as fh:
@@ -60,7 +60,7 @@ def _ptxas_summary(log: str) -> list[str]:
     return [ln.strip() for ln in log.splitlines() if keep.search(ln)]
 
 
-def build_all(names=SOURCES, defines=()) -> dict[str, dict]:
+def build_all(names=SOURCES) -> dict[str, dict]:
     """Compile every named source that has no up-to-date library, all
     ``nvcc`` processes at once.  Returns ``{name: {"seconds", "ptxas",
     "cached"}}``; raises with the compiler's output if a build fails."""
@@ -68,13 +68,13 @@ def build_all(names=SOURCES, defines=()) -> dict[str, dict]:
     procs, info = {}, {}
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name, defines)
+        out = _lib_path(name)
         if os.path.exists(out):
             info[name] = {"seconds": 0.0, "ptxas": [], "cached": True}
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *("-D" + d for d in defines), "-o",
-               tmp, os.path.join(CSRC_DIR, name + ".cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
@@ -104,9 +104,9 @@ _SIGNATURES = {
 }
 
 
-def _load(name: str, defines=()) -> ctypes.CDLL:
-    build_all((name,), defines)
-    lib = ctypes.CDLL(_lib_path(name, defines))
+def _load(name: str) -> ctypes.CDLL:
+    build_all((name,))
+    lib = ctypes.CDLL(_lib_path(name))
     for fn, argtypes in _SIGNATURES.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
@@ -121,14 +121,3 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = _load(name)
         return _libs[name]
-
-
-def use_variant(name: str, defines=()) -> dict:
-    """TRIAL: build ``csrc/<name>.cu`` with the compile-time ``defines``
-    ("NAME=value") and make that build the one :func:`library` returns
-    from now on (``()`` selects the default build again); returns the
-    build's ``build_all`` record."""
-    with _lock:
-        info = build_all((name,), defines)[name]
-        _libs[name] = _load(name, defines)
-        return info

@@ -63,18 +63,13 @@ def _cell(x: torch.Tensor, hi: int) -> torch.Tensor:
                        float(hi)).to(torch.int64)
 
 
-def _normal_octant(nx, ny, nz) -> torch.Tensor:
-    return ((nx > 0).to(torch.int64) * 4 + (ny > 0).to(torch.int64) * 2
-            + (nz > 0).to(torch.int64))
-
-
 def coherence_key(nrm: V3, pos: V3, lo: torch.Tensor,
                   inv_extent: torch.Tensor) -> torch.Tensor:
     """Direction-major key (the JAX package's ``'dir'``), int64 below
     2^15, most significant first: the 3-bit normal octant, 2 bits per
     axis of the quantized |n|, 2 bits per axis of the position cell
     within the box ``lo`` + [0, 1 / inv_extent]."""
-    key = _normal_octant(nrm.x, nrm.y, nrm.z)
+    key = _octant(nrm.x, nrm.y, nrm.z).to(torch.int64)
     for nc in (nrm.x, nrm.y, nrm.z):
         key = key * 4 + _cell(torch.abs(nc) * 4, 3)
     for i, pc in enumerate((pos.x, pos.y, pos.z)):
@@ -93,7 +88,7 @@ def coherence_key_pos(nrm: V3, pos: V3, lo: torch.Tensor,
     for bit in range(3, -1, -1):
         for ax in range(3):
             morton = morton * 2 + ((qp[ax] >> bit) & 1)
-    return morton * 8 + _normal_octant(nrm.x, nrm.y, nrm.z)
+    return morton * 8 + _octant(nrm.x, nrm.y, nrm.z)
 
 
 def sort_live_first(mask: torch.Tensor, key: torch.Tensor):

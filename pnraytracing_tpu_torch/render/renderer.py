@@ -13,7 +13,7 @@ import torch
 from pnraytracing_tpu_torch.core.camera import camera_rays, resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.types import Camera, Scene
-from pnraytracing_tpu_torch.ops.sampling import M32, pixel_seed, rand01
+from pnraytracing_tpu_torch.ops.sampling import pixel_seed, rand01
 from pnraytracing_tpu_torch.render.integrator import render_rays
 
 
@@ -33,10 +33,11 @@ def primary_jitter(px: torch.Tensor, py: torch.Tensor, frame: int,
     """[P, 2] sub-pixel offsets in [0, 1) when ``cfg.jitter_primary``,
     else None: two draws from the pixel's stream seed salted with
     0x9E3779B9 (uint32 words in int64, ops/sampling.py), so they are
-    decorrelated from the path's RNG; ``frame`` counts as uint32."""
+    decorrelated from the path's RNG; ``frame`` counts as uint32, as in
+    :func:`pixel_seed`."""
     if not cfg.jitter_primary:
         return None
-    s = pixel_seed(px, py, int(frame) & M32) ^ 0x9E3779B9
+    s = pixel_seed(px, py, frame) ^ 0x9E3779B9
     s, jx = rand01(s)
     _, jy = rand01(s)
     return torch.stack([jx, jy], dim=-1)

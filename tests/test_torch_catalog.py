@@ -1,9 +1,9 @@
 """The port's untextured scene catalog against the JAX package.
 
 * every scene's arrays, built by the port's ``SceneBuilder``, equal the
-  JAX builder's bit for bit (``cornell_box`` with both centerpieces,
-  ``scene_flat``, ``teapot_scene``, ``config2_teapot``), and so do the
-  camera states;
+  JAX package's ``SceneBuilder`` gives, bit for bit (``cornell_box``
+  with both centerpieces, ``scene_flat``, ``teapot_scene``,
+  ``config2_teapot``), and so do the camera states;
 * ``cornell_box`` and ``config2_teapot`` frames, rendered by the port
   from its own scene, against the JAX ``render_frame`` with
   ``traversal="packet"`` at 16x16, depth 2: at most 2 pixels outside

@@ -12,6 +12,7 @@ sort keys exact.  Also the guard that the port never imports JAX.
 """
 
 import dataclasses
+import functools
 import os
 import re
 
@@ -51,7 +52,11 @@ from pnraytracing_tpu_torch.ops.compaction import (
     slab_entry,
     treelet_entry_key,
 )
-from pnraytracing_tpu_torch.ops.intersect import safe_inv_dir
+from pnraytracing_tpu_torch.ops.intersect import (
+    intersect_aabb_c,
+    intersect_triangle_c,
+    safe_inv_dir,
+)
 from tests.test_packet import setup as soup_setup
 from tests.test_torch_scene import (  # noqa: F401
     _torch_threads,
@@ -718,3 +723,55 @@ def test_port_never_imports_jax():
                 assert "pnraytracing_tpu." not in line.replace(
                     "pnraytracing_tpu_torch", "") or "import" not in line, (
                     f"{path}:{n}: {line}")
+
+
+@functools.lru_cache(maxsize=1)
+def _non_finite_case():
+    """The flagship carried over, and 4,096 key-style rays of which 768
+    never enter a box (chip_smoke.synthetic_key_rays)."""
+    ps = port_scene(jax_teapot_night()[0])
+    o, d = synthetic_key_rays(ps.trav.treelets, "cpu")
+    return ps.trav, o, d
+
+
+def test_never_entering_rays_hit_nothing():
+    """The rule every walk keeps for rays of ``never_enters`` (walk
+    nothing) changes no result: such a ray fails every slab test and
+    every triangle test, by brute force over the flagship's triangles."""
+    trav, o, d = _non_finite_case()
+    bad = never_enters(o, d)
+    assert int(bad.sum()) == 768
+    ob = V3(o.x[bad], o.y[bad], o.z[bad])
+    db = V3(d.x[bad], d.y[bad], d.z[bad])
+    tri = trav.tri9
+    hit, _, _, _ = intersect_triangle_c(
+        (tri[:, 0], tri[:, 1], tri[:, 2]), (tri[:, 3], tri[:, 4], tri[:, 5]),
+        (tri[:, 6], tri[:, 7], tri[:, 8]), ob.x[:, None], ob.y[:, None],
+        ob.z[:, None], db.x[:, None], db.y[:, None], db.z[:, None],
+        torch.full((1, 1), float("inf")))
+    assert not bool(hit.any())
+    root = trav.nodes8[0]
+    assert not bool(intersect_aabb_c(
+        root[0:3], root[3:6], ob.x, ob.y, ob.z, safe_inv_dir(db.x),
+        safe_inv_dir(db.y), safe_inv_dir(db.z), float("inf")).any())
+
+
+@pytest.mark.parametrize("walk", ["closest_hit_attr", "closest_hit", "any_hit",
+                                  "closest_hit_binary", "any_hit_binary"])
+def test_plain_walks_skip_never_entering_rays(walk):
+    """Every plain walk gives a ray of ``never_enters`` no pop at all, as
+    the kernels do; the other rays walk as before."""
+    trav, o, d = _non_finite_case()
+    n = o.x.shape[0]
+    t_max = torch.full((n,), 1e7)
+    fn = getattr(trv, "plain_" + walk)
+    out = fn(trav, o, d, t_max, with_stats=True)
+    res, stats = out[0], out[-1]
+    bad = never_enters(o, d)
+    assert not bool(stats[:, bad].any())
+    assert bool((stats[0, ~bad] > 0).all())
+    if walk.startswith("any_hit"):
+        assert not bool(res[bad].any())
+    else:
+        assert not bool(res.valid[bad].any())
+        assert torch.equal(res.t[bad], t_max[bad])
