@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Drives the port's two paths through ``render_frame`` — the flagship
 teapot_night forward frame (512x512, 1 spp, 4 bounces, resident
 kernels) and the large config5 frame (102,404 triangles, brick-streaming
-kernels) — and holds every CUDA kernel against its plain PyTorch
-version.  Each phase prints one JSON line; any failure raises and the
-script exits non-zero without printing a result.  Phases:
+kernels), each eager and as one captured CUDA graph replayed — and holds
+every CUDA kernel against its plain PyTorch version.  Each phase prints
+one JSON line; any failure raises and the script exits non-zero without
+printing a result.  Phases:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: every ``csrc/*.cu`` compiled by ``nvcc`` in parallel, with the
@@ -37,35 +38,52 @@ script exits non-zero without printing a result.  Phases:
 7. profile: one flagship frame under torch.profiler — device busy time,
    the top device kernels, and the idle share: busy time over the
    unprofiled ms/frame of phase 6 (the profiler slows the host);
-8. binary: the binary pop-test kernels (the ``variant="binary"`` entry
+8. program: the flagship frame captured once as a CUDA graph
+   (render/program.py) and replayed: launches at capture, replays equal
+   the eager frames bit for bit, capture seconds and pool bytes, ms/frame
+   eager and replayed in alternating rounds (with the SM clock,
+   temperature and power draw before and after), one replayed frame under
+   the profiler (``program_profile``), ``render_average`` with spp=8
+   against the eager mean, device memory with the programs alive;
+9. session: a ``RenderSession`` on the flagship, each step against the
+   eager frame it stands for (samples, a material edit, an orbit, the
+   previews), and the steps' times;
+10. binary: the binary pop-test kernels (the ``variant="binary"`` entry
    point, which the integrator never routes to) against their plain
    versions on the flagship rays of phase 4, stats included, timed;
-9. options: each ray-ordering and sampling option of ``RenderConfig``
+11. options: each ray-ordering and sampling option of ``RenderConfig``
    (``compact_rays``, ``sort_rays``, ``sort_key``, ``fuse_shadows``,
-   ``jitter_primary``, ``loop``) on the flagship: a 128x128 depth-4
-   frame through the kernels against the plain versions, the launches of
-   its 512x512 frame against the expected table, and for the default and
-   four options ms/frame (two rounds of opposite order) and one profiled
-   frame's device busy time and port kernels' sum;
-10. catalog: each untextured catalog scene (``cornell_box`` with both
+   ``jitter_primary``, ``loop``) on the flagship: a 128x128 depth-2
+   frame through the kernels against the plain versions and replayed
+   against eager, the launches of its 512x512 frame against the expected
+   table, and for the default and four options ms/frame eager and
+   replayed (two rounds of opposite order) and one profiled frame's
+   device busy time and port kernels' sum;
+12. catalog: each untextured catalog scene (``cornell_box`` with both
    centerpieces, ``scene_flat``, ``teapot_scene``, ``config2_teapot``)
-   built on the card, the launches of one 128x128 depth-4 frame and that
+   built on the card, the launches of one 128x128 depth-2 frame and that
    frame through the kernels against the plain versions;
-11. stream_scene: config5_large built by the port on the card, with its
+13. textures: ``config1_triangle`` and ``config4_marry`` (and config 4
+   with ``texture_lod_scale``) the same way, and replayed against eager;
+14. stream_scene: config5_large built by the port on the card, with its
    default brick layout and the registers, block size and blocks an SM
    of the stream kernels;
-12. stream_parity: the stream kernels against their plain versions on
+15. stream_parity: the stream kernels against their plain versions on
    the rays of one plain-path config5 frame (primary, bounce-0
    continuation, bounce-0 fused shadows): results and per-ray walk stats
    equal; the resident wide kernels on the same rays (the bricks
    cover the tree); the binary kernels against their plain versions,
    stats included; the key kernel on config5's bounce-0 key rays;
-13. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
+16. stream_frame: launch counts of one config5 512x512 depth-4 frame, a
    128x128 depth-4 frame through the kernels against the plain versions,
    ms/frame and rays/s, peak memory, the stream kernels' times beside
    the resident kernel's and beside their own on a 96 KB brick layout of
    the same tree, the resident wide and the binary kernels' times and
-   ``walk_figures`` on config5's rays, and one profiled frame.
+   ``walk_figures`` on config5's rays, and one profiled frame; then
+   phase 8 for config5.
+
+Phases 1-7 and 10-16 run the eager frame (``render_frame(...,
+eager=True)``), whose launch counters count each frame.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
@@ -74,6 +92,7 @@ Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -103,15 +122,37 @@ WIDTH = HEIGHT = 512
 DEPTH = 4
 QUERIES_PER_FRAME = WIDTH * HEIGHT * (1 + 3 * DEPTH)  # as bench.py counts
 PARITY_SIZE = 128
+# depth of the option, catalog and textured parity frames: both sorted
+# bounces (sort_max_bounce=2); the flagship's and config5's parity frames
+# keep DEPTH
+PARITY_DEPTH = 2
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def gpu_clocks() -> str:
+    """The card's SM clock, temperature and power draw now, as
+    ``nvidia-smi --query-gpu=clocks.sm,temperature.gpu,power.draw``
+    gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -719,25 +760,226 @@ def check_image(name, img, cfg) -> None:
                              "image")
 
 
-def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
-                  tables, counts, smi) -> None:
-    """Phase 9: the ray-ordering and sampling options on the flagship.
-    Each option's 128x128 depth-4 frame through the kernels against the
-    plain versions; its 512x512 frame's launches against the table (any
-    ordering but the entry sort launches no key kernel, unfused shadows
-    two any-hits a bounce); then ms/frame of the timed options over 5
-    frames after a warm-up, in two rounds of opposite order, and one
-    profiled frame each: device busy ms and the port's kernels' sum."""
+def replay_parity(scene, camera, cfg, dev, frames=(3, 4)) -> dict:
+    """A frame program of ``scene`` under ``cfg`` replayed at two frame
+    indices: each replay equals the eager frame of its index bit for bit,
+    and the two differ."""
     import torch
 
-    parity, launches = {}, {}
+    from pnraytracing_tpu_torch.render.program import FrameProgram
+    from pnraytracing_tpu_torch.render.renderer import render_frame
+
+    prog = FrameProgram(scene, cfg, dev)
+    got = [prog.replay(camera, f).clone() for f in frames]
+    want = [render_frame(scene, camera, cfg, f, device=dev, eager=True)
+            for f in frames]
+    torch.cuda.synchronize()
+    out = {"frames": list(frames),
+           "equal": [bool(torch.equal(g, w)) for g, w in zip(got, want)],
+           "frames_differ": not torch.equal(got[0], got[1]),
+           "capture_s": prog.capture_seconds}
+    if not (all(out["equal"]) and out["frames_differ"]):
+        raise AssertionError(f"replayed frames against eager: {out}")
+    return out
+
+
+def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
+                  smi) -> dict:
+    """The frame of ``scene`` under ``cfg`` as one captured CUDA graph
+    (render/program.py).  The counters are zeroed just before the
+    program is captured and read just after: its warm-up frame and its
+    capture each count ``expected`` once (the graph's own counts are
+    ``expected``), and replays count nothing.  Then: replays at frames 1
+    and 2 against the eager frames (bit for bit, and the two differ);
+    capture seconds and the bytes the program keeps reserved (its
+    graph's private pool and its static buffers); ms/frame of
+    ``render_frame`` eager and replayed in three alternating rounds of
+    5 frames after a warm-up; one replayed frame under the profiler;
+    ``render_average`` with spp=8 (ms a sample) against the eager frames
+    summed from zeros in frame order and divided by 8, bit for bit; the
+    host time of ``replay`` until it returns beside the frame's time
+    until the card is done, for 5 single replays after the timed rounds
+    and again at the end (``replay_split``); and the device memory with
+    the programs alive."""
+    import torch
+
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.render.renderer import (
+        render_average,
+        render_frame,
+    )
+
+    eager = lambda f: render_frame(scene, camera, cfg, f, device=dev,
+                                   eager=True)
+    replayed = lambda f: render_frame(scene, camera, cfg, f, device=dev)
+    program.clear_programs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    zero_counts(*tables)
+    prog = program.frame_program(scene, cfg, dev)
+    t0 = time.perf_counter()
+    prog.capture(camera, 1)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    got = counts()
+    want = dict({k: 0 for k in got}, **expected)
+    if prog.launches != want or got != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"{label}: launches at capture "
+                             f"{prog.launches} (counters {got}), expected "
+                             f"{want} (and twice that with the warm-up)")
+    torch.cuda.empty_cache()  # the warm-up's blocks; the pool stays
+    pool_bytes = torch.cuda.memory_reserved() - reserved0
+    a = replayed(1)
+    b = replayed(2)
+    torch.cuda.synchronize()
+    if counts() != got:
+        raise AssertionError(f"{label}: a replay counted launches")
+    equal = [bool(torch.equal(a, eager(1))), bool(torch.equal(b, eager(2)))]
+    if not (all(equal) and not torch.equal(a, b)):
+        raise AssertionError(f"{label}: replayed frames 1, 2 equal the eager "
+                             f"ones {equal}, differ {not torch.equal(a, b)}")
+    check_image(label, a, cfg)
+    ms = {"eager": [], "replayed": []}
+    clocks = {"eager": [], "replayed": []}  # read as each round ends
+    for rnd in range(3):
+        for mode in (("eager", "replayed") if rnd % 2 == 0
+                     else ("replayed", "eager")):
+            fn = eager if mode == "eager" else replayed
+            fn(3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(5):
+                fn(4 + f)
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3 / 5)
+            clocks[mode].append(gpu_clocks())
+    mean = lambda x: sum(x) / len(x)
+
+    def split():
+        out = {"submit_ms": [], "frame_ms": []}
+        for f in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.replay(camera, 20 + f)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            out["submit_ms"].append((t1 - t0) * 1e3)
+            out["frame_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    splits = {"after_rounds": split()}
+    prof = profile_frame(lambda: prog.replay(camera, 12), mean(ms["replayed"]))
+    spp = 8
+    render_average(scene, camera, cfg, 100, spp, device=dev)  # captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = render_average(scene, camera, cfg, 100, spp, device=dev)
+    torch.cuda.synchronize()
+    avg_ms = (time.perf_counter() - t0) * 1e3 / spp
+    acc = torch.zeros_like(avg)
+    for i in range(spp):
+        acc = acc + eager(100 + i)
+    if not torch.equal(avg, acc / float(spp)):
+        raise AssertionError(f"{label}: render_average differs from the "
+                             "eager frames' mean")
+    splits["at_end"] = split()
+    out = {"phase": "program", "scene": label, "width": cfg.width,
+           "height": cfg.height, "depth": cfg.max_depth,
+           "capture_s": capture_s, "graph_capture_s": prog.capture_seconds,
+           "pool_bytes": pool_bytes,
+           "launches_at_capture": {k: v for k, v in prog.launches.items()
+                                   if v},
+           "replay_equals_eager": equal, "ms_per_frame": ms,
+           "sm_mhz_celsius_watts": clocks, "replay_split": splits,
+           "eager_ms": mean(ms["eager"]), "replayed_ms": mean(ms["replayed"]),
+           "replayed_rays_per_s": QUERIES_PER_FRAME / (
+               mean(ms["replayed"]) / 1e3),
+           "render_average": {"spp": spp, "ms_per_sample": avg_ms,
+                              "equals_eager_sum": True},
+           "programs_alive": len(program._programs),
+           "memory_allocated": torch.cuda.memory_allocated(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_reserved": torch.cuda.memory_reserved(),
+           "card": smi}
+    emit(out)
+    emit(dict(phase="program_profile", scene=label, **prof))
+    return out
+
+
+def session_phase(RenderConfig, scene, cam_state, dev, smi) -> None:
+    """A ``RenderSession`` on the flagship at 512x512 depth 4: each step
+    (a replayed program) against the eager frame it stands for, bit for
+    bit: the first sample, the sum of two, then after a material edit
+    (written in place: no new capture of the converging program) and
+    after an orbit, the 1-bounce preview and the next converging step;
+    the steps' own times."""
+    import torch
+
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.render.renderer import render_frame
+    from pnraytracing_tpu_torch.render.session import RenderSession
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    s = RenderSession(scene, dataclasses.replace(cam_state), cfg, device=dev)
+    eager = lambda c, f: render_frame(s.scene, s.camera.basis(device=dev),
+                                      c, f, device=dev, eager=True)
+    checks = {"sample0": torch.equal(s.step(), eager(cfg, 0))}
+    first_ms = s.stats.last_frame_ms  # captures the program
+    s.step()
+    checks["sum_of_two"] = torch.equal(s.accum.total,
+                                       eager(cfg, 0) + eager(cfg, 1))
+    step_ms = []
+    for _ in range(4):
+        s.step()
+        step_ms.append(s.stats.last_frame_ms)
+    n_programs = len(program._programs)
+    s.edit_material(0, base_color=(0.2, 0.4, 0.9), roughness=0.5)
+    checks["edit_preview"] = torch.equal(s.step(), eager(s.preview_cfg, 0))
+    preview_first_ms = s.stats.last_frame_ms  # captures the preview
+    checks["edit"] = torch.equal(s.step(), eager(cfg, 0))
+    checks["programs_added"] = len(program._programs) - n_programs
+    s.orbit(15.0, 5.0)
+    checks["orbit_preview"] = torch.equal(s.step(), eager(s.preview_cfg, 0))
+    preview_ms = s.stats.last_frame_ms
+    checks["orbit"] = torch.equal(s.step(), eager(cfg, 0))
+    if not all(checks[k] for k in checks if k != "programs_added") or \
+            checks["programs_added"] != 1:
+        raise AssertionError(f"session steps against eager frames: {checks}")
+    emit({"phase": "session", "width": WIDTH, "height": HEIGHT,
+          "depth": DEPTH, "checks": checks, "frames": s.stats.frames,
+          "first_step_ms": first_ms, "step_ms": step_ms,
+          "preview_first_step_ms": preview_first_ms,
+          "preview_step_ms": preview_ms,
+          "rays_per_s": s.stats.rays_per_s, "card": smi})
+
+
+def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
+                  tables, counts, smi) -> None:
+    """Phase 11: the ray-ordering and sampling options on the flagship.
+    Each option's 128x128 depth-2 frame through the kernels against the
+    plain versions, and replayed from its captured program against the
+    eager frame (bit for bit, two frame indices); its 512x512 frame's
+    launches against the table (any ordering but the entry sort launches
+    no key kernel, unfused shadows two any-hits a bounce); then ms/frame
+    of the timed options over 5 eager frames after a warm-up in two
+    rounds of opposite order, and over 10 replayed frames in four, and
+    one profiled eager frame each: device busy ms and the port's
+    kernels' sum (a replay runs the same kernels)."""
+    import torch
+
+    from pnraytracing_tpu_torch.render.renderer import (
+        render_frame as replayed_frame,
+    )
+
+    parity, replay, launches = {}, {}, {}
     for name, kw in OPTIONS.items():
+        cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                            max_depth=PARITY_DEPTH, **kw)
         if kw:  # the default's parity is phase 5
-            parity[name] = frame_parity(render_frame, scene, camera,
-                                        RenderConfig(width=PARITY_SIZE,
-                                                     height=PARITY_SIZE,
-                                                     max_depth=DEPTH, **kw),
+            parity[name] = frame_parity(render_frame, scene, camera, cfgp,
                                         dev, modules)
+        replay[name] = replay_parity(scene, camera, cfgp, dev)
         cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH, **kw)
         img, got = frame_launches(render_frame, scene, camera, cfg, dev,
                                   tables, counts)
@@ -752,20 +994,27 @@ def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
         check_image(name, img, cfg)
         launches[name] = {k: v for k, v in got.items() if v}
     emit({"phase": "options_parity", "parity_128": parity,
-          "launches_per_frame": launches})
+          "replay_128": replay, "launches_per_frame": launches})
 
     cfgs = {n: RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH,
                             **OPTIONS[n]) for n in TIMED_OPTIONS}
     ms = {n: [] for n in TIMED_OPTIONS}
-    for order in (TIMED_OPTIONS, TIMED_OPTIONS[::-1]):
-        for n in order:
-            render_frame(scene, camera, cfgs[n], 2, device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for f in range(5):
-                render_frame(scene, camera, cfgs[n], 3 + f, device=dev)
-            torch.cuda.synchronize()
-            ms[n].append((time.perf_counter() - t0) * 1e3 / 5)
+    ms_replayed = {n: [] for n in TIMED_OPTIONS}
+
+    def timed(fn, n, frames):
+        fn(scene, camera, cfgs[n], 2, device=dev)  # (a replay captures)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(frames):
+            fn(scene, camera, cfgs[n], 3 + f, device=dev)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / frames
+
+    for rnd in range(4):  # eager in the first two rounds only
+        for n in (TIMED_OPTIONS if rnd % 2 == 0 else TIMED_OPTIONS[::-1]):
+            if rnd < 2:
+                ms[n].append(timed(render_frame, n, 5))
+            ms_replayed[n].append(timed(replayed_frame, n, 10))
     prof = {}
     for n in TIMED_OPTIONS:
         p = profile_frame(lambda: render_frame(scene, camera, cfgs[n], 12,
@@ -779,7 +1028,9 @@ def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
                                           for v in ours.values()),
                    "port_kernels": ours}
     emit({"phase": "options", "width": WIDTH, "height": HEIGHT,
-          "depth": DEPTH, "ms_per_frame": ms, "profile": prof, "card": smi})
+          "depth": DEPTH, "ms_per_frame": ms,
+          "ms_per_frame_replayed": ms_replayed, "profile": prof,
+          "card": smi})
 
 
 # the untextured catalog: (function of scene/scenes.py, its arguments)
@@ -792,18 +1043,44 @@ CATALOG = {
 }
 
 
+def scene_checks(render_frame, RenderConfig, name, scene, camera, kw, dev,
+                 modules, tables, counts) -> dict:
+    """One catalog scene on the card at ``PARITY_SIZE``, ``PARITY_DEPTH``
+    with the ``RenderConfig`` fields ``kw``: its route, the launches of
+    one frame (closest once a path segment, any-hit once a bounce for a
+    scene with lights or an environment, none without, the key kernel
+    for the sorted bounces), and that frame through the kernels against
+    the plain versions."""
+    from pnraytracing_tpu_torch.accel.route import traversal_route
+
+    cfg = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                       max_depth=PARITY_DEPTH, **kw)
+    route = traversal_route(scene.trav, cfg.kernel_interaction)
+    img, got = frame_launches(render_frame, scene, camera, cfg, dev,
+                              tables, counts)
+    shadows = scene.lights.count > 0 or scene.env is not None
+    want = dict({k: 0 for k in got},
+                treelet_entry_key=min(cfg.sort_max_bounce, cfg.max_depth),
+                any_hit=cfg.max_depth if shadows else 0)
+    want["closest_hit_attr" if route == "attr" else "closest_hit"] = (
+        1 + cfg.max_depth)
+    if got != want:
+        raise AssertionError(f"{name}: launches per frame {got}, "
+                             f"expected {want}")
+    check_image(name, img, cfg)
+    return {"triangles": int(scene.trav.tri9.shape[0]), "route": route,
+            "launches_per_frame": {k: v for k, v in got.items() if v},
+            "parity_128": frame_parity(render_frame, scene, camera, cfg,
+                                       dev, modules)}
+
+
 def catalog_phase(render_frame, RenderConfig, dev, modules, tables,
                   counts) -> None:
-    """Phase 10: each scene of the untextured catalog built on the card,
-    the launches of one 128x128 depth-4 frame (a scene with lights or an
-    environment launches any_hit once a bounce, one without none), and
-    that frame through the kernels against the plain versions."""
-    from pnraytracing_tpu_torch.accel.route import traversal_route
+    """Phase 12: each scene of the untextured catalog built on the card
+    and checked by :func:`scene_checks`."""
     from pnraytracing_tpu_torch.scene import scenes
 
     out = {}
-    cfg = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
-                       max_depth=DEPTH)
     for name, (fn, kw) in CATALOG.items():
         t0 = time.perf_counter()
         if fn == "config2_teapot":
@@ -811,34 +1088,56 @@ def catalog_phase(render_frame, RenderConfig, dev, modules, tables,
         else:
             builder, cam_state = getattr(scenes, fn)(**kw)
             scene = builder.build(device=dev)
-        camera = cam_state.basis(device=dev)
         build_s = time.perf_counter() - t0
-        route = traversal_route(scene.trav, cfg.kernel_interaction)
-        img, got = frame_launches(render_frame, scene, camera, cfg, dev,
-                                  tables, counts)
-        shadows = scene.lights.count > 0 or scene.env is not None
-        want = dict({k: 0 for k in got}, treelet_entry_key=2,
-                    any_hit=DEPTH if shadows else 0)
-        want["closest_hit_attr" if route == "attr" else "closest_hit"] = (
-            1 + DEPTH)
-        if got != want:
-            raise AssertionError(f"{name}: launches per frame {got}, "
-                                 f"expected {want}")
-        check_image(name, img, cfg)
-        out[name] = {"seconds": build_s,
-                     "triangles": int(scene.trav.tri9.shape[0]),
-                     "light_triangles": int(scene.lights.count),
-                     "env": scene.env is not None, "route": route,
-                     "launches_per_frame": {k: v for k, v in got.items()
-                                            if v},
-                     "parity_128": frame_parity(render_frame, scene, camera,
-                                                cfg, dev, modules)}
+        out[name] = dict(
+            seconds=build_s, light_triangles=int(scene.lights.count),
+            env=scene.env is not None,
+            **scene_checks(render_frame, RenderConfig, name, scene,
+                           cam_state.basis(device=dev), {}, dev, modules,
+                           tables, counts))
     emit({"phase": "catalog", "scenes": out})
+
+
+# the textured configurations: (function of scene/scenes.py, the extra
+# RenderConfig fields of each frame checked)
+TEXTURED = {
+    "config1_triangle": ("config1_triangle", {}),
+    "config4_marry": ("config4_marry", {}),
+    "config4_marry/lod": ("config4_marry", dict(texture_lod_scale=0.0065)),
+}
+
+
+def textures_phase(render_frame, RenderConfig, dev, modules, tables,
+                   counts) -> None:
+    """Phase 13: config1_triangle and config4_marry (its stand-in
+    branch: checkerboard textures), built on the card, checked by
+    :func:`scene_checks` and replayed from the frame's captured program
+    against the eager frame; config 4 also with ``texture_lod_scale``
+    (trilinear over the mip strip)."""
+    from pnraytracing_tpu_torch.scene import scenes
+
+    out, built = {}, {}
+    for name, (fn, kw) in TEXTURED.items():
+        t0 = time.perf_counter()
+        if fn not in built:
+            scene, cam_state = getattr(scenes, fn)(device=dev)
+            built[fn] = (scene, cam_state.basis(device=dev))
+        scene, camera = built[fn]
+        build_s = time.perf_counter() - t0
+        cfg = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                           max_depth=PARITY_DEPTH, **kw)
+        out[name] = dict(
+            seconds=build_s, textures=scene.textures.count,
+            textured_triangles=int((scene.mesh.texture_id >= 0).sum()),
+            **scene_checks(render_frame, RenderConfig, name, scene, camera,
+                           kw, dev, modules, tables, counts),
+            replay_128=replay_parity(scene, camera, cfg, dev))
+    emit({"phase": "textures", "scenes": out})
 
 
 def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                   counts, cfgp) -> list:
-    """Phases 11-13: config5_large through the brick-streaming kernels.
+    """Phases 14-16: config5_large through the brick-streaming kernels.
     Returns their rows of the kernels line and the times of the resident
     wide kernels on config5's rays, by wrapper name."""
     import torch
@@ -1048,6 +1347,10 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "card": smi})
     emit(dict(phase="stream_profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
+    program_phase("config5", scene, camera, cfg, dev,
+                  dict(closest_hit_stream=1 + DEPTH, any_hit_stream=DEPTH,
+                       treelet_entry_key=cfg.sort_max_bounce),
+                  tables, counts, smi)
     return rows, on_config5
 
 
@@ -1064,9 +1367,14 @@ def main() -> int:
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
     from pnraytracing_tpu_torch.core.config import RenderConfig
     from pnraytracing_tpu_torch.ops import compaction
-    from pnraytracing_tpu_torch.render import integrator
-    from pnraytracing_tpu_torch.render.renderer import render_frame
+    from pnraytracing_tpu_torch.render import integrator, renderer
     from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
+
+    # the eager frame (op by op): the phases that count launches per
+    # frame, record kernel inputs or time the eager path; the phases
+    # ``program``, ``session``, ``options`` and ``textures`` replay the
+    # captured frame (render/program.py) too
+    render_frame = functools.partial(renderer.render_frame, eager=True)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1296,11 +1604,15 @@ def main() -> int:
           "card": smi})
     emit(dict(phase="profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
+    program_phase("flagship", scene, camera, cfg, dev, expected, tables,
+                  counts, smi)
+    session_phase(RenderConfig, scene, cam_state, dev, smi)
 
     rows += binary_phase(trv, trav, cont, shadow, primary, launches)
     options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
                   tables, counts, smi)
     catalog_phase(render_frame, RenderConfig, dev, modules, tables, counts)
+    textures_phase(render_frame, RenderConfig, dev, modules, tables, counts)
     stream_rows, on_config5 = stream_phases(render_frame, RenderConfig, dev,
                                             smi, modules, tables, counts,
                                             cfgp)

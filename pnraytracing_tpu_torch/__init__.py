@@ -2,15 +2,62 @@
 
 A second package beside the JAX reference, for an NVIDIA H100: the same
 scene model, sampler stack, Disney BRDF and wavefront integrator written
-with PyTorch tensors, and every Pallas TPU kernel of the ported path
-rewritten by hand in CUDA C++ for Hopper (``csrc/``, built with ``nvcc``
-at first use by ``cuda_build.py``).  Each kernel has a plain PyTorch
-version beside it, which runs when the tensors lie on the CPU.
+with PyTorch tensors, and every Pallas TPU kernel rewritten by hand in
+CUDA C++ for Hopper (``csrc/``, built with ``nvcc`` at first use by
+``cuda_build.py``).  Each kernel has a plain PyTorch version beside it,
+which runs when the tensors lie on the CPU.
 
-This slice covers the flagship forward frame: ``scene.scenes.
-config3_teapot_night`` -> ``render.renderer.render_frame`` ->
-``render.integrator.render_rays``.  ROADMAP.md lists what is still to
-port.  Entry points take ``device=None``, which means the card.
+Ported so far: the forward frame (``render.renderer.render_frame`` ->
+``render.integrator.render_rays``) on the resident and the
+brick-streaming traversal routes, with every ray-ordering and sampling
+option; the frame captured once as a CUDA graph and replayed
+(``render.program``), ``render_average``, the progressive state
+(``AccumState``, ``accum_add``) and the interactive ``RenderSession``;
+textures (``ops.texture``); the scene catalog but the asset-loading
+branches.  ROADMAP.md lists what is still to port.  Entry points take
+``device=None``, which means the card.
 """
 
 __version__ = "0.1.0"
+
+from pnraytracing_tpu_torch.core.camera import CameraState, camera_rays, make_camera
+from pnraytracing_tpu_torch.core.config import RenderConfig
+from pnraytracing_tpu_torch.core.types import (
+    Camera,
+    EnvMap,
+    Lights,
+    Materials,
+    Scene,
+    TextureAtlas,
+    TriangleMesh,
+)
+from pnraytracing_tpu_torch.render.renderer import (
+    AccumState,
+    accum_add,
+    render,
+    render_average,
+    render_frame,
+)
+from pnraytracing_tpu_torch.render.session import RenderSession
+from pnraytracing_tpu_torch.scene.build import SceneBuilder
+
+__all__ = [
+    "RenderConfig",
+    "Camera",
+    "CameraState",
+    "EnvMap",
+    "Lights",
+    "Materials",
+    "Scene",
+    "TextureAtlas",
+    "TriangleMesh",
+    "SceneBuilder",
+    "RenderSession",
+    "AccumState",
+    "accum_add",
+    "make_camera",
+    "camera_rays",
+    "render",
+    "render_frame",
+    "render_average",
+]

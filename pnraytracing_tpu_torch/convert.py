@@ -25,11 +25,12 @@ from pnraytracing_tpu_torch.core.types import (
     Lights,
     Materials,
     Scene,
+    TextureAtlas,
     TriangleMesh,
 )
 
 _GROUPS = {"mesh": TriangleMesh, "materials": Materials, "bvh": BVH,
-           "lights": Lights, "env": EnvMap}
+           "lights": Lights, "env": EnvMap, "textures": TextureAtlas}
 _TRAV_FIELDS = ("tri9", "nodes8", "nodes16c", "tri_attr16", "treelets")
 _STREAM_ARRAYS = ("top16", "bricks")
 _STREAM_INTS = ("brick_words", "n_bricks", "n_top_rows", "brick_stack",
@@ -44,9 +45,6 @@ def _np(x) -> np.ndarray:
 
 def scene_to_arrays(scene) -> dict[str, np.ndarray]:
     """Flatten ``scene`` into numpy leaves named ``group.field``."""
-    if getattr(scene, "textures", None) is not None:
-        raise NotImplementedError(
-            "scenes with textures need the texture slice of the port")
     out = {}
     for group, cls in _GROUPS.items():
         obj = getattr(scene, group)

@@ -7,6 +7,7 @@ PyTorch counterpart of ``pnraytracing_tpu/core/camera.py``
 from __future__ import annotations
 
 import dataclasses
+import math as pymath
 
 import numpy as np
 import torch
@@ -23,7 +24,9 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class CameraState:
-    """Host-side camera rig (eye/center/up/fov, camera.hpp:64-76)."""
+    """Host-side camera rig (eye/center/up/fov, camera.hpp:64-76) and its
+    interaction ops (camera.hpp:33-62), in the JAX package's float64 host
+    arithmetic."""
 
     eye: np.ndarray
     center: np.ndarray
@@ -34,6 +37,42 @@ class CameraState:
     def basis(self, device=None) -> Camera:
         return make_camera(self.eye, self.center, self.up, self.fov_deg,
                            self.aspect, device=device)
+
+    def orbit(self, phi_deg: float, theta_deg: float) -> None:
+        """Orbit eye around center (camera.hpp:33-44)."""
+        w, u, v = _wuv(self.eye, self.center, self.up)
+        phi = pymath.radians(phi_deg * 0.6)
+        theta = pymath.radians(theta_deg * 0.6)
+        nv = (w * pymath.cos(phi) * pymath.cos(theta)
+              + u * pymath.sin(phi) * pymath.cos(theta)
+              + v * pymath.sin(theta))
+        if abs(float(np.dot(self.up, nv))) > 0.9995:
+            return
+        dist = float(np.linalg.norm(self.eye - self.center))
+        self.eye = self.center + nv * dist
+
+    def pan(self, dx: float, dy: float) -> None:
+        """Translate eye and center in the view plane (camera.hpp:46-54)."""
+        _, u, v = _wuv(self.eye, self.center, self.up)
+        delta = 0.05 * (dx * u + dy * v)
+        self.eye = self.eye + delta
+        self.center = self.center + delta
+
+    def zoom_fov(self, delta_deg: float) -> None:
+        """Fov zoom with the reference's (1, 89) degree clamp
+        (camera.hpp:56-62)."""
+        nfov = self.fov_deg + delta_deg
+        if 1.0 < nfov < 89.0:
+            self.fov_deg = nfov
+
+
+def _wuv(eye, center, up):
+    w = np.asarray(eye, np.float64) - np.asarray(center, np.float64)
+    w = w / np.linalg.norm(w)
+    u = np.cross(np.asarray(up, np.float64), w)
+    u = u / np.linalg.norm(u)
+    v = np.cross(w, u)
+    return w, u, v
 
 
 def _normalize_rows(a: torch.Tensor) -> torch.Tensor:

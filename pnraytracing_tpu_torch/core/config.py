@@ -9,10 +9,10 @@ versions on CPU tensors.  ``trav_tile``, ``trav_chunk``,
 ``trav_leaf_buffer`` and ``max_leaf_size`` are absent for the same
 reason: they tune the JAX package's XLA walks (the packet tile, the
 chunked while loop, the 4-wide leaf buffer) and the leaf size those
-walks assume, which the kernels do not read.  Fields whose non-default
-values belong to later slices of the port (``compat_pnrt``,
-``texture_lod_scale``) are kept so that a config that asks for them
-fails loudly instead of rendering something else.
+walks assume, which the kernels do not read.  ``compat_pnrt``, whose
+non-default value belongs to a later slice of the port, is kept so that
+a config that asks for it fails loudly instead of rendering something
+else.
 """
 
 from __future__ import annotations
@@ -84,7 +84,10 @@ class RenderConfig:
     # rows fit the resident budget (accel/route.py).
     kernel_interaction: bool = True
 
-    # Trilinear texture LOD: textures are a later slice.
+    # Trilinear texture LOD (the reference's mipmapped samplers,
+    # main.cpp:541-546); None fetches LOD 0 as the reference's compute
+    # shader does.  Set to the camera's pixel angle (2*tan(fov/2)/height)
+    # to enable: per-ray lod = log2(path_distance * scale * texture_size).
     texture_lod_scale: float | None = None
 
     def __post_init__(self):
@@ -106,10 +109,6 @@ class RenderConfig:
             raise NotImplementedError(
                 "compat_pnrt=True (reference-quirk mode) is not ported yet; "
                 "it is the compat slice of the port (ROADMAP.md)")
-        if self.texture_lod_scale is not None:
-            raise NotImplementedError(
-                "texture_lod_scale needs the texture slice of the port "
-                "(ROADMAP.md), which is not ported yet")
 
     @property
     def num_pixels(self) -> int:

@@ -186,6 +186,24 @@ class EnvMap(_Movable):
 
 
 @dataclasses.dataclass
+class TextureAtlas(_Movable):
+    """Stacked 2-D base-color textures (main.cpp:527-554), padded to a
+    common size: ``data`` [K, H, W, 3] f32 in [0, 1], ``sizes`` [K, 2]
+    i32 (width, height) of each, and the optional box-filtered mip strip
+    ``mips`` [K, H, W, 3] (level l of texture k at rows
+    [h - (h >> (l-1)), h - (h >> l)), width w >> l;
+    ops/texture.py::build_atlas)."""
+
+    data: torch.Tensor
+    sizes: torch.Tensor
+    mips: Optional[torch.Tensor] = None
+
+    @property
+    def count(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclasses.dataclass
 class Camera(_Movable):
     """Pinhole ray-gen basis (camera.hpp:11-31)."""
 
@@ -194,10 +212,18 @@ class Camera(_Movable):
     horizontal: torch.Tensor  # [3]
     vertical: torch.Tensor  # [3]
 
+    def copy_(self, other: "Camera") -> "Camera":
+        """Copy ``other``'s basis into these tensors in place (a captured
+        frame's camera buffers, render/program.py)."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+        return self
+
 
 @dataclasses.dataclass
 class Scene(_Movable):
-    """Everything the integrator reads.  ``trav`` is the traversal layout
+    """Everything the integrator reads.  ``textures`` is the base-color
+    atlas (None: no textured model); ``trav`` is the traversal layout
     (accel/layout.py::TravData); ``env_constant`` is the constant-radiance
     environment used when there is no HDR map; ``bvh_depth`` is the BVH's
     max node depth, checked against ``RenderConfig.stack_depth`` before
@@ -208,6 +234,7 @@ class Scene(_Movable):
     bvh: BVH
     lights: Lights
     env: Optional[EnvMap] = None
+    textures: Optional[TextureAtlas] = None
     trav: Optional["object"] = None
     env_constant: Optional[torch.Tensor] = None  # [3]
     bvh_depth: Optional[int] = None

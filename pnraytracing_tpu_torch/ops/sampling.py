@@ -10,6 +10,13 @@ sampling.
 has no working shift on uint32 on every backend, and every product below
 stays under 2^63 before the mask.  Floats are made from the unsigned
 value, exactly as the JAX package converts its uint32.
+
+The frame counter is a Python int or a 0-d integer tensor, either taken
+modulo 2^32 (the JAX package's ``jnp.asarray(frame, jnp.uint32)``).  The
+tensor form keeps every use of the frame on the device, so a captured
+frame (``render/program.py``) reads the counter of each replay: the
+Sobol pair of :func:`sobol_vec2` is then computed on the device, bit for
+bit the value the int form computes on the host.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from pnraytracing_tpu_torch.core.math import safe_sqrt
 
 M32 = 0xFFFFFFFF
 _INV_2_32 = 1.0 / 4294967296.0
+_INV_U32 = float(np.float32(1.0 / 0xFFFFFFFF))  # the Sobol scale, an f32
 
 
 def wang_hash(seed: torch.Tensor) -> torch.Tensor:
@@ -46,10 +54,19 @@ def rand01(seed: torch.Tensor):
     return seed, u32_to_unit(seed)
 
 
-def pixel_seed(x: torch.Tensor, y: torch.Tensor, frame: int) -> torch.Tensor:
+def frame_word(frame):
+    """The frame counter modulo 2^32: an int stays an int, an integer
+    tensor becomes a 0-d int64 tensor on its device."""
+    if isinstance(frame, torch.Tensor):
+        return frame.reshape(()).to(torch.int64) & M32
+    return int(frame) & M32
+
+
+def pixel_seed(x: torch.Tensor, y: torch.Tensor, frame) -> torch.Tensor:
     """Per-pixel stream seed (comp:977-979):
-    (x*1973 + y*9277 + frame*26699) | 1, mod 2^32."""
-    s = x * 1973 + y * 9277 + (int(frame) & M32) * 26699
+    (x*1973 + y*9277 + frame*26699) | 1, mod 2^32; ``frame`` an int or a
+    0-d tensor (:func:`frame_word`)."""
+    s = x * 1973 + y * 9277 + frame_word(frame) * 26699
     return (s & M32) | 1
 
 
@@ -101,24 +118,46 @@ def sobol_u32(d: int, i: int) -> int:
 
 def sobol_float(d: int, i: int) -> float:
     """f32(u32) * f32(1/0xFFFFFFFF), as a Python float holding that f32."""
-    return float(np.float32(sobol_u32(d, i))
-                 * np.float32(1.0 / 0xFFFFFFFF))
+    return float(np.float32(sobol_u32(d, i)) * np.float32(_INV_U32))
 
 
-def sobol_vec2(frame: int, bounce: int) -> tuple[float, float]:
+@functools.lru_cache(maxsize=8)
+def _sobol_device_table(device: torch.device):
+    """(the direction numbers [SOBOL_DIMS, 32] as int64, the bit shifts
+    0..31 [32]) on ``device``, made once: the first frame on a device
+    makes them, so a captured frame copies nothing from the host."""
+    table = torch.as_tensor(sobol_direction_table().astype(np.int64),
+                            device=device)
+    return table, torch.arange(SOBOL_BITS, dtype=torch.int64, device=device)
+
+
+def sobol_vec2(frame, bounce: int):
     """The (u, v) pair of bounce b for frame i (comp:533-537): dimensions
     (2b, 2b+1) mod 8 at the gray-coded index.  One pair per frame, shared
-    by every pixel (the per-pixel shift comes from the rotation)."""
-    i = int(frame) & M32
+    by every pixel (the per-pixel shift comes from the rotation).  An int
+    ``frame`` gives two Python floats (each holding an f32); a 0-d tensor
+    gives two 0-d float32 tensors of the same values, computed on its
+    device: the XOR of the direction numbers at the index's set bits,
+    each output bit the parity of its column."""
+    d0 = (2 * bounce) % SOBOL_DIMS  # even, so d0 + 1 is the second one
+    i = frame_word(frame)
     g = i ^ (i >> 1)
-    return (sobol_float((2 * bounce) % SOBOL_DIMS, g),
-            sobol_float((2 * bounce + 1) % SOBOL_DIMS, g))
+    if not isinstance(g, torch.Tensor):
+        return sobol_float(d0, g), sobol_float(d0 + 1, g)
+    table, shifts = _sobol_device_table(g.device)
+    terms = table[d0:d0 + 2] * ((g >> shifts) & 1)  # [2, 32]
+    parity = ((terms[:, :, None] >> shifts) & 1).sum(dim=1) & 1
+    word = (parity << shifts).sum(dim=1)  # [2]
+    uv = word.to(torch.float32) * _INV_U32
+    return uv[0], uv[1]
 
 
 def cranley_patterson_rotation_c(su, sv, px: torch.Tensor, py: torch.Tensor,
                                  width: int, height: int, salt: int = 0):
     """Per-pixel toroidal shift of the sample (su, sv) (comp:539-557),
     with the reference's ``x*W*1973 + y*H*9277 + 59*26699`` seed mix.
+    ``su``, ``sv``: Python floats or 0-d float32 tensors (the two forms
+    of :func:`sobol_vec2`), added in float32 either way.
     ``salt`` (the integrator passes 2*bounce // SOBOL_DIMS) gives each
     reuse of the 8-dim table past depth 4 a fresh shift; 0 keeps the
     reference's bits."""

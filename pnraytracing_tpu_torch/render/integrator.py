@@ -23,7 +23,15 @@ prologue when ``compact_rays`` is on and scans the rest unsorted
 (``render/integrator.py:979-1021`` there): exactly the unrolled loop's
 permutations, and so its images.
 
-RNG words are int64 tensors holding uint32 values (ops/sampling.py).
+A textured scene (``scene.textures``) carries each path's uv and
+texture id through the loop (and through the sort's pack, as the JAX
+package's ``uvtex`` columns, with the path length for
+``texture_lod_scale``) and overrides the material's base color by the
+texture fetch of ``ops/texture.py`` before the bounce's draws.
+
+RNG words are int64 tensors holding uint32 values (ops/sampling.py); the
+frame counter is an int or a 0-d tensor (``frame_word``), so the whole
+frame can run inside a captured CUDA graph (``render/program.py``).
 The traversal route is the JAX package's (``accel/route.py::
 traversal_route``): the resident kernels of ``accel/traverse_cuda.py``
 (with the interaction fill from the kernel when ``kernel_interaction`` is
@@ -82,6 +90,7 @@ from pnraytracing_tpu_torch.ops.intersect import Hit, intersect_triangle_c
 from pnraytracing_tpu_torch.ops.sampling import (
     SOBOL_DIMS,
     cranley_patterson_rotation_c,
+    frame_word,
     pick_light,
     pixel_seed,
     rand01,
@@ -89,6 +98,10 @@ from pnraytracing_tpu_torch.ops.sampling import (
     sobol_vec2,
     u32_to_unit,
     wang_hash,
+)
+from pnraytracing_tpu_torch.ops.texture import (
+    fetch_base_color,
+    fetch_base_color_trilinear,
 )
 
 _EPS = 1e-10
@@ -177,14 +190,16 @@ def _comps(a: torch.Tensor) -> V3:
 
 
 def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                px: torch.Tensor, py: torch.Tensor, frame: int,
+                px: torch.Tensor, py: torch.Tensor, frame,
                 cfg: RenderConfig) -> torch.Tensor:
     """[R, 3] radiance for one sample of a batch of primary rays.
 
     o, d: [R, 3] primary rays; px, py: [R] int64 pixel coordinates in the
     reference's GL convention (x = column, y = row from the bottom), which
     seed the RNG streams (comp:977-979) and the Cranley-Patterson
-    rotation; frame: the frame counter."""
+    rotation; frame: the frame counter, an int or a 0-d integer tensor on
+    the rays' device (both modulo 2^32).  Nothing here reads a device
+    value on the host."""
     if scene.trav is None:
         raise ValueError("the scene has no traversal layout (TravData)")
     if scene.bvh_depth is not None and cfg.stack_depth < scene.bvh_depth:
@@ -197,6 +212,10 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                                      scene.lights)
     has_env = scene.env is not None
     has_lights = lights.count > 0
+    textures = scene.textures
+    has_tex = textures is not None
+    lod_on = has_tex and cfg.texture_lod_scale is not None
+    frame = frame_word(frame)
     dev = o.device
     r = o.shape[0]
     sd = cfg.stack_depth
@@ -215,19 +234,20 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                           if route == "stream" else (closest_hit, any_hit))
 
     def closest_inter(o_: V3, d_: V3, tm_, mask_=None):
-        """Closest hit + interaction fill: from the attribute kernel
-        (only the backface flip, normalize and hit position remain here)
-        or from the route's closest kernel + make_interaction."""
+        """Closest hit + interaction fill (hit, pos, nrm, (u, v), mat id,
+        tex id): from the attribute kernel (only the backface flip,
+        normalize and hit position remain here) or from the route's
+        closest kernel + make_interaction."""
         if route == "attr":
-            hit_, (nx, ny, nz, _u, _v, mt) = closest_hit_attr(
+            hit_, (nx, ny, nz, u_, v_, mt) = closest_hit_attr(
                 trav, o_, d_, tm_, mask_, stack_depth=sd)
             nrm_raw = V3(nx, ny, nz)
             nrm_ = vnormalize(vwhere(vdot(nrm_raw, d_) > 0, -nrm_raw,
                                      nrm_raw))
-            return hit_, o_ + d_ * hit_.t, nrm_, mt // ATTR_TEX_BASE
+            return (hit_, o_ + d_ * hit_.t, nrm_, (u_, v_),
+                    mt // ATTR_TEX_BASE, mt % ATTR_TEX_BASE - 1)
         hit_ = closest_fn(trav, o_, d_, tm_, mask_, stack_depth=sd)
-        pos_, nrm_, _, mat_, _ = make_interaction(hit_, d_, o_, irows)
-        return hit_, pos_, nrm_, mat_
+        return (hit_,) + make_interaction(hit_, d_, o_, irows)
 
     def env_radiance(dirs: V3) -> V3:
         if has_env:
@@ -242,8 +262,11 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         return x
 
     # ---- primary hit (comp:983) -------------------------------------------
-    hit, pos, nrm, mat_id = closest_inter(o_v, d_v, t_max0)
+    hit, pos, nrm, (u_uv, v_uv), mat_id, tex_id = closest_inter(
+        o_v, d_v, t_max0)
     primary_hit = hit.valid
+    if lod_on:  # path length, the ray cone's footprint
+        path_t = torch.where(primary_hit, hit.t, 0.0)
     miss_color = env_radiance(d_v)
     primary_emissive = _emissive_of(materials, mat_id)
 
@@ -258,6 +281,19 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     # ---- path loop (comp:861-972) -----------------------------------------
     for bounce in range(cfg.max_depth):
         mat, cdlin, _ = mat_tbl.gather_components(mat_id)
+        if has_tex:  # the texture overrides the base color (comp:870-872)
+            uv2 = torch.stack([u_uv, v_uv], dim=-1)
+            if lod_on and textures.mips is not None:
+                whs = textures.sizes[torch.clamp_min(tex_id, 0).long()].to(
+                    torch.float32)
+                texdim = torch.maximum(whs[:, 0], whs[:, 1])
+                lod = torch.log2(torch.clamp_min(
+                    path_t * cfg.texture_lod_scale * texdim, 1.0))
+                cdlin = V3.of(fetch_base_color_trilinear(
+                    textures, tex_id, uv2, cdlin.rows(), lod))
+            else:
+                cdlin = V3.of(fetch_base_color(textures, tex_id, uv2,
+                                               cdlin.rows()))
         t_tan, b_tan = build_tangent_space_v(nrm)
 
         # phase 1a: NEE area-light draws (comp:878-909)
@@ -338,8 +374,12 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                                           key_fn(nrm, pos, lo_b, inv_ext))
             f32 = lambda a: a.to(torch.float32)
             v3s = lambda v: [v.x, v.y, v.z]
-            cols = ([f32(active)] + v3s(pos) + v3s(nrm) + [f32(mat_id)]
-                    + v3s(c) + v3s(lo)
+            cols = [f32(active)] + v3s(pos) + v3s(nrm) + [f32(mat_id)]
+            if has_tex:
+                cols += [u_uv, v_uv, f32(tex_id)]
+                if lod_on:
+                    cols += [path_t]
+            cols += (v3s(c) + v3s(lo)
                     + [f32(seed & 0xFFFF), f32(seed >> 16)]
                     + [f32(orig), f32(px_l), f32(py_l)]
                     + v3s(l_out) + v3s(weight) + [d_pdf])
@@ -357,6 +397,10 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             active = nxt() > 0.5
             pos, nrm = v3n(), v3n()
             mat_id = nxt().to(torch.int32)
+            if has_tex:
+                u_uv, v_uv, tex_id = nxt(), nxt(), nxt().to(torch.int32)
+                if lod_on:
+                    path_t = nxt()
             c, lo = v3n(), v3n()
             seed = nxt().to(torch.int64) | (nxt().to(torch.int64) << 16)
             orig, px_l, py_l = (nxt().to(torch.int64), nxt().to(torch.int64),
@@ -425,8 +469,8 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         lo = lo + clamp_contrib(vwhere(active, c * nee, zero_v))
 
         # continue the path (comp:950-969)
-        hit2, pos2, nrm2, mat_id2 = closest_inter(pos + nrm * 1e-4, l_out,
-                                                  t_max0, active)
+        hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = closest_inter(
+            pos + nrm * 1e-4, l_out, t_max0, active)
         miss_now = active & ~hit2.valid
         if cfg.mis == "balanced" and has_env:
             p_e_out = envmap_pdf_v(scene.env, l_out)
@@ -459,6 +503,12 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         pos = vwhere(hit_now, pos2, pos)
         nrm = vwhere(hit_now, nrm2, nrm)
         mat_id = torch.where(hit_now, mat_id2, mat_id)
+        if has_tex:
+            u_uv = torch.where(hit_now, u_uv2, u_uv)
+            v_uv = torch.where(hit_now, v_uv2, v_uv)
+            tex_id = torch.where(hit_now, tex_id2, tex_id)
+            if lod_on:
+                path_t = torch.where(hit_now, path_t + hit2.t, path_t)
         active = hit_now
 
         # Russian roulette (not in the reference), from rr_start on

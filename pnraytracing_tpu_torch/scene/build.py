@@ -42,6 +42,7 @@ from pnraytracing_tpu_torch.core.types import (
     TriangleMesh,
 )
 from pnraytracing_tpu_torch.ops.envmap import build_envmap
+from pnraytracing_tpu_torch.ops.texture import build_atlas
 
 
 @dataclasses.dataclass
@@ -50,6 +51,8 @@ class ModelEntry:
     mesh: dict  # positions/normals/uvs/indices (numpy)
     material: dict
     transform: Optional[np.ndarray]  # 4x4 or None
+    texture: Optional[np.ndarray] = None  # [h, w, 3] base color
+    texture_key: Optional[str] = None  # models sharing a key share it
 
 
 class SceneBuilder:
@@ -60,37 +63,48 @@ class SceneBuilder:
 
     def add(self, mesh: dict, material: dict, name: str | None = None,
             transform: np.ndarray | None = None,
-            texture: np.ndarray | None = None) -> "SceneBuilder":
+            texture: np.ndarray | None = None,
+            texture_key: str | None = None) -> "SceneBuilder":
         """Register a model (``Model(path, modelMatrix, material, name)``,
-        model.hpp:22)."""
-        if texture is not None:
-            raise NotImplementedError(
-                "textured models need the texture slice of the port "
-                "(ops/texture.py, ROADMAP.md), which is not ported yet")
+        model.hpp:22), optionally with a base-color ``texture``; models
+        with the same ``texture_key`` (default: the model's name) share
+        one texture of the atlas."""
         self.entries.append(ModelEntry(
             name=name or f"model{len(self.entries)}",
             mesh=mesh,
             material=dict(material),
             transform=(None if transform is None
                        else np.asarray(transform, np.float64)),
+            texture=texture,
+            texture_key=texture_key or (name if texture is not None
+                                        else None),
         ))
         return self
 
     def build(self, max_leaf_size: int = 4,
               env_image: np.ndarray | None = None, env_constant=None,
               device=None) -> Scene:
-        """Flatten, build the BVH, light list, environment tables and
-        traversal layout; the result lives on ``device`` (None = cuda).
+        """Flatten, build the BVH, light list, environment tables, texture
+        atlas and traversal layout; the result lives on ``device`` (None =
+        cuda).
         A scene too large for the resident route (accel/route.py) also
         gets the brick-streaming layout (accel/bricks.py)."""
         dev = resolve_device(device)
         positions, normals, uvs = [], [], []
-        indices, mat_ids = [], []
+        indices, mat_ids, tex_ids = [], [], []
         materials: list[dict] = []
+        textures: list[np.ndarray] = []
+        tex_key_to_id: dict[str, int] = {}
         v_off = 0
         for e in self.entries:
             mat_id = len(materials)
             materials.append(e.material)
+            tex_id = -1
+            if e.texture is not None:
+                if e.texture_key not in tex_key_to_id:
+                    tex_key_to_id[e.texture_key] = len(textures)
+                    textures.append(np.asarray(e.texture, np.float32))
+                tex_id = tex_key_to_id[e.texture_key]
             pos = np.asarray(e.mesh["positions"], np.float64)
             nrm = np.asarray(e.mesh["normals"], np.float64)
             tuv = np.asarray(e.mesh["uvs"], np.float32)
@@ -110,6 +124,7 @@ class SceneBuilder:
             uvs.append(tuv)
             indices.append(idx + v_off)
             mat_ids.append(np.full(len(idx), mat_id, np.int32))
+            tex_ids.append(np.full(len(idx), tex_id, np.int32))
             v_off += len(pos)
 
         positions = np.concatenate(positions)
@@ -117,7 +132,7 @@ class SceneBuilder:
         uvs = np.concatenate(uvs)
         indices = np.concatenate(indices).astype(np.int32)
         mat_ids = np.concatenate(mat_ids)
-        tex_ids = np.full(len(indices), -1, np.int32)
+        tex_ids = np.concatenate(tex_ids)
 
         # triangle areas (model.hpp:128)
         p = positions[indices].astype(np.float64)
@@ -191,6 +206,7 @@ class SceneBuilder:
             lights=lights,
             env=(build_envmap(env_image, device=dev)
                  if env_image is not None else None),
+            textures=build_atlas(textures, device=dev),
             trav=trav,
             env_constant=(t(env_constant, np.float32)
                           if env_constant is not None else None),

@@ -1,13 +1,15 @@
-"""Scene catalog: the configurations the port renders so far.
+"""Scene catalog.
 
-PyTorch counterpart of the untextured scenes of
-``pnraytracing_tpu/scene/scenes.py``: the reference's hardcoded scenes
-``cornell_box``, ``scene_flat`` and ``teapot_scene`` (each returns its
-:class:`SceneBuilder` unbuilt, with the camera state, as the JAX package
-does), and ``config2_teapot``, ``config3_teapot_night`` and
-``config5_large`` (built on ``device``), with ``night_hdr`` and
-``_camera``.  The textured configurations 1 and 4 wait for the texture
-slice.
+PyTorch counterpart of ``pnraytracing_tpu/scene/scenes.py``: the
+reference's hardcoded scenes ``cornell_box``, ``scene_flat`` and
+``teapot_scene`` (each returns its :class:`SceneBuilder` unbuilt, with
+the camera state, as the JAX package does), and the benchmark
+configurations ``config1_triangle``, ``config2_teapot``,
+``config3_teapot_night``, ``config4_marry`` and ``config5_large`` (built
+on ``device``), with ``checkerboard``, ``night_hdr`` and ``_camera``.
+``config4_marry`` is the JAX package's stand-in branch (checkerboard
+textures on procedural geometry); its branches that load marry's OBJ or
+MTL wait for the port of the asset loaders.
 """
 
 from __future__ import annotations
@@ -21,6 +23,16 @@ from pnraytracing_tpu_torch.io.hdr import procedural_sky, read_hdr
 from pnraytracing_tpu_torch.scene import shapes
 from pnraytracing_tpu_torch.scene.build import SceneBuilder
 from pnraytracing_tpu_torch.scene.transform import compose, rotate, scale, translate
+
+
+def checkerboard(n: int = 256, squares: int = 8, c0=(0.9, 0.9, 0.9),
+                 c1=(0.2, 0.25, 0.35)):
+    """Procedural [n, n, 3] texture used where the reference's image
+    assets are missing."""
+    ij = np.indices((n, n)) // (n // squares)
+    mask = (ij[0] + ij[1]) % 2
+    tex = np.where(mask[..., None] == 0, np.asarray(c0), np.asarray(c1))
+    return tex.astype(np.float32)
 
 
 def night_hdr(height: int = 256, hdr_path: str | None = None):
@@ -136,6 +148,17 @@ def teapot_scene(aspect: float = 1.0):
     return b, _camera((0, 5, 5), (0, 0, 0), 45.0, aspect)
 
 
+def config1_triangle(device=None):
+    """Config 1: a single textured triangle + constant environment light
+    (64x64, 1 bounce in BASELINE.md).  Returns (scene on ``device``,
+    camera state)."""
+    b = SceneBuilder()
+    b.add(shapes.triangle(), dict(base_color=(0.8, 0.4, 0.3), roughness=0.6),
+          name="tri", texture=checkerboard(64, 4))
+    scene = b.build(env_constant=(0.7, 0.8, 0.9), device=device)
+    return scene, _camera((0, 0, 3), (0, 0, 0), 45.0)
+
+
 def config2_teapot(flat_bvh: bool = False, device=None):
     """Config 2: teapot (~6k triangles) + floor, diffuse materials, an
     area light and a constant environment.  Returns (scene on ``device``,
@@ -179,6 +202,30 @@ def config3_teapot_night(env_height: int = 256, max_leaf_size: int = 4,
     scene = b.build(env_image=night_hdr(env_height, hdr_path),
                     max_leaf_size=max_leaf_size, device=device)
     return scene, _camera((0, 5, 5), (0, 0.8, 0), 45.0)
+
+
+def config4_marry(aspect: float = 1.0, device=None):
+    """Config 4: multi-mesh textured scene (the marry class): a textured
+    stand-in figure, a metallic sphere, a textured floor and a lamp under
+    a procedural sky.  The JAX package's stand-in branch, which it takes
+    when marry's OBJ and MTL are absent.  Returns (scene on ``device``,
+    camera state)."""
+    b = SceneBuilder()
+    b.add(shapes.teapot(), dict(base_color=(0.8, 0.8, 0.8), roughness=0.55),
+          name="marry_standin",
+          transform=compose(translate(0.1, 0, -0.5), scale(0.35)),
+          texture=checkerboard(128, 16, (0.85, 0.6, 0.55), (0.4, 0.2, 0.2)))
+    b.add(shapes.icosphere(4),
+          dict(base_color=(0.9, 0.9, 0.9), metallic=0.8, roughness=0.15),
+          name="sphere",
+          transform=compose(translate(-1.4, 0.5, 0.3), scale(0.5)))
+    b.add(shapes.quad(), dict(base_color=(0.73, 0.73, 0.73), roughness=0.8),
+          name="floor", transform=scale(0.1), texture=checkerboard(256, 16))
+    b.add(shapes.quad(half=1.0), dict(emissive=(25.0, 24.0, 22.0)),
+          name="lamp",
+          transform=compose(translate(2, 4, 2), rotate(180, (0, 0, 1))))
+    scene = b.build(env_image=procedural_sky(128, 256), device=device)
+    return scene, _camera((0, 1.6, 3.2), (0, 0.9, 0), 45.0, aspect)
 
 
 def config5_large(subdiv: int = 6, device=None):

@@ -6,7 +6,8 @@ false (decided inside the fixture, never at import).  On the card:
 Bounds: the kernels are built with --fmad=false and repeat their plain
 versions op for op, so hits, barycentrics, attributes, occlusion,
 keys and the walk stats are equal; a triangle id may differ only on an
-exact-t tie.
+exact-t tie.  A frame replayed from its captured CUDA graph
+(render/program.py) equals the eager frame bit for bit.
 """
 
 import dataclasses
@@ -194,7 +195,7 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
     for counts in (trv.LAUNCHES, compaction.LAUNCHES):
         for k in counts:
             counts[k] = 0
-    img = render_frame(scene, cam, cfg, 0)
+    img = render_frame(scene, cam, cfg, 0, eager=True)
     assert trv.LAUNCHES == {"closest_hit_attr": 4, "any_hit": 3,
                             "closest_hit": 0, "closest_hit_binary": 0,
                             "any_hit_binary": 0}
@@ -205,7 +206,7 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
     monkeypatch.setattr(integrator, "entry_key",
                         lambda o, d, treelets, tree:
                         compaction.treelet_entry_key(o, d, treelets))
-    want = render_frame(scene, cam, cfg, 0)
+    want = render_frame(scene, cam, cfg, 0, eager=True)
     off = (img - want).abs().amax(dim=-1) > 3e-5
     assert int(off.sum()) <= 1
 
@@ -427,7 +428,8 @@ def config5_shadow():
     rec = Recorder(integrator, trv, trs, compaction)
     try:
         render_frame(scene, cam.basis(device="cuda"),
-                     RenderConfig(width=128, height=128, max_depth=1), 0)
+                     RenderConfig(width=128, height=128, max_depth=1), 0,
+                     eager=True)
     finally:
         rec.restore()
     _, o, d, t_max, mask = rec.by_name()["any_hit_stream"][0]
@@ -498,3 +500,164 @@ def test_walks_on_non_finite_rays(flagship, stream_scene, walk):
             for a, b in zip(got[1], want[1]):
                 assert torch.equal(a, b)
     assert bool((st[0][~bad] > 0).any())  # the other lanes do walk
+
+
+# ---- the frame as one captured program (render/program.py) -------------
+
+@pytest.fixture(scope="module")
+def streamed():
+    """config5_large(5) on the card (25,604 triangles, still over the
+    resident budget: the stream route)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.scene.scenes import config5_large
+
+    scene, cam = config5_large(5, device="cuda")
+    return scene, cam.basis(device="cuda")
+
+
+@pytest.fixture(scope="module")
+def textured():
+    """config1_triangle and config4_marry on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.scene import scenes
+
+    out = {}
+    for name in ("config1_triangle", "config4_marry"):
+        scene, cam = getattr(scenes, name)(device="cuda")
+        out[name] = (scene, cam.basis(device="cuda"))
+    return out
+
+
+_SMALL = dict(width=64, height=64, max_depth=3)
+
+
+def _program_case(case, flagship, streamed, textured):
+    if case == "flagship":
+        return flagship, RenderConfig(**_SMALL)
+    if case == "config5":
+        return streamed, RenderConfig(**_SMALL)
+    if case == "config4_lod":
+        return textured["config4_marry"], RenderConfig(
+            texture_lod_scale=0.01, **_SMALL)
+    return textured[case], RenderConfig(**_SMALL)
+
+
+@pytest.mark.parametrize("case", ["flagship", "config5", "config1_triangle",
+                                  "config4_marry", "config4_lod"])
+def test_replay_equals_eager(flagship, streamed, textured, case):
+    """Frames f and f + 1 replayed from one captured program: each equals
+    the eager frame of its index bit for bit, and the two differ."""
+    from pnraytracing_tpu_torch.render.program import FrameProgram
+
+    (scene, cam), cfg = _program_case(case, flagship, streamed, textured)
+    prog = FrameProgram(scene, cfg)
+    a = prog.replay(cam, 7).clone()
+    b = prog.replay(cam, 8).clone()
+    torch.cuda.synchronize()
+    assert torch.equal(a, render_frame(scene, cam, cfg, 7, eager=True))
+    assert torch.equal(b, render_frame(scene, cam, cfg, 8, eager=True))
+    assert not torch.equal(a, b)
+    assert torch.equal(render_frame(scene, cam, cfg, 7), a)  # the cache
+
+
+def test_launches_count_at_capture(flagship, streamed):
+    """The launch counters count a captured frame's kernels once, at
+    capture; replays add nothing."""
+    from pnraytracing_tpu_torch.render.program import (
+        FrameProgram,
+        launch_counts,
+    )
+
+    for (scene, cam), want in (
+            (flagship, dict(closest_hit_attr=4, any_hit=3,
+                            treelet_entry_key=2)),
+            (streamed, dict(closest_hit_stream=4, any_hit_stream=3,
+                            treelet_entry_key=2))):
+        prog = FrameProgram(scene, RenderConfig(**_SMALL))
+        prog.capture(cam, 0)
+        assert {k: v for k, v in prog.launches.items() if v} == want
+        before = launch_counts()
+        prog.replay(cam, 1)
+        prog.replay(cam, 2)
+        torch.cuda.synchronize()
+        assert launch_counts() == before
+
+
+@pytest.mark.parametrize("start", [0, 2**32 - 2])
+def test_render_average_equals_eager_sum(flagship, start):
+    """render_average on the card: the captured accumulating frame
+    replayed spp times equals the eager frames summed from zeros and
+    divided by spp, bit for bit (across the frame counter's wrap too)."""
+    from pnraytracing_tpu_torch.render.renderer import render_average
+
+    scene, cam = flagship
+    cfg = RenderConfig(**_SMALL)
+    got = render_average(scene, cam, cfg, start, 4)
+    acc = torch.zeros((64, 64, 3), device="cuda")
+    for i in range(4):
+        acc = acc + render_frame(scene, cam, cfg, (start + i) % 2**32,
+                                 eager=True)
+    assert torch.equal(got, acc / 4.0)
+    assert torch.equal(got, render_average(scene, cam, cfg, start, 4,
+                                           eager=True))
+
+
+def test_session_edit_and_orbit_show_in_replay(flagship):
+    """A session's steps replay captured programs; after a material edit
+    (in place, no new capture) and after an orbit, each step equals the
+    eager frame of the edited scene / moved camera."""
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.render.session import RenderSession
+    from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
+
+    scene, _ = flagship
+    _, cam_state = config3_teapot_night(env_height=64, device="cuda")
+    cfg = RenderConfig(width=64, height=64, max_depth=2)
+    program.clear_programs()
+    s = RenderSession(scene, cam_state, cfg)
+    eager = lambda c, f: render_frame(s.scene, s.camera.basis(), c, f,
+                                      eager=True)
+    first = s.step()
+    assert torch.equal(first, eager(cfg, 0))
+    s.step()
+    assert torch.equal(s.accum.total, eager(cfg, 0) + eager(cfg, 1))
+    n_programs = len(program._programs)
+    s.edit_material(0, base_color=(0.1, 0.9, 0.1), roughness=0.2)
+    assert torch.equal(s.step(), eager(s.preview_cfg, 0))  # the preview
+    assert torch.equal(s.step(), eager(cfg, 0))
+    assert len(program._programs) == n_programs + 1  # the preview's
+    s.orbit(10, 5)
+    s.step()
+    assert torch.equal(s.step(), eager(cfg, 0))
+    assert not torch.equal(s.accum.total, first)
+
+
+def test_capture_error_raises(flagship, monkeypatch):
+    """A frame that reads the card back while the stream captures fails
+    to capture, and the program raises with the CUDA error."""
+    from pnraytracing_tpu_torch.render import program
+
+    scene, cam = flagship
+    real = program.frame_image
+
+    def body(*args):
+        img = real(*args)
+        if torch.cuda.is_current_stream_capturing():
+            float(img.sum())  # a host read: not allowed in a capture
+        return img
+
+    monkeypatch.setattr(program, "frame_image", body)
+    prog = program.FrameProgram(scene, RenderConfig(width=16, height=16,
+                                                    max_depth=1))
+    with pytest.raises(RuntimeError, match="capturing the frame"):
+        prog.replay(cam, 0)
+    assert prog.graph is None
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    img = render_frame(scene, cam, RenderConfig(width=16, height=16,
+                                                max_depth=1), 0, eager=True)
+    assert bool(torch.isfinite(img).all())

@@ -154,11 +154,12 @@ def test_scene_from_arrays_round_trip():
 
 
 def test_outside_the_slice_raises():
+    """Compat mode is still to port and raises; textures and the texture
+    LOD are ported (tests/test_torch_texture.py) and no longer do."""
     b = SceneBuilder()
-    with pytest.raises(NotImplementedError, match="texture"):
-        b.add(shapes.triangle(), {}, texture=np.zeros((4, 4, 3), np.float32))
-    for kw in (dict(compat_pnrt=True), dict(texture_lod_scale=0.01)):
-        with pytest.raises(NotImplementedError):
-            RenderConfig(**kw)
+    b.add(shapes.triangle(), {}, texture=np.zeros((4, 4, 3), np.float32))
+    assert RenderConfig(texture_lod_scale=0.01).texture_lod_scale == 0.01
+    with pytest.raises(NotImplementedError):
+        RenderConfig(compat_pnrt=True)
     with pytest.raises(ValueError):
         RenderConfig(sampler="halton")
