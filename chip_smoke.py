@@ -123,8 +123,9 @@ DEPTH = 4
 QUERIES_PER_FRAME = WIDTH * HEIGHT * (1 + 3 * DEPTH)  # as bench.py counts
 PARITY_SIZE = 128
 # depth of the option, catalog and textured parity frames: both sorted
-# bounces (sort_max_bounce=2); the flagship's and config5's parity frames
-# keep DEPTH
+# bounces (sort_max_bounce=2), past which the ordering and sampling
+# options run the default's kernels; the flagship's and config5's parity
+# frames and those of FULL_DEPTH_OPTIONS keep DEPTH
 PARITY_DEPTH = 2
 
 
@@ -738,6 +739,10 @@ OPTIONS = {
     "loop=scan": dict(loop="scan"),
 }
 TIMED_OPTIONS = tuple(OPTIONS)[:5]
+# the options whose kernel mix differs from the default's at every bounce
+# (no compaction: the walks see every lane; unfused shadows: two any-hit
+# launches a bounce), so their parity frames run all DEPTH bounces
+FULL_DEPTH_OPTIONS = ("compact_rays=False", "fuse_shadows=False")
 
 
 def frame_launches(render_frame, scene, camera, cfg, dev, tables, counts):
@@ -871,7 +876,7 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     splits = {"after_rounds": split()}
     prof = profile_frame(lambda: prog.replay(camera, 12), mean(ms["replayed"]))
     spp = 8
-    render_average(scene, camera, cfg, 100, spp, device=dev)  # captures
+    render_average(scene, camera, cfg, 100, spp, device=dev)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     avg = render_average(scene, camera, cfg, 100, spp, device=dev)
@@ -957,8 +962,9 @@ def session_phase(RenderConfig, scene, cam_state, dev, smi) -> None:
 def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
                   tables, counts, smi) -> None:
     """Phase 11: the ray-ordering and sampling options on the flagship.
-    Each option's 128x128 depth-2 frame through the kernels against the
-    plain versions, and replayed from its captured program against the
+    Each option's 128x128 frame (depth ``PARITY_DEPTH``, or ``DEPTH`` for
+    ``FULL_DEPTH_OPTIONS``) through the kernels against the plain
+    versions, and replayed from its captured program against the
     eager frame (bit for bit, two frame indices); its 512x512 frame's
     launches against the table (any ordering but the entry sort launches
     no key kernel, unfused shadows two any-hits a bounce); then ms/frame
@@ -975,7 +981,8 @@ def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
     parity, replay, launches = {}, {}, {}
     for name, kw in OPTIONS.items():
         cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
-                            max_depth=PARITY_DEPTH, **kw)
+                            max_depth=(DEPTH if name in FULL_DEPTH_OPTIONS
+                                       else PARITY_DEPTH), **kw)
         if kw:  # the default's parity is phase 5
             parity[name] = frame_parity(render_frame, scene, camera, cfgp,
                                         dev, modules)

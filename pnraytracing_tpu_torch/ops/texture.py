@@ -126,27 +126,8 @@ def fetch_base_color(atlas: TextureAtlas, texture_id: torch.Tensor,
                      ) -> torch.Tensor:
     """``base_color`` [R, 3] with a bilinear fetch at ``uv`` [R, 2]
     (repeat wrap) where ``texture_id`` [R] >= 0."""
-    tid = torch.clamp_min(texture_id, 0).long()
-    whi = atlas.sizes[tid]
-    wh = whi.to(torch.float32)  # [R, 2] = (w, h)
+    tid = torch.clamp_min(texture_id, 0)
     u = uv[..., 0] - torch.floor(uv[..., 0])  # repeat wrap
     v = uv[..., 1] - torch.floor(uv[..., 1])
-    fx = u * wh[..., 0] - 0.5
-    fy = v * wh[..., 1] - 0.5
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    tx = (fx - x0)[..., None]
-    ty = (fy - y0)[..., None]
-    wi, hi = whi[..., 0], whi[..., 1]
-    x0i = torch.remainder(x0.to(torch.int32), wi).long()
-    x1i = torch.remainder(x0i + 1, wi)
-    y0i = torch.remainder(y0.to(torch.int32), hi).long()
-    y1i = torch.remainder(y0i + 1, hi)
-    c00 = atlas.data[tid, y0i, x0i]
-    c10 = atlas.data[tid, y0i, x1i]
-    c01 = atlas.data[tid, y1i, x0i]
-    c11 = atlas.data[tid, y1i, x1i]
-    top = c00 * (1 - tx) + c10 * tx
-    bot = c01 * (1 - tx) + c11 * tx
-    color = top * (1 - ty) + bot * ty
+    color = _bilinear_level(atlas, tid, u, v, torch.zeros_like(tid))
     return torch.where((texture_id >= 0)[..., None], color, base_color)

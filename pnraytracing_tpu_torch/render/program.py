@@ -9,13 +9,15 @@ captures one whole frame of ``render_frame`` (camera rays,
 ``render_rays`` over every tile, the [H, W, 3] image) into a
 ``torch.cuda.CUDAGraph`` once and then replays it.  Its inputs are
 static device buffers, the camera basis and the frame counter, which
-:meth:`FrameProgram.replay` copies in; the scene is read where it lies,
-so an in-place edit of its tensors (``RenderSession.edit_material``)
-shows in the next replay without a new capture.  The program holds every
-tensor of the scene it captured, so no address baked into the graph is
-freed and reused while it lives.  With ``accumulate=True`` the graph
-ends with ``acc += image; frame += 1`` on the device: replaying it
-``spp`` times is ``render_average``.
+:meth:`FrameProgram.replay` copies in.  The scene must already lie on
+the program's device (a ValueError otherwise): the graph reads the
+caller's own tensors, so an in-place edit of them
+(``RenderSession.edit_material``) shows in the next replay without a new
+capture, and the program holds them, so no address baked into the graph
+is freed and reused while it lives.  The graph ends with ``acc += image;
+frame += 1`` on the device: ``render_frame`` reads ``image`` of one
+replay, and ``render_average`` replays it ``spp`` times from a zeroed
+``acc``.
 
 Capture follows PyTorch's rules: a warm-up frame on a side stream first
 (it builds and loads the CUDA kernels and makes every constant the frame
@@ -27,8 +29,8 @@ wrappers) count at capture, not at replay: :attr:`FrameProgram.launches`
 keeps the captured frame's counts.
 
 :func:`frame_program` keeps the last :data:`PROGRAM_CACHE_SIZE` programs
-by (the scene's tensors, ``cfg``, which fixes the tile shape, device,
-accumulate); :func:`clear_programs` drops them and their memory pools.
+by (the scene's tensors, ``cfg``, which fixes the tile shape, device);
+:func:`clear_programs` drops them and their memory pools.
 """
 
 from __future__ import annotations
@@ -62,23 +64,28 @@ class FrameProgram:
     a CUDA graph at the first :meth:`replay` (or :meth:`capture`) and
     replayed after it."""
 
-    def __init__(self, scene: Scene, cfg: RenderConfig, device=None,
-                 accumulate: bool = False):
+    def __init__(self, scene: Scene, cfg: RenderConfig, device=None):
         dev = resolve_device(device)
         if dev.type != "cuda":
             raise ValueError(f"a FrameProgram runs on a CUDA device, not "
                              f"{dev}; the CPU renders frames eagerly")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        self.device, self.cfg, self.accumulate = dev, cfg, accumulate
-        self.source = scene  # the caller's tensors: the cache key
-        self.scene = scene.to(dev)
+        away = sorted({str(t.device) for t in _tensors(scene)
+                       if t.device != dev})
+        if away:
+            raise ValueError(
+                f"the scene has tensors on {', '.join(away)}, not on {dev}: "
+                f"a captured frame reads the scene where it lies, so build "
+                f"it on {dev} or move it there once (scene.to(device)) "
+                f"before rendering")
+        self.device, self.cfg, self.scene = dev, cfg, scene
         z = lambda *shape, dtype=torch.float32: torch.zeros(
             shape, dtype=dtype, device=dev)
         self.camera = Camera(eye=z(3), lower_left=z(3), horizontal=z(3),
                              vertical=z(3))
         self.frame = z(dtype=torch.int64)
-        self.acc = z(cfg.height, cfg.width, 3) if accumulate else None
+        self.acc = z(cfg.height, cfg.width, 3)
         self.graph = None
         self.image = None
         self.launches = None
@@ -93,9 +100,8 @@ class FrameProgram:
 
     def _body(self) -> torch.Tensor:
         img = frame_image(self.scene, self.camera, self.cfg, self.frame)
-        if self.accumulate:
-            self.acc.add_(img)
-            self.frame.add_(1)
+        self.acc.add_(img)
+        self.frame.add_(1)
         return img
 
     def capture(self, camera: Camera, frame=0) -> None:
@@ -108,8 +114,6 @@ class FrameProgram:
         with torch.cuda.stream(side):
             self._body()
         main.wait_stream(side)
-        if self.accumulate:
-            self.acc.zero_()
         self._load(camera, frame)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
@@ -137,10 +141,7 @@ class FrameProgram:
     def average(self, camera: Camera, start_frame, spp: int
                 ) -> torch.Tensor:
         """Mean of frames ``start_frame`` .. ``start_frame + spp - 1``:
-        the accumulating graph replayed ``spp`` times from zeros."""
-        if not self.accumulate:
-            raise ValueError("average() needs a program made with "
-                             "accumulate=True")
+        the graph replayed ``spp`` times from a zeroed ``acc``."""
         if self.graph is None:
             self.capture(camera, start_frame)
         self._load(camera, start_frame)
@@ -148,6 +149,15 @@ class FrameProgram:
         for _ in range(spp):
             self.graph.replay()
         return self.acc / float(spp)
+
+
+def _tensors(obj):
+    """Every tensor of a dataclass, recursively."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
 
 
 def _leaves(obj):
@@ -164,19 +174,20 @@ def _leaves(obj):
 _programs: collections.OrderedDict = collections.OrderedDict()
 
 
-def frame_program(scene: Scene, cfg: RenderConfig, device=None,
-                  accumulate: bool = False) -> FrameProgram:
+def frame_program(scene: Scene, cfg: RenderConfig, device=None
+                  ) -> FrameProgram:
     """The cached :class:`FrameProgram` of this scene (by its tensors),
-    ``cfg`` (which fixes the tile shape) and device, made on first use.  The cache keeps
+    ``cfg`` (which fixes the tile shape) and device, made on first use.
+    The cache keeps
     the :data:`PROGRAM_CACHE_SIZE` most recently used programs; each
     holds its graph's private memory pool (about one frame's peak)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    key = (_leaves(scene), cfg, dev, accumulate)
+    key = (_leaves(scene), cfg, dev)
     prog = _programs.pop(key, None)
     if prog is None:
-        prog = FrameProgram(scene, cfg, dev, accumulate=accumulate)
+        prog = FrameProgram(scene, cfg, dev)
     _programs[key] = prog
     while len(_programs) > PROGRAM_CACHE_SIZE:
         _programs.popitem(last=False)

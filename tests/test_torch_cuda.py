@@ -636,6 +636,30 @@ def test_session_edit_and_orbit_show_in_replay(flagship):
     assert not torch.equal(s.accum.total, first)
 
 
+def test_program_reads_the_scene_in_place(flagship):
+    """A program captures the caller's scene tensors themselves: an
+    in-place edit of them shows in the next replay, equal to the eager
+    frame of the edited scene; a scene on another device is refused."""
+    from pnraytracing_tpu_torch.render.program import FrameProgram
+
+    scene, cam = flagship
+    mats = scene.materials
+    scene = dataclasses.replace(scene, materials=dataclasses.replace(
+        mats, base_color=mats.base_color.clone()))
+    cfg = RenderConfig(width=32, height=32, max_depth=2)
+    prog = FrameProgram(scene, cfg)
+    before = prog.replay(cam, 3).clone()
+    scene.materials.base_color.mul_(0.5)
+    after = prog.replay(cam, 3).clone()
+    torch.cuda.synchronize()
+    assert torch.equal(after, render_frame(scene, cam, cfg, 3, eager=True))
+    assert not torch.equal(after, before)
+    with pytest.raises(ValueError, match="not on cuda:0"):
+        FrameProgram(scene.to("cpu"), cfg)
+    with pytest.raises(ValueError, match="not on cuda:0"):
+        render_frame(scene.to("cpu"), cam, cfg, 3)
+
+
 def test_capture_error_raises(flagship, monkeypatch):
     """A frame that reads the card back while the stream captures fails
     to capture, and the program raises with the CUDA error."""

@@ -14,7 +14,8 @@
 * ``CameraState.orbit`` / ``pan`` / ``zoom_fov`` equal the JAX package's
   float64 host arithmetic exactly;
 * the program cache (``render/program.py::frame_program``): keyed by the
-  scene's tensors, bounded, clearable.  The capture itself needs the card
+  scene's tensors, bounded, clearable; a program refuses a scene that is
+  not on its device.  The capture itself needs the card
   (tests/test_torch_cuda.py).
 """
 
@@ -195,13 +196,13 @@ def test_camera_interaction_matches_jax():
 
 
 class _FakeProgram:
-    def __init__(self, scene, cfg, device, accumulate=False):
-        self.scene, self.cfg, self.accumulate = scene, cfg, accumulate
+    def __init__(self, scene, cfg, device):
+        self.scene, self.cfg, self.device = scene, cfg, device
 
 
 def test_program_cache_keys_and_bound(monkeypatch):
     """The cache keys a program by the scene's tensors (not the scene
-    object), the cfg, the device and the accumulate flag; it keeps the
+    object), the cfg and the device; it keeps the
     PROGRAM_CACHE_SIZE most recently used and clears on demand."""
     monkeypatch.setattr(program, "FrameProgram", _FakeProgram)
     program.clear_programs()
@@ -211,7 +212,7 @@ def test_program_cache_keys_and_bound(monkeypatch):
     dev = torch.device("cuda", 0)
     a = program.frame_program(ps, cfg, dev)
     assert program.frame_program(dataclasses.replace(ps), cfg, dev) is a
-    assert program.frame_program(ps, cfg, dev, accumulate=True) is not a
+    assert program.frame_program(ps, cfg, torch.device("cuda", 1)) is not a
     mats = dataclasses.replace(ps.materials,
                                base_color=ps.materials.base_color.clone())
     assert program.frame_program(dataclasses.replace(ps, materials=mats),
@@ -229,3 +230,13 @@ def test_program_refuses_the_cpu():
     js, _ = jax_teapot_night()
     with pytest.raises(ValueError, match="CUDA device"):
         program.FrameProgram(port_scene(js), RenderConfig(), device="cpu")
+
+
+def test_program_refuses_an_off_device_scene():
+    """A captured frame reads the scene where it lies, so a scene that is
+    not on the program's device is refused, not copied behind the
+    caller's back (a copy would hide the caller's later in-place edits)."""
+    js, _ = jax_teapot_night()
+    with pytest.raises(ValueError, match="not on cuda:0"):
+        program.FrameProgram(port_scene(js), RenderConfig(),
+                             device=torch.device("cuda", 0))
