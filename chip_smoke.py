@@ -51,6 +51,16 @@ printing a result.  Phases:
 10. binary: the binary pop-test kernels (the ``variant="binary"`` entry
    point, which the integrator never routes to) against their plain
    versions on the flagship rays of phase 4, stats included, timed;
+    then ``compat_kernels`` and ``compat`` for the flagship: the compat
+   instantiation of each resident walk kernel against its compat plain
+   version on the bounce-0 continuation / shadow rays of a 512x512
+   compat frame and on synthetic rays with d.z = +-0, 1e-31 and
+   subnormal (results and stats equal), timed beside the default
+   instantiation with pops a ray and bound; a 128x128 depth-4 compat
+   frame against the plain versions, replayed against eager, and
+   ``probe_pixel`` against its pixel; the 512x512 depth-4 compat frame's
+   launches at capture (5 / 4 / 2), replay equal to eager, ms/frame,
+   one replayed compat frame under the profiler (``compat_profile``);
 11. options: each ray-ordering and sampling option of ``RenderConfig``
    (``compact_rays``, ``sort_rays``, ``sort_key``, ``fuse_shadows``,
    ``jitter_primary``, ``loop``) on the flagship: a 128x128 depth-2
@@ -80,7 +90,8 @@ printing a result.  Phases:
    the resident kernel's and beside their own on a 96 KB brick layout of
    the same tree, the resident wide and the binary kernels' times and
    ``walk_figures`` on config5's rays, and one profiled frame; then
-   phase 8 for config5.
+   ``compat_kernels`` and ``compat`` for config5 (the stream kernels'
+   compat forms, launches 5 + 4 + 2) and phase 8 for config5.
 
 Phases 1-7 and 10-16 run the eager frame (``render_frame(...,
 eager=True)``), whose launch counters count each frame.
@@ -390,6 +401,30 @@ def synthetic_key_rays(treelets, device, n=4096, seed=0):
     return v3(o.float()), v3(d.float())
 
 
+def compat_rays(treelets, device, n=4096, seed=1):
+    """``(o, d)`` of ``n`` rays (a multiple of 8) from inside the scene's
+    box in random directions, of which one eighth each has d.z = +0,
+    d.z = -0 (the compat watertight test swaps its axes), d.z = 1e-31 (it
+    keeps z, and its shears overflow to NaN) and a subnormal d.z (1 / d.z
+    is inf)."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.vec import V3
+
+    g = torch.Generator().manual_seed(seed)
+    tre = treelets.detach().cpu()
+    lo, hi = tre[:, :3].amin(dim=0), tre[:, 3:].amax(dim=0)
+    o = lo + torch.rand((n, 3), generator=g) * (hi - lo)
+    d = torch.randn((n, 3), generator=g)
+    m = n // 8
+    d[:4 * m, 2] = 0.0
+    d = d / d.norm(dim=1, keepdim=True)
+    for k, dz in enumerate((0.0, -0.0, 1e-31, -1e-39)):
+        d[k * m:(k + 1) * m, 2] = dz
+    v3 = lambda a: V3(*(a[:, k].contiguous().to(device) for k in range(3)))
+    return v3(o.float()), v3(d.float())
+
+
 def check_key(name, compaction, o, d, treelets, tree) -> dict:
     """The key kernel on these rays against the all-K plain version
     (keys) and against the plain version of its own walk (keys and
@@ -411,20 +446,21 @@ def check_key(name, compaction, o, d, treelets, tree) -> dict:
     return out
 
 
-def record_key_rays(render_frame, scene, camera, cfg, dev, integrator):
-    """The inputs of every ``entry_key`` call of one frame through the
-    kernels."""
-    saved, calls = integrator.entry_key, []
+def record_inputs(render_frame, scene, camera, cfg, dev, integrator,
+                  name="entry_key"):
+    """The inputs of every call of the integrator's ``name`` wrapper in
+    one frame through the kernels."""
+    saved, calls = getattr(integrator, name), []
 
     def call(*args, **kw):
         calls.append(_clone(args))
         return saved(*args, **kw)
 
-    integrator.entry_key = call
+    setattr(integrator, name, call)
     try:
         render_frame(scene, camera, cfg, 0, device=dev)
     finally:
-        integrator.entry_key = saved
+        setattr(integrator, name, saved)
     return calls
 
 
@@ -439,19 +475,29 @@ def check_stats(name, got, want) -> None:
 
 def port_kernel_name(key: str):
     """The LAUNCHES name of one of the port's kernels from its profiler
-    key (demangled "closest_hit_kernel<true>" or mangled "...ILb1E"),
-    else None."""
+    key (demangled "closest_hit_kernel<true, false>" or mangled
+    "...ILb1ELb0EE"), else None.  The walk kernels' last template flag is
+    the compat one; the resident closest kernel's and the stream kernel's
+    first says attr / closest."""
     m = re.search(r"(closest_hit_binary|any_hit_binary|closest_hit|any_hit"
-                  r"|entry_key|stream)_kernel(?:<(true|false)>|ILb([01])E)?",
+                  r"|entry_key|stream)_kernel(?:<([^>]*)>|I((?:Lb[01]E)+)E)?",
                   key)
     if not m:
         return None
-    base, on = m.group(1), (m.group(2) or m.group(3)) in ("true", "1")
+    base = m.group(1)
+    if base == "entry_key":
+        return "treelet_entry_key"
+    flags = ([a.strip() == "true" for a in m.group(2).split(",")]
+             if m.group(2) is not None else
+             [f == "1" for f in re.findall(r"Lb([01])E", m.group(3) or "")])
+    compat = "_compat" if flags and flags[-1] and (
+        len(flags) == 2 or base not in ("closest_hit", "stream")) else ""
+    first = bool(flags) and flags[0]
     if base == "closest_hit":
-        return "closest_hit_attr" if on else "closest_hit"
-    if base == "stream":
-        return "closest_hit_stream" if on else "any_hit_stream"
-    return "treelet_entry_key" if base == "entry_key" else base
+        base = "closest_hit_attr" if first else "closest_hit"
+    elif base == "stream":
+        base = "closest_hit_stream" if first else "any_hit_stream"
+    return base + compat
 
 
 def _clone(args):
@@ -723,6 +769,232 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
           "any_hit_mismatch": occ_bad, "stats_equal": True,
           "ms": {row["name"]: row["ms"] for row in rows},
           "wide_ms": {row["name"]: row["wide_ms"] for row in rows}})
+    return rows
+
+
+# the compat forms of the walk kernels: (name, module attribute of the
+# entry point, its keyword arguments, plain version, closest?, fills?,
+# source, the TPU kernel it replaces); "trv" the resident walks, "trs" the
+# stream walks
+COMPAT_WALKS = {
+    "resident": [
+        ("closest_hit_attr", "trv", "closest_hit_attr", {},
+         "plain_closest_hit_attr", True, True, "traverse.cu",
+         "traverse_pallas.py:488"),
+        ("closest_hit", "trv", "closest_hit", {}, "plain_closest_hit", True,
+         False, "traverse.cu", "traverse_pallas.py:340"),
+        ("any_hit", "trv", "any_hit", {}, "plain_any_hit", False, False,
+         "traverse.cu", "traverse_pallas.py:668"),
+        ("closest_hit_binary", "trv", "closest_hit", {"variant": "binary"},
+         "plain_closest_hit_binary", True, False, "traverse.cu",
+         "traverse_pallas.py:144"),
+        ("any_hit_binary", "trv", "any_hit", {"variant": "binary"},
+         "plain_any_hit_binary", False, False, "traverse.cu",
+         "traverse_pallas.py:233"),
+    ],
+    "stream": [
+        ("closest_hit_stream", "trs", "closest_hit_stream", {},
+         "plain_closest_hit_stream", True, False, "traverse_stream.cu",
+         "traverse_stream.py:87"),
+        ("any_hit_stream", "trs", "any_hit_stream", {},
+         "plain_any_hit_stream", False, False, "traverse_stream.cu",
+         "traverse_stream.py:87"),
+    ],
+}
+
+
+def compat_kernel_rows(label, mods, trav, cont, shadow, walks, smi) -> list:
+    """Each compat walk kernel of ``walks`` against its compat plain
+    version on one scene's bounce-0 continuation rays (closest walks) or
+    fused shadow batch (any-hit walks) of the compat frame, and on the
+    synthetic set of :func:`compat_rays`: results and per-ray stats
+    equal (tri mismatches <= 0.001% of rays, occlusion exact); then its
+    time, its plain version's time (the parity call; kernel 3 is held
+    against kernel 1's plain walk, the same walk, and reports its time),
+    its bound from this run's stats, pops / leaf pops / tests a ray
+    beside the default instantiation's on the same rays, and its
+    registers.  Returns the kernels line's rows (launches filled in by
+    the caller)."""
+    import torch
+
+    info = {**mods["trv"].kernel_info(), **mods["trs"].kernel_info(trav)}
+    synth_o, synth_d = compat_rays(trav.treelets, trav.tri9.device)
+    n_s = synth_o.x.shape[0]
+    g = torch.Generator().manual_seed(2)
+    synth_t = (torch.rand(n_s, generator=g) * 10 + 0.5).to(trav.tri9.device)
+    synth_mask = (torch.rand(n_s, generator=g) < 0.9).to(trav.tri9.device)
+    rows, res, walked = [], {}, {}
+    for (name, mod, fn, kw, plain, closest, fills, src,
+         replaces) in walks:
+        kern = functools.partial(getattr(mods[mod], fn), **kw)
+        pfn = getattr(mods[mod], plain)
+        o, d, tm, mask = rays_of(cont if closest else shadow)
+        r = o.x.shape[0]
+        got = kern(trav, o, d, tm, mask, compat=True, with_stats=True)
+        torch.cuda.synchronize()
+        if name == "closest_hit" and "closest_hit_attr" in walked:
+            want, plain_ms = walked["closest_hit_attr"]
+            want = (want[0], want[-1])
+        else:
+            t0 = time.perf_counter()
+            want = pfn(trav, o, d, tm, mask, compat=True, with_stats=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            walked[name] = (want, plain_ms)
+        st, wst = got[-1], want[-1]
+        cname = name + "_compat"
+        check_stats(cname, st, wst)
+        if closest:
+            bad, err = check_closest(cname, got[0], want[0], r,
+                                     (got[1], want[1]) if fills else None)
+        else:
+            bad = check_occ(cname, got[0], want[0])
+            err = float(bad)
+        sg = kern(trav, synth_o, synth_d, synth_t, synth_mask, compat=True,
+                  with_stats=True)
+        sw = pfn(trav, synth_o, synth_d, synth_t, synth_mask, compat=True,
+                 with_stats=True)
+        check_stats(cname + "/synthetic", sg[-1], sw[-1])
+        if closest:
+            check_closest(cname + "/synthetic", sg[0], sw[0], n_s)
+        else:
+            check_occ(cname + "/synthetic", sg[0], sw[0])
+        default_st = kern(trav, o, d, tm, mask, with_stats=True)[-1]
+        binary = name.endswith("_binary")
+        if mod == "trs":
+            s = trav.stream
+            tables = 4 * (s.top16.numel() + s.bricks.numel())
+        else:
+            tables = 4 * ((trav.nodes8 if binary else trav.nodes16c).numel()
+                          + trav.tri12.numel()
+                          + (trav.tri_attr16.numel() if fills else 0))
+        per_ray_out = 40 if fills else (16 if closest else 1)
+        bnd = bound(r * (RAY_IN + per_ray_out) + tables,
+                    trav_ops(st, binary=binary))
+        per_ray = lambda x: float(x.to(torch.int64).sum()) / max(r, 1)
+        row = dict(
+            name=cname, source="pnraytracing_tpu_torch/csrc/" + src,
+            replaces="pnraytracing_tpu/accel/" + replaces,
+            max_abs_err=err, mismatches=bad,
+            ms=time_ms(lambda: kern(trav, o, d, tm, mask, compat=True), 10),
+            default_ms=time_ms(lambda: kern(trav, o, d, tm, mask), 10),
+            plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            rays=r, pops_per_ray=per_ray(st[0]),
+            leaf_pops_per_ray=per_ray(st[1]),
+            tri_tests_per_ray=per_ray(st[2]),
+            default_pops_per_ray=per_ray(default_st[0]),
+            default_tri_tests_per_ray=per_ray(default_st[2]),
+            max_pops=int(st[0].max()),
+            **info.get(cname, {}))
+        if mod == "trs":
+            row["bricks_per_ray"] = per_ray(st[3])
+            row["default_bricks_per_ray"] = per_ray(default_st[3])
+        rows.append(row)
+        res[cname] = {"rays": r, "mismatches": bad, "synthetic_rays": n_s,
+                      "stats_equal": True}
+    emit({"phase": "compat_kernels", "scene": label, "parity": res,
+          "ms": {row["name"]: row["ms"] for row in rows},
+          "default_ms": {row["name"]: row["default_ms"] for row in rows},
+          "card": smi})
+    return rows
+
+
+def compat_phase(label, render_frame, RenderConfig, scene, camera, dev,
+                 modules, tables, counts, expected, walks, smi) -> list:
+    """Phase ``compat``: ``RenderConfig(compat_pnrt=True)`` on one path.
+    The bounce-0 continuation and shadow rays of a 512x512 compat frame
+    through the kernels (recorded); :func:`compat_kernel_rows` on them; a
+    128x128 depth-4 compat frame through the kernels against the plain
+    versions and replayed against eager; ``probe_pixel`` against that
+    frame's pixel; then the 512x512 depth-4 compat frame captured (the
+    counters zeroed just before the capture and read just after: the
+    compat kernels ``expected`` once in the graph, twice with the
+    warm-up), a replay equal to the eager frame bit for bit, and ms/frame
+    replayed and eager in two rounds.  Returns the kernels line's rows,
+    their launches those of the captured frame."""
+    import torch
+
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.render.debug import probe_pixel
+    from pnraytracing_tpu_torch.render.renderer import (
+        render_frame as replayed_frame,
+    )
+
+    integrator, trv, trs, _ = modules
+    trav = scene.trav
+    stream = "closest_hit_stream_compat" in expected
+    closest_name = "closest_hit_stream" if stream else "closest_hit_attr"
+    shadow_name = "any_hit_stream" if stream else "any_hit"
+    cfg1 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=1,
+                        compat_pnrt=True)
+    cont = record_inputs(render_frame, scene, camera, cfg1, dev, integrator,
+                         closest_name)[1]
+    shadow = record_inputs(render_frame, scene, camera, cfg1, dev,
+                           integrator, shadow_name)[0]
+    rows = compat_kernel_rows(label, {"trv": trv, "trs": trs}, trav, cont,
+                              shadow, walks, smi)
+
+    cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                        max_depth=DEPTH, compat_pnrt=True)
+    parity = frame_parity(render_frame, scene, camera, cfgp, dev, modules)
+    replay = replay_parity(scene, camera, cfgp, dev)
+    img = render_frame(scene, camera, cfgp, 5, device=dev)
+    probe = probe_pixel(scene, camera, cfgp, 64, 64, frame=5, device=dev)
+    probe_err = float((probe["color"] - img[PARITY_SIZE - 1 - 64, 64])
+                      .abs().max())
+    if probe_err > 3e-5:
+        raise AssertionError(f"{label}: probe_pixel differs from its frame's "
+                             f"pixel by {probe_err}")
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH,
+                       compat_pnrt=True)
+    program.clear_programs()
+    zero_counts(*tables)
+    prog = program.frame_program(scene, cfg, dev)
+    t0 = time.perf_counter()
+    prog.capture(camera, 1)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    got = counts()
+    want = dict({k: 0 for k in got}, **expected)
+    if prog.launches != want or got != {k: 2 * v for k, v in want.items()}:
+        raise AssertionError(f"{label} compat: launches at capture "
+                             f"{prog.launches} (counters {got}), expected "
+                             f"{want} (and twice that with the warm-up)")
+    eager = lambda f: render_frame(scene, camera, cfg, f, device=dev)
+    replayed = lambda f: replayed_frame(scene, camera, cfg, f, device=dev)
+    a = replayed(2)
+    torch.cuda.synchronize()
+    if not torch.equal(a, eager(2)):
+        raise AssertionError(f"{label} compat: the replayed frame differs "
+                             "from the eager one")
+    check_image(label + " compat", a, cfg)
+    ms = {"eager": [], "replayed": []}
+    for rnd in range(2):
+        for mode in (("eager", "replayed") if rnd == 0
+                     else ("replayed", "eager")):
+            fn, n = (eager, 2) if mode == "eager" else (replayed, 5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(n):
+                fn(3 + f)
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3 / n)
+    prof = profile_frame(lambda: prog.replay(camera, 12),
+                         sum(ms["replayed"]) / 2)
+    program.clear_programs()
+    launches = {k: v for k, v in prog.launches.items() if v}
+    for row in rows:
+        row["launches"] = want.get(row["name"], 0)
+    emit({"phase": "compat", "scene": label, "width": WIDTH,
+          "height": HEIGHT, "depth": DEPTH, "parity_128": parity,
+          "replay_128": replay, "probe_pixel_err": probe_err,
+          "capture_s": capture_s, "launches_at_capture": launches,
+          "replay_equals_eager": True, "ms_per_frame": ms,
+          "eager_ms": sum(ms["eager"]) / 2,
+          "replayed_ms": sum(ms["replayed"]) / 2,
+          "mean": float(a.mean()), "card": smi})
+    emit(dict(phase="compat_profile", scene=label, **prof))
     return rows
 
 
@@ -1354,6 +1626,12 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "card": smi})
     emit(dict(phase="stream_profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
+    rows += compat_phase("config5", render_frame, RenderConfig, scene, camera,
+                         dev, modules, tables, counts,
+                         dict(closest_hit_stream_compat=1 + DEPTH,
+                              any_hit_stream_compat=DEPTH,
+                              treelet_entry_key=cfg.sort_max_bounce),
+                         COMPAT_WALKS["stream"], smi)
     program_phase("config5", scene, camera, cfg, dev,
                   dict(closest_hit_stream=1 + DEPTH, any_hit_stream=DEPTH,
                        treelet_entry_key=cfg.sort_max_bounce),
@@ -1457,7 +1735,7 @@ def main() -> int:
     # frame sends, against both of its plain versions
     ko, kd, tre, tree = key_in
     cfg2 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=2)
-    key_sets = {"bounce0": (ko, kd), "bounce1": record_key_rays(
+    key_sets = {"bounce0": (ko, kd), "bounce1": record_inputs(
         render_frame, scene, camera, cfg2, dev, integrator)[1][:2],
         "synthetic": synthetic_key_rays(tre, dev)}
     key_res = {label: check_key(label, compaction, *od, tre, tree)
@@ -1616,6 +1894,12 @@ def main() -> int:
     session_phase(RenderConfig, scene, cam_state, dev, smi)
 
     rows += binary_phase(trv, trav, cont, shadow, primary, launches)
+    rows += compat_phase("flagship", render_frame, RenderConfig, scene,
+                         camera, dev, modules, tables, counts,
+                         dict(closest_hit_attr_compat=1 + DEPTH,
+                              any_hit_compat=DEPTH,
+                              treelet_entry_key=cfg.sort_max_bounce),
+                         COMPAT_WALKS["resident"], smi)
     options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
                   tables, counts, smi)
     catalog_phase(render_frame, RenderConfig, dev, modules, tables, counts)

@@ -10,11 +10,14 @@ which runs when the tensors lie on the CPU.
 Ported so far: the forward frame (``render.renderer.render_frame`` ->
 ``render.integrator.render_rays``) on the resident and the
 brick-streaming traversal routes, with every ray-ordering and sampling
-option; the frame captured once as a CUDA graph and replayed
-(``render.program``), ``render_average``, the progressive state
-(``AccumState``, ``accum_add``) and the interactive ``RenderSession``;
-textures (``ops.texture``); the scene catalog but the asset-loading
-branches.  ROADMAP.md lists what is still to port.  Entry points take
+option and the reference-quirk mode ``RenderConfig(compat_pnrt=True)``
+(a compat instantiation of every walk kernel, the compat shading and the
+CDF-bisection environment sampler); the frame captured once as a CUDA
+graph and replayed (``render.program``), ``render_average``, the
+progressive state (``AccumState``, ``accum_add``) and the interactive
+``RenderSession``; textures (``ops.texture``); ``probe_pixel``
+(``render.debug``); the scene catalog but the asset-loading branches.
+ROADMAP.md lists what is still to port.  Entry points take
 ``device=None``, which means the card.
 """
 
@@ -31,6 +34,7 @@ from pnraytracing_tpu_torch.core.types import (
     TextureAtlas,
     TriangleMesh,
 )
+from pnraytracing_tpu_torch.render.debug import probe_pixel
 from pnraytracing_tpu_torch.render.renderer import (
     AccumState,
     accum_add,
@@ -60,4 +64,5 @@ __all__ = [
     "render",
     "render_frame",
     "render_average",
+    "probe_pixel",
 ]

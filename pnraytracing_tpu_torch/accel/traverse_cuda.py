@@ -37,6 +37,12 @@ hit an occlusion flag.  Masked rays, and rays of
 origin and direction on one axis), walk nothing and report a miss.
 ``with_stats`` adds an ``[3, R]`` int32 tensor of per-ray pops, leaf
 pops and triangle tests.
+
+Every entry point and plain version takes ``compat`` (the JAX package's
+``compat`` of its walks, ``RenderConfig.compat_pnrt``): the reference's
+ray setup and interval-free slab test (``ops/intersect.py``), so a walk
+prunes no box by its ``t``.  On the card it launches the kernel's compat
+instantiation, counted under the kernel's name with ``_compat`` appended.
 """
 
 from __future__ import annotations
@@ -57,9 +63,11 @@ from pnraytracing_tpu_torch.ops.intersect import (
     triangle_setup_c,
 )
 
-# Launches per kernel since the last reset (the caller zeroes them).
-LAUNCHES = {"closest_hit_attr": 0, "closest_hit": 0, "any_hit": 0,
-            "closest_hit_binary": 0, "any_hit_binary": 0}
+_KERNELS = ("closest_hit_attr", "closest_hit", "any_hit",
+            "closest_hit_binary", "any_hit_binary")
+# Launches per kernel since the last reset (the caller zeroes them); a
+# compat instantiation counts under its own name
+LAUNCHES = {k + c: 0 for c in ("", "_compat") for k in _KERNELS}
 
 KERNEL_STACK = 64  # KSTACK of csrc/intersect.cuh
 
@@ -154,30 +162,35 @@ def _raise_on(err, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-_WALK_KERNELS = {"closest_hit_attr": 0, "closest_hit": 1, "any_hit": 2,
-                 "closest_hit_binary": 3, "any_hit_binary": 4}
+def launch_name(kernel: str, compat: bool) -> str:
+    """The LAUNCHES key of ``kernel`` in its default or compat form."""
+    return kernel + ("_compat" if compat else "")
 
 
 def kernel_info() -> dict:
-    """What the card gives each resident walk kernel as built:
+    """What the card gives each resident walk kernel as built, both
+    instantiations (the compat ones under their ``_compat`` names):
     registers and bytes of local memory a thread, threads a block and
     the blocks an SM holds at once; raises if the card refuses to say."""
     from pnraytracing_tpu_torch.cuda_build import library
 
     lib = library("traverse")
     out = {}
-    for name, which in _WALK_KERNELS.items():
-        vals = {k: lib.pnrt_walk_kernel_info(which, what) for what, k in
-                enumerate(("registers", "blocks_per_sm", "threads",
-                           "local_bytes"))}
-        if min(vals.values()) < 0:
-            raise RuntimeError(f"{name}: CUDA error {-min(vals.values())} "
-                               "reading the kernel's attributes")
-        out[name] = vals
+    for compat in (False, True):
+        for which, kernel in enumerate(_KERNELS):
+            name = launch_name(kernel, compat)
+            vals = {k: lib.pnrt_walk_kernel_info(which, int(compat), what)
+                    for what, k in enumerate(("registers", "blocks_per_sm",
+                                              "threads", "local_bytes"))}
+            if min(vals.values()) < 0:
+                raise RuntimeError(f"{name}: CUDA error "
+                                   f"{-min(vals.values())} reading the "
+                                   "kernel's attributes")
+            out[name] = vals
     return out
 
 
-def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
+def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats, compat):
     from pnraytracing_tpu_torch.cuda_build import library
 
     r, dev = o.x.shape[0], o.x.device
@@ -189,41 +202,43 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats):
     err = library("traverse").pnrt_closest_hit(
         ptr(trav.nodes16c), ptr(trav.tri12), ptr(trav.tri_attr16),
         ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
-        ptr(t_max), ptr(mask), r, int(attr), ptr(t), ptr(tri),
+        ptr(t_max), ptr(mask), r, int(attr), int(compat), ptr(t), ptr(tri),
         ptr(b1), ptr(b2), *[ptr(a) for a in attrs], ptr(stats),
         stream_of(o.x))
     _raise_on(err, "closest-hit")
-    LAUNCHES["closest_hit_attr" if attr else "closest_hit"] += 1
+    LAUNCHES[launch_name("closest_hit_attr" if attr else "closest_hit",
+                         compat)] += 1
     return Hit(tri=tri, t=t, b1=b1, b2=b2), (attrs if attr else None), stats
 
 
-def _kernel_any(trav, o, d, t_max, mask, with_stats):
+def _kernel_any(trav, o, d, t_max, mask, with_stats, compat):
     from pnraytracing_tpu_torch.cuda_build import library
 
     (occ,), stats = _outputs(o.x.shape[0], o.x.device, False, with_stats)
     err = library("traverse").pnrt_any_hit(
         ptr(trav.nodes16c), ptr(trav.tri12), ptr(o.x), ptr(o.y),
         ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z), ptr(t_max),
-        ptr(mask), o.x.shape[0], ptr(occ), ptr(stats), stream_of(o.x))
+        ptr(mask), o.x.shape[0], int(compat), ptr(occ), ptr(stats),
+        stream_of(o.x))
     _raise_on(err, "any-hit")
-    LAUNCHES["any_hit"] += 1
+    LAUNCHES[launch_name("any_hit", compat)] += 1
     return occ, stats
 
 
-def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
+def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats, compat):
     from pnraytracing_tpu_torch.cuda_build import library
 
     r = o.x.shape[0]
     outs, stats = _outputs(r, o.x.device, closest, with_stats)
     rays = (ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
-            ptr(t_max), ptr(mask), r)
+            ptr(t_max), ptr(mask), r, int(compat))
     lib = library("traverse")
     fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
     err = fn(ptr(trav.nodes8), ptr(trav.tri12), *rays,
              *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
     name = "closest_hit_binary" if closest else "any_hit_binary"
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_name(name, compat)] += 1
     if closest:
         t, tri, b1, b2 = outs
         return Hit(tri=tri, t=t, b1=b1, b2=b2), stats
@@ -235,7 +250,8 @@ def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats):
 @dataclasses.dataclass
 class Rays:
     """Per-ray components of a plain walk (origins, directions, their
-    safe inverses, the watertight setup, t_max)."""
+    safe inverses, the watertight setup, t_max) and whether the walk
+    takes the compat forms of the tests."""
 
     ox: torch.Tensor
     oy: torch.Tensor
@@ -244,15 +260,17 @@ class Rays:
     dy: torch.Tensor
     dz: torch.Tensor
     t_max: torch.Tensor
+    compat: bool = False
 
     def __post_init__(self):
         self.inv = (safe_inv_dir(self.dx), safe_inv_dir(self.dy),
                     safe_inv_dir(self.dz))
-        self.setup = triangle_setup_c(self.dx, self.dy, self.dz)
+        self.setup = triangle_setup_c(self.dx, self.dy, self.dz,
+                                      compat=self.compat)
 
     @classmethod
-    def of(cls, o: V3, d: V3, t_max):
-        return cls(o.x, o.y, o.z, d.x, d.y, d.z, t_max)
+    def of(cls, o: V3, d: V3, t_max, compat: bool = False):
+        return cls(o.x, o.y, o.z, d.x, d.y, d.z, t_max, compat)
 
     def slab(self, rows, bmin, bmax, t_lim):
         """intersect_aabb_c of rays ``rows`` against boxes [n, 3] x 2."""
@@ -260,7 +278,7 @@ class Rays:
             (bmin[:, 0], bmin[:, 1], bmin[:, 2]),
             (bmax[:, 0], bmax[:, 1], bmax[:, 2]),
             self.ox[rows], self.oy[rows], self.oz[rows], self.inv[0][rows],
-            self.inv[1][rows], self.inv[2][rows], t_lim)
+            self.inv[1][rows], self.inv[2][rows], t_lim, compat=self.compat)
 
     def triangle(self, rows, p, t_lim):
         """intersect_triangle_c of rays ``rows`` against triangles [n, 9]."""
@@ -417,10 +435,10 @@ def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
 
 
 def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
-                mode: str):
+                mode: str, compat: bool):
     """The resident wide walk of csrc/traverse.cu, plainly: same visit
     order, same arithmetic, same results.  ``mode``: 'closest' or 'any'."""
-    ray = Rays.of(o, d, t_max)
+    ray = Rays.of(o, d, t_max, compat)
     st = WalkState(ray, mode)
     wide_walk(ray, st, walking(mask, o, d), stack_depth,
               lambda rows, info: trav.nodes16c[info],
@@ -429,11 +447,11 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
 
 
 def _walk_plain_binary(trav: TravData, o: V3, d: V3, t_max, mask,
-                       stack_depth: int, mode: str):
+                       stack_depth: int, mode: str, compat: bool):
     """The binary pop-test walk of csrc/traverse.cu, plainly: a popped
     node tests its own box against the ray's t, then tests its leaf's
     triangles or pushes both children (left = node + 1), far first."""
-    ray = Rays.of(o, d, t_max)
+    ray = Rays.of(o, d, t_max, compat)
     st = WalkState(ray, mode)
     r, dev = t_max.shape[0], t_max.device
     stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
@@ -473,36 +491,38 @@ def _walk_plain_binary(trav: TravData, o: V3, d: V3, t_max, mask,
 
 
 def plain_closest_hit_attr(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                           with_stats=False):
+                           with_stats=False, compat=False):
     """The plain version of :func:`closest_hit_attr` on any device (also
     for holding the kernel against it on the card); never launches a
     kernel."""
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest")
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest", compat)
     out = (st.hit(), interaction_fill(trav.tri_attr16, st.tri, st.b1, st.b2))
     return out + (st.stats,) if with_stats else out
 
 
 def plain_closest_hit(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                      with_stats=False):
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest")
+                      with_stats=False, compat=False):
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest", compat)
     return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                  with_stats=False):
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "any")
+                  with_stats=False, compat=False):
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "any", compat)
     return (st.occ, st.stats) if with_stats else st.occ
 
 
 def plain_closest_hit_binary(trav, o, d, t_max, mask=None, *,
-                             stack_depth=64, with_stats=False):
-    st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "closest")
+                             stack_depth=64, with_stats=False, compat=False):
+    st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "closest",
+                            compat)
     return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit_binary(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                         with_stats=False):
-    st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "any")
+                         with_stats=False, compat=False):
+    st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "any",
+                            compat)
     return (st.occ, st.stats) if with_stats else st.occ
 
 
@@ -510,41 +530,44 @@ def plain_any_hit_binary(trav, o, d, t_max, mask=None, *, stack_depth=64,
 
 def closest_hit_attr(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                      mask: torch.Tensor | None = None, *,
-                     stack_depth: int = 64, with_stats: bool = False):
+                     stack_depth: int = 64, with_stats: bool = False,
+                     compat: bool = False):
     """Closest hit + interaction fill: ``(Hit, (nx, ny, nz, u, v, mt))``
     (+ stats).  ``nx..nz`` is the barycentric-interpolated, unnormalized,
     unflipped shading normal; ``mt`` the int32 material/texture word."""
     if _check(trav, o, d, t_max, mask, stack_depth, "attr").type == "cpu":
         return plain_closest_hit_attr(trav, o, d, t_max, mask,
                                       stack_depth=stack_depth,
-                                      with_stats=with_stats)
+                                      with_stats=with_stats, compat=compat)
     hit, attrs, stats = _kernel_closest(trav, o, d, t_max, mask, True,
-                                        with_stats)
+                                        with_stats, compat)
     return (hit, attrs, stats) if with_stats else (hit, attrs)
 
 
 def closest_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                 mask: torch.Tensor | None = None, *, stack_depth: int = 64,
-                variant: str = "wide", with_stats: bool = False):
+                variant: str = "wide", with_stats: bool = False,
+                compat: bool = False):
     """Closest hit: ``Hit`` (+ stats), by the wide or binary walk."""
     variant = pick_variant(trav, variant)
     binary = variant == "binary"
     if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
         fn = plain_closest_hit_binary if binary else plain_closest_hit
         return fn(trav, o, d, t_max, mask, stack_depth=stack_depth,
-                  with_stats=with_stats)
+                  with_stats=with_stats, compat=compat)
     if binary:
         hit, stats = _kernel_binary(trav, o, d, t_max, mask, True,
-                                    with_stats)
+                                    with_stats, compat)
     else:
         hit, _, stats = _kernel_closest(trav, o, d, t_max, mask, False,
-                                        with_stats)
+                                        with_stats, compat)
     return (hit, stats) if with_stats else hit
 
 
 def any_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
             mask: torch.Tensor | None = None, *, stack_depth: int = 64,
-            variant: str = "wide", with_stats: bool = False):
+            variant: str = "wide", with_stats: bool = False,
+            compat: bool = False):
     """Occlusion: True where a triangle is hit within ``t_max`` (+ stats),
     by the wide or binary walk."""
     variant = pick_variant(trav, variant)
@@ -552,10 +575,10 @@ def any_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
     if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
         fn = plain_any_hit_binary if binary else plain_any_hit
         return fn(trav, o, d, t_max, mask, stack_depth=stack_depth,
-                  with_stats=with_stats)
+                  with_stats=with_stats, compat=compat)
     if binary:
         occ, stats = _kernel_binary(trav, o, d, t_max, mask, False,
-                                    with_stats)
+                                    with_stats, compat)
     else:
-        occ, stats = _kernel_any(trav, o, d, t_max, mask, with_stats)
+        occ, stats = _kernel_any(trav, o, d, t_max, mask, with_stats, compat)
     return (occ, stats) if with_stats else occ

@@ -21,7 +21,10 @@ Each wrapper checks its inputs and then
 
 Results as in accel/traverse_cuda.py.  ``with_stats`` adds a [4, R] int32
 tensor of per-ray pops (top tree and bricks), leaf pops, triangle tests
-and bricks entered.
+and bricks entered.  ``compat`` as there: the reference's tests, so a
+closest walk also enters the bricks behind its hit; the compat
+instantiation counts under ``closest_hit_stream_compat`` /
+``any_hit_stream_compat``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
     check_mask,
     check_rays,
     check_table,
+    launch_name,
     order_children,
     ptr,
     push,
@@ -49,7 +53,8 @@ from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import Hit
 
 # Launches per kernel since the last reset (the caller zeroes them).
-LAUNCHES = {"closest_hit_stream": 0, "any_hit_stream": 0}
+LAUNCHES = {k + c: 0 for c in ("", "_compat")
+            for k in ("closest_hit_stream", "any_hit_stream")}
 
 
 def walk_stack_depth(stream) -> int:
@@ -90,18 +95,21 @@ def _check(trav: TravData, o: V3, d: V3, t_max, mask):
 
 def kernel_info(trav: TravData) -> dict:
     """Registers a thread, threads a block and blocks an SM can hold of
-    the two kernels, as the CUDA runtime reports them on this card."""
+    the two kernels, both instantiations (the compat ones under their
+    ``_compat`` names), as the CUDA runtime reports them on this card."""
     from pnraytracing_tpu_torch.cuda_build import library
 
     fn = library("traverse_stream").pnrt_stream_kernel_info
-    return {name: {"registers": fn(closest, 0),
-                   "blocks_per_sm": fn(closest, 1),
-                   "threads": fn(closest, 2)}
+    return {launch_name(name, compat): {
+                "registers": fn(closest, int(compat), 0),
+                "blocks_per_sm": fn(closest, int(compat), 1),
+                "threads": fn(closest, int(compat), 2)}
+            for compat in (False, True)
             for name, closest in (("closest_hit_stream", 1),
                                   ("any_hit_stream", 0))}
 
 
-def _kernel(trav, o, d, t_max, mask, closest, with_stats):
+def _kernel(trav, o, d, t_max, mask, closest, with_stats, compat):
     from pnraytracing_tpu_torch.cuda_build import library
 
     s = trav.stream
@@ -110,12 +118,13 @@ def _kernel(trav, o, d, t_max, mask, closest, with_stats):
     hit_outs = outs if closest else (None,) * 4
     occ = None if closest else outs[0]
     err = library("traverse_stream").pnrt_stream(
-        int(closest), ptr(s.top16), ptr(s.bricks), s.brick_words, ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y),
+        int(closest), int(compat), ptr(s.top16), ptr(s.bricks),
+        s.brick_words, ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y),
         ptr(d.z), ptr(t_max), ptr(mask), r, *[ptr(x) for x in hit_outs],
         ptr(occ), ptr(stats), stream_of(o.x))
     name = "closest_hit_stream" if closest else "any_hit_stream"
     _raise_on(err, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_name(name, compat)] += 1
     if closest:
         t, tri, b1, b2 = outs
         return Hit(tri=tri, t=t, b1=b1, b2=b2), stats
@@ -124,7 +133,8 @@ def _kernel(trav, o, d, t_max, mask, closest, with_stats):
 
 # ---- the plain versions ---------------------------------------------------
 
-def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str):
+def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str,
+                compat: bool):
     """The stream kernel's walk, plainly: every ray keeps one stack (a
     row of an [R, depth] tensor) whose entries carry the brick they
     belong to in a second tensor (-1: the top tree).  Each step pops one
@@ -132,9 +142,10 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str):
     entry is a brick ref and is walked as that brick's row 0 at once; a
     negative brick entry is a leaf; the rest are wide rows, whose hit
     children are pushed far first.  Closest mode tests boxes against
-    t_best, any mode against t_max and stops at the first occluder."""
+    t_best, any mode against t_max and stops at the first occluder (with
+    ``compat``, against nothing)."""
     s = trav.stream
-    ray = Rays.of(o, d, t_max)
+    ray = Rays.of(o, d, t_max, compat)
     st = WalkState(ray, mode, n_stats=4)
     r, dev = t_max.shape[0], t_max.device
     depth = walk_stack_depth(s)
@@ -197,17 +208,17 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str):
 
 
 def plain_closest_hit_stream(trav, o, d, t_max, mask=None, *,
-                             stack_depth=64, with_stats=False):
+                             stack_depth=64, with_stats=False, compat=False):
     """The plain version of :func:`closest_hit_stream` on any device (also
     for holding the kernel against it on the card); never launches a
     kernel."""
-    st = _walk_plain(trav, o, d, t_max, mask, "closest")
+    st = _walk_plain(trav, o, d, t_max, mask, "closest", compat)
     return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit_stream(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                         with_stats=False):
-    st = _walk_plain(trav, o, d, t_max, mask, "any")
+                         with_stats=False, compat=False):
+    st = _walk_plain(trav, o, d, t_max, mask, "any", compat)
     return (st.occ, st.stats) if with_stats else st.occ
 
 
@@ -215,23 +226,25 @@ def plain_any_hit_stream(trav, o, d, t_max, mask=None, *, stack_depth=64,
 
 def closest_hit_stream(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                        mask: torch.Tensor | None = None, *,
-                       stack_depth: int = 64, with_stats: bool = False):
+                       stack_depth: int = 64, with_stats: bool = False,
+                       compat: bool = False):
     """Closest hit over the brick layout: ``Hit`` (+ stats).
     ``stack_depth`` is unused, as in the JAX package: the walk's depth
     follows from the layout's ``brick_stack``."""
     if _check(trav, o, d, t_max, mask).type == "cpu":
         return plain_closest_hit_stream(trav, o, d, t_max, mask,
-                                        with_stats=with_stats)
-    hit, stats = _kernel(trav, o, d, t_max, mask, True, with_stats)
+                                        with_stats=with_stats, compat=compat)
+    hit, stats = _kernel(trav, o, d, t_max, mask, True, with_stats, compat)
     return (hit, stats) if with_stats else hit
 
 
 def any_hit_stream(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                    mask: torch.Tensor | None = None, *,
-                   stack_depth: int = 64, with_stats: bool = False):
+                   stack_depth: int = 64, with_stats: bool = False,
+                   compat: bool = False):
     """Occlusion over the brick layout (+ stats)."""
     if _check(trav, o, d, t_max, mask).type == "cpu":
         return plain_any_hit_stream(trav, o, d, t_max, mask,
-                                    with_stats=with_stats)
-    occ, stats = _kernel(trav, o, d, t_max, mask, False, with_stats)
+                                    with_stats=with_stats, compat=compat)
+    occ, stats = _kernel(trav, o, d, t_max, mask, False, with_stats, compat)
     return (occ, stats) if with_stats else occ

@@ -9,10 +9,7 @@ versions on CPU tensors.  ``trav_tile``, ``trav_chunk``,
 ``trav_leaf_buffer`` and ``max_leaf_size`` are absent for the same
 reason: they tune the JAX package's XLA walks (the packet tile, the
 chunked while loop, the 4-wide leaf buffer) and the leaf size those
-walks assume, which the kernels do not read.  ``compat_pnrt``, whose
-non-default value belongs to a later slice of the port, is kept so that
-a config that asks for it fails loudly instead of rendering something
-else.
+walks assume, which the kernels do not read.
 """
 
 from __future__ import annotations
@@ -73,7 +70,12 @@ class RenderConfig:
     # 'balanced' = per-strategy balance heuristic.
     mis: str = "reference"
 
-    # Reference-quirk mode: a later slice of the port.
+    # Reproduce the reference's quirks (SURVEY.md section 3.3): the
+    # material decode, the GTR half vector and cosine-hemisphere sample,
+    # the unclamped BRDF pdf, the environment sampler's pdf and mirrored
+    # row, the env shadow origin without the normal offset, and in every
+    # walk kernel the t-ignoring slab test and the z-only axis permutation
+    # of the watertight test.
     compat_pnrt: bool = False
 
     env_scale: float = 1.0  # constant-env scale when there is no HDR map
@@ -105,10 +107,9 @@ class RenderConfig:
                              f"got {self.sort_key!r}")
         if self.max_depth < 1 or self.stack_depth < 2:
             raise ValueError("max_depth must be >= 1 and stack_depth >= 2")
-        if self.compat_pnrt:
-            raise NotImplementedError(
-                "compat_pnrt=True (reference-quirk mode) is not ported yet; "
-                "it is the compat slice of the port (ROADMAP.md)")
+        if self.compat_pnrt and self.mis == "balanced":
+            raise ValueError("compat_pnrt=True implies the reference "
+                             "estimator (mis='reference')")
 
     @property
     def num_pixels(self) -> int:

@@ -1,6 +1,15 @@
 // Device-side ray setup, slab test, watertight triangle test and wide-row
 // walk steps shared by traverse.cu and traverse_stream.cu.
 //
+// Compat mode.  The ray setup and the slab test take a compile-time
+// COMPAT parameter, and so does every walk step that calls them: with
+// COMPAT the reference's quirks (RenderConfig.compat_pnrt of both
+// packages; pnraytracing_tpu/ops/intersect.py:46-61, 129-160, 250-282):
+// the watertight test permutes its axes only when d.z == 0, and the slab
+// test is the interval-free t1 >= t0, so a walk prunes no box by its t.
+// Each kernel is instantiated for both values; COMPAT == false compiles to
+// the code it had before the parameter existed.
+//
 // Arithmetic.  Op for op the component forms of ops/intersect.py
 // (triangle_setup_c, intersect_triangle_c, intersect_aabb_c).  Every file
 // that includes this one MUST be compiled with --fmad=false: an FMA
@@ -46,6 +55,7 @@ __device__ __forceinline__ float safe_inv(float d) {
   return (d >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(d), 1e-20f);
 }
 
+template <bool COMPAT>
 __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
                                         float dx, float dy, float dz) {
   Ray r;
@@ -55,10 +65,23 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   r.inv_dy = safe_inv(dy);
   r.inv_dz = safe_inv(dz);
   const float adx = fabsf(dx), ady = fabsf(dy), adz = fabsf(dz);
-  // argmax |d|, first index among maxima (jnp.argmax tie-breaking)
-  r.kz = adx >= ady ? (adx >= adz ? 0 : 2) : (ady >= adz ? 1 : 2);
-  r.kx = (r.kz + 1) % 3;
-  r.ky = (r.kx + 1) % 3;
+  if constexpr (COMPAT) {
+    // (x, y, z) unless d.z == 0 (also -0); then (z, y, x) where |dx| >
+    // |dy|, else (x, z, y) (triangle.hpp:34-47).  A tiny nonzero d.z
+    // keeps kz = 2: its 1 / d.z may be inf and the test's shears NaN,
+    // which fail every comparison, as in the plain version.
+    (void)adz;
+    const bool z_zero = dz == 0.0f;
+    const bool zx = adx > ady;
+    r.kx = z_zero ? (zx ? 2 : 0) : 0;
+    r.ky = z_zero ? (zx ? 1 : 2) : 1;
+    r.kz = z_zero ? (zx ? 0 : 1) : 2;
+  } else {
+    // argmax |d|, first index among maxima (jnp.argmax tie-breaking)
+    r.kz = adx >= ady ? (adx >= adz ? 0 : 2) : (ady >= adz ? 1 : 2);
+    r.kx = (r.kz + 1) % 3;
+    r.ky = (r.kx + 1) % 3;
+  }
   r.sz = 1.0f / sel3(r.kz, dx, dy, dz);
   r.sx = sel3(r.kx, dx, dy, dz) * r.sz;
   r.sy = sel3(r.ky, dx, dy, dz) * r.sz;
@@ -82,7 +105,9 @@ __device__ __forceinline__ bool never_enters(const Ray& r) {
          nan_axis(r.oz, r.dz);
 }
 
-// Slab test clipped to [0, t_max] (intersect_aabb_c).
+// Slab test clipped to [0, t_max] (intersect_aabb_c); with COMPAT the
+// reference's t1 >= t0, which reads no t_max.
+template <bool COMPAT>
 __device__ __forceinline__ bool hit_aabb(const Ray& r, float mnx, float mny,
                                          float mnz, float mxx, float mxy,
                                          float mxz, float t_max) {
@@ -94,7 +119,12 @@ __device__ __forceinline__ bool hit_aabb(const Ray& r, float mnx, float mny,
   const float nz = (mnz - r.oz) * r.inv_dz;
   const float t1 = fminf(fminf(fmaxf(fx, nx), fmaxf(fy, ny)), fmaxf(fz, nz));
   const float t0 = fmaxf(fmaxf(fminf(fx, nx), fminf(fy, ny)), fminf(fz, nz));
-  return (t1 >= fmaxf(t0, 0.0f)) && (t0 <= t_max);
+  if constexpr (COMPAT) {
+    (void)t_max;
+    return t1 >= t0;
+  } else {
+    return (t1 >= fmaxf(t0, 0.0f)) && (t0 <= t_max);
+  }
 }
 
 // Watertight ray-triangle test (intersect_triangle_c) of the triangle
@@ -202,14 +232,15 @@ __device__ __forceinline__ Row load_row(const float* p) {
 
 // Slab-test both children of a wide row against t; returns the hit
 // children as (near, far) by this ray's direction sign on the row's axis.
+template <bool COMPAT>
 __device__ __forceinline__ void order_children(const Ray& r, const Row& w,
                                                float t, int& near_c,
                                                int& far_c, bool& h_near,
                                                bool& h_far) {
-  const bool hl = hit_aabb(r, w.lmn[0], w.lmn[1], w.lmn[2], w.lmx[0],
-                           w.lmx[1], w.lmx[2], t);
-  const bool hr = hit_aabb(r, w.rmn[0], w.rmn[1], w.rmn[2], w.rmx[0],
-                           w.rmx[1], w.rmx[2], t);
+  const bool hl = hit_aabb<COMPAT>(r, w.lmn[0], w.lmn[1], w.lmn[2], w.lmx[0],
+                                   w.lmx[1], w.lmx[2], t);
+  const bool hr = hit_aabb<COMPAT>(r, w.rmn[0], w.rmn[1], w.rmn[2], w.rmx[0],
+                                   w.rmx[1], w.rmx[2], t);
   const bool d_neg = sel3(w.axis, r.dx, r.dy, r.dz) < 0.0f;
   near_c = d_neg ? w.ri : w.li;
   far_c = d_neg ? w.li : w.ri;
@@ -218,11 +249,12 @@ __device__ __forceinline__ void order_children(const Ray& r, const Row& w,
 }
 
 // Push the hit children of an internal row, far first (near pops next).
+template <bool COMPAT>
 __device__ __forceinline__ void push_children(const Ray& r, const Row& w,
                                               float t, int* stack, int& top) {
   int near_c, far_c;
   bool h_near, h_far;
-  order_children(r, w, t, near_c, far_c, h_near, h_far);
+  order_children<COMPAT>(r, w, t, near_c, far_c, h_near, h_far);
   if (h_far) stack[top++] = far_c;
   if (h_near) stack[top++] = near_c;
 }
@@ -237,11 +269,12 @@ __device__ __forceinline__ int pop_node(const int* stack, int& top) {
   return top > 0 ? stack[--top] : kWalkDone;
 }
 
+template <bool COMPAT>
 __device__ __forceinline__ int next_node(const Ray& r, const Row& w, float t,
                                          int* stack, int& top) {
   int near_c, far_c;
   bool h_near, h_far;
-  order_children(r, w, t, near_c, far_c, h_near, h_far);
+  order_children<COMPAT>(r, w, t, near_c, far_c, h_near, h_far);
   if (h_near && h_far) stack[top++] = far_c;
   if (h_near) return near_c;
   if (h_far) return far_c;

@@ -3,12 +3,16 @@
 // any hit over the compact wide rows, and the binary pop-test walks.
 //
 // Replaces the TPU kernels of pnraytracing_tpu/accel/traverse_pallas.py:
-//   closest_hit_kernel<true>   <- _closest_kernel_wide_attr
-//   closest_hit_kernel<false>  <- _closest_kernel_wide (the same template
-//                                 with the fill compiled out)
-//   any_hit_kernel             <- _any_kernel_wide
-//   closest_hit_binary_kernel  <- _closest_kernel
-//   any_hit_binary_kernel      <- _any_kernel
+//   closest_hit_kernel<true, C>   <- _closest_kernel_wide_attr
+//   closest_hit_kernel<false, C>  <- _closest_kernel_wide (the same
+//                                    template with the fill compiled out)
+//   any_hit_kernel<C>             <- _any_kernel_wide
+//   closest_hit_binary_kernel<C>  <- _closest_kernel
+//   any_hit_binary_kernel<C>      <- _any_kernel
+// C is the compile-time compat flag of each Pallas kernel's `compat`
+// argument (intersect.cuh): C = true reproduces the reference's ray setup
+// and interval-free slab test, so its walks visit every box the ray's
+// line crosses.  Each launcher takes `compat` and picks the instantiation.
 //
 // What they compute.  The wide walk is push-test over nodes16c [N, 16]
 // rows: visiting an internal row slab-tests BOTH children against the
@@ -151,7 +155,7 @@ __device__ __forceinline__ bool any_leaf(const Ray& r,
 // The wide kernels state one block an SM as their least, which leaves
 // the compiler every register it wants (occupancy is not what limits
 // them; capped at 40 registers they ran 10-23% slower).
-template <bool ATTR>
+template <bool ATTR, bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 closest_hit_kernel(const float* __restrict__ nodes,
                    const float* __restrict__ tris,
@@ -159,8 +163,8 @@ closest_hit_kernel(const float* __restrict__ nodes,
                    ClosestOut out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
+  const Ray r = make_ray<COMPAT>(rays.ox[i], rays.oy[i], rays.oz[i],
+                                 rays.dx[i], rays.dy[i], rays.dz[i]);
   const bool active = walks(rays, i, r);
   Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
   int pops = 0, leaf_pops = 0, tri_tests = 0;
@@ -171,8 +175,8 @@ closest_hit_kernel(const float* __restrict__ nodes,
   while (cur != kWalkDone) {
     while (cur >= 0) {  // descend rows until this lane holds a leaf
       ++pops;
-      cur = next_node(r, load_row(nodes + 16 * (int64_t)cur), h.t, stack,
-                      top);
+      cur = next_node<COMPAT>(r, load_row(nodes + 16 * (int64_t)cur), h.t,
+                              stack, top);
     }
     if (cur != kWalkDone) {
       ++pops;
@@ -212,14 +216,15 @@ closest_hit_kernel(const float* __restrict__ nodes,
   write_stats(out.stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
 
+template <bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 any_hit_kernel(const float* __restrict__ nodes,
                const float* __restrict__ tris, Rays rays,
                uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
+  const Ray r = make_ray<COMPAT>(rays.ox[i], rays.oy[i], rays.oz[i],
+                                 rays.dx[i], rays.dy[i], rays.dz[i]);
   const bool active = walks(rays, i, r);
   const float t_max = rays.t_max[i];
   bool occ = false;
@@ -231,8 +236,8 @@ any_hit_kernel(const float* __restrict__ nodes,
   while (cur != kWalkDone) {
     while (cur >= 0) {
       ++pops;
-      cur = next_node(r, load_row(nodes + 16 * (int64_t)cur), t_max, stack,
-                      top);
+      cur = next_node<COMPAT>(r, load_row(nodes + 16 * (int64_t)cur), t_max,
+                              stack, top);
     }
     if (cur != kWalkDone) {
       ++pops;
@@ -267,13 +272,14 @@ __device__ __forceinline__ Node8 load_node8(const float* __restrict__ nodes8,
 // ray misses gives the stack's top; a leaf whose box it hits sets meta
 // (start*16 + count) and stays; an inner node goes on into its near child
 // (left = node + 1) and pushes the far one.
+template <bool COMPAT>
 __device__ __forceinline__ int binary_pop(const Ray& r,
                                           const float* __restrict__ nodes8,
                                           int cur, float t, int* stack,
                                           int& top, int& meta) {
   const Node8 w = load_node8(nodes8, cur);
-  if (!hit_aabb(r, w.mn[0], w.mn[1], w.mn[2], w.mx[0], w.mx[1], w.mx[2],
-                t)) {
+  if (!hit_aabb<COMPAT>(r, w.mn[0], w.mn[1], w.mn[2], w.mx[0], w.mx[1],
+                        w.mx[2], t)) {
     return pop_node(stack, top);
   }
   if (w.enc_right < 0) {
@@ -303,6 +309,7 @@ __device__ __forceinline__ int binary_pop(const Ray& r,
 // hit and the stats are those of the one-loop pop-test walk.
 constexpr int kBinaryDescent = 4;
 
+template <bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 closest_hit_binary_kernel(const float* __restrict__ nodes8,
                           const float* __restrict__ tri12, Rays rays,
@@ -312,8 +319,8 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
                           int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
+  const Ray r = make_ray<COMPAT>(rays.ox[i], rays.oy[i], rays.oz[i],
+                                 rays.dx[i], rays.dy[i], rays.dz[i]);
   const bool active = walks(rays, i, r);
   Best h = {rays.t_max[i], -1, 0.0f, 0.0f};
   int pops = 0, leaf_pops = 0, tri_tests = 0;
@@ -327,7 +334,7 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
     for (int step = 0; step < kBinaryDescent && cur != kWalkDone && meta < 0;
          ++step) {
       ++pops;
-      cur = binary_pop(r, nodes8, cur, h.t, stack, top, meta);
+      cur = binary_pop<COMPAT>(r, nodes8, cur, h.t, stack, top, meta);
     }
     if (meta >= 0) {
       ++leaf_pops;
@@ -357,6 +364,7 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
 // (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
 constexpr int kAnyDescent = 8;
 
+template <bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 any_hit_binary_kernel(const float* __restrict__ nodes8,
                       const float* __restrict__ tri12, Rays rays,
@@ -364,8 +372,8 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
                       int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
+  const Ray r = make_ray<COMPAT>(rays.ox[i], rays.oy[i], rays.oz[i],
+                                 rays.dx[i], rays.dy[i], rays.dz[i]);
   const bool active = walks(rays, i, r);
   const float t_max = rays.t_max[i];
   bool occ = false;
@@ -380,7 +388,7 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
     for (int step = 0; step < kAnyDescent && cur != kWalkDone && meta < 0;
          ++step) {
       ++pops;
-      cur = binary_pop(r, nodes8, cur, t_max, stack, top, meta);
+      cur = binary_pop<COMPAT>(r, nodes8, cur, t_max, stack, top, meta);
     }
     if (meta >= 0) {
       ++leaf_pops;
@@ -392,64 +400,70 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
   write_stats(stats, rays.n, i, pops, leaf_pops, tri_tests);
 }
 
+// The instantiation of one resident walk kernel (which: 0 closest +
+// fill, 1 closest, 2 any, 3 binary closest, 4 binary any).
+template <bool COMPAT>
+const void* walk_kernel(int which) {
+  return which == 0   ? (const void*)closest_hit_kernel<true, COMPAT>
+         : which == 1 ? (const void*)closest_hit_kernel<false, COMPAT>
+         : which == 2 ? (const void*)any_hit_kernel<COMPAT>
+         : which == 3 ? (const void*)closest_hit_binary_kernel<COMPAT>
+                      : (const void*)any_hit_binary_kernel<COMPAT>;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Closest hit over the wide rows and the padded triangle rows tri12; with
-// attr != 0 also the interaction fill (nx..mt must then be non-null).
-// stats may be null, else [3, n] int32: pops, leaf pops, triangle tests.
-// Returns cudaGetLastError() after the launch.
+// attr != 0 also the interaction fill (nx..mt must then be non-null);
+// compat != 0 launches the compat instantiation.  stats may be null, else
+// [3, n] int32: pops, leaf pops, triangle tests.  Returns
+// cudaGetLastError() after the launch.
 int pnrt_closest_hit(const float* nodes, const float* tri12,
                      const float* attr16, const float* ox, const float* oy,
                      const float* oz, const float* dx, const float* dy,
                      const float* dz, const float* t_max,
-                     const uint8_t* mask, int n, int attr, float* t_out,
-                     int* tri_out, float* b1_out, float* b2_out,
-                     float* nx_out, float* ny_out, float* nz_out,
-                     float* u_out, float* v_out, int* mt_out, int* stats,
-                     void* stream) {
+                     const uint8_t* mask, int n, int attr, int compat,
+                     float* t_out, int* tri_out, float* b1_out,
+                     float* b2_out, float* nx_out, float* ny_out,
+                     float* nz_out, float* u_out, float* v_out, int* mt_out,
+                     int* stats, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   const ClosestOut out = {t_out,  tri_out, b1_out, b2_out, nx_out, ny_out,
                           nz_out, u_out,   v_out,  mt_out, stats};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (attr) {
-    closest_hit_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-        nodes, tri12, attr16, rays, out);
-  } else {
-    closest_hit_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-        nodes, tri12, nullptr, rays, out);
-  }
+  auto kernel = attr ? (compat ? closest_hit_kernel<true, true>
+                                : closest_hit_kernel<true, false>)
+                     : (compat ? closest_hit_kernel<false, true>
+                               : closest_hit_kernel<false, false>);
+  kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes, tri12, attr ? attr16 : nullptr, rays, out);
   return (int)cudaGetLastError();
 }
 
 int pnrt_any_hit(const float* nodes, const float* tri12, const float* ox,
                  const float* oy, const float* oz, const float* dx,
                  const float* dy, const float* dz, const float* t_max,
-                 const uint8_t* mask, int n, uint8_t* occ_out, int* stats,
-                 void* stream) {
+                 const uint8_t* mask, int n, int compat, uint8_t* occ_out,
+                 int* stats, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
-  any_hit_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(nodes, tri12, rays,
-                                                        occ_out, stats);
+  auto kernel = compat ? any_hit_kernel<true> : any_hit_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes, tri12, rays, occ_out, stats);
   return (int)cudaGetLastError();
 }
 
-// What the card gives a resident walk kernel (which: 0 closest + fill, 1
-// closest, 2 any, 3 binary closest, 4 binary any): what == 0 the
-// registers a thread, 1 the blocks an SM
-// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 2 the
-// threads a block, 3 the bytes of local memory a thread.  A negative
-// value is minus the CUDA error.
-int pnrt_walk_kernel_info(int which, int what) {
+// What the card gives a resident walk kernel (which as walk_kernel, in
+// its compat instantiation when compat != 0): what == 0 the registers a
+// thread, 1 the blocks an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), 2 the threads a block,
+// 3 the bytes of local memory a thread.  A negative value is minus the
+// CUDA error.
+int pnrt_walk_kernel_info(int which, int compat, int what) {
   const void* kernel =
-      which == 0   ? (const void*)closest_hit_kernel<true>
-      : which == 1 ? (const void*)closest_hit_kernel<false>
-      : which == 2 ? (const void*)any_hit_kernel
-      : which == 3 ? (const void*)closest_hit_binary_kernel
-                   : (const void*)any_hit_binary_kernel;
+      compat ? walk_kernel<true>(which) : walk_kernel<false>(which);
   if (what == 2) return kThreads;
   if (what == 1) {
     int blocks = 0;
@@ -469,12 +483,14 @@ int pnrt_closest_hit_binary(const float* nodes8, const float* tri12,
                             const float* ox, const float* oy, const float* oz,
                             const float* dx, const float* dy, const float* dz,
                             const float* t_max, const uint8_t* mask, int n,
-                            float* t_out, int* tri_out, float* b1_out,
-                            float* b2_out, int* stats, void* stream) {
+                            int compat, float* t_out, int* tri_out,
+                            float* b1_out, float* b2_out, int* stats,
+                            void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
-  closest_hit_binary_kernel<<<blocks_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = compat ? closest_hit_binary_kernel<true>
+                       : closest_hit_binary_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       nodes8, tri12, rays, t_out, tri_out, b1_out, b2_out, stats);
   return (int)cudaGetLastError();
 }
@@ -483,11 +499,13 @@ int pnrt_any_hit_binary(const float* nodes8, const float* tri12,
                         const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
                         const float* t_max, const uint8_t* mask, int n,
-                        uint8_t* occ_out, int* stats, void* stream) {
+                        int compat, uint8_t* occ_out, int* stats,
+                        void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
-  any_hit_binary_kernel<<<blocks_for(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = compat ? any_hit_binary_kernel<true>
+                       : any_hit_binary_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       nodes8, tri12, rays, occ_out, stats);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,11 @@
 // (accel/route.py).
 //
 // Replaces the TPU kernel pnraytracing_tpu/accel/traverse_stream.py:
-//   stream_kernel<true>   <- _make_stream_kernel(mode="closest")
-//   stream_kernel<false>  <- _make_stream_kernel(mode="any")
+//   stream_kernel<true, C>   <- _make_stream_kernel(mode="closest")
+//   stream_kernel<false, C>  <- _make_stream_kernel(mode="any")
+// C is the kernel's compile-time `compat` (intersect.cuh): with it the top
+// tree's and the bricks' slab tests are the reference's interval-free
+// t1 >= t0, so a closest walk enters every brick the ray's line crosses.
 //
 // What it computes.  The top tree (top16 [Nt, 16] wide rows; a negative
 // child info -(b)-1 names brick b) leads to the bricks ([B, brick_words]
@@ -68,7 +71,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kHeaderWords = 4;  // tris_off, tri_base, n_rows, n_tris
 
-template <bool CLOSEST>
+template <bool CLOSEST, bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 4)
 stream_kernel(const float* __restrict__ top16,
               const float* __restrict__ bricks, int brick_words, Rays rays,
@@ -77,8 +80,8 @@ stream_kernel(const float* __restrict__ top16,
               uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= rays.n) return;
-  const Ray r = make_ray(rays.ox[i], rays.oy[i], rays.oz[i], rays.dx[i],
-                         rays.dy[i], rays.dz[i]);
+  const Ray r = make_ray<COMPAT>(rays.ox[i], rays.oy[i], rays.oz[i],
+                                 rays.dx[i], rays.dy[i], rays.dz[i]);
   const bool active = walks(rays, i, r);
   const float t_max = rays.t_max[i];
   float t_best = t_max;
@@ -140,7 +143,8 @@ stream_kernel(const float* __restrict__ top16,
       ++entered;
     }
     const float t_lim = CLOSEST ? t_best : t_max;
-    push_children(r, load_row(rows + 16 * (int64_t)info), t_lim, stack, top);
+    push_children<COMPAT>(r, load_row(rows + 16 * (int64_t)info), t_lim,
+                          stack, top);
   }
 
   if (CLOSEST) {
@@ -155,15 +159,27 @@ stream_kernel(const float* __restrict__ top16,
   if (stats != nullptr) stats[3 * (int64_t)rays.n + i] = entered;
 }
 
+// The instantiation of one mode of the kernel.
+using StreamKernel = void (*)(const float*, const float*, int, Rays, float*,
+                              int*, float*, float*, uint8_t*, int*);
+
+StreamKernel stream_kernel_of(int closest, int compat) {
+  return closest ? (compat ? stream_kernel<true, true>
+                           : stream_kernel<true, false>)
+                 : (compat ? stream_kernel<false, true>
+                           : stream_kernel<false, false>);
+}
+
 }  // namespace
 
 extern "C" {
 
 // closest != 0: t/tri/b1/b2 outputs (occ_out unused); else occ_out.
-// stats may be null, else [4, n] int32 per ray: pops (top tree and
-// bricks), leaf pops, triangle tests, bricks entered.  Returns
-// cudaGetLastError() after the launch.
-int pnrt_stream(int closest, const float* top16, const float* bricks, int brick_words, const float* ox,
+// compat != 0 launches the compat instantiation.  stats may be null, else
+// [4, n] int32 per ray: pops (top tree and bricks), leaf pops, triangle
+// tests, bricks entered.  Returns cudaGetLastError() after the launch.
+int pnrt_stream(int closest, int compat, const float* top16,
+                const float* bricks, int brick_words, const float* ox,
                 const float* oy, const float* oz, const float* dx,
                 const float* dy, const float* dz, const float* t_max,
                 const uint8_t* mask, int n, float* t_out, int* tri_out,
@@ -173,7 +189,7 @@ int pnrt_stream(int closest, const float* top16, const float* bricks, int brick_
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = closest ? stream_kernel<true> : stream_kernel<false>;
+  const StreamKernel kernel = stream_kernel_of(closest, compat);
   kernel<<<blocks, kThreads, 0, s>>>(top16, bricks, brick_words, rays, t_out,
                                      tri_out, b1_out, b2_out, occ_out, stats);
   return (int)cudaGetLastError();
@@ -183,8 +199,8 @@ int pnrt_stream(int closest, const float* top16, const float* bricks, int brick_
 // thread, what == 1 the blocks an SM can hold at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), what == 2 the threads
 // a block.  A negative value is minus the CUDA error.
-int pnrt_stream_kernel_info(int closest, int what) {
-  auto kernel = closest ? stream_kernel<true> : stream_kernel<false>;
+int pnrt_stream_kernel_info(int closest, int compat, int what) {
+  const StreamKernel kernel = stream_kernel_of(closest, compat);
   if (what == 2) return kThreads;
   if (what == 0) {
     cudaFuncAttributes attr;

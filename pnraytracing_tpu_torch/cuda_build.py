@@ -92,13 +92,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every entry point; all return an int (the launchers a CUDA
 # error code)
 _SIGNATURES = {
-    "pnrt_closest_hit": [_P] * 11 + [_I] * 2 + [_P] * 12,
-    "pnrt_any_hit": [_P] * 10 + [_I] + [_P] * 3,
-    "pnrt_walk_kernel_info": [_I] * 2,
-    "pnrt_closest_hit_binary": [_P] * 10 + [_I] + [_P] * 6,
-    "pnrt_any_hit_binary": [_P] * 10 + [_I] + [_P] * 3,
-    "pnrt_stream": [_I, _P, _P, _I] + [_P] * 8 + [_I] + [_P] * 7,
-    "pnrt_stream_kernel_info": [_I] * 2,
+    "pnrt_closest_hit": [_P] * 11 + [_I] * 3 + [_P] * 12,
+    "pnrt_any_hit": [_P] * 10 + [_I] * 2 + [_P] * 3,
+    "pnrt_walk_kernel_info": [_I] * 3,
+    "pnrt_closest_hit_binary": [_P] * 10 + [_I] * 2 + [_P] * 6,
+    "pnrt_any_hit_binary": [_P] * 10 + [_I] * 2 + [_P] * 3,
+    "pnrt_stream": [_I, _I, _P, _P, _I] + [_P] * 8 + [_I] + [_P] * 7,
+    "pnrt_stream_kernel_info": [_I] * 3,
     "pnrt_entry_key": [_P] + [_I] * 3 + [_P] * 6 + [_I] + [_P] * 3,
     "pnrt_entry_key_kernel_info": [_I] * 2,
 }

@@ -1,12 +1,17 @@
 """Disney principled BRDF: evaluation, lobe sampling, pdf.
 
 PyTorch counterpart of the component forms of
-``pnraytracing_tpu/ops/brdf.py`` (ray_tracing.comp:649-849), default
-(non-compat) mode, over per-ray material records whose scalar fields are
-[R] tensors (``Materials.gather_components``).
+``pnraytracing_tpu/ops/brdf.py`` (ray_tracing.comp:649-849) over per-ray
+material records whose scalar fields are [R] tensors
+(``Materials.gather_components``).  ``compat=True`` reproduces the
+reference's quirks as the JAX package does: the material decode, the
+unclamped pdf, the GTR half vector without its square roots and the
+cosine-hemisphere sample that reads u1 as an angle.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -77,6 +82,15 @@ def specular_alpha(m: Materials):
     return torch.clamp_min(sqr(m.roughness), 0.001)
 
 
+def apply_compat_material_decode(m: Materials) -> Materials:
+    """The reference's buffer decode reads param row 3 where row 4 was
+    meant (ray_tracing.comp:139-142): clearcoat_gloss = sheen, ior =
+    sheen_tint, transmission = clearcoat.  A new record over the same
+    tensors; nothing is written into ``m``."""
+    return dataclasses.replace(m, clearcoat_gloss=m.sheen, ior=m.sheen_tint,
+                               transmission=m.clearcoat)
+
+
 def disney_eval_v(v: V3, n: V3, l: V3, x: V3, y: V3, m: Materials,
                   cdlin: V3) -> V3:
     """f(V, L) — DisneyBRDF (comp:788-849).  ``cdlin`` is the base color."""
@@ -145,8 +159,10 @@ def lobe_probs(m: Materials):
     return r_diffuse * inv, r_specular * inv, r_clearcoat * inv
 
 
-def disney_pdf_v(v: V3, n: V3, l: V3, m: Materials) -> torch.Tensor:
-    """Combined lobe pdf of direction l (comp:710-738), clamped >= 0."""
+def disney_pdf_v(v: V3, n: V3, l: V3, m: Materials,
+                 compat: bool = False) -> torch.Tensor:
+    """Combined lobe pdf of direction l (comp:710-738), clamped >= 0
+    (unclamped with ``compat``, as in the reference)."""
     p_diff, p_spec, p_cc = lobe_probs(m)
     a_gtr1 = clearcoat_alpha(m)
     a_gtr2 = specular_alpha(m)
@@ -163,63 +179,78 @@ def disney_pdf_v(v: V3, n: V3, l: V3, m: Materials) -> torch.Tensor:
     pdf_cc = gtr1(ndoth, a_gtr1) * ndoth / safe
 
     pdf = p_diff * pdf_diffuse + p_spec * pdf_spec + p_cc * pdf_cc
-    return torch.clamp_min(pdf, 0.0)
+    return pdf if compat else torch.clamp_min(pdf, 0.0)
 
 
-def _sample_h_local_v(r1, cos_theta_h) -> V3:
-    """Half-vector construction of the GTR lobes (comp:688-692)."""
+def _sample_h_local_v(r1, cos_theta_h, compat: bool = False) -> V3:
+    """Half-vector construction of the GTR lobes (comp:688-692); with
+    ``compat`` the reference's sin_theta = 1 - cos^2 and cos_phi = 1 -
+    sin^2, without the square roots."""
     phi_h = TWO_PI * r1
-    sin_theta_h = safe_sqrt(1.0 - sqr(cos_theta_h))
     sin_phi_h = torch.sin(phi_h)
-    cos_phi_h = torch.cos(phi_h)
+    if compat:
+        sin_theta_h = torch.clamp_min(1.0 - sqr(cos_theta_h), 0.0)
+        cos_phi_h = 1.0 - sqr(sin_phi_h)
+    else:
+        sin_theta_h = safe_sqrt(1.0 - sqr(cos_theta_h))
+        cos_phi_h = torch.cos(phi_h)
     return V3(sin_theta_h * cos_phi_h, sin_theta_h * sin_phi_h, cos_theta_h)
 
 
-def sample_gtr2_dir_v(n, t, b, v, r1, r2, alpha) -> V3:
+def sample_gtr2_dir_v(n, t, b, v, r1, r2, alpha, compat: bool = False) -> V3:
     """Specular lobe direction (SampleGTR2, comp:687-695)."""
     cos_theta_h = safe_sqrt(
         (1.0 - r2) / torch.clamp_min(1.0 + (sqr(alpha) - 1.0) * r2, _EPS))
-    h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h))
+    h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h,
+                                                      compat))
     return vreflect(v, h)
 
 
-def sample_gtr1_dir_v(n, t, b, v, r1, r2, alpha) -> V3:
+def sample_gtr1_dir_v(n, t, b, v, r1, r2, alpha, compat: bool = False) -> V3:
     """Clearcoat lobe direction (SampleGTR1, comp:698-707)."""
     a2 = sqr(alpha)
     cos_theta_h = safe_sqrt(
         (1.0 - torch.pow(a2, 1.0 - r2)) / torch.clamp_min(1.0 - a2, _EPS))
-    h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h))
+    h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h,
+                                                      compat))
     return vreflect(v, h)
 
 
-def sample_cosine_hemisphere_local_v(u1, u2) -> V3:
-    """Cosine-weighted hemisphere sample (local frame)."""
-    rr = safe_sqrt(u1)
-    phi = TWO_PI * u2
-    x = rr * torch.cos(phi)
-    y = rr * torch.sin(phi)
+def sample_cosine_hemisphere_local_v(u1, u2, compat: bool = False) -> V3:
+    """Cosine-weighted hemisphere sample (local frame); with ``compat``
+    the reference's SampleCosineHemisphere (comp:642-647), which reads u1
+    as an angle in radians and u2 as the radius."""
+    if compat:
+        x = u2 * torch.sin(u1)
+        y = u2 * torch.cos(u1)
+    else:
+        rr = safe_sqrt(u1)
+        phi = TWO_PI * u2
+        x = rr * torch.cos(phi)
+        y = rr * torch.sin(phi)
     return V3(x, y, safe_sqrt(1.0 - x * x - y * y))
 
 
 def disney_sample_v(v: V3, n: V3, t: V3, b: V3, m: Materials, r_lobe, r1,
-                    r2, u_diff1, u_diff2):
+                    r2, u_diff1, u_diff2, compat: bool = False):
     """Sample an outgoing direction and its pdf (SampleDisneyBRDF,
     comp:742-786): ``r_lobe`` picks diffuse / specular / clearcoat,
     ``(r1, r2)`` drive the GTR half-vector lobes, ``(u_diff1, u_diff2)``
-    the diffuse hemisphere.  Returns (l V3, pdf, lobe int32)."""
+    the diffuse hemisphere; ``compat`` the reference's forms of each.
+    Returns (l V3, pdf, lobe int32)."""
     p_diff, p_spec, _ = lobe_probs(m)
     a_gtr1 = clearcoat_alpha(m)
     a_gtr2 = specular_alpha(m)
 
     l_diff = tangent_to_world_v(
-        t, b, n, sample_cosine_hemisphere_local_v(u_diff1, u_diff2))
-    l_spec = sample_gtr2_dir_v(n, t, b, v, r1, r2, a_gtr2)
-    l_cc = sample_gtr1_dir_v(n, t, b, v, r1, r2, a_gtr1)
+        t, b, n, sample_cosine_hemisphere_local_v(u_diff1, u_diff2, compat))
+    l_spec = sample_gtr2_dir_v(n, t, b, v, r1, r2, a_gtr2, compat)
+    l_cc = sample_gtr1_dir_v(n, t, b, v, r1, r2, a_gtr1, compat)
 
     take_diff = r_lobe <= p_diff
     take_spec = (~take_diff) & (r_lobe <= p_diff + p_spec)
     l = vwhere(take_diff, l_diff, vwhere(take_spec, l_spec, l_cc))
-    pdf = disney_pdf_v(v, n, l, m)
+    pdf = disney_pdf_v(v, n, l, m, compat)
     lobe = torch.where(take_diff, 0, torch.where(take_spec, 1, 2)).to(
         torch.int32)
     return l, pdf, lobe

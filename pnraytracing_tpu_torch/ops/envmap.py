@@ -3,12 +3,23 @@
 PyTorch counterpart of ``pnraytracing_tpu/ops/envmap.py`` (LoadHDRImage,
 shader.hpp:126-225; SampleHDRImage, ray_tracing.comp:560-576).  The bake
 is the JAX package's host (numpy) branch, copied so that the tables come
-out bit-exact; sampling takes the Walker alias path with the fat rows
-(one row gather per sample).  Conventions: ``image[0]`` is the top row
-(+y); u = atan2(z, x)/2pi + 0.5, v = 0.5 - asin(y)/pi.
+out bit-exact.  Sampling takes the Walker alias path with the fat rows
+(one row gather per sample) when the map has alias tables
+(``build_envmap(alias=True)``, what the scene builder bakes), else the
+CDF inversion: ``searchsorted`` over the marginal and an unrolled
+bisection of the conditional row (:func:`_bisect_rows`).  Conventions:
+``image[0]`` is the top row (+y); u = atan2(z, x)/2pi + 0.5,
+v = 0.5 - asin(y)/pi.
+
+Compat quirks (``compat=True``, the JAX package's): the sample's pdf
+converts with the *elevation* sine, ``(W*H/2) / (2 pi^2 sin(elev))``
+clamped at 1e-10 (comp:572-574), and its radiance comes from the
+vertically mirrored row (comp:563, 575); compat always inverts the CDFs.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -53,11 +64,12 @@ def _pack_quads(image: np.ndarray) -> np.ndarray:
     return np.concatenate([image, xp, dn, dnxp], axis=-1)
 
 
-def build_envmap(image: np.ndarray, device=None) -> EnvMap:
+def build_envmap(image: np.ndarray, alias: bool = False,
+                 device=None) -> EnvMap:
     """Sampling tables of an [H, W, 3] radiance image, baked on the host
-    (shader.hpp:145-181): luminance pdf, marginal/conditional CDFs, Walker
-    alias tables and the fat alias rows [prob, alias, rgb(keep),
-    rgb(alias), pdf(keep), pdf(alias)]."""
+    (shader.hpp:145-181): luminance pdf and marginal/conditional CDFs;
+    with ``alias`` also the Walker alias tables and the fat alias rows
+    [prob, alias, rgb(keep), rgb(alias), pdf(keep), pdf(alias)]."""
     img_np = np.asarray(image, np.float32)
     lum = (0.2 * img_np[..., 0] + 0.7 * img_np[..., 1]
            + 0.1 * img_np[..., 2])
@@ -68,6 +80,15 @@ def build_envmap(image: np.ndarray, device=None) -> EnvMap:
     cond = pdf_xy / np.maximum(pdf_marginal_x[:, None], 1e-20)
     cdf_y_given_x = np.cumsum(cond, axis=1)
 
+    dev = torch.device("cuda" if device is None else device)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    env = EnvMap(image=t(img_np), pdf_xy=t(pdf_xy),
+                 cdf_marginal_x=t(cdf_marginal_x),
+                 cdf_y_given_x=t(cdf_y_given_x),
+                 quad12=t(_pack_quads(img_np)))
+    if not alias:
+        return env
     w, h = int(pdf_xy.shape[0]), int(pdf_xy.shape[1])
     prob_x, al_x = _alias_table(pdf_marginal_x)
     alias_x = np.stack([prob_x, al_x.astype(np.float32)], axis=1)
@@ -87,20 +108,59 @@ def build_envmap(image: np.ndarray, device=None) -> EnvMap:
         [prob_y[..., None], al_y[..., None], img_t, rgb_alias,
          pdf_keep[..., None], pdf_alias[..., None]], axis=-1,
     ).reshape(w * h, 10).astype(np.float32)
+    env.alias_x, env.alias_y, env.alias_fat = (t(alias_x), t(alias_y),
+                                               t(alias_fat))
+    return env
 
-    dev = torch.device("cuda" if device is None else device)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                  device=dev)
-    return EnvMap(
-        image=t(img_np),
-        pdf_xy=t(pdf_xy),
-        cdf_marginal_x=t(cdf_marginal_x),
-        cdf_y_given_x=t(cdf_y_given_x),
-        alias_x=t(alias_x),
-        alias_y=t(alias_y),
-        alias_fat=t(alias_fat),
-        quad12=t(_pack_quads(img_np)),
-    )
+
+def _bisect_rows(table: torch.Tensor, x: torch.Tensor,
+                 u: torch.Tensor) -> torch.Tensor:
+    """Per-ray ``searchsorted(table[x], u, side='left')`` without
+    gathering whole rows: ceil(log2(H + 1)) halvings, each one gather of
+    one element a ray.  The loop count is a host int (the table's
+    shape), so the function reads nothing on the host and captures in a
+    CUDA graph."""
+    h = int(table.shape[1])
+    lo = torch.zeros_like(x)
+    hi = torch.full_like(x, h)
+    for _ in range(max(1, math.ceil(math.log2(h + 1)))):
+        active = lo < hi
+        mid = torch.clamp_max(torch.div(lo + hi, 2, rounding_mode="floor"),
+                              h - 1)
+        right = active & (table[x, mid] < u)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+    return lo
+
+
+def _grid_direction(u: torch.Tensor, v: torch.Tensor):
+    """(u, v) in [0, 1]^2 -> ([R, 3] unit direction, elevation)
+    (comp:566-568)."""
+    phi = TWO_PI * (u - 0.5)
+    theta = PI * (0.5 - v)  # elevation; v = 0 -> +pi/2 (up)
+    cos_t = torch.cos(theta)
+    return torch.stack([cos_t * torch.cos(phi), torch.sin(theta),
+                        cos_t * torch.sin(phi)], dim=-1), theta
+
+
+def bilinear_lookup(image: torch.Tensor, u: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """[R, 3] bilinear fetch of ``image`` [H, W, 3] at normalized (u, v):
+    u wraps (the azimuth seam), v clamps."""
+    h, w = image.shape[0], image.shape[1]
+    fx = u * w - 0.5
+    fy = v * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = (fx - x0)[:, None]
+    ty = (fy - y0)[:, None]
+    x0i = torch.remainder(x0.to(torch.int64), w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    top = image[y0i, x0i] * (1 - tx) + image[y0i, x1i] * tx
+    bot = image[y1i, x0i] * (1 - tx) + image[y1i, x1i] * tx
+    return top * (1 - ty) + bot * ty
 
 
 def envmap_lookup_v(env: EnvMap, dirs: V3) -> V3:
@@ -128,14 +188,58 @@ def envmap_lookup_v(env: EnvMap, dirs: V3) -> V3:
               lerp2(q[:, 2], q[:, 5], q[:, 8], q[:, 11]))
 
 
-def sample_envmap_v(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor):
-    """Importance-sample the environment with the alias tables: returns
-    (dir V3, radiance V3, solid-angle pdf [R]) — the pdf of the sampling
-    procedure, p_xy * W * H / (2 pi^2 cos(elevation))."""
-    if env.alias_fat is None:
-        raise NotImplementedError(
-            "CDF-bisection env sampling (no alias tables) is not ported; "
-            "build the EnvMap with ops/envmap.py::build_envmap")
+def sample_envmap(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
+                  compat: bool = False):
+    """Importance-sample the environment (SampleHDRImage, comp:560-576):
+    ``([R, 3] dir, [R, 3] radiance, [R] pdf)``.  The cell (x, y) comes
+    from the alias tables where the map has them and ``compat`` is off,
+    else from the CDFs (``searchsorted`` over the marginal, the bisection
+    of the conditional row).  Default: the texel's radiance and the pdf
+    of the sampling procedure, p_xy * W * H / (2 pi^2 cos(elevation));
+    compat: the reference's pdf and mirrored-row radiance (module
+    docstring)."""
+    w, h = env.width, env.height
+    if env.alias_x is not None and not compat:
+        j1 = torch.clamp((u1 * w).to(torch.int64), 0, w - 1)
+        frac1 = u1 * w - j1.to(torch.float32)
+        rowx = env.alias_x[j1]
+        x = torch.where(frac1 < rowx[:, 0], j1, rowx[:, 1].to(torch.int64))
+        j2 = torch.clamp((u2 * h).to(torch.int64), 0, h - 1)
+        frac2 = u2 * h - j2.to(torch.float32)
+        rowy = env.alias_y[x, j2]
+        y = torch.where(frac2 < rowy[:, 0], j2, rowy[:, 1].to(torch.int64))
+    else:
+        x = torch.clamp(torch.searchsorted(env.cdf_marginal_x, u1,
+                                           side="left"), 0, w - 1)
+        y = torch.clamp(_bisect_rows(env.cdf_y_given_x, x, u2), 0, h - 1)
+
+    p2d = env.pdf_xy[x, y]
+    if compat:
+        u = x.to(torch.float32) / w
+        v = y.to(torch.float32) / h
+        d, theta = _grid_direction(u, v)
+        sin_theta = torch.clamp_min(torch.sin(theta), 1e-10)
+        pdf = p2d * (float((w * h) // 2) / (2.0 * PI * PI * sin_theta))
+        radiance = bilinear_lookup(env.image, u, 1.0 - v)
+    else:
+        u = (x.to(torch.float32) + 0.5) / w
+        v = (y.to(torch.float32) + 0.5) / h
+        d, theta = _grid_direction(u, v)
+        cos_theta = torch.clamp_min(torch.cos(theta), _POLE_EPS)
+        pdf = p2d * (w * h) / (2.0 * PI * PI * cos_theta)
+        radiance = env.image[y, x]
+    return d, radiance, pdf
+
+
+def sample_envmap_v(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
+                    compat: bool = False):
+    """Component form of :func:`sample_envmap`: ``(dir V3, radiance V3,
+    pdf [R])``.  With the fat alias rows (and ``compat`` off) one row
+    gather resolves the sample; the values are those of
+    :func:`sample_envmap`'s alias path."""
+    if env.alias_fat is None or compat:
+        d, radiance, pdf = sample_envmap(env, u1, u2, compat)
+        return V3.of(d), V3.of(radiance), pdf
     w, h = env.width, env.height
     j1 = torch.clamp((u1 * w).to(torch.int64), 0, w - 1)
     frac1 = u1 * w - j1.to(torch.float32)

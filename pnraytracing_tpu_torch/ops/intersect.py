@@ -7,6 +7,12 @@ watertight test of PBRT-3 (triangle.hpp:15-181, ray_tracing.comp:254-427)
 and the clipped slab test (bound.hpp:31-47).  The plain traversal in
 ``accel/traverse_cuda.py`` is built from these, and the CUDA kernels in
 ``csrc/traverse.cu`` repeat them op for op.
+
+``compat=True`` gives the reference's forms, as in the JAX package: the
+watertight setup permutes its axes only when ``d.z == 0``
+(triangle.hpp:34-47), and the slab test is the interval-free
+``t1 >= t0`` (bound.hpp:31-47, ray_tracing.comp:213-228), which ignores
+the ray's segment.
 """
 
 from __future__ import annotations
@@ -36,16 +42,25 @@ def safe_inv_dir(d: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return torch.where(d >= 0, 1.0, -1.0) / torch.clamp_min(torch.abs(d), eps)
 
 
-def triangle_setup_c(dx, dy, dz):
+def triangle_setup_c(dx, dy, dz, compat: bool = False):
     """Ray-constant part of the watertight test: the axis permutation
-    (kz = argmax |d|, first index among maxima) and the shear constants.
-    Returns the tuple :func:`intersect_triangle_c` accepts as ``setup``."""
+    (kz = argmax |d|, first index among maxima; with ``compat`` the
+    identity unless d.z == 0, then the x/z or y/z swap) and the shear
+    constants.  Returns the tuple :func:`intersect_triangle_c` accepts as
+    ``setup``."""
     adx, ady, adz = torch.abs(dx), torch.abs(dy), torch.abs(dz)
-    kz = torch.where(adx >= ady,
-                     torch.where(adx >= adz, 0, 2),
-                     torch.where(ady >= adz, 1, 2))
-    kx = (kz + 1) % 3
-    ky = (kx + 1) % 3
+    if compat:
+        zx = adx > ady
+        z_zero = dz == 0.0
+        kx = torch.where(z_zero, torch.where(zx, 2, 0), 0)
+        ky = torch.where(z_zero, torch.where(zx, 1, 2), 1)
+        kz = torch.where(z_zero, torch.where(zx, 0, 1), 2)
+    else:
+        kz = torch.where(adx >= ady,
+                         torch.where(adx >= adz, 0, 2),
+                         torch.where(ady >= adz, 1, 2))
+        kx = (kz + 1) % 3
+        ky = (kx + 1) % 3
 
     def sel(k, x, y, z):
         return torch.where(k == 0, x, torch.where(k == 1, y, z))
@@ -58,12 +73,13 @@ def triangle_setup_c(dx, dy, dz):
 
 
 def intersect_triangle_c(v0, v1, v2, ox, oy, oz, dx, dy, dz, t_max,
-                         setup=None):
+                         compat: bool = False, setup=None):
     """Watertight ray-triangle test.  ``v0/v1/v2`` are 3-tuples of vertex
     components (tensors broadcasting against the rays).  Returns
-    (hit, t, b1, b2) with x = b0*p0 + b1*p1 + b2*p2, b0 = 1-b1-b2."""
+    (hit, t, b1, b2) with x = b0*p0 + b1*p1 + b2*p2, b0 = 1-b1-b2.
+    ``compat`` selects the setup when none is given."""
     if setup is None:
-        setup = triangle_setup_c(dx, dy, dz)
+        setup = triangle_setup_c(dx, dy, dz, compat=compat)
     kx, ky, kz, sx, sy, inv_dz = setup
 
     def sel(k, x, y, z):
@@ -103,8 +119,10 @@ def intersect_triangle_c(v0, v1, v2, ox, oy, oz, dx, dy, dz, t_max,
     return hit, t_scaled * inv_det, e1 * inv_det, e2 * inv_det
 
 
-def intersect_aabb_c(bmin, bmax, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_max):
-    """Slab test clipped to the live segment [0, t_max]."""
+def intersect_aabb_c(bmin, bmax, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_max,
+                     compat: bool = False):
+    """Slab test clipped to the live segment [0, t_max]; with ``compat``
+    the reference's ``t1 >= t0``, which reads no ``t_max``."""
     fx = (bmax[0] - ox) * inv_dx
     nx = (bmin[0] - ox) * inv_dx
     fy = (bmax[1] - oy) * inv_dy
@@ -117,6 +135,8 @@ def intersect_aabb_c(bmin, bmax, ox, oy, oz, inv_dx, inv_dy, inv_dz, t_max):
     t0 = torch.maximum(
         torch.maximum(torch.minimum(fx, nx), torch.minimum(fy, ny)),
         torch.minimum(fz, nz))
+    if compat:
+        return t1 >= t0
     return (t1 >= torch.clamp_min(t0, 0.0)) & (t0 <= t_max)
 
 

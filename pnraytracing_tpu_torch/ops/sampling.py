@@ -3,8 +3,8 @@
 PyTorch counterpart of ``pnraytracing_tpu/ops/sampling.py``
 (ray_tracing.comp:496-624): the wang-hash counter RNG with explicit seed
 threading (no generator object), the Sobol sequence with
-Cranley-Patterson rotation, area-light selection and uniform triangle
-sampling.
+Cranley-Patterson rotation, area-light selection, uniform triangle
+sampling and the cosine-hemisphere sample in its [R, 3] form.
 
 32-bit words live in int64 tensors holding values in [0, 2^32): torch
 has no working shift on uint32 on every backend, and every product below
@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from pnraytracing_tpu_torch.core.math import safe_sqrt
+from pnraytracing_tpu_torch.core.math import TWO_PI, safe_sqrt
 
 M32 = 0xFFFFFFFF
 _INV_2_32 = 1.0 / 4294967296.0
@@ -184,3 +184,22 @@ def sample_uniform_triangle(u1: torch.Tensor, u2: torch.Tensor):
     b1 = u2 * sqrt(u1)."""
     su = safe_sqrt(u1)
     return 1.0 - su, u2 * su
+
+
+def sample_cosine_hemisphere_local(u1: torch.Tensor, u2: torch.Tensor,
+                                   compat: bool = False) -> torch.Tensor:
+    """[R, 3] local-frame direction of the diffuse lobe: the true
+    cosine-weighted hemisphere (pdf cos / pi, comp:734/780), or with
+    ``compat`` the reference's SampleCosineHemisphere (comp:642-647),
+    which reads u1 as an angle in radians and u2 as the radius.  The
+    integrator samples through ``ops/brdf.py::
+    sample_cosine_hemisphere_local_v``, its component form."""
+    if compat:
+        x = u2 * torch.sin(u1)
+        y = u2 * torch.cos(u1)
+    else:
+        r = safe_sqrt(u1)
+        phi = TWO_PI * u2
+        x = r * torch.cos(phi)
+        y = r * torch.sin(phi)
+    return torch.stack([x, y, safe_sqrt(1.0 - x * x - y * y)], dim=-1)

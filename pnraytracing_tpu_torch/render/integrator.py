@@ -29,6 +29,12 @@ package's ``uvtex`` columns, with the path length for
 ``texture_lod_scale``) and overrides the material's base color by the
 texture fetch of ``ops/texture.py`` before the bounce's draws.
 
+``compat_pnrt`` runs the reference's quirks where the JAX package does:
+the compat material decode, environment sample and BRDF sample, the env
+shadow ray from the surface point itself, and the compat form of every
+walk (``compat=True``: the compat instantiation of each kernel).  The
+RNG draws are the same in both modes.
+
 RNG words are int64 tensors holding uint32 values (ops/sampling.py); the
 frame counter is an int or a 0-d tensor (``frame_word``), so the whole
 frame can run inside a captured CUDA graph (``render/program.py``).
@@ -70,6 +76,7 @@ from pnraytracing_tpu_torch.core.vec import (
     vwhere,
 )
 from pnraytracing_tpu_torch.ops.brdf import (
+    apply_compat_material_decode,
     disney_eval_v,
     disney_pdf_v,
     disney_sample_v,
@@ -219,6 +226,7 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     dev = o.device
     r = o.shape[0]
     sd = cfg.stack_depth
+    compat = cfg.compat_pnrt
     env_const = (scene.env_constant if scene.env_constant is not None
                  else torch.zeros(3, dtype=torch.float32, device=dev))
 
@@ -228,6 +236,8 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     zero_v = V3(zero_r, zero_r, zero_r)
     irows = pack_interaction_rows(mesh)
     mat_tbl = materials.sanitized()
+    if compat:
+        mat_tbl = apply_compat_material_decode(mat_tbl)
     o_v, d_v = _comps(o), _comps(d)
     route = traversal_route(trav, cfg.kernel_interaction)
     closest_fn, any_fn = ((closest_hit_stream, any_hit_stream)
@@ -240,13 +250,14 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         closest kernel + make_interaction."""
         if route == "attr":
             hit_, (nx, ny, nz, u_, v_, mt) = closest_hit_attr(
-                trav, o_, d_, tm_, mask_, stack_depth=sd)
+                trav, o_, d_, tm_, mask_, stack_depth=sd, compat=compat)
             nrm_raw = V3(nx, ny, nz)
             nrm_ = vnormalize(vwhere(vdot(nrm_raw, d_) > 0, -nrm_raw,
                                      nrm_raw))
             return (hit_, o_ + d_ * hit_.t, nrm_, (u_, v_),
                     mt // ATTR_TEX_BASE, mt % ATTR_TEX_BASE - 1)
-        hit_ = closest_fn(trav, o_, d_, tm_, mask_, stack_depth=sd)
+        hit_ = closest_fn(trav, o_, d_, tm_, mask_, stack_depth=sd,
+                          compat=compat)
         return (hit_,) + make_interaction(hit_, d_, o_, irows)
 
     def env_radiance(dirs: V3) -> V3:
@@ -322,7 +333,8 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         if has_env:
             seed, r1e = rand01(seed)
             seed, r2e = rand01(seed)
-            en_l, en_li, env_pdf_raw = sample_envmap_v(scene.env, r1e, r2e)
+            en_l, en_li, env_pdf_raw = sample_envmap_v(scene.env, r1e, r2e,
+                                                       compat)
             env_f = disney_eval_v(v_dir, nrm, en_l, t_tan, b_tan, mat, cdlin)
             l_env_pre = env_f * en_li * (vdot(en_l, nrm)
                                          * _safe_inv(env_pdf_raw))
@@ -342,7 +354,7 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         s2 = wang_hash(s1)
         l_out, d_pdf, lobe = disney_sample_v(
             v_dir, nrm, t_tan, b_tan, mat, r_lobe, r1, r2, u32_to_unit(s1),
-            u32_to_unit(s2))
+            u32_to_unit(s2), compat)
         seed = torch.where(lobe == 0, s2, seed)
 
         d_f = disney_eval_v(v_dir, nrm, l_out, t_tan, b_tan, mat, cdlin)
@@ -423,21 +435,24 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             s_tmax = torch.full((r,), 1.0 - SHADOW_EPS, dtype=torch.float32,
                                 device=dev)
         if has_env:
-            e_origin = pos + nrm * 1e-4
+            # the reference casts the env shadow ray from the surface
+            # point itself (comp:918)
+            e_origin = pos if compat else pos + nrm * 1e-4
             facing = vdot(en_l, nrm) > 0
         if has_lights and has_env and cfg.fuse_shadows:
             occ2 = any_fn(trav, vcat(s_origin, e_origin), vcat(sdir, en_l),
                           torch.cat([s_tmax, t_max0]),
                           torch.cat([active, active & facing]),
-                          stack_depth=sd)
+                          stack_depth=sd, compat=compat)
             occluded, e_occ = occ2[:r], occ2[r:]
         else:
             if has_lights:
                 occluded = any_fn(trav, s_origin, sdir, s_tmax, active,
-                                  stack_depth=sd)
+                                  stack_depth=sd, compat=compat)
             if has_env:
                 e_occ = any_fn(trav, e_origin, en_l, t_max0,
-                               active & facing, stack_depth=sd)
+                               active & facing, stack_depth=sd,
+                               compat=compat)
 
         # NEE contributions (masks applied to the pre-folded terms)
         light_pdf, l_direct = zero_r, zero_v

@@ -204,7 +204,7 @@ class SceneBuilder:
             materials=Materials.stack(materials, device=dev),
             bvh=bvh,
             lights=lights,
-            env=(build_envmap(env_image, device=dev)
+            env=(build_envmap(env_image, alias=True, device=dev)
                  if env_image is not None else None),
             textures=build_atlas(textures, device=dev),
             trav=trav,

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import Recorder, synthetic_key_rays
+from chip_smoke import Recorder, compat_rays, synthetic_key_rays
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
 from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
 from pnraytracing_tpu_torch.accel.bricks import treelet_index_tree
@@ -196,9 +196,8 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
         for k in counts:
             counts[k] = 0
     img = render_frame(scene, cam, cfg, 0, eager=True)
-    assert trv.LAUNCHES == {"closest_hit_attr": 4, "any_hit": 3,
-                            "closest_hit": 0, "closest_hit_binary": 0,
-                            "any_hit_binary": 0}
+    assert trv.LAUNCHES == dict({k: 0 for k in trv.LAUNCHES},
+                                closest_hit_attr=4, any_hit=3)
     assert compaction.LAUNCHES == {"treelet_entry_key": 2}
     monkeypatch.setattr(integrator, "closest_hit_attr",
                         trv.plain_closest_hit_attr)
@@ -326,8 +325,9 @@ def test_wide_wrappers_raise_on_too_deep_bvh(flagship, variant):
 
 def test_wide_kernel_info(flagship):
     info = trv.kernel_info()
-    assert set(info) == {"closest_hit_attr", "closest_hit", "any_hit",
-                         "closest_hit_binary", "any_hit_binary"}
+    names = {"closest_hit_attr", "closest_hit", "any_hit",
+             "closest_hit_binary", "any_hit_binary"}
+    assert set(info) == names | {n + "_compat" for n in names}
     for v in info.values():
         assert v["threads"] == 128 and 0 < v["registers"] <= 255
         assert v["blocks_per_sm"] >= 1 and v["local_bytes"] >= 256
@@ -685,3 +685,93 @@ def test_capture_error_raises(flagship, monkeypatch):
     img = render_frame(scene, cam, RenderConfig(width=16, height=16,
                                                 max_depth=1), 0, eager=True)
     assert bool(torch.isfinite(img).all())
+
+
+# ---- compat mode (RenderConfig.compat_pnrt) -----------------------------
+
+@pytest.mark.parametrize("walk", _WALKS)
+@pytest.mark.parametrize("rays", ["random", "compat_rays"])
+def test_compat_kernels_equal_plain(flagship, stream_scene, walk, rays):
+    """The compat instantiation of each walk kernel against its compat
+    plain version, on random rays and on rays with d.z = +-0, 1e-31 and
+    subnormal (chip_smoke.compat_rays): results, the interaction fill and
+    the per-ray stats all equal; each launch counts under the kernel's
+    ``_compat`` name only."""
+    trav = (stream_scene if walk.endswith("_stream") else flagship[0]).trav
+    if rays == "random":
+        o, d, t_max, mask = _rays(1 << 14, 41)
+    else:
+        o, d = compat_rays(trav.treelets, "cuda")
+        n = o.x.shape[0]
+        rng = np.random.default_rng(42)
+        t_max = torch.from_numpy(rng.uniform(0.5, 10, n).astype(
+            np.float32)).cuda()
+        mask = torch.from_numpy(rng.uniform(size=n) < 0.9).cuda()
+    kern, plain = _walk_pair(walk)
+    tables = (trs if walk.endswith("_stream") else trv).LAUNCHES
+    before = dict(tables)
+    got = kern(trav, o, d, t_max, mask, with_stats=True, compat=True)
+    want = plain(trav, o, d, t_max, mask, with_stats=True, compat=True)
+    torch.cuda.synchronize()
+    key = walk + "_compat"
+    assert tables == dict(before, **{key: before[key] + 1})
+    assert torch.equal(got[-1], want[-1])
+    if walk.startswith("any_hit"):
+        assert torch.equal(got[0], want[0])
+    else:
+        for a, b in [(got[0].tri, want[0].tri), (got[0].t, want[0].t),
+                     (got[0].b1, want[0].b1), (got[0].b2, want[0].b2)]:
+            assert torch.equal(a, b)
+        if walk == "closest_hit_attr":
+            for a, b in zip(got[1], want[1]):
+                assert torch.equal(a, b)
+    assert bool((got[-1][0] > 0).any())
+
+
+@pytest.mark.parametrize("walk", _WALKS)
+def test_default_kernels_unchanged_by_compat(flagship, stream_scene, walk):
+    """A default-mode call still launches the default instantiation
+    (counted under the kernel's own name, no compat launch) and equals
+    the default plain version; on the same rays the compat walk visits
+    every node the default walk visits, and more."""
+    trav = (stream_scene if walk.endswith("_stream") else flagship[0]).trav
+    o, d, t_max, mask = _rays(1 << 14, 43)
+    kern, plain = _walk_pair(walk)
+    tables = (trs if walk.endswith("_stream") else trv).LAUNCHES
+    before = dict(tables)
+    got = kern(trav, o, d, t_max, mask, with_stats=True)
+    want = plain(trav, o, d, t_max, mask, with_stats=True)
+    torch.cuda.synchronize()
+    assert tables == dict(before, **{walk: before[walk] + 1})
+    assert torch.equal(got[-1], want[-1])
+    res, wres = got[0], want[0]
+    if walk.startswith("any_hit"):
+        assert torch.equal(res, wres)
+    else:
+        assert torch.equal(res.tri, wres.tri) and torch.equal(res.t, wres.t)
+    compat = kern(trav, o, d, t_max, mask, with_stats=True, compat=True)
+    pops, cpops = got[-1][0], compat[-1][0]
+    if not walk.startswith("any_hit"):  # an occluder may end a walk early
+        assert bool((cpops >= pops).all())
+    assert int(cpops.sum()) > int(pops.sum())
+
+
+@pytest.mark.parametrize("case", ["flagship", "config5"])
+def test_compat_replay_equals_eager(flagship, streamed, case):
+    """A compat frame replayed from its captured program equals the eager
+    frame bit for bit, and the capture counts the compat kernels."""
+    from pnraytracing_tpu_torch.render.program import FrameProgram
+
+    scene, cam = flagship if case == "flagship" else streamed
+    cfg = RenderConfig(compat_pnrt=True, **_SMALL)
+    prog = FrameProgram(scene, cfg)
+    a = prog.replay(cam, 7).clone()
+    torch.cuda.synchronize()
+    assert torch.equal(a, render_frame(scene, cam, cfg, 7, eager=True))
+    assert not torch.equal(a, render_frame(scene, cam, RenderConfig(
+        **_SMALL), 7, eager=True))
+    want = (dict(closest_hit_attr_compat=4, any_hit_compat=3)
+            if case == "flagship" else
+            dict(closest_hit_stream_compat=4, any_hit_stream_compat=3))
+    assert {k: v for k, v in prog.launches.items() if v} == dict(
+        want, treelet_entry_key=2)

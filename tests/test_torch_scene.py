@@ -154,12 +154,15 @@ def test_scene_from_arrays_round_trip():
 
 
 def test_outside_the_slice_raises():
-    """Compat mode is still to port and raises; textures and the texture
-    LOD are ported (tests/test_torch_texture.py) and no longer do."""
+    """Compat mode, textures and the texture LOD are ported
+    (tests/test_torch_compat.py, tests/test_torch_texture.py) and build;
+    compat with the balanced estimator raises, as in the JAX package, and
+    so does an unknown option."""
     b = SceneBuilder()
     b.add(shapes.triangle(), {}, texture=np.zeros((4, 4, 3), np.float32))
     assert RenderConfig(texture_lod_scale=0.01).texture_lod_scale == 0.01
-    with pytest.raises(NotImplementedError):
-        RenderConfig(compat_pnrt=True)
+    assert RenderConfig(compat_pnrt=True).compat_pnrt
+    with pytest.raises(ValueError, match="reference estimator"):
+        RenderConfig(compat_pnrt=True, mis="balanced")
     with pytest.raises(ValueError):
         RenderConfig(sampler="halton")

@@ -287,8 +287,8 @@ def test_wrong_constant_trips_the_check(check, constant, lobe, monkeypatch):
 
 def _envs():
     sky = procedural_sky(32, 64)
-    return envmap.build_envmap(sky, device="cpu"), jenv.build_envmap(
-        jnp.asarray(sky), alias=True)
+    return (envmap.build_envmap(sky, alias=True, device="cpu"),
+            jenv.build_envmap(jnp.asarray(sky), alias=True))
 
 
 def test_envmap_tables_exact():
