@@ -47,7 +47,23 @@ printing a result.  Phases:
    against the eager mean, device memory with the programs alive;
 9. session: a ``RenderSession`` on the flagship, each step against the
    eager frame it stands for (samples, a material edit, an orbit, the
-   previews), and the steps' times;
+   previews), and the steps' times; then ``grad``, the gradient path
+   (diff/grad.py) on the flagship at 512x512 depth 4: ``trace_paths``
+   through kernels 1, 2, 4 (launches counted) with its records equal
+   bit for bit to those of the plain walks on the card, the replay
+   against the eager live frame (max difference, share differing), the
+   replay gradient of materials and env texels at spp 2 (trace, replay
+   forward and backward ms, peak memory, gradient norms; finite and
+   non-zero; ``grad_profile``: one replay forward and one backward
+   under the profiler), the live gradient (kernels 3, 2, 4; ms, peak memory, its
+   gradient within 1e-4 in norm of the replay's on the same route,
+   ``kernel_interaction=False``; the default route's distance beside
+   it), one positions step
+   with ``refit_scene`` (host ms; the refit scene traced through the
+   same kernels and captured anew) and three ``adam_optimize`` steps
+   (losses, step ms); ``grad_stream`` at the end of phase 16 traces
+   config5 at 128x128 depth 2 through the stream kernels, records equal
+   to the plain stream walks';
 10. binary: the binary pop-test kernels (the ``variant="binary"`` entry
    point, which the integrator never routes to) against their plain
    versions on the flagship rays of phase 4, stats included, timed;
@@ -1231,6 +1247,293 @@ def session_phase(RenderConfig, scene, cam_state, dev, smi) -> None:
           "rays_per_s": s.stats.rays_per_s, "card": smi})
 
 
+def host_ms(fn, reps: int = 3):
+    """(median ms, last result) of ``fn`` by the host clock, each call
+    closed by ``torch.cuda.synchronize()``."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def records_mismatch(a, b) -> dict:
+    """Per record of two ``TraceRecords``: how many values differ in
+    their bits."""
+    import numpy as np
+
+    from pnraytracing_tpu_torch.convert import records_to_arrays
+
+    ra, rb = records_to_arrays(a), records_to_arrays(b)
+    if sorted(ra) != sorted(rb):
+        raise AssertionError(f"records of other fields: {sorted(ra)} / "
+                             f"{sorted(rb)}")
+    bits = lambda x: x.view(np.int32) if x.dtype == np.float32 else x
+    return {k: int((bits(ra[k]) != bits(rb[k])).sum()) for k in ra}
+
+
+def trace_parity(label, scene, rays, frame, cfg, modules, tables, counts,
+                 expected) -> dict:
+    """``trace_paths`` through the kernels (launches counted from 0,
+    against ``expected``) and with every walk routed to its plain version
+    on the card: the records bit for bit."""
+    from pnraytracing_tpu_torch.render.integrator import trace_paths
+
+    zero_counts(*tables)
+    recs = trace_paths(scene, *rays, frame, cfg)
+    launches = counts()
+    want = dict({k: 0 for k in launches}, **expected)
+    if launches != want:
+        raise AssertionError(f"{label}: trace launched {launches}, "
+                             f"expected {want}")
+    rec = Recorder(*modules)
+    try:
+        plain = trace_paths(scene, *rays, frame, cfg)
+    finally:
+        rec.restore()
+    bad = records_mismatch(recs, plain)
+    if any(bad.values()):
+        raise AssertionError(f"{label}: trace records through the kernels "
+                             f"differ from the plain walks': {bad}")
+    return {"launches": {k: v for k, v in launches.items() if v},
+            "records_mismatch": bad,
+            "valid_primary": int(recs.primary.valid.sum())}
+
+
+def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
+               smi, size=WIDTH, depth=DEPTH) -> dict:
+    """The gradient path on the flagship at ``size``^2, depth ``depth``,
+    default ``RenderConfig``: the trace (kernels 1, 2, 4; records against
+    the plain walks bit for bit), the replay against the eager live
+    frame, the replay gradient (materials and env texels, spp 2, dual
+    loss: trace, replay forward and backward timed apart, peak memory,
+    norms), the live gradient (kernel 3 instead of 1; its gradient
+    against the replay's), one positions step with ``refit_scene`` (and
+    the refit scene's trace and captured frame), three ``adam_optimize``
+    steps.  Returns the launches of the trace and of the live gradient
+    for the kernels line."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.camera import camera_rays
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.render.integrator import (
+        render_rays,
+        render_rays_replay,
+        trace_paths,
+    )
+    from pnraytracing_tpu_torch.render.renderer import (
+        pixel_coords,
+        render_frame,
+    )
+
+    cfg = RenderConfig(width=size, height=size, max_depth=depth)
+    px, py = pixel_coords(cfg, dev)
+    o, d, _ = camera_rays(camera, size, size)
+    rays = (o, d, px, py)
+    r = size * size
+    spp, keys = 2, ("materials", "env_image")
+    trace_expected = dict(closest_hit_attr=1 + depth, any_hit=depth,
+                          treelet_entry_key=cfg.sort_max_bounce)
+    out = {"phase": "grad", "width": size, "height": size, "depth": depth,
+           "spp": spp, "keys": list(keys)}
+
+    # 1. the trace: the kernels' records against the plain walks'
+    out["trace"] = trace_parity("grad/flagship", scene, rays, 3, cfg,
+                                modules, tables, counts, trace_expected)
+    trace_ms, recs = host_ms(lambda: trace_paths(scene, *rays, 3, cfg))
+
+    # 2. the replay against the eager live frame of the same sample
+    live = render_rays(scene, *rays, 3, cfg)
+    replay = render_rays_replay(scene, *rays, 3, cfg, recs)
+    if not (torch.isfinite(replay).all() and replay.shape == (r, 3)):
+        raise AssertionError("the replayed frame is not finite [R, 3]")
+    out["replay_vs_live"] = {
+        "max_abs_diff": float((replay - live).abs().max()),
+        "share_differing": float((replay != live).float().mean()),
+        "pixels_off_3e-5": int(((replay - live).abs().amax(dim=-1)
+                                > 3e-5).sum())}
+
+    # 3. the replay gradient, its phases timed apart on one sample
+    target = torch.full((r, 3), 0.25, device=dev)
+    params = dg.extract_params(scene, keys)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in dg.param_leaves(params)]
+    p = dg.params_like(params, leaves)
+
+    def forward():
+        img = render_rays_replay(dg.apply_params(scene, p), *rays, 3, cfg,
+                                 recs)
+        return torch.mean((img - target) ** 2)
+
+    fwd_ms, _ = host_ms(forward)
+    bwd = []
+    for _ in range(3):
+        loss = forward()
+        bwd.append(host_ms(lambda: torch.autograd.grad(
+            loss, leaves, allow_unused=True),
+                           reps=1)[0])
+    loss = forward()
+    emit({"phase": "grad_profile", "width": size, "height": size,
+          "depth": depth, "replay_forward": profile_frame(
+              forward, fwd_ms, top=10),
+          "backward": profile_frame(lambda: torch.autograd.grad(
+              loss, leaves, allow_unused=True), sorted(bwd)[1], top=10)})
+    del loss
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms, (loss_r, g_r) = host_ms(lambda: dg.loss_and_grad_replay(
+        params, scene, *rays, 3, target, cfg, spp=spp), reps=3)
+    peak_r = torch.cuda.max_memory_allocated() - base
+    norms = {k: float(torch.linalg.vector_norm(torch.cat([
+        g.reshape(-1) for g in dg.param_leaves({k: g_r[k]})])))
+        for k in keys}
+    finite = all(torch.isfinite(g).all() for g in dg.param_leaves(g_r))
+    if not finite or not all(v > 0 for v in norms.values()):
+        raise AssertionError(f"replay gradient not finite and non-zero: "
+                             f"{norms}")
+    out["replay_gradient"] = {
+        "loss": float(loss_r), "trace_ms": trace_ms,
+        "replay_forward_ms": fwd_ms,
+        "backward_ms": sorted(bwd)[1], "loss_and_grad_ms": step_ms,
+        "max_memory_allocated": peak_r, "grad_norms": norms}
+
+    # 4. the live gradient: the walks inside the differentiated pass
+    zero_counts(*tables)
+    dg.loss_and_grad(params, scene, *rays, 3, target, cfg, spp=spp)
+    live_launches = counts()
+    want = dict({k: 0 for k in live_launches}, closest_hit=spp * (1 + depth),
+                any_hit=spp * depth,
+                treelet_entry_key=spp * cfg.sort_max_bounce)
+    if live_launches != want:
+        raise AssertionError(f"loss_and_grad launched {live_launches}, "
+                             f"expected {want}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    live_ms, (loss_l, g_l) = host_ms(lambda: dg.loss_and_grad(
+        params, scene, *rays, 3, target, cfg, spp=spp), reps=3)
+    peak_l = torch.cuda.max_memory_allocated() - base
+    # gate: the live gradient against the replay gradient of a trace on
+    # the live pass's own route (kernel_interaction off: kernel 3 and
+    # make_interaction, so the same rays and records): per key within
+    # 1e-4 in norm (the backward's atomics sum in another order).  The
+    # default replay's trace runs kernel 1, whose hit point o + t d
+    # starts the next bounce an ulp or so away from make_interaction's:
+    # some paths then part, and its distance to the live gradient is
+    # reported beside it (not gated), with the records that differ.
+    cfg_live = dataclasses.replace(cfg, kernel_interaction=False)
+    _, g_same = dg.loss_and_grad_replay(params, scene, *rays, 3, target,
+                                        cfg_live, spp=spp)
+
+    def versus(g_a, g_b):
+        out_ = {}
+        for k in keys:
+            a = torch.cat([g.reshape(-1)
+                           for g in dg.param_leaves({k: g_a[k]})])
+            b = torch.cat([g.reshape(-1)
+                           for g in dg.param_leaves({k: g_b[k]})])
+            big = b.abs() > 1e-3 * b.abs().max()
+            out_[k] = {
+                "rel_norm_err": float(torch.linalg.vector_norm(a - b)
+                                      / torch.linalg.vector_norm(b)),
+                "max_rel_err": float(((a - b).abs() / b.abs())[big].max()),
+                "max_abs_err_over_max": float((a - b).abs().max()
+                                              / b.abs().max())}
+        return out_
+
+    agree = versus(g_l, g_same)
+    if not all(v["rel_norm_err"] <= 1e-4 for v in agree.values()):
+        raise AssertionError(f"live and replay gradients differ: {agree}")
+    routes = records_mismatch(recs, trace_paths(scene, *rays, 3, cfg_live))
+    out["live_gradient"] = {
+        "loss": float(loss_l), "ms": live_ms,
+        "max_memory_allocated": peak_l,
+        "launches": {k: v for k, v in live_launches.items() if v},
+        "vs_replay_same_route": agree,
+        "tolerance": "rel_norm_err <= 1e-4 a key",
+        "vs_replay_default_route": versus(g_l, g_r),
+        "records_differing_between_routes": {
+            k: v for k, v in routes.items() if k.endswith(".tri")
+            or k.endswith("_occ")}}
+
+    # 5. one positions step, refit on the host, the refit scene traced
+    # and captured anew
+    pos = {"positions": scene.mesh.positions}
+    _, g_p = dg.loss_and_grad_replay(pos, scene, *rays, 5, target, cfg)
+    gp = g_p["positions"]
+    if not (torch.isfinite(gp).all() and float(gp.abs().max()) > 0):
+        raise AssertionError("positions gradient not finite and non-zero")
+    moved = dg.apply_params(scene, {
+        "positions": scene.mesh.positions - 1e-3 * torch.sign(gp)})
+    t0 = time.perf_counter()
+    refit = dg.refit_scene(moved)
+    torch.cuda.synchronize()
+    refit_ms = (time.perf_counter() - t0) * 1e3
+    zero_counts(*tables)
+    trace_paths(refit, *rays, 5, cfg)
+    refit_launches = counts()
+    if refit_launches != dict({k: 0 for k in refit_launches},
+                              **trace_expected):
+        raise AssertionError(f"refit scene's trace launched "
+                             f"{refit_launches}")
+    replayed = render_frame(refit, camera, cfg, 5, device=dev)
+    eager = render_frame(refit, camera, cfg, 5, device=dev, eager=True)
+    if not torch.equal(replayed, eager):
+        raise AssertionError("the refit scene's captured frame is not its "
+                             "eager frame")
+    out["positions_step"] = {
+        "grad_norm": float(torch.linalg.vector_norm(gp)),
+        "refit_host_ms": refit_ms, "bvh_depth": refit.bvh_depth,
+        "refit_trace_launches": {k: v for k, v in refit_launches.items()
+                                 if v},
+        "refit_replayed_equals_eager": True}
+
+    # 6. three steps of the optimizer
+    logs = []
+    t0 = time.perf_counter()
+    _, losses = dg.adam_optimize(
+        scene, camera, cfg, target.reshape(size, size, 3), keys=keys,
+        steps=3, spp_per_step=spp, log_every=1, log_fn=logs.append,
+        device=dev)
+    adam_s = time.perf_counter() - t0
+    if not all(map(lambda x: x == x and abs(x) < 1e30, losses)):
+        raise AssertionError(f"adam losses {losses}")
+    out["adam"] = {"losses": losses, "seconds": adam_s,
+                   "step_ms": [json.loads(x)["step_s"] * 1e3 for x in logs],
+                   "rays_per_s": [json.loads(x)["rays_per_s"]
+                                  for x in logs]}
+    out["card"] = smi
+    emit(out)
+    return {"trace": out["trace"]["launches"],
+            "live_gradient": {k: v // spp for k, v in
+                              out["live_gradient"]["launches"].items()}}
+
+
+def grad_stream_phase(RenderConfig, scene, camera, dev, modules, tables,
+                      counts, smi) -> None:
+    """The trace of the streamed config5 at 128x128, depth 2, through the
+    stream kernels (kernel 7 both modes and kernel 4, counted) against
+    the plain stream walks, records bit for bit."""
+    from pnraytracing_tpu_torch.core.camera import camera_rays
+    from pnraytracing_tpu_torch.render.renderer import pixel_coords
+
+    cfg = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                       max_depth=PARITY_DEPTH)
+    px, py = pixel_coords(cfg, dev)
+    o, d, _ = camera_rays(camera, PARITY_SIZE, PARITY_SIZE)
+    res = trace_parity("grad/config5", scene, (o, d, px, py), 3, cfg,
+                       modules, tables, counts,
+                       dict(closest_hit_stream=1 + PARITY_DEPTH,
+                            any_hit_stream=PARITY_DEPTH,
+                            treelet_entry_key=cfg.sort_max_bounce))
+    emit({"phase": "grad_stream", "width": PARITY_SIZE,
+          "height": PARITY_SIZE, "depth": PARITY_DEPTH, **res, "card": smi})
+
+
 def options_phase(render_frame, RenderConfig, scene, camera, dev, modules,
                   tables, counts, smi) -> None:
     """Phase 11: the ray-ordering and sampling options on the flagship.
@@ -1636,6 +1939,8 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                   dict(closest_hit_stream=1 + DEPTH, any_hit_stream=DEPTH,
                        treelet_entry_key=cfg.sort_max_bounce),
                   tables, counts, smi)
+    grad_stream_phase(RenderConfig, scene, camera, dev, modules, tables,
+                      counts, smi)
     return rows, on_config5
 
 
@@ -1892,6 +2197,8 @@ def main() -> int:
     program_phase("flagship", scene, camera, cfg, dev, expected, tables,
                   counts, smi)
     session_phase(RenderConfig, scene, cam_state, dev, smi)
+    grad_launches = grad_phase(RenderConfig, scene, camera, dev, modules,
+                               tables, counts, smi)
 
     rows += binary_phase(trv, trav, cont, shadow, primary, launches)
     rows += compat_phase("flagship", render_frame, RenderConfig, scene,
@@ -1913,6 +2220,11 @@ def main() -> int:
     rows += stream_rows
     for row in rows:
         row.update(route="cuda", library_ms=None)
+        if row["name"] in ("closest_hit_attr", "any_hit", "closest_hit",
+                           "treelet_entry_key"):
+            # launches a sample on the gradient path (phase grad)
+            row["grad_launches"] = {k: v.get(row["name"], 0)
+                                    for k, v in grad_launches.items()}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,7 +16,11 @@ CDF-bisection environment sampler); the frame captured once as a CUDA
 graph and replayed (``render.program``), ``render_average``, the
 progressive state (``AccumState``, ``accum_add``) and the interactive
 ``RenderSession``; textures (``ops.texture``); ``probe_pixel``
-(``render.debug``); the scene catalog but the asset-loading branches.
+(``render.debug``); the scene catalog but the asset-loading branches;
+gradients: the trace/replay split (``trace_paths``,
+``render_rays_replay``), ``diff.grad`` (``loss_and_grad``,
+``loss_and_grad_replay``, ``adam_optimize``, ``refit_scene``) on
+``torch.autograd`` and the optimizer checkpoints.
 ROADMAP.md lists what is still to port.  Entry points take
 ``device=None``, which means the card.
 """
@@ -34,7 +38,22 @@ from pnraytracing_tpu_torch.core.types import (
     TextureAtlas,
     TriangleMesh,
 )
+from pnraytracing_tpu_torch.diff.grad import (
+    adam_optimize,
+    apply_params,
+    extract_params,
+    loss_and_grad,
+    loss_and_grad_replay,
+    refit_scene,
+    render_image_from_params,
+)
 from pnraytracing_tpu_torch.render.debug import probe_pixel
+from pnraytracing_tpu_torch.render.integrator import (
+    TraceRecords,
+    render_rays,
+    render_rays_replay,
+    trace_paths,
+)
 from pnraytracing_tpu_torch.render.renderer import (
     AccumState,
     accum_add,
@@ -42,7 +61,11 @@ from pnraytracing_tpu_torch.render.renderer import (
     render_average,
     render_frame,
 )
-from pnraytracing_tpu_torch.render.session import RenderSession
+from pnraytracing_tpu_torch.render.session import (
+    RenderSession,
+    load_optimizer_checkpoint,
+    save_optimizer_checkpoint,
+)
 from pnraytracing_tpu_torch.scene.build import SceneBuilder
 
 __all__ = [
@@ -65,4 +88,17 @@ __all__ = [
     "render_frame",
     "render_average",
     "probe_pixel",
+    "render_rays",
+    "TraceRecords",
+    "trace_paths",
+    "render_rays_replay",
+    "extract_params",
+    "apply_params",
+    "refit_scene",
+    "render_image_from_params",
+    "loss_and_grad",
+    "loss_and_grad_replay",
+    "adam_optimize",
+    "save_optimizer_checkpoint",
+    "load_optimizer_checkpoint",
 ]

@@ -89,6 +89,22 @@ def check_rays(o: V3, d: V3, *more: torch.Tensor):
     return r, dev
 
 
+def _cut(x):
+    if isinstance(x, V3):
+        return x.map(_cut)
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+def detached(*xs):
+    """A walk's inputs cut from the autograd graph, the counterpart of the
+    JAX package's ``_stop_gradient_trace``: every walk entry point starts
+    with it, so a walk's answer carries no gradient on the card (a ctypes
+    launch has no backward) and on the CPU alike (the plain versions are
+    torch ops, which would pass the barycentrics' gradient back into
+    ``o`` and ``d``)."""
+    return tuple(_cut(x) for x in xs)
+
+
 def check_table(name: str, t: torch.Tensor, width: int, dev,
                 align: bool = False):
     """Raise unless ``t`` is a contiguous float32 [N, width] tensor on
@@ -535,6 +551,7 @@ def closest_hit_attr(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
     """Closest hit + interaction fill: ``(Hit, (nx, ny, nz, u, v, mt))``
     (+ stats).  ``nx..nz`` is the barycentric-interpolated, unnormalized,
     unflipped shading normal; ``mt`` the int32 material/texture word."""
+    o, d, t_max, mask = detached(o, d, t_max, mask)
     if _check(trav, o, d, t_max, mask, stack_depth, "attr").type == "cpu":
         return plain_closest_hit_attr(trav, o, d, t_max, mask,
                                       stack_depth=stack_depth,
@@ -549,6 +566,7 @@ def closest_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                 variant: str = "wide", with_stats: bool = False,
                 compat: bool = False):
     """Closest hit: ``Hit`` (+ stats), by the wide or binary walk."""
+    o, d, t_max, mask = detached(o, d, t_max, mask)
     variant = pick_variant(trav, variant)
     binary = variant == "binary"
     if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
@@ -570,6 +588,7 @@ def any_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
             compat: bool = False):
     """Occlusion: True where a triangle is hit within ``t_max`` (+ stats),
     by the wide or binary walk."""
+    o, d, t_max, mask = detached(o, d, t_max, mask)
     variant = pick_variant(trav, variant)
     binary = variant == "binary"
     if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":

@@ -42,6 +42,7 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
     check_mask,
     check_rays,
     check_table,
+    detached,
     launch_name,
     order_children,
     ptr,
@@ -231,6 +232,7 @@ def closest_hit_stream(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
     """Closest hit over the brick layout: ``Hit`` (+ stats).
     ``stack_depth`` is unused, as in the JAX package: the walk's depth
     follows from the layout's ``brick_stack``."""
+    o, d, t_max, mask = detached(o, d, t_max, mask)
     if _check(trav, o, d, t_max, mask).type == "cpu":
         return plain_closest_hit_stream(trav, o, d, t_max, mask,
                                         with_stats=with_stats, compat=compat)
@@ -243,6 +245,7 @@ def any_hit_stream(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                    stack_depth: int = 64, with_stats: bool = False,
                    compat: bool = False):
     """Occlusion over the brick layout (+ stats)."""
+    o, d, t_max, mask = detached(o, d, t_max, mask)
     if _check(trav, o, d, t_max, mask).type == "cpu":
         return plain_any_hit_stream(trav, o, d, t_max, mask,
                                     with_stats=with_stats, compat=compat)

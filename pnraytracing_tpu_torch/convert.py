@@ -7,6 +7,15 @@ package's, whose arrays convert with ``np.asarray``), so this module
 never imports JAX.  :func:`scene_from_arrays` builds the port's ``Scene``
 from such a dict on a device.  Tests use the pair to render the very
 scene the JAX package built.
+
+The same holds for the state of a gradient step: :func:`params_to_arrays`
+/ :func:`params_from_arrays` carry an optimization-parameter dict
+(``diff/grad.py``; leaves ``materials.<field>``, ``env_image``,
+``positions``) and :func:`records_to_arrays` / :func:`records_from_arrays`
+a frame's ``TraceRecords`` (leaves ``primary.<tri|t|b1|b2>``,
+``light_occ``, ``env_occ``, ``bounce.<tri|t|b1|b2>``), so the port's
+records can be replayed by the JAX package and the JAX package's
+parameters rendered by the port.
 """
 
 from __future__ import annotations
@@ -111,3 +120,63 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
                     else None)
     return Scene(trav=trav, env_constant=env_constant, bvh_depth=depth,
                  **parts)
+
+
+_HIT_FIELDS = ("tri", "t", "b1", "b2")
+
+
+def params_to_arrays(params: dict) -> dict[str, np.ndarray]:
+    """Flatten a params dict (of either package) into numpy leaves:
+    ``materials.<field>`` for a Materials, else the key itself."""
+    out = {}
+    for k, v in params.items():
+        if k == "materials":
+            for f in dataclasses.fields(Materials):
+                out[f"materials.{f.name}"] = _np(getattr(v, f.name))
+        else:
+            out[k] = _np(v)
+    return out
+
+
+def params_from_arrays(leaves: dict[str, np.ndarray], device=None) -> dict:
+    """The port's params dict on ``device`` (None = cuda) from the leaves
+    of :func:`params_to_arrays`."""
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(np.array(a), device=dev)
+    out = {}
+    if any(k.startswith("materials.") for k in leaves):
+        out["materials"] = Materials(**{
+            f.name: t(leaves[f"materials.{f.name}"])
+            for f in dataclasses.fields(Materials)})
+    for k in ("env_image", "positions"):
+        if k in leaves:
+            out[k] = t(leaves[k])
+    return out
+
+
+def records_to_arrays(records) -> dict[str, np.ndarray]:
+    """Flatten a frame's ``TraceRecords`` (of either package) into numpy
+    leaves; an absent occlusion class has no leaf."""
+    out = {}
+    for group in ("primary", "bounce"):
+        for f in _HIT_FIELDS:
+            out[f"{group}.{f}"] = _np(getattr(getattr(records, group), f))
+    for k in ("light_occ", "env_occ"):
+        v = getattr(records, k)
+        if v is not None:
+            out[k] = _np(v)
+    return out
+
+
+def records_from_arrays(leaves: dict[str, np.ndarray], device=None):
+    """The port's ``TraceRecords`` on ``device`` (None = cuda) from the
+    leaves of :func:`records_to_arrays`."""
+    from pnraytracing_tpu_torch.ops.intersect import Hit
+    from pnraytracing_tpu_torch.render.integrator import TraceRecords
+
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(np.array(a), device=dev)
+    hit = lambda g: Hit(*(t(leaves[f"{g}.{f}"]) for f in _HIT_FIELDS))
+    opt = lambda k: t(leaves[k]) if k in leaves else None
+    return TraceRecords(primary=hit("primary"), light_occ=opt("light_occ"),
+                        env_occ=opt("env_occ"), bounce=hit("bounce"))

@@ -4,6 +4,17 @@ PyTorch counterpart of ``pnraytracing_tpu/core/math.py``: the same
 constants and the same op order, on float32 tensors.  Python float
 operands are rounded to float32 by torch exactly as JAX rounds its weak
 scalars, so the polynomial approximations below give the same bits.
+
+Kinks differentiate as in JAX: :func:`maximum`, :func:`minimum`,
+:func:`clip` and :func:`absolute` stand for ``jnp.maximum`` /
+``jnp.minimum`` / ``jnp.clip`` / ``jnp.abs`` against a constant.  Their
+values are those of ``torch.clamp*`` / ``torch.abs``, bit for bit; where
+the operand carries a gradient they give JAX's derivative at the kink:
+half at a tie of ``maximum`` / ``minimum`` / ``clip`` (``torch.clamp``
+passes all of it) and +1 at 0 for ``absolute`` (``torch.abs`` gives 0).
+A material parameter at its default of exactly 0 (or a roughness of 1)
+sits on such a kink.  Without a gradient they run the ``torch.clamp*``
+call itself, so the live frame launches what it did.
 """
 
 from __future__ import annotations
@@ -17,9 +28,55 @@ FLOAT_MAX = 1.0e7  # the shader's FLOAT_MAX (ray_tracing.comp:5)
 SHADOW_EPS = 1.0e-4  # ShadowEpsilon (ray_tracing.comp:9)
 
 
+def _grad(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.requires_grad
+
+
+def maximum(x, c: float):
+    """``jnp.maximum(x, c)``: ``torch.clamp_min``'s values, half the
+    gradient at a tie."""
+    return torch.maximum(x, x.new_full((), c)) if _grad(x) else \
+        torch.clamp_min(x, c)
+
+
+def minimum(x, c: float):
+    """``jnp.minimum(x, c)``: ``torch.clamp_max``'s values, half the
+    gradient at a tie."""
+    return torch.minimum(x, x.new_full((), c)) if _grad(x) else \
+        torch.clamp_max(x, c)
+
+
+def clip(x, lo: float, hi: float):
+    """``jnp.clip(x, lo, hi)`` (``minimum(maximum(x, lo), hi)``):
+    ``torch.clamp``'s values, half the gradient at either bound."""
+    if _grad(x):
+        return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                             x.new_full((), hi))
+    return torch.clamp(x, lo, hi)
+
+
+class _Absolute(torch.autograd.Function):
+    """|x| with JAX's derivative: +1 where x >= 0 (so at 0), else -1."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def absolute(x):
+    """``jnp.abs(x)``: ``torch.abs``'s values, derivative +1 at 0."""
+    return _Absolute.apply(x) if _grad(x) else torch.abs(x)
+
+
 def safe_sqrt(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """sqrt(max(x, eps)): finite everywhere, like the JAX twin."""
-    return torch.sqrt(torch.clamp_min(x, eps))
+    return torch.sqrt(maximum(x, eps))
 
 
 def sqr(x):
@@ -45,10 +102,10 @@ def fast_atan(t: torch.Tensor) -> torch.Tensor:
 
 def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Polynomial atan2 with jnp.arctan2's quadrant semantics."""
-    ax = torch.abs(x)
-    ay = torch.abs(y)
+    ax = absolute(x)
+    ay = absolute(y)
     big = torch.maximum(ax, ay)
-    t = torch.minimum(ax, ay) / torch.clamp_min(big, 1e-30)
+    t = torch.minimum(ax, ay) / maximum(big, 1e-30)
     r = fast_atan(t)
     r = torch.where(ay > ax, 0.5 * PI - r, r)
     r = torch.where(x < 0, PI - r, r)
@@ -57,5 +114,5 @@ def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def fast_asin(v: torch.Tensor) -> torch.Tensor:
     """asin via atan2(v, sqrt(1 - v^2)); input clipped to [-1, 1]."""
-    v = torch.clamp(v, -1.0, 1.0)
-    return fast_atan2(v, torch.sqrt(torch.clamp_min(1.0 - v * v, 0.0)))
+    v = clip(v, -1.0, 1.0)
+    return fast_atan2(v, torch.sqrt(maximum(1.0 - v * v, 0.0)))

@@ -14,22 +14,31 @@ from typing import Optional
 
 import torch
 
+from pnraytracing_tpu_torch.core.math import clip, maximum
 
-def _to(obj, device):
-    """Copy of a dataclass with every tensor (recursively) on ``device``."""
+
+def _map(obj, fn):
+    """Copy of a dataclass with ``fn`` applied to every tensor
+    (recursively)."""
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
-            changes[f.name] = v.to(device)
+            changes[f.name] = fn(v)
         elif dataclasses.is_dataclass(v):
-            changes[f.name] = _to(v, device)
+            changes[f.name] = _map(v, fn)
     return dataclasses.replace(obj, **changes)
 
 
 class _Movable:
     def to(self, device):
-        return _to(self, device)
+        """A copy with every tensor on ``device``."""
+        return _map(self, lambda t: t.to(device))
+
+    def detach(self):
+        """A copy with every tensor detached from the autograd graph
+        (``jax.lax.stop_gradient`` of a pytree)."""
+        return _map(self, torch.Tensor.detach)
 
 
 _MATERIAL_DEFAULTS = dict(
@@ -84,10 +93,14 @@ class Materials(_Movable):
 
     def sanitized(self) -> "Materials":
         """Every parameter clamped to its physical domain (the ranges of
-        the reference's sliders, ImGuiLayer.hpp:60-71)."""
-        unit = lambda a: torch.clamp(a, 0.0, 1.0)
+        the reference's sliders, ImGuiLayer.hpp:60-71), as ``jnp.clip`` /
+        ``jnp.maximum`` clamp it: the same values as ``torch.clamp``,
+        and a parameter exactly on a bound (the default 0.0 of most
+        fields, a roughness of 1) gets half its gradient, as in JAX
+        (core/math.py)."""
+        unit = lambda a: clip(a, 0.0, 1.0)
         return Materials(
-            emissive=torch.clamp_min(self.emissive, 0.0),
+            emissive=maximum(self.emissive, 0.0),
             base_color=unit(self.base_color),
             subsurface=unit(self.subsurface),
             metallic=unit(self.metallic),
@@ -99,7 +112,7 @@ class Materials(_Movable):
             sheen_tint=unit(self.sheen_tint),
             clearcoat=unit(self.clearcoat),
             clearcoat_gloss=unit(self.clearcoat_gloss),
-            ior=torch.clamp_min(self.ior, 1.0),
+            ior=maximum(self.ior, 1.0),
             transmission=unit(self.transmission),
         )
 

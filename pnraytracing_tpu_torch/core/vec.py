@@ -11,7 +11,12 @@ from __future__ import annotations
 
 import torch
 
-from pnraytracing_tpu_torch.core.math import INV_PI, fast_asin, fast_atan2
+from pnraytracing_tpu_torch.core.math import (
+    INV_PI,
+    fast_asin,
+    fast_atan2,
+    maximum,
+)
 
 
 class V3:
@@ -83,7 +88,7 @@ def vcross(a: V3, b: V3) -> V3:
 
 
 def vnormalize(a: V3, eps: float = 1e-20) -> V3:
-    return a * torch.rsqrt(torch.clamp_min(vdot(a, a), eps))
+    return a * torch.rsqrt(maximum(vdot(a, a), eps))
 
 
 def vwhere(m: torch.Tensor, a: V3, b: V3) -> V3:

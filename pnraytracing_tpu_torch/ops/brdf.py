@@ -19,6 +19,8 @@ from pnraytracing_tpu_torch.core.math import (
     INV_PI,
     PI,
     TWO_PI,
+    clip,
+    maximum,
     mix,
     safe_sqrt,
     sqr,
@@ -39,7 +41,7 @@ _EPS = 1e-10
 
 
 def schlick_fresnel(u):
-    m = torch.clamp(1.0 - u, 0.0, 1.0)
+    m = clip(1.0 - u, 0.0, 1.0)
     m2 = m * m
     return m2 * m2 * m
 
@@ -47,31 +49,31 @@ def schlick_fresnel(u):
 def gtr1(ndoth, a):
     a2 = sqr(a)
     t = 1.0 + (a2 - 1.0) * sqr(ndoth)
-    val = (a2 - 1.0) / (PI * torch.log(torch.clamp_min(a2, _EPS))
-                        * torch.clamp_min(t, _EPS))
+    val = (a2 - 1.0) / (PI * torch.log(maximum(a2, _EPS))
+                        * maximum(t, _EPS))
     return torch.where(a >= 1.0, INV_PI, val)
 
 
 def gtr2(ndoth, a):
     a2 = sqr(a)
     t = 1.0 + (a2 - 1.0) * sqr(ndoth)
-    return a2 / (PI * torch.clamp_min(sqr(t), _EPS))
+    return a2 / (PI * maximum(sqr(t), _EPS))
 
 
 def gtr2_aniso(ndoth, hdotx, hdoty, ax, ay):
     denom = PI * ax * ay * sqr(sqr(hdotx / ax) + sqr(hdoty / ay) + sqr(ndoth))
-    return 1.0 / torch.clamp_min(denom, _EPS)
+    return 1.0 / maximum(denom, _EPS)
 
 
 def smith_g_ggx(ndotv, alpha_g: float):
     a = sqr(alpha_g)
     b = sqr(ndotv)
-    return 1.0 / torch.clamp_min(ndotv + safe_sqrt(a + b - a * b), _EPS)
+    return 1.0 / maximum(ndotv + safe_sqrt(a + b - a * b), _EPS)
 
 
 def smith_g_ggx_aniso(ndotv, vdotx, vdoty, ax, ay):
     denom = ndotv + safe_sqrt(sqr(vdotx * ax) + sqr(vdoty * ay) + sqr(ndotv))
-    return 1.0 / torch.clamp_min(denom, _EPS)
+    return 1.0 / maximum(denom, _EPS)
 
 
 def clearcoat_alpha(m: Materials):
@@ -79,7 +81,7 @@ def clearcoat_alpha(m: Materials):
 
 
 def specular_alpha(m: Materials):
-    return torch.clamp_min(sqr(m.roughness), 0.001)
+    return maximum(sqr(m.roughness), 0.001)
 
 
 def apply_compat_material_decode(m: Materials) -> Materials:
@@ -103,7 +105,7 @@ def disney_eval_v(v: V3, n: V3, l: V3, x: V3, y: V3, m: Materials,
     ldoth = vdot(l, h)
 
     cdlum = vluminance(cdlin)
-    safe_lum = torch.clamp_min(cdlum, _EPS)
+    safe_lum = maximum(cdlum, _EPS)
     ones = torch.ones_like(cdlum)
     one = V3(ones, ones, ones)
     ctint = vwhere(cdlum > 0, cdlin / safe_lum, one)
@@ -120,14 +122,14 @@ def disney_eval_v(v: V3, n: V3, l: V3, x: V3, y: V3, m: Materials,
     # Hanrahan-Krueger subsurface approximation
     fss90 = sqr(ldoth) * m.roughness
     fss = mix(1.0, fss90, fl) * mix(1.0, fss90, fv)
-    ss = 1.25 * (fss * (1.0 / torch.clamp_min(ndotl + ndotv, _EPS) - 0.5)
+    ss = 1.25 * (fss * (1.0 / maximum(ndotl + ndotv, _EPS) - 0.5)
                  + 0.5)
 
     # anisotropic specular
     aspect = safe_sqrt(1.0 - m.anisotropic * 0.9)
-    ax = torch.clamp_min(sqr(m.roughness) / torch.clamp_min(aspect, _EPS),
+    ax = maximum(sqr(m.roughness) / maximum(aspect, _EPS),
                          0.001)
-    ay = torch.clamp_min(sqr(m.roughness) * aspect, 0.001)
+    ay = maximum(sqr(m.roughness) * aspect, 0.001)
     ds = gtr2_aniso(ndoth, vdot(h, x), vdot(h, y), ax, ay)
     fh = schlick_fresnel(ldoth)
     fs = vmix(cspec0, one, fh)
@@ -179,7 +181,7 @@ def disney_pdf_v(v: V3, n: V3, l: V3, m: Materials,
     pdf_cc = gtr1(ndoth, a_gtr1) * ndoth / safe
 
     pdf = p_diff * pdf_diffuse + p_spec * pdf_spec + p_cc * pdf_cc
-    return pdf if compat else torch.clamp_min(pdf, 0.0)
+    return pdf if compat else maximum(pdf, 0.0)
 
 
 def _sample_h_local_v(r1, cos_theta_h, compat: bool = False) -> V3:
@@ -189,7 +191,7 @@ def _sample_h_local_v(r1, cos_theta_h, compat: bool = False) -> V3:
     phi_h = TWO_PI * r1
     sin_phi_h = torch.sin(phi_h)
     if compat:
-        sin_theta_h = torch.clamp_min(1.0 - sqr(cos_theta_h), 0.0)
+        sin_theta_h = maximum(1.0 - sqr(cos_theta_h), 0.0)
         cos_phi_h = 1.0 - sqr(sin_phi_h)
     else:
         sin_theta_h = safe_sqrt(1.0 - sqr(cos_theta_h))
@@ -200,7 +202,7 @@ def _sample_h_local_v(r1, cos_theta_h, compat: bool = False) -> V3:
 def sample_gtr2_dir_v(n, t, b, v, r1, r2, alpha, compat: bool = False) -> V3:
     """Specular lobe direction (SampleGTR2, comp:687-695)."""
     cos_theta_h = safe_sqrt(
-        (1.0 - r2) / torch.clamp_min(1.0 + (sqr(alpha) - 1.0) * r2, _EPS))
+        (1.0 - r2) / maximum(1.0 + (sqr(alpha) - 1.0) * r2, _EPS))
     h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h,
                                                       compat))
     return vreflect(v, h)
@@ -210,7 +212,7 @@ def sample_gtr1_dir_v(n, t, b, v, r1, r2, alpha, compat: bool = False) -> V3:
     """Clearcoat lobe direction (SampleGTR1, comp:698-707)."""
     a2 = sqr(alpha)
     cos_theta_h = safe_sqrt(
-        (1.0 - torch.pow(a2, 1.0 - r2)) / torch.clamp_min(1.0 - a2, _EPS))
+        (1.0 - torch.pow(a2, 1.0 - r2)) / maximum(1.0 - a2, _EPS))
     h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h,
                                                       compat))
     return vreflect(v, h)

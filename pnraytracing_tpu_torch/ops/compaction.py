@@ -19,6 +19,7 @@ import torch
 from pnraytracing_tpu_torch.accel.traverse_cuda import (
     check_rays,
     check_table,
+    detached,
     ptr,
     stream_of,
 )
@@ -230,7 +231,9 @@ def entry_key(o: V3, d: V3, treelets: torch.Tensor, tree: torch.Tensor, *,
     direction on one axis, enters nothing and gets ``K*8 + octant(d)``;
     any other ray, infinite components included, gets what
     :func:`treelet_entry_key` gives it.  ``with_stats`` adds a [2, R]
-    int32 tensor: the union and the member slab tests of each ray."""
+    int32 tensor: the union and the member slab tests of each ray.  The
+    rays are detached first: a key carries no gradient."""
+    o, d = detached(o, d)
     r, dev = check_rays(o, d)
     k_total = int(treelets.shape[0])
     if not (treelets.dtype == torch.float32 and treelets.dim() == 2

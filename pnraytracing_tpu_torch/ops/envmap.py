@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from pnraytracing_tpu_torch.core.math import PI, TWO_PI
+from pnraytracing_tpu_torch.core.math import PI, TWO_PI, maximum
 from pnraytracing_tpu_torch.core.types import EnvMap
 from pnraytracing_tpu_torch.core.vec import V3, spherical_uv_v
 
@@ -56,20 +56,50 @@ def _alias_table(p: np.ndarray):
     return prob.astype(np.float32), alias
 
 
-def _pack_quads(image: np.ndarray) -> np.ndarray:
-    """[H, W, 3] -> [H, W, 12] of 2x2 bilinear quads (u wraps, v clamps)."""
+def _pack_quads(image):
+    """[H, W, 3] -> [H, W, 12] of 2x2 bilinear quads (u wraps, v clamps):
+    numpy for a host array, rolls and concatenations (differentiable)
+    for a tensor."""
+    if isinstance(image, torch.Tensor):
+        xp = torch.roll(image, -1, dims=1)
+        dn = torch.cat([image[1:], image[-1:]], dim=0)
+        return torch.cat([image, xp, dn, torch.roll(dn, -1, dims=1)],
+                         dim=-1)
     xp = np.roll(image, -1, axis=1)
     dn = np.concatenate([image[1:], image[-1:]], axis=0)
     dnxp = np.roll(dn, -1, axis=1)
     return np.concatenate([image, xp, dn, dnxp], axis=-1)
 
 
-def build_envmap(image: np.ndarray, alias: bool = False,
-                 device=None) -> EnvMap:
-    """Sampling tables of an [H, W, 3] radiance image, baked on the host
-    (shader.hpp:145-181): luminance pdf and marginal/conditional CDFs;
-    with ``alias`` also the Walker alias tables and the fat alias rows
-    [prob, alias, rgb(keep), rgb(alias), pdf(keep), pdf(alias)]."""
+def envmap_in_graph(image: torch.Tensor) -> EnvMap:
+    """The traced branch of the JAX package's ``build_envmap``: the
+    luminance pdf and the marginal/conditional CDFs as torch ops on the
+    image's device, differentiable in the image."""
+    lum = 0.2 * image[..., 0] + 0.7 * image[..., 1] + 0.1 * image[..., 2]
+    pdf_xy = lum.T  # [W, H], the reference's pdf[x][y]
+    pdf_xy = pdf_xy / maximum(pdf_xy.sum(), 1e-20)
+    pdf_marginal_x = pdf_xy.sum(dim=1)
+    cond = pdf_xy / maximum(pdf_marginal_x[:, None], 1e-20)
+    return EnvMap(image=image, pdf_xy=pdf_xy,
+                  cdf_marginal_x=torch.cumsum(pdf_marginal_x, 0),
+                  cdf_y_given_x=torch.cumsum(cond, dim=1),
+                  quad12=_pack_quads(image))
+
+
+def build_envmap(image, alias: bool = False, device=None) -> EnvMap:
+    """Sampling tables of an [H, W, 3] radiance image (shader.hpp:145-181):
+    luminance pdf and marginal/conditional CDFs; with ``alias`` also the
+    Walker alias tables and the fat alias rows [prob, alias, rgb(keep),
+    rgb(alias), pdf(keep), pdf(alias)].  Baked on the host, except for
+    an image tensor that requires grad (an optimized environment,
+    ``diff/grad.py::apply_params``): its tables are built in the graph,
+    on its own device, and have no alias form."""
+    if isinstance(image, torch.Tensor) and image.requires_grad:
+        if alias:
+            raise ValueError("alias tables cannot be built in the graph; "
+                             "call with alias=False for an image that "
+                             "requires grad")
+        return envmap_in_graph(image.to(torch.float32))
     img_np = np.asarray(image, np.float32)
     lum = (0.2 * img_np[..., 0] + 0.7 * img_np[..., 1]
            + 0.1 * img_np[..., 2])
@@ -218,14 +248,14 @@ def sample_envmap(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
         u = x.to(torch.float32) / w
         v = y.to(torch.float32) / h
         d, theta = _grid_direction(u, v)
-        sin_theta = torch.clamp_min(torch.sin(theta), 1e-10)
+        sin_theta = maximum(torch.sin(theta), 1e-10)
         pdf = p2d * (float((w * h) // 2) / (2.0 * PI * PI * sin_theta))
         radiance = bilinear_lookup(env.image, u, 1.0 - v)
     else:
         u = (x.to(torch.float32) + 0.5) / w
         v = (y.to(torch.float32) + 0.5) / h
         d, theta = _grid_direction(u, v)
-        cos_theta = torch.clamp_min(torch.cos(theta), _POLE_EPS)
+        cos_theta = maximum(torch.cos(theta), _POLE_EPS)
         pdf = p2d * (w * h) / (2.0 * PI * PI * cos_theta)
         radiance = env.image[y, x]
     return d, radiance, pdf
@@ -260,7 +290,7 @@ def sample_envmap_v(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
     theta = PI * (0.5 - v)
     cos_t = torch.cos(theta)
     dirs = V3(cos_t * torch.cos(phi), torch.sin(theta), cos_t * torch.sin(phi))
-    pdf = p2d * (w * h) / (2.0 * PI * PI * torch.clamp_min(cos_t, _POLE_EPS))
+    pdf = p2d * (w * h) / (2.0 * PI * PI * maximum(cos_t, _POLE_EPS))
     return dirs, radiance, pdf
 
 
@@ -271,5 +301,5 @@ def envmap_pdf_v(env: EnvMap, dirs: V3) -> torch.Tensor:
     x = torch.clamp((u * w).to(torch.int64), 0, w - 1)
     y = torch.clamp((v * h).to(torch.int64), 0, h - 1)
     theta = PI * (0.5 - v)
-    cos_theta = torch.clamp_min(torch.cos(theta), _POLE_EPS)
+    cos_theta = maximum(torch.cos(theta), _POLE_EPS)
     return env.pdf_xy[x, y] * (w * h) / (2.0 * PI * PI * cos_theta)

@@ -21,7 +21,22 @@ batch.  Each bounce runs in three phases, as in the JAX package:
 first ``min(sort_max_bounce, max_depth)`` bounces as an unrolled, sorted
 prologue when ``compact_rays`` is on and scans the rest unsorted
 (``render/integrator.py:979-1021`` there): exactly the unrolled loop's
-permutations, and so its images.
+permutations, and so its images.  Its replay has no prologue (``n_pro =
+0``): a replay never sorts, so records traced under either loop replay
+under either.
+
+Trace and replay (the JAX package's ``_render_rays(records, record)``
+modes): :func:`trace_paths` runs the live frame without gradients and
+records every walk's answer, scattered back to the original ray order
+through ``orig`` (:class:`TraceRecords`); :func:`render_rays_replay`
+runs the same estimator with no walk and no sort, the interactions made
+by ``make_interaction`` from the recorded hits, the occlusion read from
+the records, and the escaped paths' environment radiance looked up once
+for all bounces after the loop (one scatter into the texel grid in the
+backward).  It is differentiable in the scene's tensors
+(``diff/grad.py``).  Every walk entry point detaches its inputs, the
+counterpart of ``_stop_gradient_trace``: a walk's answer carries no
+gradient on the card or on the CPU.
 
 A textured scene (``scene.textures``) carries each path's uv and
 texture id through the loop (and through the sort's pack, as the JAX
@@ -50,6 +65,8 @@ the CPU.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from pnraytracing_tpu_torch.accel.layout import ATTR_TEX_BASE
@@ -64,8 +81,15 @@ from pnraytracing_tpu_torch.accel.traverse_stream_cuda import (
     closest_hit_stream,
 )
 from pnraytracing_tpu_torch.core.config import RenderConfig
-from pnraytracing_tpu_torch.core.math import FLOAT_MAX, SHADOW_EPS
-from pnraytracing_tpu_torch.core.types import Scene, TriangleMesh
+from pnraytracing_tpu_torch.core.math import (
+    FLOAT_MAX,
+    SHADOW_EPS,
+    absolute,
+    clip,
+    maximum,
+    minimum,
+)
+from pnraytracing_tpu_torch.core.types import Scene, TriangleMesh, _Movable
 from pnraytracing_tpu_torch.core.vec import (
     V3,
     build_tangent_space_v,
@@ -112,6 +136,28 @@ from pnraytracing_tpu_torch.ops.texture import (
 )
 
 _EPS = 1e-10
+
+
+@dataclasses.dataclass
+class TraceRecords(_Movable):
+    """Every walk answer of one frame, in the ORIGINAL ray order: the
+    primary hit (a [R] ``Hit``), the NEE occlusion bits a bounce
+    (``light_occ`` / ``env_occ`` [max_depth, R] bool, None when the scene
+    has no area light / no environment map) and the continuation hit a
+    bounce (``bounce``, a ``Hit`` of [max_depth, R] fields).  A replay is
+    exact for the parameter values the trace ran with; the recorded
+    quantities are the ones the live frame detaches, so gradients are
+    unchanged."""
+
+    primary: Hit
+    light_occ: torch.Tensor | None
+    env_occ: torch.Tensor | None
+    bounce: Hit
+
+
+def _unsort(a: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
+    """Lane i of ``a`` to slot ``orig[i]`` of zeros."""
+    return torch.zeros_like(a).index_put_((orig,), a)
 
 
 def pack_interaction_rows(mesh: TriangleMesh) -> torch.Tensor:
@@ -196,17 +242,21 @@ def _comps(a: torch.Tensor) -> V3:
               a[:, 2].contiguous())
 
 
-def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
-                px: torch.Tensor, py: torch.Tensor, frame,
-                cfg: RenderConfig) -> torch.Tensor:
-    """[R, 3] radiance for one sample of a batch of primary rays.
+def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
+                 px: torch.Tensor, py: torch.Tensor, frame,
+                 cfg: RenderConfig, records: TraceRecords | None,
+                 record: bool):
+    """One sample for a batch of primary rays: ``([R, 3] radiance,
+    TraceRecords | None)``.
 
     o, d: [R, 3] primary rays; px, py: [R] int64 pixel coordinates in the
     reference's GL convention (x = column, y = row from the bottom), which
     seed the RNG streams (comp:977-979) and the Cranley-Patterson
     rotation; frame: the frame counter, an int or a 0-d integer tensor on
-    the rays' device (both modulo 2^32).  Nothing here reads a device
-    value on the host."""
+    the rays' device (both modulo 2^32).  ``records`` replays them (no
+    walk, no sort); ``record`` returns the frame's records.  Nothing here
+    reads a device value on the host."""
+    replay = records is not None
     if scene.trav is None:
         raise ValueError("the scene has no traversal layout (TravData)")
     if scene.bvh_depth is not None and cfg.stack_depth < scene.bvh_depth:
@@ -269,12 +319,17 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
     def clamp_contrib(x: V3) -> V3:
         if cfg.max_radiance is not None:
-            return x.map(lambda a: torch.clamp_max(a, cfg.max_radiance))
+            return x.map(lambda a: minimum(a, cfg.max_radiance))
         return x
 
     # ---- primary hit (comp:983) -------------------------------------------
-    hit, pos, nrm, (u_uv, v_uv), mat_id, tex_id = closest_inter(
-        o_v, d_v, t_max0)
+    if replay:
+        hit = records.primary
+        pos, nrm, (u_uv, v_uv), mat_id, tex_id = make_interaction(
+            hit, d_v, o_v, irows)
+    else:
+        hit, pos, nrm, (u_uv, v_uv), mat_id, tex_id = closest_inter(
+            o_v, d_v, t_max0)
     primary_hit = hit.valid
     if lod_on:  # path length, the ray cone's footprint
         path_t = torch.where(primary_hit, hit.t, 0.0)
@@ -288,6 +343,8 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     lo = zero_v
     orig = torch.arange(r, dtype=torch.int64, device=dev)
     px_l, py_l = px, py
+    rec_occ, rec_eocc, rec_hit2 = [], [], []  # record: a bounce each
+    env_terms = []  # replay: (direction, coefficient) of escaped paths
 
     # ---- path loop (comp:861-972) -----------------------------------------
     for bounce in range(cfg.max_depth):
@@ -318,15 +375,14 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             sdir = lp - pos  # unnormalized segment (comp:887)
             dis2 = vdot(sdir, sdir)
             lnorm = vnormalize(sdir)
-            cos_l = torch.abs(vdot(ln, -lnorm))
-            raw_pdf = dis2 / torch.clamp_min(cos_l * lights.total_area,
-                                             1e-12)
+            cos_l = absolute(vdot(ln, -lnorm))
+            raw_pdf = dis2 / maximum(cos_l * lights.total_area, 1e-12)
             lmat = irows[lights.tri_index.long(), 24].to(torch.int32)[
                 slot.long()]
             li = _emissive_of(materials, lmat)
             light_f = disney_eval_v(v_dir, nrm, lnorm, t_tan, b_tan, mat,
                                     cdlin)
-            nl = torch.abs(vdot(nrm, lnorm))
+            nl = absolute(vdot(nrm, lnorm))
             l_direct_pre = light_f * li * (nl * _safe_inv(raw_pdf))
 
         # phase 1b: NEE environment draws (comp:911-926)
@@ -358,18 +414,17 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         seed = torch.where(lobe == 0, s2, seed)
 
         d_f = disney_eval_v(v_dir, nrm, l_out, t_tan, b_tan, mat, cdlin)
-        weight = d_f * (torch.abs(vdot(nrm, l_out)) * _safe_inv(d_pdf))
+        weight = d_f * (absolute(vdot(nrm, l_out)) * _safe_inv(d_pdf))
         if cfg.mis == "balanced":
             if has_lights:
-                p_b_light = torch.clamp_min(
-                    disney_pdf_v(v_dir, nrm, lnorm, mat), 0.0)
+                p_b_light = maximum(disney_pdf_v(v_dir, nrm, lnorm, mat), 0.0)
             if has_env:
-                p_b_env = torch.clamp_min(
-                    disney_pdf_v(v_dir, nrm, en_l, mat), 0.0)
+                p_b_env = maximum(disney_pdf_v(v_dir, nrm, en_l, mat), 0.0)
 
         # phase 2: one live-first permutation of the whole path state, as
-        # ONE gather of a [C, R] pack (each row comes out contiguous)
-        if cfg.compact_rays and bounce < cfg.sort_max_bounce:
+        # ONE gather of a [C, R] pack (each row comes out contiguous); a
+        # replay never sorts
+        if cfg.compact_rays and bounce < cfg.sort_max_bounce and not replay:
             if not cfg.sort_rays:
                 perm, _ = compact_indices(active)
             elif cfg.sort_key == "entry" and trav.treelets is not None:
@@ -379,7 +434,7 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             else:  # 'dir' / 'pos', and 'entry' without a treelet table
                 root = trav.nodes8[0]
                 lo_b, hi_b = root[0:3], root[3:6]
-                inv_ext = 1.0 / torch.clamp_min(hi_b - lo_b, 1e-6)
+                inv_ext = 1.0 / maximum(hi_b - lo_b, 1e-6)
                 key_fn = (coherence_key if cfg.sort_key == "dir"
                           else coherence_key_pos)
                 perm, _ = sort_live_first(active,
@@ -428,8 +483,9 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                 if has_env:
                     p_b_env = nxt()
 
-        # phase 3: occlusion queries — both NEE classes in one launch when
-        # the scene has both and fuse_shadows is on, else one each
+        # phase 3: occlusion queries — replayed, or both NEE classes in one
+        # launch when the scene has both and fuse_shadows is on, else one
+        # each
         if has_lights:
             s_origin = pos + nrm * 1e-4
             s_tmax = torch.full((r,), 1.0 - SHADOW_EPS, dtype=torch.float32,
@@ -439,7 +495,12 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             # point itself (comp:918)
             e_origin = pos if compat else pos + nrm * 1e-4
             facing = vdot(en_l, nrm) > 0
-        if has_lights and has_env and cfg.fuse_shadows:
+        if replay:
+            if has_lights:
+                occluded = records.light_occ[bounce]
+            if has_env:
+                e_occ = records.env_occ[bounce]
+        elif has_lights and has_env and cfg.fuse_shadows:
             occ2 = any_fn(trav, vcat(s_origin, e_origin), vcat(sdir, en_l),
                           torch.cat([s_tmax, t_max0]),
                           torch.cat([active, active & facing]),
@@ -453,6 +514,11 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                 e_occ = any_fn(trav, e_origin, en_l, t_max0,
                                active & facing, stack_depth=sd,
                                compat=compat)
+        if record:
+            if has_lights:
+                rec_occ.append(_unsort(occluded, orig))
+            if has_env:
+                rec_eocc.append(_unsort(e_occ, orig))
 
         # NEE contributions (masks applied to the pre-folded terms)
         light_pdf, l_direct = zero_r, zero_v
@@ -476,37 +542,53 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         else:
             nee = zero_v
             if has_lights:
-                w_l = light_pdf / torch.clamp_min(light_pdf + p_b_light, _EPS)
+                w_l = light_pdf / maximum(light_pdf + p_b_light, _EPS)
                 nee = nee + l_direct * w_l
             if has_env:
-                w_e = env_pdf / torch.clamp_min(env_pdf + p_b_env, _EPS)
+                w_e = env_pdf / maximum(env_pdf + p_b_env, _EPS)
                 nee = nee + l_env * w_e
         lo = lo + clamp_contrib(vwhere(active, c * nee, zero_v))
 
         # continue the path (comp:950-969)
-        hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = closest_inter(
-            pos + nrm * 1e-4, l_out, t_max0, active)
+        b_origin = pos + nrm * 1e-4
+        if replay:
+            hit2 = Hit(*(f[bounce] for f in (
+                records.bounce.tri, records.bounce.t, records.bounce.b1,
+                records.bounce.b2)))
+            pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = make_interaction(
+                hit2, l_out, b_origin, irows)
+        else:
+            hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = (
+                closest_inter(b_origin, l_out, t_max0, active))
+            if record:
+                rec_hit2.append(Hit(*(_unsort(f, orig) for f in (
+                    hit2.tri, hit2.t, hit2.b1, hit2.b2))))
         miss_now = active & ~hit2.valid
         if cfg.mis == "balanced" and has_env:
             p_e_out = envmap_pdf_v(scene.env, l_out)
-            w_b_env = d_pdf / torch.clamp_min(d_pdf + p_e_out, _EPS)
+            w_b_env = d_pdf / maximum(d_pdf + p_e_out, _EPS)
         else:
             w_b_env = 1.0
-        lo = lo + clamp_contrib(vwhere(
-            miss_now, c * env_radiance(l_out) * weight * w_b_env, zero_v))
+        if replay and has_env:
+            # deferred: one batched lookup for every bounce after the loop
+            env_terms.append((l_out, vwhere(miss_now, c * weight * w_b_env,
+                                            zero_v)))
+        else:
+            lo = lo + clamp_contrib(vwhere(
+                miss_now, c * env_radiance(l_out) * weight * w_b_env,
+                zero_v))
 
         hit_now = active & hit2.valid
         emissive2 = _emissive_of(materials, mat_id2)
         if cfg.mis == "balanced" and has_lights:
             # solid-angle pdf of the area-light NEE strategy at this hit
-            cos_h = torch.abs(vdot(nrm2, l_out))
-            p_l_hit = (hit2.t * hit2.t) / torch.clamp_min(
+            cos_h = absolute(vdot(nrm2, l_out))
+            p_l_hit = (hit2.t * hit2.t) / maximum(
                 cos_h * lights.total_area, 1e-12)
             is_emissive = ((emissive2.x != 0.0) | (emissive2.y != 0.0)
                            | (emissive2.z != 0.0))
             w_b_emis = torch.where(
-                is_emissive, d_pdf / torch.clamp_min(d_pdf + p_l_hit, _EPS),
-                1.0)
+                is_emissive, d_pdf / maximum(d_pdf + p_l_hit, _EPS), 1.0)
         else:
             w_b_emis = 1.0
         lo = lo + clamp_contrib(vwhere(
@@ -529,17 +611,70 @@ def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         # Russian roulette (not in the reference), from rr_start on
         if cfg.rr_start is not None and bounce >= cfg.rr_start:
             seed, u_rr = rand01(seed)
-            p_survive = torch.clamp(c.max_component(), 0.05, 0.95)
+            p_survive = clip(c.max_component(), 0.05, 0.95)
             survive = u_rr < p_survive
             c = vwhere(active & survive, c / p_survive, c)
             active = active & survive
 
-    # restore the original ray order after the permutations
-    lo = lo.map(lambda a: torch.zeros_like(a).index_put_((orig,), a))
+    if env_terms:
+        # the deferred escaped-path terms: ONE radiance lookup over all
+        # [max_depth * R] directions, then each bounce's term summed
+        nb = len(env_terms)
+        stacked = lambda i, k: torch.stack([getattr(t_[i], k)
+                                            for t_ in env_terms])
+        li = env_radiance(V3(*(stacked(0, k).reshape(-1) for k in "xyz")))
+
+        def deferred(k):
+            x = getattr(li, k).reshape(nb, r) * stacked(1, k)
+            if cfg.max_radiance is not None:
+                x = minimum(x, cfg.max_radiance)
+            return x.sum(0)
+
+        lo = lo + V3(deferred("x"), deferred("y"), deferred("z"))
+
+    if not replay:  # restore the original ray order after the permutations
+        lo = lo.map(lambda a: _unsort(a, orig))
 
     # compose (comp:983-988): primary emissive + path radiance on a hit,
     # the environment on a miss
     color = vwhere(primary_hit, primary_emissive + lo, miss_color)
     if cfg.clamp_radiance:
-        color = color.map(lambda a: torch.clamp(a, 0.0, 1.0))
-    return color.rows()
+        color = color.map(lambda a: clip(a, 0.0, 1.0))
+    recs = None
+    if record:
+        stack = lambda xs: torch.stack(xs) if xs else None
+        recs = TraceRecords(
+            primary=hit, light_occ=stack(rec_occ), env_occ=stack(rec_eocc),
+            bounce=Hit(*(torch.stack([getattr(h, k) for h in rec_hit2])
+                         for k in ("tri", "t", "b1", "b2"))))
+    return color.rows(), recs
+
+
+def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
+                px: torch.Tensor, py: torch.Tensor, frame,
+                cfg: RenderConfig) -> torch.Tensor:
+    """[R, 3] radiance for one sample of a batch of primary rays (the
+    live walks); arguments as :func:`_render_rays`."""
+    return _render_rays(scene, o, d, px, py, frame, cfg, None, False)[0]
+
+
+def trace_paths(scene: Scene, o: torch.Tensor, d: torch.Tensor,
+                px: torch.Tensor, py: torch.Tensor, frame,
+                cfg: RenderConfig) -> TraceRecords:
+    """Run the frame forward and keep every walk's answer (the trace
+    phase of a trace/replay gradient step): the live frame on a detached
+    scene, without gradients."""
+    with torch.no_grad():
+        return _render_rays(scene.detach(), o.detach(), d.detach(), px, py,
+                            frame, cfg, None, True)[1]
+
+
+def render_rays_replay(scene: Scene, o: torch.Tensor, d: torch.Tensor,
+                       px: torch.Tensor, py: torch.Tensor, frame,
+                       cfg: RenderConfig,
+                       records: TraceRecords) -> torch.Tensor:
+    """The frame of ``records`` again WITHOUT any walk: the live frame's
+    radiance up to rounding when ``scene`` holds the values the trace
+    ran with, and differentiable in the scene's tensors (the backward
+    never walks the BVH)."""
+    return _render_rays(scene, o, d, px, py, frame, cfg, records, False)[0]

@@ -18,8 +18,10 @@ main.cpp:569-630):
 The frame counter of each step is the accumulation count, a device
 tensor, so a step reads nothing back from the card but its timing.
 Checkpoints are npz files with the JAX session's keys, so one written by
-either package loads in the other.  The optimizer checkpoints of the JAX
-module belong with gradients and are not ported yet.
+either package loads in the other.  The optimizer checkpoints of an
+inverse-rendering run (:func:`save_optimizer_checkpoint`) are the JAX
+module's npz form (orbax is not a dependency of the port): ``leaf_i`` in
+the JAX flatten order of ``(params, optax.adam state, step)``.
 """
 
 from __future__ import annotations
@@ -164,3 +166,56 @@ class RenderSession:
                                      f"{tuple(arr.shape)}")
                 arr.copy_(val)
         self.interacting = False
+
+
+def save_optimizer_checkpoint(path: str, params: dict, opt_state,
+                              step: int) -> None:
+    """Write ``<path>.npz`` for an inverse-rendering run: ``params`` (a
+    params dict, ``diff/grad.py``), ``opt_state`` (the
+    ``torch.optim.Adam`` over ``param_leaves(params)``) and ``step``, as
+    the leaves ``leaf_i`` of the JAX package's fallback: the params'
+    leaves in its flatten order, then optax's Adam count (int32), mu and
+    nu (leaf by leaf), then ``step``.  A checkpoint of either package
+    resumes in the other."""
+    from pnraytracing_tpu_torch.diff.grad import param_leaves
+
+    host = lambda t: t.detach().cpu().numpy()
+    leaves = param_leaves(params)
+    states = [opt_state.state.get(p, {}) for p in leaves]
+    count = int(states[0]["step"]) if "step" in states[0] else 0
+    moment = lambda k: [host(st[k]) if k in st else np.zeros(p.shape,
+                                                             np.float32)
+                        for p, st in zip(leaves, states)]
+    arrays = ([host(p) for p in leaves] + [np.asarray(count, np.int32)]
+              + moment("exp_avg") + moment("exp_avg_sq")
+              + [np.asarray(step)])
+    np.savez(path + ".npz", **{f"leaf_{i}": a for i, a in enumerate(arrays)})
+
+
+def load_optimizer_checkpoint(path: str, like):
+    """Restore a checkpoint of :func:`save_optimizer_checkpoint` (or the
+    JAX package's npz fallback) into ``like = (params, opt_state,
+    step)``: the params' tensors and the Adam moments are written in
+    place; returns ``(params, opt_state, step)``."""
+    from pnraytracing_tpu_torch.diff.grad import param_leaves
+
+    params, opt, _ = like
+    data = np.load(path if path.endswith(".npz") else path + ".npz")
+    leaves = param_leaves(params)
+    n = len(leaves)
+    arrays = [data[f"leaf_{i}"] for i in range(3 * n + 2)]
+    for p, a in zip(leaves, arrays[:n]):
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"the checkpoint holds a leaf of shape "
+                             f"{a.shape} where the params hold "
+                             f"{tuple(p.shape)}")
+    count = int(arrays[n])
+    dev = lambda a, p: torch.as_tensor(np.array(a), dtype=p.dtype,
+                                       device=p.device)
+    with torch.no_grad():
+        for i, p in enumerate(leaves):
+            p.copy_(dev(arrays[i], p))
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": dev(arrays[n + 1 + i], p),
+                            "exp_avg_sq": dev(arrays[2 * n + 1 + i], p)}
+    return params, opt, int(arrays[3 * n + 1])

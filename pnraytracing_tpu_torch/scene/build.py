@@ -45,6 +45,42 @@ from pnraytracing_tpu_torch.ops.envmap import build_envmap
 from pnraytracing_tpu_torch.ops.texture import build_atlas
 
 
+def pack_traversal(built, positions: np.ndarray, normals: np.ndarray,
+                   uvs: np.ndarray, idx_o: np.ndarray, mat_o: np.ndarray,
+                   tex_o: np.ndarray, mesh: TriangleMesh, dev) -> TravData:
+    """The traversal layout of a built BVH on ``dev``: ``idx_o``,
+    ``mat_o``, ``tex_o`` are the triangle arrays in its leaf order,
+    ``mesh`` the scene's mesh (the bricks read it).  A scene too large
+    for the resident kernels (accel/route.py) also gets the
+    brick-streaming layout, under the JAX package's condition.  Raises
+    for a tree outside the packed layout."""
+    max_count = int((built.end - built.start)[built.right_child == -1]
+                    .max())
+    if (max_count > MAX_PACKED_LEAF or len(built.start) > MAX_PACKED_NODES
+            or len(idx_o) > MAX_PACKED_TRIS):
+        raise ValueError(
+            f"scene exceeds the packed traversal layout (leaf of "
+            f"{max_count} triangles, {len(built.start)} nodes, "
+            f"{len(idx_o)} triangles)")
+    t = lambda a: torch.as_tensor(np.array(a), device=dev)
+    tri9 = positions[idx_o].reshape(len(idx_o), 9)
+    treelets = treelet_cut_aabbs(built)
+    trav = TravData(
+        tri9=t(tri9),
+        tri12=t(pack_tri12(tri9)),
+        nodes8=t(pack_nodes8(built)),
+        nodes16c=t(pack_wide_nodes_compact(built)),
+        tri_attr16=t(pack_tri_attr16(positions, normals, uvs, idx_o, mat_o,
+                                     tex_o)),
+        treelets=t(treelets),
+        treelet_tree=t(treelet_index_tree(treelets)),
+        bvh_depth=built.max_depth,
+    )
+    if not scene_fits_smem(trav, "binary"):
+        trav.stream = build_stream_data(built, mesh, device=dev)
+    return trav
+
+
 @dataclasses.dataclass
 class ModelEntry:
     name: str
@@ -173,31 +209,8 @@ class SceneBuilder:
             total_area=t(np.float32(prefix[-1] if len(prefix) else 0.0)),
         )
 
-        max_count = int((built.end - built.start)[built.right_child == -1]
-                        .max())
-        if (max_count > MAX_PACKED_LEAF or len(built.start) > MAX_PACKED_NODES
-                or len(indices) > MAX_PACKED_TRIS):
-            raise ValueError(
-                f"scene exceeds the packed traversal layout (leaf of "
-                f"{max_count} triangles, {len(built.start)} nodes, "
-                f"{len(indices)} triangles)")
-        tri9 = positions[idx_o].reshape(len(order), 9)
-        treelets = treelet_cut_aabbs(built)
-        trav = TravData(
-            tri9=t(tri9),
-            tri12=t(pack_tri12(tri9)),
-            nodes8=t(pack_nodes8(built)),
-            nodes16c=t(pack_wide_nodes_compact(built)),
-            tri_attr16=t(pack_tri_attr16(positions, normals, uvs, idx_o,
-                                         mat_ids[order], tex_ids[order])),
-            treelets=t(treelets),
-            treelet_tree=t(treelet_index_tree(treelets)),
-            bvh_depth=built.max_depth,
-        )
-        # scenes too large for the resident kernels get the brick-paged
-        # streaming layout, under the JAX package's condition
-        if not scene_fits_smem(trav, "binary"):
-            trav.stream = build_stream_data(built, mesh, device=dev)
+        trav = pack_traversal(built, positions, normals, uvs, idx_o,
+                              mat_ids[order], tex_ids[order], mesh, dev)
 
         return Scene(
             mesh=mesh,

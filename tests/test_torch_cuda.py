@@ -7,7 +7,10 @@ Bounds: the kernels are built with --fmad=false and repeat their plain
 versions op for op, so hits, barycentrics, attributes, occlusion,
 keys and the walk stats are equal; a triangle id may differ only on an
 exact-t tie.  A frame replayed from its captured CUDA graph
-(render/program.py) equals the eager frame bit for bit.
+(render/program.py) equals the eager frame bit for bit.  The gradient
+path: a trace's records through the kernels equal those of the plain
+walks bit for bit; the replay gradient is within 1e-3 (in norm) of the
+live one; the kernels' answers carry no gradient.
 """
 
 import dataclasses
@@ -775,3 +778,110 @@ def test_compat_replay_equals_eager(flagship, streamed, case):
             dict(closest_hit_stream_compat=4, any_hit_stream_compat=3))
     assert {k: v for k, v in prog.launches.items() if v} == dict(
         want, treelet_entry_key=2)
+
+
+# ---- gradients: the trace's records, the detached walks, the ties -----------
+
+def _rays(camera, size):
+    from pnraytracing_tpu_torch.core.camera import camera_rays
+    from pnraytracing_tpu_torch.render.renderer import pixel_coords
+
+    cfg = RenderConfig(width=size, height=size, max_depth=2)
+    px, py = pixel_coords(cfg, "cuda")
+    o, d, _ = camera_rays(camera, size, size)
+    return cfg, (o, d, px, py)
+
+
+@pytest.mark.parametrize("case", ["flagship", "streamed"])
+def test_trace_records_equal_plain_walks(flagship, stream_scene, case):
+    """``trace_paths`` through the kernels and with every walk routed to
+    its plain version on the card: the records bit for bit."""
+    from chip_smoke import records_mismatch
+    from pnraytracing_tpu_torch.render import integrator
+    from pnraytracing_tpu_torch.render.integrator import trace_paths
+
+    scene, camera = flagship
+    if case == "streamed":
+        scene = stream_scene
+    cfg, rays = _rays(camera, 64)
+    got = trace_paths(scene, *rays, 3, cfg)
+    rec = Recorder(integrator, trv, trs, compaction)
+    try:
+        want = trace_paths(scene, *rays, 3, cfg)
+    finally:
+        rec.restore()
+    assert rec.calls, "the plain walks were not called"
+    bad = records_mismatch(got, want)
+    assert not any(bad.values()), bad
+    assert int(got.primary.valid.sum()) > 100
+
+
+def test_replay_gradient_equals_live_gradient(flagship):
+    """The trace/replay gradient against the live one on the card
+    (materials and env texels, spp 2, 64x64 depth 2): within 1e-3 in
+    norm a key (the backward's atomics sum in another order), finite and
+    non-zero."""
+    from pnraytracing_tpu_torch.diff import grad as dg
+
+    scene, camera = flagship
+    cfg, rays = _rays(camera, 64)
+    params = dg.extract_params(scene, ("materials", "env_image"))
+    target = torch.full((64 * 64, 3), 0.25, device="cuda")
+    l0, g0 = dg.loss_and_grad(params, scene, *rays, 3, target, cfg, spp=2)
+    l1, g1 = dg.loss_and_grad_replay(params, scene, *rays, 3, target, cfg,
+                                     spp=2)
+    assert abs(float(l0) - float(l1)) <= 1e-4 * abs(float(l1))
+    for k in ("materials", "env_image"):
+        a = torch.cat([g.reshape(-1) for g in dg.param_leaves({k: g0[k]})])
+        b = torch.cat([g.reshape(-1) for g in dg.param_leaves({k: g1[k]})])
+        assert torch.isfinite(b).all() and float(b.abs().max()) > 0, k
+        err = torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)
+        assert float(err) <= 1e-3, (k, float(err))
+
+
+def test_walks_carry_no_gradient_on_card(flagship):
+    """The kernels' answers have no ``grad_fn``: a loss through them gives
+    the rays a zero gradient, as on the CPU."""
+    scene, camera = flagship
+    _, (o, d, _, _) = _rays(camera, 32)
+    ox = o[:, 0].contiguous().requires_grad_(True)
+    ov = V3(ox * 1.0, o[:, 1].contiguous(), o[:, 2].contiguous())
+    dv = V3(d[:, 0].contiguous(), d[:, 1].contiguous(),
+            d[:, 2].contiguous())
+    tm = torch.full((32 * 32,), 1e7, device="cuda")
+    hit, _ = trv.closest_hit_attr(scene.trav, ov, dv, tm)
+    occ = trv.any_hit(scene.trav, ov, dv, tm)
+    key = compaction.entry_key(ov, dv, scene.trav.treelets,
+                               scene.trav.treelet_tree)
+    outs = [hit.t, hit.b1, hit.b2, occ, key]
+    assert all(a.grad_fn is None for a in outs)
+    assert bool(hit.valid.any())
+    loss = hit.t.sum() + hit.b1.sum() + 0.0 * ox.sum()
+    (g,) = torch.autograd.grad(loss, ox)
+    assert torch.equal(g, torch.zeros_like(g))
+
+
+def test_sanitized_ties_on_card():
+    """``Materials.sanitized()`` on the card splits the gradient at the
+    bounds as on the CPU (and as ``jnp.clip`` / ``jnp.maximum``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.core.types import Materials
+
+    vals = [-0.5, 0.0, 0.5, 1.0, 1.5]
+    names = [f.name for f in dataclasses.fields(Materials)]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        col = torch.tensor(vals, device=dev)
+        leaves = {n: (col[:, None].repeat(1, 3) if n in ("emissive",
+                                                         "base_color")
+                      else col.clone()).requires_grad_(True)
+                  for n in names}
+        s = Materials(**leaves).sanitized()
+        sum(getattr(s, n).sum() for n in names).backward()
+        grads[dev] = {n: leaves[n].grad.cpu() for n in names}
+    for n in names:
+        assert torch.equal(grads["cpu"][n], grads["cuda"][n]), n
+    assert grads["cuda"]["metallic"].tolist() == [0.0, 0.5, 1.0, 0.5, 0.0]
+    assert grads["cuda"]["ior"].tolist() == [0.0, 0.0, 0.0, 0.5, 1.0]
