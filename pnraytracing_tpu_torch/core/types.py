@@ -122,15 +122,19 @@ class Materials(_Movable):
         ``scalars`` holds the 12 scalar parameters as [R] tensors; its
         color slots are zero placeholders (the V3s carry the colors).  A
         gather picks the same values as the JAX package's compare-select
-        chain."""
+        chain.  It is ``index_select``, whose backward adds into the [M]
+        rows with atomics: ``table[idx]``'s backward sorts the indices and
+        sums each material's run of lanes serially, which took 98% of a
+        512x512 backward on the card (PERF.md)."""
         from pnraytracing_tpu_torch.core.vec import V3
 
         zero = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
         scalars = Materials(
             emissive=zero, base_color=zero,
-            **{k: getattr(self, k)[idx] for k in _SCALAR_PARAMS})
-        return (scalars, V3.of(self.base_color[idx]),
-                V3.of(self.emissive[idx]))
+            **{k: getattr(self, k).index_select(0, idx)
+               for k in _SCALAR_PARAMS})
+        return (scalars, V3.of(self.base_color.index_select(0, idx)),
+                V3.of(self.emissive.index_select(0, idx)))
 
 
 @dataclasses.dataclass

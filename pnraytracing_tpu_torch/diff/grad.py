@@ -43,6 +43,7 @@ from pnraytracing_tpu_torch.render.integrator import (
     trace_paths,
 )
 from pnraytracing_tpu_torch.render.renderer import pixel_coords
+from pnraytracing_tpu_torch.scene.build import pack_traversal
 
 PARAM_KEYS = ("materials", "env_image", "positions")
 _MAT_FIELDS = tuple(f.name for f in dataclasses.fields(Materials))
@@ -129,8 +130,6 @@ def refit_scene(scene: Scene, max_leaf_size: int = 4) -> Scene:
     ``tri_attr16`` or treelets, which changes only the ray order and the
     ulps of its next frame, not what it computes.  ``bvh_depth`` follows
     the new tree."""
-    from pnraytracing_tpu_torch.scene.build import pack_traversal
-
     mesh0 = scene.mesh.detach()
     dev = mesh0.positions.device
     host = lambda t: t.cpu().numpy()

@@ -190,7 +190,7 @@ def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
     by intersecting the hit triangle again, as the JAX package does.
     Returns (pos V3, nrm V3, (u, v), mat_id, tex_id)."""
     tri = torch.clamp_min(hit.tri, 0).long()
-    rr = rows[tri]
+    rr = rows.index_select(0, tri)
     p0, p1, p2 = _corners(rr, 0)
     n0, n1, n2 = _corners(rr, 9)
     ok, _, rb1, rb2 = intersect_triangle_c(
@@ -217,7 +217,7 @@ def sample_light_point(tri: torch.Tensor, u1, u2, rows: torch.Tensor):
     """Uniform point + normal on light triangles (TriangleSample,
     comp:604-624).  Returns (pos V3, nrm V3)."""
     b0, b1 = sample_uniform_triangle(u1, u2)
-    rr = rows[tri.long()]
+    rr = rows.index_select(0, tri.long())
     p0, p1, p2 = _corners(rr, 0)
     n0, n1, n2 = _corners(rr, 9)
     b2 = 1.0 - b0 - b1
@@ -228,7 +228,9 @@ def sample_light_point(tri: torch.Tensor, u1, u2, rows: torch.Tensor):
 
 
 def _emissive_of(materials, mat_id: torch.Tensor) -> V3:
-    return V3.of(materials.emissive[mat_id.long()])
+    # index_select, as every gather from a table that can carry a
+    # gradient: its backward adds with atomics (Materials.gather_components)
+    return V3.of(materials.emissive.index_select(0, mat_id.long()))
 
 
 def _safe_inv(x: torch.Tensor) -> torch.Tensor:

@@ -782,7 +782,7 @@ def test_compat_replay_equals_eager(flagship, streamed, case):
 
 # ---- gradients: the trace's records, the detached walks, the ties -----------
 
-def _rays(camera, size):
+def _frame_rays(camera, size):
     from pnraytracing_tpu_torch.core.camera import camera_rays
     from pnraytracing_tpu_torch.render.renderer import pixel_coords
 
@@ -803,7 +803,7 @@ def test_trace_records_equal_plain_walks(flagship, stream_scene, case):
     scene, camera = flagship
     if case == "streamed":
         scene = stream_scene
-    cfg, rays = _rays(camera, 64)
+    cfg, rays = _frame_rays(camera, 64)
     got = trace_paths(scene, *rays, 3, cfg)
     rec = Recorder(integrator, trv, trs, compaction)
     try:
@@ -824,7 +824,7 @@ def test_replay_gradient_equals_live_gradient(flagship):
     from pnraytracing_tpu_torch.diff import grad as dg
 
     scene, camera = flagship
-    cfg, rays = _rays(camera, 64)
+    cfg, rays = _frame_rays(camera, 64)
     params = dg.extract_params(scene, ("materials", "env_image"))
     target = torch.full((64 * 64, 3), 0.25, device="cuda")
     l0, g0 = dg.loss_and_grad(params, scene, *rays, 3, target, cfg, spp=2)
@@ -843,7 +843,7 @@ def test_walks_carry_no_gradient_on_card(flagship):
     """The kernels' answers have no ``grad_fn``: a loss through them gives
     the rays a zero gradient, as on the CPU."""
     scene, camera = flagship
-    _, (o, d, _, _) = _rays(camera, 32)
+    _, (o, d, _, _) = _frame_rays(camera, 32)
     ox = o[:, 0].contiguous().requires_grad_(True)
     ov = V3(ox * 1.0, o[:, 1].contiguous(), o[:, 2].contiguous())
     dv = V3(d[:, 0].contiguous(), d[:, 1].contiguous(),

@@ -399,7 +399,7 @@ def test_vertex_position_gradient_finite_difference():
     assert checked >= 2, "FD signal too weak to validate anything"
 
 
-def test_unconstrained_params_cannot_nan():
+def test_unconstrained_params_cannot_nan_forward():
     """Out-of-domain materials (anisotropic 5, where sqrt(1 - 0.9a) is
     NaN; metallic -2; roughness 7) are sanitized at fetch: the frame and
     its gradients stay finite, also where a lane sees no radiance."""

@@ -4,8 +4,8 @@ against the JAX package.
 
 * records: the port's ``trace_paths`` against the JAX package's (its
   packet walk) on one scene, 16x16, depth 3 with Russian roulette.  The
-  primary hits follow PR 1's walk budget (tests/test_pallas_trav.py::
-  _assert_hits_close): at most 2 triangle mismatches, t rtol 1e-6, b1/b2
+  primary hits follow the walk budget of tests/test_pallas_trav.py::
+  _assert_hits_close: at most 2 triangle mismatches, t rtol 1e-6, b1/b2
   rtol 1e-5 atol 1e-6.  Two primary rays through the rim of the floor
   quad are such mismatches: the packet walk misses what the port's walk
   (and the JAX package's Pallas kernel, tests/test_torch_traverse.py)
