@@ -6,7 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Drives the port's two paths through ``render_frame`` — the flagship
 teapot_night forward frame (512x512, 1 spp, 4 bounces, resident
 kernels) and the large config5 frame (102,404 triangles, brick-streaming
-kernels), each eager and as one captured CUDA graph replayed — and holds
+kernels), each eager and as one captured CUDA graph replayed — then the
+gradient path and the multi-process paths of ``parallel/``, and holds
 every CUDA kernel against its plain PyTorch version.  Each phase prints
 one JSON line; any failure raises and the script exits non-zero without
 printing a result.  Phases:
@@ -107,13 +108,35 @@ printing a result.  Phases:
    the same tree, the resident wide and the binary kernels' times and
    ``walk_figures`` on config5's rays, and one profiled frame; then
    ``compat_kernels`` and ``compat`` for config5 (the stream kernels'
-   compat forms, launches 5 + 4 + 2) and phase 8 for config5.
+   compat forms, launches 5 + 4 + 2) and phase 8 for config5;
+17. parallel (``parallel/`` on ``torch.distributed``, after the
+   gradient phases, with config5 from phase 14): in this process a world
+   of one (NCCL) runs the sharded flagship frame (bit for bit the eager
+   frame), the data-parallel gradient replayed and live (within 3e-5 in
+   norm of the single-process step, whose own run-to-run distance is
+   printed beside it, while a lost rank's chunk must read above that),
+   the primitive-sharded closest and any hit over config5's 102,404
+   triangles (kernels 5, 6 and 5*, 6*; ``t`` and occlusion equal to the
+   unsharded binary walk's), the same combine over 8 shards walked in
+   this process (default and compat), kernels 5, 6, 5* and 6* against
+   their plain versions at those shapes, and config5's 128x128 depth-2
+   sharded frame (kernel 7); then a world of two processes on the one card (gloo:
+   NCCL refuses two ranks on one device) runs the same paths with 2
+   shards, each result equal to world one's (frames bit for bit).  Each
+   path's launches are counted with the counters zeroed just before it;
+   ms of each sharded call and of its collective alone, the dp step's
+   trace / forward / backward / all-reduce ms, the primitive walks' ms
+   beside the unsharded walk's.  No scaling figure: both ranks share one
+   card.
 
-Phases 1-7 and 10-16 run the eager frame (``render_frame(...,
+Phases 1-7 and 10-17 run the eager frame (``render_frame(...,
 eager=True)``), whose launch counters count each frame.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
-``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
+Then the ``{"kernels": [...]}`` line (each row with its launches on
+phase 17's paths by world and path: ``parallel_launches``, and
+``primitive_launches`` for the primitive queries), the nvidia-smi line,
+and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -707,7 +730,8 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
     """Phase 8: the binary kernels against their plain versions on the
     flagship rays, and their rows of the kernels line.  The integrator
     never routes to them (the binary packing is 8 B larger than the wide
-    one), so their launches on the main path are 0."""
+    one), so their launches on the flagship frame are 0; the primitive
+    queries of phase 17 run them."""
     import torch
 
     r = primary[1].x.shape[0]
@@ -1718,10 +1742,11 @@ def textures_phase(render_frame, RenderConfig, dev, modules, tables,
 
 
 def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
-                  counts, cfgp) -> list:
+                  counts, cfgp) -> tuple:
     """Phases 14-16: config5_large through the brick-streaming kernels.
-    Returns their rows of the kernels line and the times of the resident
-    wide kernels on config5's rays, by wrapper name."""
+    Returns their rows of the kernels line, the times of the resident
+    wide kernels on config5's rays, by wrapper name, and the scene and
+    its camera."""
     import torch
 
     from pnraytracing_tpu_torch.accel.bricks import build_stream_data
@@ -1941,7 +1966,589 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
                   tables, counts, smi)
     grad_stream_phase(RenderConfig, scene, camera, dev, modules, tables,
                       counts, smi)
-    return rows, on_config5
+    return rows, on_config5, scene, camera
+
+
+# ---- 17. parallel: parallel/ on torch.distributed --------------------------
+
+PRIM_SHARDS = (2, 8)  # shard counts built from config5's triangle list
+PARALLEL_SIZE, PARALLEL_DEPTH = 128, 2  # config5's sharded frame
+WORLD2 = 2
+# the dp gradient against the single-process one and world 2 against
+# world 1, relative in norm.  One single-process step is not reproducible
+# below ~1e-5 (index_add sums ~262k lanes into each material row by
+# atomics, in any order): sound runs read 3.5e-6..1.2e-5, two runs of the
+# one step 4.6e-6..7.3e-6.  Each run also reads a lost rank's chunk
+# (``dp_fault_lost_chunk``) and fails unless it is above the gate
+DP_REL = 3e-5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _build_shard(args):
+    """One shard's BVH and rows on the host (a process-pool task)."""
+    from pnraytracing_tpu_torch.parallel.primitive import build_shard
+
+    return build_shard(*args)
+
+
+def scene_shards(trav):
+    """The one-shard placement of a scene: its own binary layout, global
+    ids = its triangle ids."""
+    import numpy as np
+
+    from pnraytracing_tpu_torch.parallel.primitive import PrimShards
+
+    host = lambda t: t.cpu().numpy()[None]
+    return PrimShards(
+        nodes8=host(trav.nodes8), tri9=host(trav.tri9),
+        tri12=host(trav.tri12),
+        tri_map=np.arange(trav.tri9.shape[0], dtype=np.int32)[None],
+        n_shards=1, bvh_depth=trav.bvh_depth)
+
+
+def primitive_rays(scene, camera, trav_walk):
+    """The primitive queries' rays: config5's 512x512 primary rays
+    (``t_max`` the largest float32) for the closest hit, and for the any hit a ray
+    from each primary hit point (the eye on a miss) toward the lamp,
+    ``t_max`` short of it.  ``trav_walk(o, d, t_max)`` is the unsharded
+    closest walk."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.camera import camera_rays
+
+    o, d, _ = camera_rays(camera, WIDTH, HEIGHT)
+    t_max = torch.full((o.shape[0],), 3.4028234663852886e38,
+                       device=o.device)
+    hit = trav_walk(o, d, t_max)
+    p = torch.where(hit.valid[:, None], o + hit.t[:, None] * d, o)
+    to = torch.tensor([0.0, 5.99, 0.0], device=o.device) - p
+    dist = torch.linalg.vector_norm(to, dim=-1)
+    sd = to / dist[:, None]
+    return (o, d, t_max), ((p + 1e-3 * sd).contiguous(), sd.contiguous(),
+                           (dist - 2e-3).contiguous())
+
+
+def check_prim(name, hit, occ, ref_hit, ref_occ) -> dict:
+    """A primitive-sharded answer against the unsharded walk: ``t`` and
+    occlusion equal, ``tri`` equal but on exact-``t`` ties (<= 0.001% of
+    rays), ``b1`` / ``b2`` equal where ``tri`` is."""
+    import torch
+
+    r = hit.t.shape[0]
+    same = hit.tri == ref_hit.tri
+    bad = int((~same).sum())
+    ok = (torch.equal(hit.t, ref_hit.t) and torch.equal(occ, ref_occ)
+          and bad <= max(1, int(r * 1e-5))
+          and torch.equal(hit.b1[same], ref_hit.b1[same])
+          and torch.equal(hit.b2[same], ref_hit.b2[same]))
+    out = {"rays": r, "tri_mismatch": bad,
+           "t_max_abs_err": float((hit.t - ref_hit.t).abs().max()),
+           "occlusion_mismatch": int((occ != ref_occ).sum()),
+           "hits": int(ref_hit.valid.sum()), "occluded": int(ref_occ.sum())}
+    if not ok:
+        raise AssertionError(f"{name}: primitive-sharded answer differs "
+                             f"from the unsharded walk: {out}")
+    return out
+
+
+def rel_err(a, b) -> float:
+    """``||a - b|| / ||b||`` over one tensor or a list of them."""
+    import torch
+
+    a, b = ([a], [b]) if isinstance(a, torch.Tensor) else (a, b)
+    num = sum(float(torch.sum((x.double() - y.double()) ** 2))
+              for x, y in zip(a, b))
+    den = sum(float(torch.sum(y.double() ** 2)) for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def dp_parts(scene, rays, target, keys, cfg, m) -> dict:
+    """This rank's parts of one replayed data-parallel gradient step,
+    each timed on the host clock closed by a synchronize (median of 3):
+    the trace of its chunk, the replay forward, the backward, and the
+    ``all_reduce`` of the flat gradient alone."""
+    import torch
+
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.parallel import distributed
+    from pnraytracing_tpu_torch.parallel.mesh import local_rows
+    from pnraytracing_tpu_torch.render.integrator import (
+        render_rays_replay,
+        trace_paths,
+    )
+
+    params = dg.extract_params(scene, keys)
+    o, d, px, py, t = local_rows(m, *rays, target)
+    now = dg.apply_params(scene, dg.detached_params(params))
+    trace_ms, recs = host_ms(lambda: trace_paths(now, o, d, px, py, 3, cfg))
+    p, leaves = dg.leaf_copies(params)
+    fwd = lambda: torch.sum((render_rays_replay(
+        dg.apply_params(scene, p), o, d, px, py, 3, cfg, recs) - t) ** 2)
+    fwd_ms, _ = host_ms(fwd)
+    bwd, grads = [], None
+    for _ in range(3):
+        loss = fwd()
+        ms, grads = host_ms(lambda: torch.autograd.grad(
+            loss, leaves, allow_unused=True), reps=1)
+        bwd.append(ms)
+    flat = torch.cat([g.reshape(-1) for g in grads if g is not None])
+    ar_ms, _ = host_ms(lambda: distributed.all_reduce(flat, "sum", m.group))
+    return {"trace_ms": trace_ms, "forward_ms": fwd_ms,
+            "backward_ms": sorted(bwd)[1], "all_reduce_ms": ar_ms,
+            "all_reduce_bytes": 4 * flat.numel(), "rays": o.shape[0]}
+
+
+def _launch_tables():
+    from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+    from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
+    from pnraytracing_tpu_torch.ops import compaction
+
+    tables = (trv.LAUNCHES, trs.LAUNCHES, compaction.LAUNCHES)
+    return tables, lambda: {k: v for t in tables for k, v in t.items()
+                            if v}
+
+
+def run_paths(pm, pp, flagship, flag_cam, c5, c5_cam, shards, prim, cfg,
+              cfg5, keys, m) -> tuple[dict, dict, dict]:
+    """The paths both worlds run, each with the launch counters zeroed
+    just before it and read just after: the sharded flagship frame, the
+    replayed and the live dp gradient, the primitive closest and any hit
+    over ``shards``, config5's sharded frame.  Returns (results as
+    tensors, launches by path, ms)."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.camera import camera_rays
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.parallel import distributed
+    from pnraytracing_tpu_torch.render.renderer import pixel_coords
+
+    tables, counts = _launch_tables()
+    dev = flagship.mesh.positions.device
+    res, launches, ms = {}, {}, {}
+
+    def path(name, fn):
+        torch.cuda.synchronize()
+        zero_counts(*tables)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        return out
+
+    res["frame"] = path("flagship_frame", lambda: pm.render_frame_sharded(
+        flagship, flag_cam, cfg, 1, m))
+    ms["flagship_frame"], _ = host_ms(lambda: pm.render_frame_sharded(
+        flagship, flag_cam, cfg, 1, m))
+    chunk = res["frame"].reshape(-1, 3)[m.chunk(cfg.num_pixels)]
+    ms["flagship_frame_all_gather"], _ = host_ms(
+        lambda: distributed.all_gather_rows(chunk, m.group))
+
+    px, py = pixel_coords(cfg, dev)
+    o, d, _ = camera_rays(flag_cam, cfg.width, cfg.height)
+    rays = (o, d, px, py)
+    target = torch.full((cfg.num_pixels, 3), 0.25, device=dev)
+    params = dg.extract_params(flagship, keys)
+    for tag, replay in (("dp_replay", True), ("dp_live", False)):
+        res[tag] = path(tag, lambda: pm.dp_loss_and_grad(
+            params, flagship, *rays, 3, target, cfg, m, use_replay=replay))
+        ms[tag], _ = host_ms(lambda: pm.dp_loss_and_grad(
+            params, flagship, *rays, 3, target, cfg, m, use_replay=replay))
+    ms["dp_replay_parts"] = dp_parts(flagship, rays, target, keys, cfg, m)
+
+    placed = pp.put_shards(shards, m)
+    (o5, d5, tm5), (so, sd, stm) = prim
+    for tag, compat in (("primitive", False), ("primitive_compat", True)):
+        res[tag] = path(tag, lambda: (
+            pp.primitive_sharded_closest_hit(placed, o5, d5, tm5, m,
+                                             compat=compat),
+            pp.primitive_sharded_any_hit(placed, so, sd, stm, m,
+                                         compat=compat)))
+    walked = pp.walk_closest(placed, o5, d5, tm5)
+    reduce = pp.collective_reduce(m.group)
+    ms["primitive"] = {
+        "closest_ms": time_ms(lambda: pp.primitive_sharded_closest_hit(
+            placed, o5, d5, tm5, m), 5),
+        "any_ms": time_ms(lambda: pp.primitive_sharded_any_hit(
+            placed, so, sd, stm, m), 5),
+        "closest_walk_ms": time_ms(lambda: pp.walk_closest(
+            placed, o5, d5, tm5), 5),
+        "any_walk_ms": time_ms(lambda: pp.walk_any(placed, so, sd, stm), 5),
+        "closest_combine_ms": host_ms(lambda: pp.combine_closest(
+            *(x[None] for x in walked), [placed.shard], placed.n_shards, tm5,
+            reduce))[0],
+        "shards": shards.n_shards, "triangles_this_rank": int(
+            (shards.tri_map[placed.shard] >= 0).sum())}
+
+    res["config5_frame"] = path("config5_frame", lambda: (
+        pm.render_frame_sharded(c5, c5_cam, cfg5, 1, m)))
+    ms["config5_frame"], _ = host_ms(lambda: pm.render_frame_sharded(
+        c5, c5_cam, cfg5, 1, m))
+    return res, launches, ms
+
+
+def _world2(rank, workdir):
+    """One rank of the two-process world on the one card (gloo: NCCL
+    refuses two ranks on one device): the paths of :func:`run_paths` on
+    the inputs the parent wrote to ``workdir``; writes its results and
+    its launches and times there."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pnraytracing_tpu_torch.convert import (
+        params_to_arrays,
+        prim_shards_from_arrays,
+        scene_from_arrays,
+    )
+    from pnraytracing_tpu_torch.core.config import RenderConfig
+    from pnraytracing_tpu_torch.core.types import Camera
+    from pnraytracing_tpu_torch.parallel import distributed
+    from pnraytracing_tpu_torch.parallel import mesh as pm
+    from pnraytracing_tpu_torch.parallel import primitive as pp
+
+    torch.set_num_threads(2)
+    distributed.initialize(
+        init_method="file://" + os.path.join(workdir, "store"),
+        world_size=WORLD2, rank=rank, backend="gloo")
+    try:
+        dev = distributed.rank_device()
+        load = lambda n: dict(np.load(os.path.join(workdir, n + ".npz")))
+        cam = lambda a, p: Camera(**{
+            f: torch.from_numpy(a[f"{p}.{f}"]).to(dev)
+            for f in ("eye", "lower_left", "horizontal", "vertical")})
+        ins = load("inputs")
+        flagship = scene_from_arrays(load("flagship"), device=dev)
+        c5 = scene_from_arrays(load("config5"), device=dev)
+        shards = prim_shards_from_arrays(load("shards2"))
+        t = lambda k: torch.from_numpy(ins[k]).to(dev)
+        prim = ((t("o5"), t("d5"), t("tm5")), (t("so"), t("sd"), t("stm")))
+        cfg, cfg5 = (RenderConfig(width=int(w), height=int(h),
+                                  max_depth=int(dp))
+                     for w, h, dp in ins["sizes"])
+        m = pm.make_device_mesh()
+        res, launches, ms = run_paths(
+            pm, pp, flagship, cam(ins, "flag"), c5, cam(ins, "c5"), shards,
+            prim, cfg, cfg5, tuple(ins["keys"]), m)
+        np.savez(os.path.join(workdir, f"world2_rank{rank}.npz"),
+                 **flat_results(res, params_to_arrays))
+        with open(os.path.join(workdir, f"world2_rank{rank}.json"),
+                  "w") as f:
+            json.dump({"launches": launches, "ms": ms}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def flat_results(res, params_to_arrays) -> dict:
+    """The results of :func:`run_paths` as numpy leaves."""
+    out = {"frame": res["frame"], "config5_frame": res["config5_frame"]}
+    for tag in ("dp_replay", "dp_live"):
+        loss, grads = res[tag]
+        out[f"{tag}.loss"] = loss
+        out.update({f"{tag}.{k}": v
+                    for k, v in params_to_arrays(grads).items()})
+    for tag in ("primitive", "primitive_compat"):
+        hit, occ = res[tag]
+        out.update({f"{tag}.{f}": getattr(hit, f)
+                    for f in ("tri", "t", "b1", "b2")})
+        out[f"{tag}.occ"] = occ
+    return {k: (v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+            for k, v in out.items()}
+
+
+def parallel_phase(render_frame, RenderConfig, flagship, flag_cam, c5,
+                   c5_cam, dev, smi) -> dict:
+    """Phase 17: ``parallel/`` on the card.  World 1 (NCCL, this process)
+    runs the paths of :func:`run_paths`: the sharded flagship frame (bit
+    for bit the eager frame), the dp gradient (replayed and live, within
+    :data:`DP_REL` in norm of ``loss_and_grad_replay`` /
+    ``loss_and_grad`` at spp 1, while a lost rank's chunk reads above
+    it), the primitive-sharded closest and any hit over config5's
+    triangles (one shard: the scene's own layout; kernels 5 / 6 and
+    5* / 6*) against the unsharded walk, the same combine over 8 shards
+    walked in this process (default and compat), config5's 128x128
+    sharded frame (kernel 7), and kernels 5, 6, 5* and 6* against their
+    plain versions at the primitive path's shapes.  World 2 (two
+    processes, gloo, the one card) runs the same paths with 2 shards;
+    each result equals world 1's (frames bit for bit, gradients within
+    :data:`DP_REL` in norm) and the primitive answers the unsharded
+    walk's.  Returns the launches by path for the kernels line."""
+    import multiprocessing
+    import os
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+    from pnraytracing_tpu_torch.convert import (
+        params_to_arrays,
+        prim_shards_to_arrays,
+        scene_to_arrays,
+    )
+    from pnraytracing_tpu_torch.cuda_build import BUILD_DIR
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.ops.intersect import Hit
+    from pnraytracing_tpu_torch.parallel import distributed
+    from pnraytracing_tpu_torch.parallel import mesh as pm
+    from pnraytracing_tpu_torch.parallel import primitive as pp
+
+    t_phase = time.perf_counter()
+    keys = ("materials", "env_image")
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    cfg5 = RenderConfig(width=PARALLEL_SIZE, height=PARALLEL_SIZE,
+                        max_depth=PARALLEL_DEPTH)
+    positions = c5.mesh.positions.cpu().numpy()
+    indices = c5.mesh.indices.cpu().numpy()
+    out = {"phase": "parallel", "card": smi}
+    workdir = os.path.join(os.path.dirname(BUILD_DIR), "parallel_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    with ProcessPoolExecutor(
+            max_workers=os.cpu_count() or 4,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = {}
+        for n in PRIM_SHARDS:
+            b = pp.shard_bounds(len(indices), n)
+            futs[n] = [pool.submit(_build_shard, (positions, indices,
+                                                  int(b[s]), int(b[s + 1])))
+                       for s in range(n)]
+        t0 = time.perf_counter()
+        distributed.initialize(f"tcp://localhost:{_free_port()}",
+                               world_size=1, rank=0)
+        try:
+            m = pm.make_device_mesh()
+            out["world1_init_s"] = time.perf_counter() - t0
+            binary = lambda tr, o, d, t, any_=False, compat=False: (
+                trv.any_hit if any_ else trv.closest_hit)(
+                tr, *pp.ray_components(o, d), t, variant="binary",
+                compat=compat)
+            prim = primitive_rays(c5, c5_cam, lambda o, d, t: binary(
+                c5.trav, o, d, t))
+            (o5, d5, tm5), (so, sd, stm) = prim
+            ref = {c: (binary(c5.trav, o5, d5, tm5, compat=c),
+                       binary(c5.trav, so, sd, stm, True, compat=c))
+                   for c in (False, True)}
+            unsharded_ms = {
+                "closest_ms": time_ms(lambda: binary(c5.trav, o5, d5, tm5),
+                                      5),
+                "any_ms": time_ms(lambda: binary(c5.trav, so, sd, stm, True),
+                                  5)}
+            res1, launches, ms1 = run_paths(
+                pm, pp, flagship, flag_cam, c5, c5_cam, scene_shards(c5.trav),
+                prim, cfg, cfg5, keys, m)
+
+            # world 1 against the single-process paths
+            eager = render_frame(flagship, flag_cam, cfg, 1, device=dev)
+            eager5 = render_frame(c5, c5_cam, cfg5, 1, device=dev)
+            checks = {
+                "frame_equal": torch.equal(res1["frame"], eager),
+                "config5_frame_equal": torch.equal(res1["config5_frame"],
+                                                   eager5)}
+            from pnraytracing_tpu_torch.core.camera import camera_rays
+            from pnraytracing_tpu_torch.render.renderer import pixel_coords
+
+            px, py = pixel_coords(cfg, dev)
+            o, d, _ = camera_rays(flag_cam, WIDTH, HEIGHT)
+            target = torch.full((cfg.num_pixels, 3), 0.25, device=dev)
+            params = dg.extract_params(flagship, keys)
+            single = {
+                "dp_replay": dg.loss_and_grad_replay(
+                    params, flagship, o, d, px, py, 3, target, cfg, spp=1,
+                    dual=False),
+                "dp_live": dg.loss_and_grad(
+                    params, flagship, o, d, px, py, 3, target, cfg, spp=1,
+                    dual=False)}
+            # the same single-process steps again: the distance between two
+            # runs of one step (index_add's atomics sum in any order)
+            again = {
+                "dp_replay": dg.loss_and_grad_replay(
+                    params, flagship, o, d, px, py, 3, target, cfg, spp=1,
+                    dual=False),
+                "dp_live": dg.loss_and_grad(
+                    params, flagship, o, d, px, py, 3, target, cfg, spp=1,
+                    dual=False)}
+            grad_rel = lambda a, b: {
+                "loss": rel_err(a[0], b[0]),
+                **{k: rel_err(dg.param_leaves({k: a[1][k]}),
+                              dg.param_leaves({k: b[1][k]})) for k in keys}}
+            for tag in single:
+                checks[tag] = grad_rel(res1[tag], single[tag])
+                checks[tag + "_single_again"] = grad_rel(again[tag],
+                                                         single[tag])
+            # a fault the gate must catch: the step of a world of two
+            # whose rank 1 lost its chunk (rank 0's chunk of a two-rank
+            # mesh, summed over this world of one)
+            lost = pm.Mesh(group=None, size=2, index=0)
+            checks["dp_fault_lost_chunk"] = grad_rel(pm.dp_loss_and_grad(
+                params, flagship, o, d, px, py, 3, target, cfg, lost,
+                use_replay=True), single["dp_replay"])
+            if max(checks["dp_fault_lost_chunk"].values()) <= DP_REL:
+                raise AssertionError(f"the dp gate misses a lost chunk: "
+                                     f"{checks['dp_fault_lost_chunk']}")
+            for c, tag in ((False, "primitive"), (True, "primitive_compat")):
+                checks[tag] = check_prim(tag, *res1[tag], *ref[c])
+            if not (checks["frame_equal"] and checks["config5_frame_equal"]
+                    and all(v <= DP_REL for tag in ("dp_replay", "dp_live")
+                            for v in checks[tag].values())):
+                raise AssertionError(f"world 1 differs from the "
+                                     f"single-process paths: {checks}")
+
+            # the same combine over 8 shards walked in this process
+            t0 = time.perf_counter()
+            shards = {n: pp.stack_shards([f.result() for f in futs[n]])
+                      for n in PRIM_SHARDS}
+            out["shard_build_wait_s"] = time.perf_counter() - t0
+            placed8 = pp.place_all(shards[8], dev)
+            tables, counts = _launch_tables()
+            for c, tag in ((False, "primitive_one_process_8"),
+                           (True, "primitive_one_process_8_compat")):
+                zero_counts(*tables)
+                hit8 = pp.shards_closest_hit(placed8, o5, d5, tm5, compat=c)
+                occ8 = pp.shards_any_hit(placed8, so, sd, stm, compat=c)
+                torch.cuda.synchronize()
+                launches[tag] = counts()
+                checks[tag] = check_prim(tag, hit8, occ8, *ref[c])
+            ms1["primitive_one_process_8"] = {
+                "closest_ms": time_ms(lambda: pp.shards_closest_hit(
+                    placed8, o5, d5, tm5), 5),
+                "any_ms": time_ms(lambda: pp.shards_any_hit(
+                    placed8, so, sd, stm), 5)}
+
+            # kernels 5, 6, 5* and 6* against their plain versions at the
+            # shapes of the primitive path (one shard: all of config5, all
+            # rays); the references above are these kernels' answers
+            one = pp.place_shard(scene_shards(c5.trav), 0, dev)
+            ov, dv = pp.ray_components(o5, d5)
+            sov, sdv = pp.ray_components(so, sd)
+            checks["kernels_vs_plain"] = {}
+            for c in (False, True):
+                kw = dict(stack_depth=one.stack_depth, compat=c)
+                t0 = time.perf_counter()
+                want_c = trv.plain_closest_hit_binary(one.trav, ov, dv, tm5,
+                                                      **kw)
+                torch.cuda.synchronize()
+                plain_c = (time.perf_counter() - t0) * 1e3
+                t0 = time.perf_counter()
+                want_a = trv.plain_any_hit_binary(one.trav, sov, sdv, stm,
+                                                  **kw)
+                torch.cuda.synchronize()
+                plain_a = (time.perf_counter() - t0) * 1e3
+                got_c = trv.closest_hit(one.trav, ov, dv, tm5,
+                                        variant="binary", **kw)
+                got_a = trv.any_hit(one.trav, sov, sdv, stm,
+                                    variant="binary", **kw)
+                name_c = trv.launch_name("closest_hit_binary", c)
+                name_a = trv.launch_name("any_hit_binary", c)
+                bad, err = check_closest(name_c + "/primitive", got_c,
+                                         want_c, got_c.t.shape[0])
+                checks["kernels_vs_plain"][name_c] = {
+                    "tri_mismatch": bad, "err": err, "plain_ms": plain_c}
+                checks["kernels_vs_plain"][name_a] = {
+                    "mismatches": check_occ(name_a + "/primitive", got_a,
+                                            want_a), "plain_ms": plain_a}
+
+            # world 2: two processes on the one card
+            host = lambda t: t.detach().cpu().numpy()
+            np.savez(os.path.join(workdir, "flagship.npz"),
+                     **scene_to_arrays(flagship))
+            np.savez(os.path.join(workdir, "config5.npz"),
+                     **scene_to_arrays(c5))
+            np.savez(os.path.join(workdir, "shards2.npz"),
+                     **prim_shards_to_arrays(shards[2]))
+            np.savez(os.path.join(workdir, "inputs.npz"), keys=np.array(keys),
+                     sizes=np.array([(c.width, c.height, c.max_depth)
+                                     for c in (cfg, cfg5)]),
+                     o5=host(o5), d5=host(d5), tm5=host(tm5), so=host(so),
+                     sd=host(sd), stm=host(stm),
+                     **{f"{p}.{f}": host(getattr(c, f)) for p, c in (
+                         ("flag", flag_cam), ("c5", c5_cam))
+                        for f in ("eye", "lower_left", "horizontal",
+                                  "vertical")})
+            t0 = time.perf_counter()
+            torch.multiprocessing.spawn(_world2, args=(workdir,),
+                                        nprocs=WORLD2, join=True)
+            out["world2_s"] = time.perf_counter() - t0
+            w1 = flat_results(res1, params_to_arrays)
+            ref_host = {c: (Hit(**{f: getattr(ref[c][0], f).cpu()
+                                   for f in ("tri", "t", "b1", "b2")}),
+                            ref[c][1].cpu()) for c in (False, True)}
+            world2 = []
+            for rank in range(WORLD2):
+                got = dict(np.load(os.path.join(
+                    workdir, f"world2_rank{rank}.npz")))
+                with open(os.path.join(workdir,
+                                       f"world2_rank{rank}.json")) as f:
+                    world2.append(json.load(f))
+                w2 = {"frame_equal": bool(np.array_equal(
+                          got["frame"], w1["frame"])),
+                      "config5_frame_equal": bool(np.array_equal(
+                          got["config5_frame"], w1["config5_frame"]))}
+                for tag in ("dp_replay", "dp_live"):
+                    group = lambda d_, k: [torch.from_numpy(v) for n, v in
+                                           sorted(d_.items())
+                                           if n.startswith(f"{tag}.{k}")]
+                    w2[tag] = {k: rel_err(group(got, k), group(w1, k))
+                               for k in ("loss", *keys)}
+                for tag, c in (("primitive", False),
+                               ("primitive_compat", True)):
+                    hit = Hit(**{f: torch.from_numpy(got[f"{tag}.{f}"])
+                                 for f in ("tri", "t", "b1", "b2")})
+                    w2[tag] = check_prim(
+                        f"world2_rank{rank}/{tag}", hit,
+                        torch.from_numpy(got[f"{tag}.occ"]), *ref_host[c])
+                ok = (w2["frame_equal"] and w2["config5_frame_equal"]
+                      and all(v <= DP_REL for tag in ("dp_replay", "dp_live")
+                              for v in w2[tag].values()))
+                if not ok:
+                    raise AssertionError(f"world 2 rank {rank} differs from "
+                                         f"world 1: {w2}")
+                checks[f"world2_rank{rank}"] = w2
+        finally:
+            dist.destroy_process_group()
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    expected = {
+        "flagship_frame": dict(closest_hit_attr=1 + DEPTH, any_hit=DEPTH,
+                               treelet_entry_key=cfg.sort_max_bounce),
+        "dp_replay": dict(closest_hit_attr=1 + DEPTH, any_hit=DEPTH,
+                          treelet_entry_key=cfg.sort_max_bounce),
+        "dp_live": dict(closest_hit=1 + DEPTH, any_hit=DEPTH,
+                        treelet_entry_key=cfg.sort_max_bounce),
+        "primitive": dict(closest_hit_binary=1, any_hit_binary=1),
+        "primitive_compat": dict(closest_hit_binary_compat=1,
+                                 any_hit_binary_compat=1),
+        "primitive_one_process_8": dict(closest_hit_binary=8,
+                                        any_hit_binary=8),
+        "primitive_one_process_8_compat": dict(
+            closest_hit_binary_compat=8, any_hit_binary_compat=8)}
+    by_world = {"world1": launches, **{f"world2_rank{k}": w["launches"]
+                                       for k, w in enumerate(world2)}}
+    for world, got in by_world.items():
+        for path, want in expected.items():
+            if path in got and got[path] != want:
+                raise AssertionError(f"{world}/{path} launched {got[path]}, "
+                                     f"expected {want}")
+        c5l = got["config5_frame"]
+        if not all(c5l.get(k, 0) > 0 for k in (
+                "closest_hit_stream", "any_hit_stream", "treelet_entry_key")):
+            raise AssertionError(f"{world}: config5's sharded frame "
+                                 f"launched {c5l}")
+    out.update(checks=checks, launches=by_world, world1_ms=ms1,
+               unsharded_walk_ms=unsharded_ms,
+               world2_ms=[w["ms"] for w in world2],
+               seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return by_world
 
 
 def main() -> int:
@@ -2211,9 +2818,10 @@ def main() -> int:
                   tables, counts, smi)
     catalog_phase(render_frame, RenderConfig, dev, modules, tables, counts)
     textures_phase(render_frame, RenderConfig, dev, modules, tables, counts)
-    stream_rows, on_config5 = stream_phases(render_frame, RenderConfig, dev,
-                                            smi, modules, tables, counts,
-                                            cfgp)
+    stream_rows, on_config5, c5, c5_cam = stream_phases(
+        render_frame, RenderConfig, dev, smi, modules, tables, counts, cfgp)
+    par_launches = parallel_phase(render_frame, RenderConfig, scene, camera,
+                                  c5, c5_cam, dev, smi)
     for row in rows:  # kernels 1-3 on config5's rays
         if row["name"] in on_config5:
             row["config5_ms"] = on_config5[row["name"]]
@@ -2225,6 +2833,15 @@ def main() -> int:
             # launches a sample on the gradient path (phase grad)
             row["grad_launches"] = {k: v.get(row["name"], 0)
                                     for k, v in grad_launches.items()}
+        # launches on the paths of phase parallel, by world and path
+        on = {w: {p: n.get(row["name"], 0) for p, n in paths.items()}
+              for w, paths in par_launches.items()}
+        row["primitive_launches"] = {
+            w: {p: n for p, n in v.items() if p.startswith("primitive")}
+            for w, v in on.items()}
+        row["parallel_launches"] = {
+            w: {p: n for p, n in v.items() if not p.startswith("primitive")}
+            for w, v in on.items()}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

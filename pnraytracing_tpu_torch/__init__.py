@@ -20,7 +20,10 @@ progressive state (``AccumState``, ``accum_add``) and the interactive
 gradients: the trace/replay split (``trace_paths``,
 ``render_rays_replay``), ``diff.grad`` (``loss_and_grad``,
 ``loss_and_grad_replay``, ``adam_optimize``, ``refit_scene``) on
-``torch.autograd`` and the optimizer checkpoints.
+``torch.autograd`` and the optimizer checkpoints; ``parallel/`` on
+``torch.distributed`` (tile-sharded frames, data-parallel gradients,
+primitive-sharded walks); ``utils/`` (image output, profiling, the
+kernels' build directory).
 ROADMAP.md lists what is still to port.  Entry points take
 ``device=None``, which means the card.
 """

@@ -15,7 +15,9 @@ The same holds for the state of a gradient step: :func:`params_to_arrays`
 a frame's ``TraceRecords`` (leaves ``primary.<tri|t|b1|b2>``,
 ``light_occ``, ``env_occ``, ``bounce.<tri|t|b1|b2>``), so the port's
 records can be replayed by the JAX package and the JAX package's
-parameters rendered by the port.
+parameters rendered by the port.  :func:`prim_shards_to_arrays` /
+:func:`prim_shards_from_arrays` carry the primitive shards of
+``parallel/primitive.py`` (``PrimShards``, of either package).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from pnraytracing_tpu_torch.core.types import (
     TextureAtlas,
     TriangleMesh,
 )
+from pnraytracing_tpu_torch.parallel.primitive import PrimShards
 
 _GROUPS = {"mesh": TriangleMesh, "materials": Materials, "bvh": BVH,
            "lights": Lights, "env": EnvMap, "textures": TextureAtlas}
@@ -180,3 +183,30 @@ def records_from_arrays(leaves: dict[str, np.ndarray], device=None):
     opt = lambda k: t(leaves[k]) if k in leaves else None
     return TraceRecords(primary=hit("primary"), light_occ=opt("light_occ"),
                         env_occ=opt("env_occ"), bounce=hit("bounce"))
+
+
+_SHARD_ARRAYS = ("nodes8", "tri9", "tri_map")
+
+
+def prim_shards_to_arrays(shards) -> dict[str, np.ndarray]:
+    """Flatten a ``PrimShards`` (of either package) into numpy leaves:
+    ``nodes8``, ``tri9``, ``tri12`` (made from ``tri9`` for the JAX
+    package's, which has none), ``tri_map``, ``n_shards`` and
+    ``stack_depth``."""
+    out = {n: _np(getattr(shards, n)) for n in _SHARD_ARRAYS}
+    tri12 = getattr(shards, "tri12", None)
+    out["tri12"] = (_np(tri12) if tri12 is not None else
+                    np.stack([pack_tri12(t) for t in out["tri9"]]))
+    for n in ("n_shards", "stack_depth"):
+        out[n] = np.asarray(getattr(shards, n), np.int64)
+    return out
+
+
+def prim_shards_from_arrays(leaves: dict[str, np.ndarray]):
+    """The port's host ``PrimShards`` from the leaves of
+    :func:`prim_shards_to_arrays`; its ``bvh_depth`` is ``stack_depth -
+    4``, as both packages set the stack."""
+    return PrimShards(**{n: np.array(leaves[n])
+                         for n in (*_SHARD_ARRAYS, "tri12")},
+                      n_shards=int(leaves["n_shards"]),
+                      bvh_depth=int(leaves["stack_depth"]) - 4)

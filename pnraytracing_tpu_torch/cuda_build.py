@@ -26,7 +26,10 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                                 "torch_kernels")
+# where the libraries are built and loaded from (utils/cache.py moves it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("traverse", "traverse_stream", "entry_key")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

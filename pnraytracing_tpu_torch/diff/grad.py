@@ -169,10 +169,20 @@ def render_image_from_params(params: dict, scene: Scene, o, d, px, py,
     return render_rays(apply_params(scene, params), o, d, px, py, frame, cfg)
 
 
-def _leaf_copies(params: dict) -> tuple[dict, list[torch.Tensor]]:
+def leaf_copies(params: dict) -> tuple[dict, list[torch.Tensor]]:
+    """``(params, leaves)``: a copy of ``params`` whose leaves are fresh
+    tensors that require grad, and those leaves in
+    :func:`param_leaves` order."""
     leaves = [x.detach().clone().requires_grad_(True)
               for x in param_leaves(params)]
     return params_like(params, leaves), leaves
+
+
+def detached_params(params: dict) -> dict:
+    """``params`` with every tensor leaf cut from the autograd graph (the
+    values a trace runs with)."""
+    return {k: (v.detach() if isinstance(v, (torch.Tensor, Materials))
+                else v) for k, v in params.items()}
 
 
 def _loss(renders, target: torch.Tensor, spp: int, dual: bool):
@@ -205,7 +215,7 @@ def loss_and_grad(params: dict, scene: Scene, o, d, px, py, frame,
     ``spp == 1`` (or ``dual=False``) is plain MSE, the right choice
     under common random numbers.  Sample j renders frame ``frame + j``.
     The walks run inside the differentiated pass (detached)."""
-    p, leaves = _leaf_copies(params)
+    p, leaves = leaf_copies(params)
 
     def renders(j0, k):
         img = torch.zeros_like(target)
@@ -228,12 +238,10 @@ def loss_and_grad_replay(params: dict, scene: Scene, o, d, px, py, frame,
     recorded quantity (hit ids, occlusion bits) is one the live pass
     detaches."""
     with torch.no_grad():
-        scene_now = apply_params(scene, {
-            k: (v.detach() if isinstance(v, (torch.Tensor, Materials))
-                else v) for k, v in params.items()})
+        scene_now = apply_params(scene, detached_params(params))
         recs = [trace_paths(scene_now, o, d, px, py, frame + j, cfg)
                 for j in range(spp)]
-    p, leaves = _leaf_copies(params)
+    p, leaves = leaf_copies(params)
 
     def renders(j0, k):
         sc = apply_params(scene, p)
@@ -272,7 +280,7 @@ def adam_optimize(scene: Scene, camera: Camera, cfg: RenderConfig,
     rays/s and step wall time, the JAX package's keys."""
     dev = resolve_device(device)
     scene, camera = scene.to(dev), camera.to(dev)
-    params, leaves = _leaf_copies(extract_params(scene, keys))
+    params, leaves = leaf_copies(extract_params(scene, keys))
     opt = torch.optim.Adam(leaves, lr=lr)
     mask_leaves = (None if grad_mask is None else
                    [torch.as_tensor(m, dtype=torch.float32, device=dev)

@@ -10,7 +10,11 @@ exact-t tie.  A frame replayed from its captured CUDA graph
 (render/program.py) equals the eager frame bit for bit.  The gradient
 path: a trace's records through the kernels equal those of the plain
 walks bit for bit; the replay gradient is within 1e-3 (in norm) of the
-live one; the kernels' answers carry no gradient.
+live one; the kernels' answers carry no gradient.  ``parallel/`` in a
+world of one on NCCL: the sharded frame equals the eager frame bit for
+bit, and the primitive-sharded queries launch kernels 5 and 6 (or their
+compat forms) once each and equal the same queries through the plain
+versions.
 """
 
 import dataclasses
@@ -885,3 +889,93 @@ def test_sanitized_ties_on_card():
         assert torch.equal(grads["cpu"][n], grads["cuda"][n]), n
     assert grads["cuda"]["metallic"].tolist() == [0.0, 0.5, 1.0, 0.5, 0.0]
     assert grads["cuda"]["ior"].tolist() == [0.0, 0.0, 0.0, 0.5, 1.0]
+
+
+# ---- parallel/ on the card (world 1, NCCL, in this process) -----------------
+
+@pytest.fixture(scope="module")
+def nccl_world(flagship):
+    """A world of one (NCCL) in this process, for the module; its mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pnraytracing_tpu_torch.parallel import distributed, mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"tcp://localhost:{port}", world_size=1, rank=0)
+    yield mesh.make_device_mesh()
+    dist.destroy_process_group()
+
+
+def test_sharded_frame_equals_render_frame(flagship, nccl_world):
+    from pnraytracing_tpu_torch.parallel.mesh import render_frame_sharded
+
+    scene, cam = flagship
+    cfg = RenderConfig(width=128, height=128, max_depth=2)
+    want = render_frame(scene, cam, cfg, 3, eager=True)
+    tables = (trv.LAUNCHES, compaction.LAUNCHES)
+    for t in tables:
+        for k in t:
+            t[k] = 0
+    got = render_frame_sharded(scene, cam, cfg, 3, nccl_world)
+    torch.cuda.synchronize()
+    assert trv.LAUNCHES["closest_hit_attr"] == 3
+    assert trv.LAUNCHES["any_hit"] == 2
+    assert compaction.LAUNCHES["treelet_entry_key"] == 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_primitive_queries_run_kernels_5_and_6(flagship, nccl_world, compat):
+    """``primitive_sharded_*`` over the flagship's triangles (one shard a
+    rank) launch the binary kernels once each, and equal the same query
+    through the plain versions (the shard on the CPU); the one-process
+    combine over 4 shards on the card equals its plain form too."""
+    from pnraytracing_tpu_torch.core.camera import camera_rays
+    from pnraytracing_tpu_torch.parallel import primitive as pp
+
+    scene, cam = flagship
+    pos, idx = scene.mesh.positions.cpu().numpy(), scene.mesh.indices.cpu(
+        ).numpy()
+    o, d, _ = camera_rays(cam, 96, 96)
+    t_max = torch.full((o.shape[0],), 1e7, device="cuda")
+    one = pp.build_primitive_shards(pos, idx, 1)
+    placed = pp.put_shards(one, nccl_world)
+    for k in trv.LAUNCHES:
+        trv.LAUNCHES[k] = 0
+    hit = pp.primitive_sharded_closest_hit(placed, o, d, t_max, nccl_world,
+                                           compat=compat)
+    # occlusion short of and past each primary hit: a mix of both answers
+    t_any = (hit.t * torch.linspace(0.25, 1.75, o.shape[0], device="cuda")
+             ).contiguous()
+    occ = pp.primitive_sharded_any_hit(placed, o, d, t_any, nccl_world,
+                                       compat=compat)
+    torch.cuda.synchronize()
+    suffix = "_compat" if compat else ""
+    assert trv.LAUNCHES["closest_hit_binary" + suffix] == 1
+    assert trv.LAUNCHES["any_hit_binary" + suffix] == 1
+    assert sum(trv.LAUNCHES.values()) == 2
+
+    cpu = lambda x: x.cpu()
+    plain = pp.place_all(one, "cpu")
+    want = pp.shards_closest_hit(plain, cpu(o), cpu(d), cpu(t_max),
+                                 compat=compat)
+    want_occ = pp.shards_any_hit(plain, cpu(o), cpu(d), cpu(t_any),
+                                 compat=compat)
+    same = hit.tri.cpu() == want.tri
+    assert int((~same).sum()) <= 1
+    assert torch.equal(hit.t.cpu(), want.t)
+    assert torch.equal(occ.cpu(), want_occ)
+    assert int(hit.valid.sum()) > 0
+    assert 0 < int(occ.sum()) < o.shape[0]
+
+    four = pp.build_primitive_shards(pos, idx, 4)
+    got4 = pp.shards_closest_hit(pp.place_all(four, "cuda"), o, d, t_max,
+                                 compat=compat)
+    want4 = pp.shards_closest_hit(pp.place_all(four, "cpu"), cpu(o), cpu(d),
+                                  cpu(t_max), compat=compat)
+    assert torch.equal(got4.t.cpu(), want4.t)
+    assert torch.equal(got4.t.cpu(), want.t)
