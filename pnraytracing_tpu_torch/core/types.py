@@ -122,19 +122,22 @@ class Materials(_Movable):
         ``scalars`` holds the 12 scalar parameters as [R] tensors; its
         color slots are zero placeholders (the V3s carry the colors).  A
         gather picks the same values as the JAX package's compare-select
-        chain.  It is ``index_select``, whose backward adds into the [M]
-        rows with atomics: ``table[idx]``'s backward sorts the indices and
-        sums each material's run of lanes serially, which took 98% of a
-        512x512 backward on the card (PERF.md)."""
+        chain.  All 14 fields go through one ``ops/gather.py::gather_rows``
+        node: the values of ``index_select``, and a backward that sums each
+        material's lanes in a fixed order, once for all the fields
+        (``index_select``'s own backward adds with atomics, in any order;
+        ``table[idx]``'s sums each material's run of lanes serially, 98%
+        of a 512x512 backward on the card, PERF.md)."""
         from pnraytracing_tpu_torch.core.vec import V3
+        from pnraytracing_tpu_torch.ops.gather import gather_rows
 
         zero = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
-        scalars = Materials(
-            emissive=zero, base_color=zero,
-            **{k: getattr(self, k).index_select(0, idx)
-               for k in _SCALAR_PARAMS})
-        return (scalars, V3.of(self.base_color.index_select(0, idx)),
-                V3.of(self.emissive.index_select(0, idx)))
+        *fields, base, emissive = gather_rows(
+            idx, *(getattr(self, k) for k in _SCALAR_PARAMS),
+            self.base_color, self.emissive)
+        scalars = Materials(emissive=zero, base_color=zero,
+                            **dict(zip(_SCALAR_PARAMS, fields)))
+        return scalars, V3.of(base), V3.of(emissive)
 
 
 @dataclasses.dataclass

@@ -32,7 +32,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from pnraytracing_tpu_torch.accel.bvh import build_bvh
+from pnraytracing_tpu_torch.accel.native import bvh_builder
 from pnraytracing_tpu_torch.core.camera import camera_rays, resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.types import BVH, Camera, Materials, Scene
@@ -120,7 +120,8 @@ def apply_params(scene: Scene, params: dict) -> Scene:
 def refit_scene(scene: Scene, max_leaf_size: int = 4) -> Scene:
     """Rebuild the BVH for the scene's current vertex positions on the
     host (call after optimizer steps that move geometry), with the
-    port's numpy builder from the triangles in their current leaf order.
+    native builder when g++ exists, else the numpy one (the JAX
+    package's choice), from the triangles in their current leaf order.
     ``indices``, ``material_id``, ``texture_id``, ``area`` and the
     lights' ``tri_index`` are remapped through the new order, as the JAX
     package does (areas and prefix areas are not recomputed there
@@ -134,7 +135,7 @@ def refit_scene(scene: Scene, max_leaf_size: int = 4) -> Scene:
     dev = mesh0.positions.device
     host = lambda t: t.cpu().numpy()
     positions, indices = host(mesh0.positions), host(mesh0.indices)
-    built = build_bvh(positions, indices, max_leaf_size=max_leaf_size)
+    built = bvh_builder()(positions, indices, max_leaf_size=max_leaf_size)
     order = built.order
     idx_o = indices[order]
     o_t = torch.as_tensor(order, dtype=torch.int64, device=dev)

@@ -27,6 +27,7 @@ import torch
 from pnraytracing_tpu_torch.core.math import PI, TWO_PI, maximum
 from pnraytracing_tpu_torch.core.types import EnvMap
 from pnraytracing_tpu_torch.core.vec import V3, spherical_uv_v
+from pnraytracing_tpu_torch.ops.gather import gather_row
 
 _POLE_EPS = 1e-6
 
@@ -206,7 +207,7 @@ def envmap_lookup_v(env: EnvMap, dirs: V3) -> V3:
     ty = fy - y0
     x0i = torch.remainder(x0.to(torch.int64), w)
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
-    q = env.quad12.reshape(h * w, 12).index_select(0, y0i * w + x0i)
+    q = gather_row(y0i * w + x0i, env.quad12.reshape(h * w, 12))
 
     def lerp2(c00, c10, c01, c11):
         top = c00 * (1 - tx) + c10 * tx
@@ -257,7 +258,7 @@ def sample_envmap(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
         d, theta = _grid_direction(u, v)
         cos_theta = maximum(torch.cos(theta), _POLE_EPS)
         pdf = p2d * (w * h) / (2.0 * PI * PI * cos_theta)
-        radiance = env.image.reshape(-1, 3).index_select(0, y * w + x)
+        radiance = gather_row(y * w + x, env.image.reshape(-1, 3))
     return d, radiance, pdf
 
 

@@ -18,6 +18,7 @@ import torch
 
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import TextureAtlas
+from pnraytracing_tpu_torch.ops.gather import gather_row
 
 
 def _box_down2(im: np.ndarray) -> np.ndarray:
@@ -82,11 +83,17 @@ def _bilinear_level(atlas: TextureAtlas, tid, u, v, level):
     y1i = torch.remainder(y0i + 1, hi)
     tl = tid.long()
 
+    def texel(plane, yy, xx):  # one row gather from the flattened plane
+        _, ph, pw, ch = plane.shape
+        flat = (tl * ph + yy.long()) * pw + xx.long()
+        return gather_row(flat.reshape(-1), plane.reshape(-1, ch)).reshape(
+            *flat.shape, ch)
+
     def tap(yy, xx):  # the base plane or the strip, per ray
-        base = atlas.data[tl, yy.long(), xx.long()]
+        base = texel(atlas.data, yy, xx)
         if atlas.mips is None:
             return base
-        strip = atlas.mips[tl, (y_off + yy).long(), xx.long()]
+        strip = texel(atlas.mips, y_off + yy, xx)
         return torch.where((level > 0)[..., None], strip, base)
 
     c00 = tap(y0i, x0i)

@@ -156,12 +156,13 @@ def dp_loss_and_grad(params: dict, scene: Scene, o: torch.Tensor,
                      mesh: Mesh, use_replay: bool = False):
     """Data-parallel value and gradient of the squared-error loss
     ``mean((render - target)^2)`` over a ray batch: the rays split over
-    the mesh, each rank's local sum of squares and its gradient summed
-    over the ranks by one ``all_reduce`` (outside the differentiated
-    function) and divided by the global element count ``R * 3``.
+    the mesh, each rank's local sum of squares over the global element
+    count ``R * 3`` and its gradient summed over the ranks by one
+    ``all_reduce`` (outside the differentiated function).
     Returns ``(loss, grads)`` on every rank, ``grads`` of ``params``'
     structure: the loss and gradients of ``diff.grad.loss_and_grad``
-    (``spp=1``), up to the order of the sums.
+    (``spp=1``), up to the order of the sums: in a world of one, bit for
+    bit.
 
     Padded rows (repeats of the last ray, :func:`pad_to_multiple`) are
     weighted out of the loss.  ``use_replay`` runs each rank's chunk
@@ -180,15 +181,19 @@ def dp_loss_and_grad(params: dict, scene: Scene, o: torch.Tensor,
     p, leaves = leaf_copies(params)
     img = (render_rays_replay(apply_params(scene, p), *rays, recs)
            if use_replay else render_image_from_params(p, scene, *rays))
-    local = torch.sum(w_l[:, None] * (img - t_l) ** 2)
+    # divided by the global element count inside the differentiated
+    # function: each lane's upstream gradient is then the one of
+    # torch.mean's backward, so a world of one gives the single-process
+    # gradient bit for bit (the gathers' backward sums in a fixed order)
+    local = torch.sum(w_l[:, None] * (img - t_l) ** 2) / (
+        r * target.shape[-1])
     gs = torch.autograd.grad(local, leaves, allow_unused=True)
     gs = [torch.zeros_like(x) if g is None else g
           for g, x in zip(gs, leaves)]
     # one collective for the loss and every gradient leaf
-    flat = torch.cat([local.detach().reshape(1)]
-                     + [g.detach().reshape(-1) for g in gs])
-    flat = all_reduce(flat, "sum", mesh.group) / torch.tensor(
-        float(r * target.shape[-1]), dtype=torch.float32, device=flat.device)
+    flat = all_reduce(torch.cat([local.detach().reshape(1)]
+                                + [g.detach().reshape(-1) for g in gs]),
+                      "sum", mesh.group)
     out, at = [], 1
     for x in param_leaves(params):
         out.append(flat[at:at + x.numel()].reshape(x.shape))

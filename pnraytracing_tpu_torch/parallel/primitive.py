@@ -33,12 +33,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from pnraytracing_tpu_torch.accel.bvh import build_bvh
 from pnraytracing_tpu_torch.accel.layout import (
     TravData,
     pack_nodes8,
     pack_tri12,
 )
+from pnraytracing_tpu_torch.accel.native import bvh_builder
 from pnraytracing_tpu_torch.accel.traverse_cuda import any_hit, closest_hit
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.vec import V3
@@ -99,7 +99,7 @@ def build_shard(positions, indices, lo: int, hi: int,
     ids."""
     positions = np.asarray(positions, np.float32)
     chunk = np.asarray(indices, np.int32)[lo:hi]
-    built = build_bvh(positions, chunk, max_leaf_size=max_leaf_size)
+    built = bvh_builder()(positions, chunk, max_leaf_size=max_leaf_size)
     order = np.asarray(built.order)
     tri9 = positions[chunk[order]].reshape(len(order), 9)
     return (pack_nodes8(built), tri9.astype(np.float32),

@@ -117,6 +117,7 @@ from pnraytracing_tpu_torch.ops.envmap import (
     envmap_pdf_v,
     sample_envmap_v,
 )
+from pnraytracing_tpu_torch.ops.gather import gather_row
 from pnraytracing_tpu_torch.ops.intersect import Hit, intersect_triangle_c
 from pnraytracing_tpu_torch.ops.sampling import (
     SOBOL_DIMS,
@@ -190,7 +191,7 @@ def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
     by intersecting the hit triangle again, as the JAX package does.
     Returns (pos V3, nrm V3, (u, v), mat_id, tex_id)."""
     tri = torch.clamp_min(hit.tri, 0).long()
-    rr = rows.index_select(0, tri)
+    rr = gather_row(tri, rows)
     p0, p1, p2 = _corners(rr, 0)
     n0, n1, n2 = _corners(rr, 9)
     ok, _, rb1, rb2 = intersect_triangle_c(
@@ -217,7 +218,7 @@ def sample_light_point(tri: torch.Tensor, u1, u2, rows: torch.Tensor):
     """Uniform point + normal on light triangles (TriangleSample,
     comp:604-624).  Returns (pos V3, nrm V3)."""
     b0, b1 = sample_uniform_triangle(u1, u2)
-    rr = rows.index_select(0, tri.long())
+    rr = gather_row(tri, rows)
     p0, p1, p2 = _corners(rr, 0)
     n0, n1, n2 = _corners(rr, 9)
     b2 = 1.0 - b0 - b1
@@ -228,9 +229,9 @@ def sample_light_point(tri: torch.Tensor, u1, u2, rows: torch.Tensor):
 
 
 def _emissive_of(materials, mat_id: torch.Tensor) -> V3:
-    # index_select, as every gather from a table that can carry a
-    # gradient: its backward adds with atomics (Materials.gather_components)
-    return V3.of(materials.emissive.index_select(0, mat_id.long()))
+    # every gather from a table that can carry a gradient goes through
+    # ops/gather.py: a backward that sums in a fixed order
+    return V3.of(gather_row(mat_id, materials.emissive))
 
 
 def _safe_inv(x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,6 @@ from pnraytracing_tpu_torch.accel.bricks import (
     treelet_cut_aabbs,
     treelet_index_tree,
 )
-from pnraytracing_tpu_torch.accel.bvh import build_bvh
 from pnraytracing_tpu_torch.accel.layout import (
     MAX_PACKED_LEAF,
     MAX_PACKED_NODES,
@@ -32,6 +31,7 @@ from pnraytracing_tpu_torch.accel.layout import (
     pack_tri_attr16,
     pack_wide_nodes_compact,
 )
+from pnraytracing_tpu_torch.accel.native import bvh_builder
 from pnraytracing_tpu_torch.accel.route import scene_fits_smem
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
@@ -119,10 +119,15 @@ class SceneBuilder:
 
     def build(self, max_leaf_size: int = 4,
               env_image: np.ndarray | None = None, env_constant=None,
+              use_native_builder: bool | None = None,
               device=None) -> Scene:
         """Flatten, build the BVH, light list, environment tables, texture
         atlas and traversal layout; the result lives on ``device`` (None =
-        cuda).
+        cuda).  ``use_native_builder`` as in the JAX package: None takes
+        the C++ SAH builder when g++ exists (``accel/native.py``), True
+        requires it, False takes the numpy one (which may split SAH ties
+        otherwise: the trees of the two packages' builders of one kind
+        are equal).
         A scene too large for the resident route (accel/route.py) also
         gets the brick-streaming layout (accel/bricks.py)."""
         dev = resolve_device(device)
@@ -175,7 +180,8 @@ class SceneBuilder:
         areas = 0.5 * np.linalg.norm(
             np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=1)
 
-        built = build_bvh(positions, indices, max_leaf_size=max_leaf_size)
+        built = bvh_builder(use_native_builder)(
+            positions, indices, max_leaf_size=max_leaf_size)
         order = built.order
         idx_o = indices[order]
         t = lambda a, dt=None: torch.as_tensor(np.array(a, dt), device=dev)

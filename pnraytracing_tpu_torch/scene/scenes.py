@@ -7,9 +7,9 @@ the camera state, as the JAX package does), and the benchmark
 configurations ``config1_triangle``, ``config2_teapot``,
 ``config3_teapot_night``, ``config4_marry`` and ``config5_large`` (built
 on ``device``), with ``checkerboard``, ``night_hdr`` and ``_camera``.
-``config4_marry`` is the JAX package's stand-in branch (checkerboard
-textures on procedural geometry); its branches that load marry's OBJ or
-MTL wait for the port of the asset loaders.
+``config4_marry`` has the JAX package's three branches (marry's OBJ,
+its MTL alone, the stand-in) and takes the asset directory as an
+argument.
 """
 
 from __future__ import annotations
@@ -204,21 +204,58 @@ def config3_teapot_night(env_height: int = 256, max_leaf_size: int = 4,
     return scene, _camera((0, 5, 5), (0, 0.8, 0), 45.0)
 
 
-def config4_marry(aspect: float = 1.0, device=None):
-    """Config 4: multi-mesh textured scene (the marry class): a textured
-    stand-in figure, a metallic sphere, a textured floor and a lamp under
-    a procedural sky.  The JAX package's stand-in branch, which it takes
-    when marry's OBJ and MTL are absent.  Returns (scene on ``device``,
+def config4_marry(aspect: float = 1.0, device=None,
+                  marry_dir: str | None = None):
+    """Config 4: multi-mesh textured scene (the marry class), the JAX
+    package's three branches: with ``marry_dir/marry.obj`` every
+    material group of the OBJ (its MTL and ``map_Kd`` textures through
+    the loaders of ``io/``); else with ``marry_dir/Marry.mtl`` the real
+    material and texture on stand-in geometry (a teapot figure and a
+    sphere); else the stand-in with checkerboard textures, which the JAX
+    package takes where its asset directory is absent.  All three add a
+    textured floor and a lamp under a procedural sky.  As ``night_hdr``,
+    the port reads no asset outside its checkout unless given the
+    directory: None is the stand-in.  Returns (scene on ``device``,
     camera state)."""
     b = SceneBuilder()
-    b.add(shapes.teapot(), dict(base_color=(0.8, 0.8, 0.8), roughness=0.55),
-          name="marry_standin",
-          transform=compose(translate(0.1, 0, -0.5), scale(0.35)),
-          texture=checkerboard(128, 16, (0.85, 0.6, 0.55), (0.4, 0.2, 0.2)))
-    b.add(shapes.icosphere(4),
-          dict(base_color=(0.9, 0.9, 0.9), metallic=0.8, roughness=0.15),
-          name="sphere",
-          transform=compose(translate(-1.4, 0.5, 0.3), scale(0.5)))
+    marry_obj, marry_mtl = (os.path.join(marry_dir or "", f)
+                            for f in ("marry.obj", "Marry.mtl"))
+    if marry_dir is not None and os.path.exists(marry_obj):
+        from pnraytracing_tpu_torch.io import load_obj
+
+        for mesh, mat, tex, name in load_obj(marry_obj):
+            mat.setdefault("base_color", (0.8, 0.8, 0.8))
+            b.add(mesh, mat, name=name, texture=tex)
+    elif marry_dir is not None and os.path.exists(marry_mtl):
+        # the MTL and its map_Kd texture alone (the reference loads the
+        # same files through assimp, main.cpp:320-339) on stand-in geometry
+        from pnraytracing_tpu_torch.io.obj import load_mtl, load_texture
+
+        mtl = load_mtl(marry_mtl)
+        body = mtl.get("MC003_Kozakura_Mari", {})
+        tex = load_texture(body.pop("map_Kd", ""))
+        body.setdefault("base_color", (0.8, 0.8, 0.8))
+        b.add(shapes.teapot(), dict(body, roughness=0.55), name="marry",
+              transform=compose(translate(0.1, 0, -0.5), scale(0.35)),
+              texture=tex, texture_key="MC003_Kozakura_Mari")
+        second = next((m for n, m in mtl.items()
+                       if n != "MC003_Kozakura_Mari"), {})
+        second.pop("map_Kd", None)
+        second.setdefault("base_color", (0.9, 0.9, 0.9))
+        b.add(shapes.icosphere(4), dict(second, metallic=0.3, roughness=0.35),
+              name="sphere",
+              transform=compose(translate(-1.4, 0.5, 0.3), scale(0.5)))
+    else:
+        b.add(shapes.teapot(),
+              dict(base_color=(0.8, 0.8, 0.8), roughness=0.55),
+              name="marry_standin",
+              transform=compose(translate(0.1, 0, -0.5), scale(0.35)),
+              texture=checkerboard(128, 16, (0.85, 0.6, 0.55),
+                                   (0.4, 0.2, 0.2)))
+        b.add(shapes.icosphere(4),
+              dict(base_color=(0.9, 0.9, 0.9), metallic=0.8, roughness=0.15),
+              name="sphere",
+              transform=compose(translate(-1.4, 0.5, 0.3), scale(0.5)))
     b.add(shapes.quad(), dict(base_color=(0.73, 0.73, 0.73), roughness=0.8),
           name="floor", transform=scale(0.1), texture=checkerboard(256, 16))
     b.add(shapes.quad(half=1.0), dict(emissive=(25.0, 24.0, 22.0)),

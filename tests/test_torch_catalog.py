@@ -43,12 +43,13 @@ SCENES = {
 
 @functools.lru_cache(maxsize=None)
 def jax_scene(name):
-    """(JAX scene, JAX camera state), built with its numpy BVH builder."""
+    """(JAX scene, JAX camera state), built with its default BVH builder
+    (the native one when g++ exists, as the port's)."""
     fn, kw = SCENES[name]
     out, cam = getattr(jax_scenes, fn)(**kw)
     if fn == "config2_teapot":
         return out, cam
-    return out.build(use_native_builder=False), cam
+    return out.build(), cam
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,7 +10,8 @@ exact-t tie.  A frame replayed from its captured CUDA graph
 (render/program.py) equals the eager frame bit for bit.  The gradient
 path: a trace's records through the kernels equal those of the plain
 walks bit for bit; the replay gradient is within 1e-3 (in norm) of the
-live one; the kernels' answers carry no gradient.  ``parallel/`` in a
+live one; two runs of one gradient step are equal bit for bit; the
+kernels' answers carry no gradient.  ``parallel/`` in a
 world of one on NCCL: the sharded frame equals the eager frame bit for
 bit, and the primitive-sharded queries launch kernels 5 and 6 (or their
 compat forms) once each and equal the same queries through the plain
@@ -823,8 +824,8 @@ def test_trace_records_equal_plain_walks(flagship, stream_scene, case):
 def test_replay_gradient_equals_live_gradient(flagship):
     """The trace/replay gradient against the live one on the card
     (materials and env texels, spp 2, 64x64 depth 2): within 1e-3 in
-    norm a key (the backward's atomics sum in another order), finite and
-    non-zero."""
+    norm a key (the two passes round the shading in other orders),
+    finite and non-zero."""
     from pnraytracing_tpu_torch.diff import grad as dg
 
     scene, camera = flagship
@@ -841,6 +842,47 @@ def test_replay_gradient_equals_live_gradient(flagship):
         assert torch.isfinite(b).all() and float(b.abs().max()) > 0, k
         err = torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)
         assert float(err) <= 1e-3, (k, float(err))
+
+
+def test_gradient_step_reproducible_on_card(flagship):
+    """Two runs of one gradient step (materials, env texels and vertex
+    positions, spp 2, 64x64 depth 2) give the same loss and gradients
+    bit for bit: the gathers' backward sums each row in a fixed order
+    (ops/gather.py), where index_add's atomics add in any order."""
+    from pnraytracing_tpu_torch.diff import grad as dg
+
+    scene, camera = flagship
+    cfg, rays = _frame_rays(camera, 64)
+    params = dg.extract_params(scene, ("materials", "env_image",
+                                       "positions"))
+    target = torch.full((64 * 64, 3), 0.25, device="cuda")
+    runs = [dg.loss_and_grad_replay(params, scene, *rays, 3, target, cfg,
+                                    spp=2) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    a, b = (dg.param_leaves(g) for _, g in runs)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert float(torch.cat([x.reshape(-1) for x in a]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("n,r,c", [(4, 262144, 18), (131072, 262144, 3)])
+def test_segment_sum_on_card(n, r, c):
+    """``segment_sum`` on the card: equal over two calls, and within
+    float32 rounding of a float64 ``index_add`` on the host (the material
+    rows and the env texel rows of a 512x512 frame)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.ops.gather import segment_sum
+
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, n, (r,), generator=g)
+    values = torch.randn(r, c, generator=g)
+    got = segment_sum(idx.cuda(), values.cuda(), n)
+    assert torch.equal(got, segment_sum(idx.cuda(), values.cuda(), n))
+    want = torch.zeros(n, c, dtype=torch.float64).index_add_(
+        0, idx, values.double())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
 
 
 def test_walks_carry_no_gradient_on_card(flagship):

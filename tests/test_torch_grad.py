@@ -12,11 +12,17 @@ CPU, against the JAX package and against finite differences.
   ``render_rays_replay`` on the port's records, for materials
   (the floor at metallic 0 and roughness 1, so the tie factor is
   pinned), env texels and vertex positions: rtol 1e-4, atol 1e-6 x
-  max|g| (observed: materials and texels within 3e-7 of max|g| 0.16,
-  positions within 8e-7 of 0.14).  Depth 1: at depth 2 a path shading
-  a point on the area light samples that same light, where the cosine
-  of the shadow segment is the rounding of a coplanar dot product and
-  the two packages' roundings send its lane's vertex gradient apart;
+  max|g|, at depth 1, 2 and 4 (observed: materials and texels within
+  3e-7 of max|g| 0.16, positions within 8e-7 of 0.14).  A path shading a
+  point on the area light samples that same light, so the cosine of its
+  shadow segment on the light is the rounding of a coplanar dot product,
+  which the two packages' arithmetic may round to other signs and send
+  its lane's vertex gradient apart: the pixels whose recorded hit on an
+  emitting triangle, at a vertex that samples the light, lies off that
+  triangle's plane by rounding (:func:`off_plane_light_pixels`, from the
+  records alone) are left out of both packages' loss (their rays are
+  not rendered), at most 2% of the pixels (observed: none at depth 1,
+  2 of 144 at depths 2 and 4);
 * live against replay gradients in the port: the JAX package's
   rtol 1e-5, atol 1e-7 (tests/test_replay.py);
 * finite differences as tests/test_grad.py: emissive rtol 0.05, an env
@@ -221,14 +227,51 @@ def test_walk_answers_carry_no_gradient(walk):
 
 # ---- gradients against the JAX package ----------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_replay_vjp():
-    """One jitted ``jax.vjp`` of the JAX replay of one sample (GRAD's
-    config on the JAX side), compiled once for the module: ``(image,
-    cotangent's pullback to the params)``."""
-    js, jcam, _, _ = scenes(True)
-    jcfg = jax_config(GRAD)
-    rays = jax_rays(jcfg, jcam)
+DEPTHS = (1, 2, 4)
+
+
+def off_plane_light_pixels(scene, records, depth: int) -> np.ndarray:
+    """The pixels with a vertex that samples the light (the primary hit
+    or a continuation hit before the last bounce) recorded on an emitting
+    triangle whose hit point, interpolated from the recorded
+    barycentrics, lies off the triangle's plane by rounding: the shadow
+    segment from it to the light's plane has a cosine that is a rounding
+    of a coplanar dot product.  From the records and the mesh alone."""
+    idx = scene.mesh.indices.long()
+    light = scene.lights.tri_index.long()
+    out = torch.zeros(records[0].primary.tri.shape, dtype=torch.bool)
+    for r in records:
+        hits = [(r.primary.tri, r.primary.b1, r.primary.b2)] + [
+            (r.bounce.tri[b], r.bounce.b1[b], r.bounce.b2[b])
+            for b in range(depth - 1)]
+        for tri, b1, b2 in hits:
+            p = scene.mesh.positions[idx[torch.clamp_min(tri.long(), 0)]]
+            at = (p[:, 0] * (1.0 - b1 - b2)[:, None] + p[:, 1] * b1[:, None]
+                  + p[:, 2] * b2[:, None])
+            n = torch.linalg.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+            out |= (torch.isin(tri.long(), light)
+                    & (((at - p[:, 0]) * n).sum(-1) != 0))
+    return torch.nonzero(out).flatten().numpy()
+
+
+@pytest.fixture(scope="module", params=DEPTHS, ids=lambda d: f"depth{d}")
+def jax_replay_vjp(request):
+    """``(cfg, kept pixels, vjp)`` at one depth: GRAD's config at that
+    depth, the pixels outside :func:`off_plane_light_pixels` of the
+    port's records of both samples, and one jitted ``jax.vjp`` of the
+    JAX replay of one sample over their rays, compiled once a depth:
+    ``(image, cotangent's pullback to the params)``."""
+    cfg = dataclasses.replace(GRAD, max_depth=request.param)
+    js, jcam, ps, pcam = scenes(True)
+    recs = [trace_paths(ps, *port_rays(cfg, pcam), 3 + j, cfg)
+            for j in range(2)]
+    left_out = off_plane_light_pixels(ps, recs, cfg.max_depth)
+    print(f"depth {cfg.max_depth}: {len(left_out)} of {cfg.num_pixels} "
+          f"pixels left out: {left_out.tolist()}")
+    assert len(left_out) <= 0.02 * cfg.num_pixels
+    keep = np.setdiff1d(np.arange(cfg.num_pixels), left_out)
+    jcfg = jax_config(cfg)
+    rays = tuple(x[keep] for x in jax_rays(jcfg, jcam))
 
     @jax.jit
     def vjp(params, frame, records, cot):
@@ -236,7 +279,7 @@ def jax_replay_vjp():
             jax_apply_params(js, p), *rays, frame, jcfg, records), params)
         return img, pull(cot)[0]
 
-    return vjp
+    return cfg, keep, vjp
 
 
 def _jax_dual_loss_and_grad(vjp, params, records, frame, target):
@@ -254,16 +297,17 @@ def _jax_dual_loss_and_grad(vjp, params, records, frame, target):
 
 
 def test_replay_gradients_match_jax(jax_replay_vjp):
+    cfg, keep, vjp = jax_replay_vjp
     js, jcam, ps, pcam = scenes(True)
-    rays = port_rays(GRAD, pcam)
-    target = torch.full((GRAD.num_pixels, 3), 0.2)
+    rays = tuple(x[torch.from_numpy(keep)] for x in port_rays(cfg, pcam))
+    target = torch.full((len(keep), 3), 0.2)
     loss, grads = loss_and_grad_replay(extract_params(ps, KEYS), ps, *rays,
-                                       3, target, GRAD, spp=2)
-    recs = [jax_records(trace_paths(ps, *rays, 3 + j, GRAD))
+                                       3, target, cfg, spp=2)
+    recs = [jax_records(trace_paths(ps, *rays, 3 + j, cfg))
             for j in range(2)]
     jloss, jgrads = _jax_dual_loss_and_grad(
-        jax_replay_vjp, jax_extract_params(js, KEYS), recs, 3,
-        jnp.full((GRAD.num_pixels, 3), 0.2, jnp.float32))
+        vjp, jax_extract_params(js, KEYS), recs, 3,
+        jnp.full((len(keep), 3), 0.2, jnp.float32))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     got, want = params_to_arrays(grads), params_to_arrays(jgrads)
     assert sorted(got) == sorted(want)

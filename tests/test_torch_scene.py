@@ -83,7 +83,8 @@ def _sobol_env_scene(b, sh, sky):
 def build_golden_scene(name: str, port: bool):
     """``small`` (tests/test_render.py::small_scene) or ``sobol_env``
     (tests/test_golden.py), built by the port (on the CPU) or by the JAX
-    package with its numpy BVH builder."""
+    package, each with its default BVH builder (the native one when g++
+    exists)."""
     b = SceneBuilder() if port else JaxSceneBuilder()
     sh = shapes if port else jax_shapes
     sky = procedural_sky if port else jax_procedural_sky
@@ -91,7 +92,7 @@ def build_golden_scene(name: str, port: bool):
         b, sh, sky)
     if port:
         return b.build(device="cpu", **kw)
-    return b.build(use_native_builder=False, **kw)
+    return b.build(**kw)
 
 
 SMALL_CAMERA = dict(eye=(3.47, 3.02, 3.55), center=(0.013, 0.8, 0.017),

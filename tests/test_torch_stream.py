@@ -37,7 +37,6 @@ import numpy as np
 import pytest
 import torch
 
-import pnraytracing_tpu.accel.native as jax_native
 import pnraytracing_tpu.accel.traverse_pallas as jax_tp
 from pnraytracing_tpu.accel.bricks import (
     build_stream_data as jax_build_stream_data,
@@ -130,10 +129,11 @@ _SCENES = {"small": _small, "small_lit": _small_lit, "two_balls": _two_balls}
 
 @functools.lru_cache(maxsize=3)
 def jax_scene(name: str):
-    """The JAX package's scene, built with its numpy BVH builder (the
-    port's builder; the native one may split ties differently)."""
+    """The JAX package's scene, built with its default BVH builder (the
+    native one when g++ exists, as the port's: the numpy one may split
+    ties differently)."""
     b = JaxSceneBuilder()
-    return b.build(use_native_builder=False, **_SCENES[name](b, jax_shapes))
+    return b.build(**_SCENES[name](b, jax_shapes))
 
 
 def port_built(name: str):
@@ -152,8 +152,7 @@ def small_stream_scenes(name: str = "small"):
     return js, port_scene(js)
 
 
-def _jax_config5_small(monkeypatch):
-    monkeypatch.setattr(jax_native, "native_available", lambda: False)
+def _jax_config5_small():
     return jax_config5_large(3)[0]
 
 
@@ -169,11 +168,11 @@ def _assert_stream_equal(a, b):
 @pytest.mark.parametrize("name,budget", [("small", SMALL_BUDGET),
                                          ("config5", 16 << 10),
                                          ("config5", 96 << 10)])
-def test_stream_layout_and_nodes8_match_jax(name, budget, monkeypatch):
+def test_stream_layout_and_nodes8_match_jax(name, budget):
     if name == "small":
         js, ps = jax_scene("small"), port_built("small")
     else:
-        js, ps = (_jax_config5_small(monkeypatch),
+        js, ps = (_jax_config5_small(),
                   config5_large(3, device="cpu")[0])
     np.testing.assert_array_equal(ps.trav.nodes8.numpy(),
                                   np.asarray(js.trav.nodes8))
@@ -354,7 +353,7 @@ def test_too_deep_layout_raises_on_the_card_only():
     assert hit.valid.numpy().any()
 
 
-def test_default_budget_and_layout_equal_jax(monkeypatch):
+def test_default_budget_and_layout_equal_jax():
     """The port cuts bricks by the JAX package's default budget, so the
     default layouts are the same arrays."""
     jax_default = inspect.signature(jax_build_stream_data).parameters[
@@ -362,7 +361,6 @@ def test_default_budget_and_layout_equal_jax(monkeypatch):
     port_default = inspect.signature(build_stream_data).parameters[
         "brick_budget_bytes"].default
     assert port_default == BRICK_BUDGET_BYTES == jax_default == 256 << 10
-    monkeypatch.setattr(jax_native, "native_available", lambda: False)
     js = jax_config5_large(5)[0]
     ps = config5_large(5, device="cpu")[0]
     _assert_stream_equal(ps.trav.stream, js.trav.stream)

@@ -26,7 +26,6 @@
 
 import dataclasses
 import functools
-from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,12 +129,9 @@ SCENES = ("config1_triangle", "config4_marry")
 @functools.lru_cache(maxsize=None)
 def _scene_pair(name):
     """((JAX scene, JAX camera state), (port scene, port camera state)).
-    The JAX scene is built with its numpy BVH builder (the one the port
-    copies), as the catalog's are (tests/test_torch_catalog.py)."""
-    with mock.patch("pnraytracing_tpu.accel.native.native_available",
-                    return_value=False):
-        jax_pair = getattr(jax_scenes, name)()
-    return jax_pair, getattr(scenes, name)(device="cpu")
+    Both packages build with their default BVH builder (the native one
+    when g++ exists), as the catalog's do (tests/test_torch_catalog.py)."""
+    return getattr(jax_scenes, name)(), getattr(scenes, name)(device="cpu")
 
 
 @pytest.mark.parametrize("name", SCENES)
