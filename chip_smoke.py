@@ -3,14 +3,15 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's two paths through ``render_frame`` — the flagship
+Drives the port's paths through ``render_frame`` — the flagship
 teapot_night forward frame (512x512, 1 spp, 4 bounces, resident
-kernels) and the large config5 frame (102,404 triangles, brick-streaming
-kernels), each eager and as one captured CUDA graph replayed — then the
-gradient path and the multi-process paths of ``parallel/``, and holds
-every CUDA kernel against its plain PyTorch version.  Each phase prints
-one JSON line; any failure raises and the script exits non-zero without
-printing a result.  Phases:
+kernels), the large config5 frame (102,404 triangles, brick-streaming
+kernels) and config5 at 1,638,404 triangles (outside the packed layout:
+the walk over the plain BVH), each eager and as one captured CUDA graph
+replayed — then the gradient path and the multi-process paths of
+``parallel/``, and holds every CUDA kernel against its plain PyTorch
+version.  Each phase prints one JSON line; any failure raises and the
+script exits non-zero without printing a result.  Phases:
 
 1. device: the card's name and ``nvidia-smi`` name/power limit;
 2. build: every ``csrc/*.cu`` compiled by ``nvcc`` in parallel, with the
@@ -145,15 +146,30 @@ printing a result.  Phases:
    the OBJ through route ``stream`` (kernels 7c, 7a, 4) the same way as
    config 4's; the native library must be built (g++ exists wherever
    nvcc does) and every ``io`` dispatcher runs it, timed beside its
-   pure-Python path with equal results.
+   pure-Python path with equal results;
+19. bvh (after phase 18, before 17): scenes outside the packed layout.
+   ``config5_large(subdiv=8)`` (1,638,404 triangles > 2^20) built on the
+   host: no traversal layout, route ``bvh``; the walk over the plain BVH
+   (csrc/traverse_bvh.cu, default and compat) against its plain version
+   on 65,536 of its 512x512 bounce-0 continuation and fused shadow rays
+   (tri mismatches <= 0.001%, t / b equal bit for bit where tri is,
+   occlusion and [3, R] stats exact), timed on all of them; its 512x512
+   depth-4 frame (5 + 4 launches of the new walk, no key kernel), phase
+   8 on it, its 128x128 depth-2 frame against the plain versions;
+   ``config2_teapot(flat_bvh=True)`` (max_leaf_size = its triangle
+   count) at 128x128 depth 2 against the packed-route frame of
+   ``config2_teapot()``; route ``binary``: config5 (subdiv 6) without its
+   stream layout through kernels 5 / 6, launches and 128x128 parity.
 
-Phases 1-7 and 10-18 run the eager frame (``render_frame(...,
+Phases 1-7 and 10-19 run the eager frame (``render_frame(...,
 eager=True)``), whose launch counters count each frame.
 
 Then the ``{"kernels": [...]}`` line (each row with its launches on
 phase 17's paths by world and path: ``parallel_launches``, and
 ``primitive_launches`` for the primitive queries; ``assets_launches``
-on phase 18's scenes), the nvidia-smi line,
+on phase 18's scenes; kernels 5 / 6 their ``binary_route_launches`` and
+the new walk its ``probe_pixel_launches`` of phase 10), the nvidia-smi
+line,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of
 JAX.
 """
@@ -238,13 +254,24 @@ class Recorder:
     yields the path's real kernel inputs without launching a kernel."""
 
     def __init__(self, integrator, traverse, stream, compaction):
+        from pnraytracing_tpu_torch.accel import traverse as bvh_walk
+
         self.mod = integrator
+
+        def by_variant(wide, binary):  # the resident walks' variant=
+            return lambda *a, variant="wide", **kw: (
+                binary if variant == "binary" else wide)(*a, **kw)
+
         plain = {
             "closest_hit_attr": traverse.plain_closest_hit_attr,
-            "closest_hit": traverse.plain_closest_hit,
-            "any_hit": traverse.plain_any_hit,
+            "closest_hit": by_variant(traverse.plain_closest_hit,
+                                      traverse.plain_closest_hit_binary),
+            "any_hit": by_variant(traverse.plain_any_hit,
+                                  traverse.plain_any_hit_binary),
             "closest_hit_stream": stream.plain_closest_hit_stream,
             "any_hit_stream": stream.plain_any_hit_stream,
+            "closest_hit_bvh": bvh_walk.plain_closest_hit,
+            "any_hit_bvh": bvh_walk.plain_any_hit,
             # the all-K plain version keys from the boxes alone
             "entry_key": lambda o, d, treelets, tree:
                 compaction.treelet_entry_key(o, d, treelets),
@@ -539,11 +566,11 @@ def port_kernel_name(key: str):
     """The LAUNCHES name of one of the port's kernels from its profiler
     key (demangled "closest_hit_kernel<true, false>" or mangled
     "...ILb1ELb0EE"), else None.  The walk kernels' last template flag is
-    the compat one; the resident closest kernel's and the stream kernel's
-    first says attr / closest."""
+    the compat one; the resident closest kernel's, the stream kernel's
+    and the plain-BVH walk's first says attr / closest."""
     m = re.search(r"(closest_hit_binary|any_hit_binary|closest_hit|any_hit"
-                  r"|entry_key|stream)_kernel(?:<([^>]*)>|I((?:Lb[01]E)+)E)?",
-                  key)
+                  r"|entry_key|stream|bvh_walk)_kernel"
+                  r"(?:<([^>]*)>|I((?:Lb[01]E)+)E)?", key)
     if not m:
         return None
     base = m.group(1)
@@ -553,12 +580,15 @@ def port_kernel_name(key: str):
              if m.group(2) is not None else
              [f == "1" for f in re.findall(r"Lb([01])E", m.group(3) or "")])
     compat = "_compat" if flags and flags[-1] and (
-        len(flags) == 2 or base not in ("closest_hit", "stream")) else ""
+        len(flags) == 2
+        or base not in ("closest_hit", "stream", "bvh_walk")) else ""
     first = bool(flags) and flags[0]
     if base == "closest_hit":
         base = "closest_hit_attr" if first else "closest_hit"
     elif base == "stream":
         base = "closest_hit_stream" if first else "any_hit_stream"
+    elif base == "bvh_walk":
+        base = "closest_hit_bvh" if first else "any_hit_bvh"
     return base + compat
 
 
@@ -835,6 +865,9 @@ def binary_phase(trv, trav, cont, shadow, primary, launches) -> list:
     return rows
 
 
+# the launches of one compat probe_pixel call, by scene (compat phases)
+PROBE_LAUNCHES: dict = {}
+
 # the compat forms of the walk kernels: (name, module attribute of the
 # entry point, its keyword arguments, plain version, closest?, fills?,
 # source, the TPU kernel it replaces); "trv" the resident walks, "trs" the
@@ -1002,7 +1035,11 @@ def compat_phase(label, render_frame, RenderConfig, scene, camera, dev,
     parity = frame_parity(render_frame, scene, camera, cfgp, dev, modules)
     replay = replay_parity(scene, camera, cfgp, dev)
     img = render_frame(scene, camera, cfgp, 5, device=dev)
+    zero_counts(*tables)
     probe = probe_pixel(scene, camera, cfgp, 64, 64, frame=5, device=dev)
+    torch.cuda.synchronize()
+    probe_launches = {k: v for k, v in counts().items() if v}
+    PROBE_LAUNCHES[label] = probe_launches
     probe_err = float((probe["color"] - img[PARITY_SIZE - 1 - 64, 64])
                       .abs().max())
     if probe_err > 3e-5:
@@ -1052,6 +1089,7 @@ def compat_phase(label, render_frame, RenderConfig, scene, camera, dev,
     emit({"phase": "compat", "scene": label, "width": WIDTH,
           "height": HEIGHT, "depth": DEPTH, "parity_128": parity,
           "replay_128": replay, "probe_pixel_err": probe_err,
+          "probe_pixel_launches": probe_launches,
           "capture_s": capture_s, "launches_at_capture": launches,
           "replay_equals_eager": True, "ms_per_frame": ms,
           "eager_ms": sum(ms["eager"]) / 2,
@@ -2013,6 +2051,252 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     return rows, on_config5, scene, camera
 
 
+# ---- bvh: scenes outside the packed layout ---------------------------------
+
+BVH_SUBDIV = 8  # config5_large(subdiv=8): 1,638,404 triangles > 2^20
+BVH_TRIANGLES = 1638404
+BVH_PARITY_RAYS = 65536
+NODE_BYTES = 4 * (6 + 4)  # node_min, node_max, axis, right, start, end
+
+
+def _strided(v3_or_t, n):
+    """``n`` lanes of a recorded batch, evenly strided over all of it
+    (continuation rays: live ones first, then the masked tail; fused
+    shadow rays: the light half, then the environment half)."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.vec import V3
+
+    if v3_or_t is None:
+        return None
+    t = v3_or_t.x if isinstance(v3_or_t, V3) else v3_or_t
+    idx = torch.arange(0, t.shape[0], max(1, t.shape[0] // n),
+                       device=t.device)[:n]
+    pick = lambda a: a.index_select(0, idx).contiguous()
+    return v3_or_t.map(pick) if isinstance(v3_or_t, V3) else pick(v3_or_t)
+
+
+def _ulp_max(a, b) -> int:
+    """The largest distance in float32 steps between ``a`` and ``b``."""
+    import torch
+
+    ia, ib = (x.contiguous().view(torch.int32).to(torch.int64)
+              for x in (a, b))
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def bvh_kernel_rows(trb, scene, cont, shadow, launches, smi) -> list:
+    """The walk over the plain BVH (csrc/traverse_bvh.cu), default and
+    compat, against its plain version on ``BVH_PARITY_RAYS`` of the
+    recorded bounce-0 continuation rays and fused shadow rays: tri
+    mismatches <= 0.001% (exact-t ties), t and b equal bit for bit where
+    tri is, occlusion and the [3, R] stats (pops, slab tests, triangle
+    tests) exact.  Then each kernel's time at the path shapes (all the
+    recorded rays), the plain version's time (the parity call), the
+    bound from this run's stats, and registers.  Returns the kernels
+    line's rows."""
+    import torch
+
+    bvh, mesh = scene.bvh, scene.mesh
+    info = trb.kernel_info()
+    tables = (NODE_BYTES * bvh.node_min.shape[0]
+              + 4 * (mesh.indices.numel() + mesh.positions.numel()))
+    rows, res = [], {}
+    for closest, args in ((True, cont), (False, shadow)):
+        o, d, tm, mask = args[2], args[3], args[4], args[5]
+        po, pd, ptm, pmask = (_strided(x, BVH_PARITY_RAYS)
+                              for x in (o, d, tm, mask))
+        n = po.x.shape[0]
+        name = "closest_hit_bvh" if closest else "any_hit_bvh"
+        kern = trb.closest_hit if closest else trb.any_hit
+        plain = trb.plain_closest_hit if closest else trb.plain_any_hit
+        for compat in (False, True):
+            cname = name + ("_compat" if compat else "")
+            got, st = kern(bvh, mesh, po, pd, ptm, pmask, compat=compat,
+                           with_stats=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, wst = plain(bvh, mesh, po, pd, ptm, pmask, compat=compat,
+                              with_stats=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            check_stats(cname, st, wst)
+            if closest:
+                bad, err = check_closest(cname, got, want, n)
+                same = got.tri == want.tri
+                ulps = max(_ulp_max(getattr(got, k)[same],
+                                    getattr(want, k)[same])
+                           for k in ("t", "b1", "b2"))
+                if ulps:
+                    raise AssertionError(f"{cname}: t / b differ from the "
+                                         f"plain version by {ulps} ulp")
+            else:
+                bad = check_occ(cname, got, want)
+                err, ulps = float(bad), 0
+            # the path shapes: every recorded ray
+            r = o.x.shape[0]
+            _, fst = kern(bvh, mesh, o, d, tm, mask, compat=compat,
+                          with_stats=True)
+            slabs, tests = (int(fst[k].sum()) for k in (1, 2))
+            bnd = bound(r * (RAY_IN + (16 if closest else 1)) + tables,
+                        OPS_AABB * slabs + OPS_TRIANGLE * tests)
+            per_ray = lambda x: float(x.to(torch.int64).sum()) / max(r, 1)
+            rows.append(dict(
+                name=cname,
+                source="pnraytracing_tpu_torch/csrc/traverse_bvh.cu",
+                replaces="pnraytracing_tpu/accel/traverse.py:"
+                         + ("106" if closest else "243")
+                         + " (an XLA walk, not a TPU kernel)",
+                launches=0 if compat else launches.get(cname, 0),
+                max_abs_err=err, mismatches=bad, t_b_ulps=ulps,
+                parity_rays=n,
+                ms=time_ms(lambda: kern(bvh, mesh, o, d, tm, mask,
+                                        compat=compat), 10),
+                plain_ms=plain_ms, plain_rays=n, rays=r,
+                bound_ms=bnd[0], bound_by=bnd[1],
+                pops_per_ray=per_ray(fst[0]), slabs_per_ray=slabs / r,
+                tri_tests_per_ray=tests / r, max_pops=int(fst[0].max()),
+                **info[cname]))
+            res[cname] = {"rays": n, "mismatches": bad, "t_b_ulps": ulps,
+                          "stats_equal": True}
+    emit({"phase": "bvh_kernels", "parity": res,
+          "ms": {row["name"]: row["ms"] for row in rows},
+          "plain_ms": {row["name"]: row["plain_ms"] for row in rows},
+          "card": smi})
+    return rows
+
+
+def bvh_phase(render_frame, RenderConfig, dev, modules, tables, counts,
+              c5, c5_cam, smi) -> tuple[list, dict]:
+    """Phase bvh: scenes outside the packed layout.  (1) config5_large
+    (subdiv 8, 1,638,404 triangles > 2^20) built by the native builder:
+    no traversal layout, route ``bvh``, the tree within the kernel's
+    stack.  (2) :func:`bvh_kernel_rows` on its 512x512 bounce-0 rays.
+    (3) A 512x512 depth-4 frame: launches (5 closest + 4 any of the new
+    walk, no key kernel: rays are only compacted), then phase program's
+    capture, replay = eager, ms/frame and device busy.  (4) Its 128x128
+    depth-2 frame through the kernels against the plain versions.  (5)
+    ``config2_teapot(flat_bvh=True)`` with max_leaf_size = its triangle
+    count: its 128x128 depth-2 frame against the packed-route frame of
+    ``config2_teapot()`` (route 'wide', closest + make_interaction as on
+    route 'bvh'; atol 2e-5, tests/test_render.py's tolerance, on all but
+    0.02% of pixels), the default 'attr' route's distance beside it.  (6)
+    Route ``binary``: config5 (subdiv 6) without its stream layout,
+    through kernels 5 / 6: launches of a 512x512 depth-4 frame and the
+    128x128 depth-2 frame against the plain versions.  Returns the
+    kernels line's rows and the binary route's launches."""
+    import torch
+
+    from pnraytracing_tpu_torch.accel import traverse as trb
+    from pnraytracing_tpu_torch.accel.route import traversal_route
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.scene.scenes import (
+        config2_teapot,
+        config5_large,
+    )
+
+    integrator = modules[0]
+    t0 = time.perf_counter()
+    scene, cam_state = config5_large(subdiv=BVH_SUBDIV, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    camera = cam_state.basis(device=dev)
+    n_tris = int(scene.mesh.indices.shape[0])
+    route = traversal_route(scene.trav, True)
+    leaf = scene.bvh.right_child < 0
+    emit({"phase": "bvh_scene", "seconds": build_s, "triangles": n_tris,
+          "nodes": int(scene.bvh.node_min.shape[0]),
+          "bvh_depth": scene.bvh_depth, "route": route,
+          "max_leaf": int((scene.bvh.end - scene.bvh.start)[leaf].max()),
+          "kernels": trb.kernel_info()})
+    if not (scene.trav is None and route == "bvh"
+            and n_tris == BVH_TRIANGLES and scene.bvh_depth <= 64):
+        raise AssertionError("config5_large(subdiv=8) must be outside the "
+                             "packed layout, routed to 'bvh', within the "
+                             "64-entry stack")
+
+    cfg1 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=1)
+    cont = record_inputs(render_frame, scene, camera, cfg1, dev, integrator,
+                         "closest_hit_bvh")[1]
+    shadow = record_inputs(render_frame, scene, camera, cfg1, dev,
+                           integrator, "any_hit_bvh")[0]
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    img, launches = frame_launches(render_frame, scene, camera, cfg, dev,
+                                   tables, counts)
+    expected = dict({k: 0 for k in launches}, closest_hit_bvh=1 + DEPTH,
+                    any_hit_bvh=DEPTH)
+    if launches != expected:
+        raise AssertionError(f"bvh frame launches {launches}, expected "
+                             f"{expected}")
+    check_image("bvh", img, cfg)
+    rows = bvh_kernel_rows(trb, scene, cont, shadow, launches, smi)
+    del cont, shadow
+    prog = program_phase("bvh", scene, camera, cfg, dev, expected, tables,
+                         counts, smi)
+    cfgp = RenderConfig(width=PARITY_SIZE, height=PARITY_SIZE,
+                        max_depth=PARITY_DEPTH)
+    parity = frame_parity(render_frame, scene, camera, cfgp, dev, modules)
+    program.clear_programs()
+    del scene, img
+    torch.cuda.empty_cache()
+
+    flat, flat_cam = config2_teapot(flat_bvh=True, device=dev)
+    packed, _ = config2_teapot(device=dev)
+    flat_camera = flat_cam.basis(device=dev)
+    size = dict(width=PARITY_SIZE, height=PARITY_SIZE,
+                max_depth=PARITY_DEPTH)
+    cfg_flat = RenderConfig(max_leaf_size=int(flat.mesh.indices.shape[0]),
+                            **size)
+    img_flat, flat_launches = frame_launches(render_frame, flat, flat_camera,
+                                             cfg_flat, dev, tables, counts)
+    want = dict({k: 0 for k in flat_launches},
+                closest_hit_bvh=1 + PARITY_DEPTH, any_hit_bvh=PARITY_DEPTH)
+    if flat.trav is not None or flat_launches != want:
+        raise AssertionError(f"flat config2: trav {flat.trav is not None}, "
+                             f"launches {flat_launches}, expected {want}")
+    flat_out = {"launches_per_frame": {k: v for k, v in
+                                       flat_launches.items() if v}}
+    for label, kw in (("wide", dict(kernel_interaction=False)),
+                      ("attr", {})):
+        ref = render_frame(packed, flat_camera, RenderConfig(**size, **kw),
+                           1, device=dev)
+        px = (img_flat - ref).abs().amax(dim=-1)
+        flat_out[label] = {"outside_atol_2e-5": int((px > 2e-5).sum()),
+                           "max_abs_err": float(px.max())}
+    limit = int(PARITY_SIZE * PARITY_SIZE * 2e-4)
+    if flat_out["wide"]["outside_atol_2e-5"] > limit:
+        raise AssertionError(f"flat config2 against the packed route: "
+                             f"{flat_out}")
+    check_image("flat config2", img_flat, cfg_flat)
+    del flat, packed
+
+    c5_binary = dataclasses.replace(c5, trav=dataclasses.replace(
+        c5.trav, stream=None))
+    if traversal_route(c5_binary.trav, True) != "binary":
+        raise AssertionError("config5 without its stream layout must take "
+                             "route 'binary'")
+    img_b, bin_launches = frame_launches(render_frame, c5_binary, c5_cam,
+                                         cfg, dev, tables, counts)
+    want = dict({k: 0 for k in bin_launches}, closest_hit_binary=1 + DEPTH,
+                any_hit_binary=DEPTH, treelet_entry_key=cfg.sort_max_bounce)
+    if bin_launches != want:
+        raise AssertionError(f"binary route launches {bin_launches}, "
+                             f"expected {want}")
+    check_image("binary route", img_b, cfg)
+    bin_parity = frame_parity(render_frame, c5_binary, c5_cam, cfgp, dev,
+                              modules)
+    emit({"phase": "bvh", "triangles": n_tris, "build_s": build_s,
+          "launches_per_frame": {k: v for k, v in launches.items() if v},
+          "replayed_ms": prog["replayed_ms"], "eager_ms": prog["eager_ms"],
+          "parity_128": parity, "flat_config2": flat_out,
+          "binary_route": {"launches_per_frame": {
+              k: v for k, v in bin_launches.items() if v},
+              "parity_128": bin_parity},
+          "card": smi})
+    return rows, {k: v for k, v in bin_launches.items() if v}
+
+
 # ---- 17. parallel: parallel/ on torch.distributed --------------------------
 
 PRIM_SHARDS = (2, 8)  # shard counts built from config5's triangle list
@@ -2150,11 +2434,12 @@ def dp_parts(scene, rays, target, keys, cfg, m) -> dict:
 
 
 def _launch_tables():
+    from pnraytracing_tpu_torch.accel import traverse as trb
     from pnraytracing_tpu_torch.accel import traverse_cuda as trv
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
     from pnraytracing_tpu_torch.ops import compaction
 
-    tables = (trv.LAUNCHES, trs.LAUNCHES, compaction.LAUNCHES)
+    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, compaction.LAUNCHES)
     return tables, lambda: {k: v for t in tables for k, v in t.items()
                             if v}
 
@@ -3161,6 +3446,7 @@ def main() -> int:
         return 2
 
     from pnraytracing_tpu_torch import cuda_build
+    from pnraytracing_tpu_torch.accel import traverse as trb
     from pnraytracing_tpu_torch.accel import traverse_cuda as trv
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
     from pnraytracing_tpu_torch.core.config import RenderConfig
@@ -3277,7 +3563,7 @@ def main() -> int:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
     render_frame(scene, camera, cfg, 0, device=dev)  # warm-up 1
     torch.cuda.synchronize()
-    tables = (trv.LAUNCHES, trs.LAUNCHES, compaction.LAUNCHES)
+    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, compaction.LAUNCHES)
     counts = lambda: {k: v for t in tables for k, v in t.items()}
     zero_counts(*tables)
     img = render_frame(scene, camera, cfg, 1, device=dev)  # warm-up 2
@@ -3423,13 +3709,23 @@ def main() -> int:
         render_frame, RenderConfig, dev, smi, modules, tables, counts, cfgp)
     asset_launches = assets_phase(render_frame, RenderConfig, c5, c5_cam,
                                   dev, modules, tables, counts, smi)
+    bvh_rows, binary_route = bvh_phase(render_frame, RenderConfig, dev,
+                                       modules, tables, counts, c5, c5_cam,
+                                       smi)
     par_launches = parallel_phase(render_frame, RenderConfig, scene, camera,
                                   c5, c5_cam, dev, smi)
     for row in rows:  # kernels 1-3 on config5's rays
         if row["name"] in on_config5:
             row["config5_ms"] = on_config5[row["name"]]
-    rows += stream_rows
+    for row in rows:  # kernels 5 / 6 on route 'binary' (phase bvh)
+        if row["name"] in binary_route:
+            row["binary_route_launches"] = binary_route[row["name"]]
+    rows += stream_rows + bvh_rows
     for row in rows:
+        if row["name"].startswith(("closest_hit_bvh", "any_hit_bvh")):
+            # one compat probe_pixel call a scene (phase compat)
+            row["probe_pixel_launches"] = {
+                k: v.get(row["name"], 0) for k, v in PROBE_LAUNCHES.items()}
         row.update(route="cuda", library_ms=None)
         if row["name"] in ("closest_hit_attr", "any_hit", "closest_hit",
                            "treelet_entry_key"):

@@ -45,8 +45,8 @@ def pick_variant(trav: TravData, requested: str = "wide") -> str:
     binary packing exceeds the budget the JAX package raises (its kernels
     hold the scene in scalar memory); the port's kernels do not need the
     budget, so the request stands there — the integrator sends such
-    scenes to the stream kernels before ever calling a resident one
-    (:func:`traversal_route`)."""
+    scenes to the stream kernels, or without a stream layout to the
+    binary ones (:func:`traversal_route`)."""
     if requested not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{requested!r}")
@@ -57,26 +57,30 @@ def pick_variant(trav: TravData, requested: str = "wide") -> str:
     return "binary"
 
 
-def traversal_route(trav: TravData, kernel_interaction: bool) -> str:
+def traversal_route(trav: TravData | None, kernel_interaction: bool) -> str:
     """The route ``render_rays`` takes, as the JAX integrator chooses it
-    for ``traversal="pallas"`` (render/integrator.py:351-384):
+    for ``traversal="pallas"`` (render/integrator.py:351-384, 443-452):
 
+    * ``"bvh"``: the walk over the plain BVH (``accel/traverse.py``) +
+      ``make_interaction``, when the scene has no traversal layout
+      (``trav`` is None: outside the packed layout);
     * ``"attr"``: the resident closest-hit kernel with the interaction
       fill, when ``kernel_interaction`` is set and ``wide_attr`` fits;
     * ``"wide"``: the resident closest hit + ``make_interaction``, when
       the binary packing fits;
     * ``"stream"``: the brick-streaming kernels, when it does not and the
-      scene has a stream layout.
-
-    The JAX package falls back to its XLA packet walk otherwise; the port
-    has no such walk, so that case raises."""
+      scene has a stream layout;
+    * ``"binary"``: otherwise (over the budget, no stream layout), the
+      binary walks of ``accel/traverse_cuda.py`` (kernels 5 and 6) +
+      ``make_interaction``, where the JAX package takes its XLA packet
+      walk, which it holds bit-identical to the binary Pallas kernel
+      (accel/traverse_pallas.py:26 there)."""
+    if trav is None:
+        return "bvh"
     if scene_fits_smem(trav, "binary"):
         if kernel_interaction and scene_fits_smem(trav, "wide_attr"):
             return "attr"
         return "wide"
     if trav.stream is not None:
         return "stream"
-    raise NotImplementedError(
-        "the scene exceeds the resident budget and has no stream layout; "
-        "the JAX package walks it with its XLA packet backend, which is a "
-        "later slice of the port (ROADMAP.md)")
+    return "binary"

@@ -5,7 +5,9 @@ leaves, taking from it only the fields this port's ``Scene`` has; it
 reads any object with those attributes (the port's own scene, or the JAX
 package's, whose arrays convert with ``np.asarray``), so this module
 never imports JAX.  :func:`scene_from_arrays` builds the port's ``Scene``
-from such a dict on a device.  Tests use the pair to render the very
+from such a dict on a device.  A scene outside the packed layout
+(``trav`` None) has no ``trav.*`` leaves and converts to a scene with
+``trav=None``.  Tests use the pair to render the very
 scene the JAX package built.
 
 The same holds for the state of a gradient step: :func:`params_to_arrays`
@@ -66,6 +68,11 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
             v = getattr(obj, f.name)
             if v is not None:
                 out[f"{group}.{f.name}"] = _np(v)
+    out["bvh_depth"] = np.asarray(scene.bvh_depth, np.int64)
+    if scene.env_constant is not None:
+        out["env_constant"] = _np(scene.env_constant)
+    if scene.trav is None:  # outside the packed layout: no trav leaves
+        return out
     for name in _TRAV_FIELDS:
         v = getattr(scene.trav, name)
         if v is not None or name != "treelets":
@@ -89,9 +96,6 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
         for name in _STREAM_INTS:
             out[f"stream.{name}"] = np.asarray(getattr(stream, name),
                                                np.int64)
-    if scene.env_constant is not None:
-        out["env_constant"] = _np(scene.env_constant)
-    out["bvh_depth"] = np.asarray(scene.bvh_depth, np.int64)
     return out
 
 
@@ -107,6 +111,11 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
               if f"{group}.{f.name}" in leaves}
         parts[group] = cls(**kw) if kw else None
     depth = int(leaves["bvh_depth"])
+    env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
+                    else None)
+    if "trav.tri9" not in leaves:  # a scene outside the packed layout
+        return Scene(trav=None, env_constant=env_constant, bvh_depth=depth,
+                     **parts)
     stream = None
     if "stream.bricks" in leaves:
         stream = StreamData(
@@ -119,8 +128,6 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
                     treelet_tree=opt("trav.treelet_tree"),
                     **{n: t(leaves[f"trav.{n}"]) for n in _TRAV_FIELDS
                        if n != "treelets"})
-    env_constant = (t(leaves["env_constant"]) if "env_constant" in leaves
-                    else None)
     return Scene(trav=trav, env_constant=env_constant, bvh_depth=depth,
                  **parts)
 

@@ -5,11 +5,10 @@ this port honours, with the JAX package's defaults.  There is no
 ``traversal`` field: the port always takes the route the JAX package
 takes for ``traversal="pallas"`` (``accel/route.py``), running the
 hand-written CUDA kernels on CUDA tensors and their plain PyTorch
-versions on CPU tensors.  ``trav_tile``, ``trav_chunk``,
-``trav_leaf_buffer`` and ``max_leaf_size`` are absent for the same
-reason: they tune the JAX package's XLA walks (the packet tile, the
-chunked while loop, the 4-wide leaf buffer) and the leaf size those
-walks assume, which the kernels do not read.
+versions on CPU tensors.  ``trav_tile``, ``trav_chunk`` and
+``trav_leaf_buffer`` are absent for the same reason: they tune the JAX
+package's XLA walks (the packet tile, the chunked while loop, the 4-wide
+leaf buffer), which the kernels do not need.
 """
 
 from __future__ import annotations
@@ -26,6 +25,14 @@ class RenderConfig:
 
     # Per-ray traversal stack capacity; must cover the scene's BVH depth.
     stack_depth: int = 64
+
+    # The walk of a scene outside the packed layout (route 'bvh',
+    # accel/traverse.py) tests at most this many triangles of a leaf, as
+    # the JAX package's XLA walk does: a larger leaf's other triangles are
+    # never tested.  That cap is the reference's and is kept; a flat BVH
+    # (one leaf) is rendered with max_leaf_size = its triangle count.  The
+    # packed routes read each leaf's own count and ignore this field.
+    max_leaf_size: int = 4
 
     # Rays per render_rays call; larger frames render in sequential tiles.
     tile_pixels: int = 1 << 18

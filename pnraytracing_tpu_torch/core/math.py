@@ -1,7 +1,9 @@
 """Scalar constants and elementwise math shared by the shading code.
 
 PyTorch counterpart of ``pnraytracing_tpu/core/math.py``: the same
-constants and the same op order, on float32 tensors.  Python float
+constants and the same op order, on float32 tensors, and the JAX
+module's array forms over ``[..., 3]`` tensors (``dot``, ``cross``,
+``normalize``, ``build_tangent_space``, ...).  Python float
 operands are rounded to float32 by torch exactly as JAX rounds its weak
 scalars, so the polynomial approximations below give the same bits.
 
@@ -116,3 +118,82 @@ def fast_asin(v: torch.Tensor) -> torch.Tensor:
     """asin via atan2(v, sqrt(1 - v^2)); input clipped to [-1, 1]."""
     v = clip(v, -1.0, 1.0)
     return fast_atan2(v, torch.sqrt(maximum(1.0 - v * v, 0.0)))
+
+
+# ---- array forms over [..., 3] tensors --------------------------------------
+# The JAX package's trailing-axis-3 functions; the shading path uses the
+# component forms of core/vec.py, which keep the same op order.
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the trailing axis, keepdims dropped."""
+    return torch.sum(a * b, dim=-1)
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the trailing axis, keepdims kept."""
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the trailing axis, component by component (the order
+    of core/vec.py::vcross)."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def length(a: torch.Tensor) -> torch.Tensor:
+    return safe_sqrt(dot(a, a))
+
+
+def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """a / |a| with a tiny clamp against 0/0 (rsqrt, as the JAX twin)."""
+    return a * torch.rsqrt(maximum(vdot(a, a), eps))
+
+
+def reflect(v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Mirror v about h: ``2 (v.h) h - v`` (ray_tracing.comp:694)."""
+    return 2.0 * vdot(v, h) * h - v
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Disney-BRDF luminance weights 0.3/0.6/0.1 (ray_tracing.comp:799)."""
+    return 0.3 * rgb[..., 0] + 0.6 * rgb[..., 1] + 0.1 * rgb[..., 2]
+
+
+def hdr_luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Env-CDF luminance weights 0.2/0.7/0.1 (shader.hpp:153)."""
+    return 0.2 * rgb[..., 0] + 0.7 * rgb[..., 1] + 0.1 * rgb[..., 2]
+
+
+def build_tangent_space(n: torch.Tensor):
+    """Shading frame (t, b) of normals ``n`` [..., 3] (BuildTangentSpace,
+    ray_tracing.comp:629-634): t = n x +z (or +x when n is (anti)parallel
+    to +z), b = n x t."""
+    up = n.new_tensor((0.0, 0.0, 1.0)).expand(n.shape)
+    x = n.new_tensor((1.0, 0.0, 0.0)).expand(n.shape)
+    near_z = torch.abs(n[..., 2:3]) > 0.9999995
+    t = torch.where(near_z, x, normalize(cross(n, up)))
+    return t, cross(n, t)
+
+
+def tangent_to_world(t: torch.Tensor, b: torch.Tensor, n: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Local (x, y, z) -> world via frame columns
+    (ray_tracing.comp:637-639)."""
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def spherical_uv(v: torch.Tensor) -> torch.Tensor:
+    """Direction [..., 3] -> equirect uv [..., 2] (toSphericalCoord,
+    ray_tracing.comp:181-188): u = atan2(z, x)/2pi + .5, v = 1 - (asin(y)
+    /pi + .5), by the polynomial atan2 / asin above."""
+    u = fast_atan2(v[..., 2], v[..., 0]) * (0.5 * INV_PI) + 0.5
+    w = fast_asin(v[..., 1]) * INV_PI + 0.5
+    return torch.stack([u, 1.0 - w], dim=-1)
+
+
+def mon2lin(x: torch.Tensor) -> torch.Tensor:
+    """sRGB-ish decode pow(x, 2.2) (ray_tracing.comp:682-684)."""
+    return torch.pow(maximum(x, 0.0), 2.2)

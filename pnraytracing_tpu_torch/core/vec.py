@@ -16,6 +16,7 @@ from pnraytracing_tpu_torch.core.math import (
     fast_asin,
     fast_atan2,
     maximum,
+    safe_sqrt,
 )
 
 
@@ -85,6 +86,19 @@ def vcross(a: V3, b: V3) -> V3:
         a.z * b.x - a.x * b.z,
         a.x * b.y - a.y * b.x,
     )
+
+
+def vlength(a: V3):
+    return safe_sqrt(vdot(a, a))
+
+
+def select_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[M] table fetch by ids ``idx`` through an M-way compare-select
+    chain (no gather; M is a handful)."""
+    out = table[0].expand(idx.shape)
+    for k in range(1, int(table.shape[0])):
+        out = torch.where(idx == k, table[k], out)
+    return out
 
 
 def vnormalize(a: V3, eps: float = 1e-20) -> V3:

@@ -30,7 +30,7 @@ DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                                  "torch_kernels")
 # where the libraries are built and loaded from (utils/cache.py moves it)
 BUILD_DIR = DEFAULT_BUILD_DIR
-SOURCES = ("traverse", "traverse_stream", "entry_key")
+SOURCES = ("traverse", "traverse_stream", "entry_key", "traverse_bvh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,6 +104,8 @@ _SIGNATURES = {
     "pnrt_stream_kernel_info": [_I] * 3,
     "pnrt_entry_key": [_P] + [_I] * 3 + [_P] * 6 + [_I] + [_P] * 3,
     "pnrt_entry_key_kernel_info": [_I] * 2,
+    "pnrt_bvh_walk": [_P] * 8 + [_I] * 2 + [_P] * 8 + [_I] * 3 + [_P] * 7,
+    "pnrt_bvh_kernel_info": [_I] * 3,
 }
 
 

@@ -3,10 +3,12 @@
 PyTorch counterpart of the component forms of
 ``pnraytracing_tpu/ops/brdf.py`` (ray_tracing.comp:649-849) over per-ray
 material records whose scalar fields are [R] tensors
-(``Materials.gather_components``).  ``compat=True`` reproduces the
-reference's quirks as the JAX package does: the material decode, the
-unclamped pdf, the GTR half vector without its square roots and the
-cosine-hemisphere sample that reads u1 as an angle.
+(``Materials.gather_components``), and their ``[..., 3]`` forms
+(``disney_eval``, ``disney_pdf``, ``disney_sample``, ``sample_gtr1_dir``,
+``sample_gtr2_dir``), as the JAX package wraps them.  ``compat=True``
+reproduces the reference's quirks as the JAX package does: the material
+decode, the unclamped pdf, the GTR half vector without its square roots
+and the cosine-hemisphere sample that reads u1 as an angle.
 """
 
 from __future__ import annotations
@@ -152,6 +154,15 @@ def disney_eval_v(v: V3, n: V3, l: V3, x: V3, y: V3, m: Materials,
     return vwhere(valid, out, V3(zero, zero, zero))
 
 
+def disney_eval(v: torch.Tensor, n: torch.Tensor, l: torch.Tensor,
+                x: torch.Tensor, y: torch.Tensor,
+                m: Materials) -> torch.Tensor:
+    """[..., 3] form of :func:`disney_eval_v`, the base color taken from
+    ``m.base_color``."""
+    return disney_eval_v(V3.of(v), V3.of(n), V3.of(l), V3.of(x), V3.of(y),
+                         m, V3.of(m.base_color)).rows()
+
+
 def lobe_probs(m: Materials):
     """Lobe selection probabilities (comp:748-755)."""
     r_diffuse = 1.0 - m.metallic
@@ -182,6 +193,12 @@ def disney_pdf_v(v: V3, n: V3, l: V3, m: Materials,
 
     pdf = p_diff * pdf_diffuse + p_spec * pdf_spec + p_cc * pdf_cc
     return pdf if compat else maximum(pdf, 0.0)
+
+
+def disney_pdf(v: torch.Tensor, n: torch.Tensor, l: torch.Tensor,
+               m: Materials, compat: bool = False) -> torch.Tensor:
+    """[..., 3] form of :func:`disney_pdf_v`."""
+    return disney_pdf_v(V3.of(v), V3.of(n), V3.of(l), m, compat)
 
 
 def _sample_h_local_v(r1, cos_theta_h, compat: bool = False) -> V3:
@@ -216,6 +233,20 @@ def sample_gtr1_dir_v(n, t, b, v, r1, r2, alpha, compat: bool = False) -> V3:
     h = tangent_to_world_v(t, b, n, _sample_h_local_v(r1, cos_theta_h,
                                                       compat))
     return vreflect(v, h)
+
+
+def sample_gtr2_dir(n, t, b, v, r1, r2, alpha,
+                    compat: bool = False) -> torch.Tensor:
+    """[..., 3] form of :func:`sample_gtr2_dir_v`."""
+    return sample_gtr2_dir_v(V3.of(n), V3.of(t), V3.of(b), V3.of(v), r1, r2,
+                             alpha, compat).rows()
+
+
+def sample_gtr1_dir(n, t, b, v, r1, r2, alpha,
+                    compat: bool = False) -> torch.Tensor:
+    """[..., 3] form of :func:`sample_gtr1_dir_v`."""
+    return sample_gtr1_dir_v(V3.of(n), V3.of(t), V3.of(b), V3.of(v), r1, r2,
+                             alpha, compat).rows()
 
 
 def sample_cosine_hemisphere_local_v(u1, u2, compat: bool = False) -> V3:
@@ -256,3 +287,12 @@ def disney_sample_v(v: V3, n: V3, t: V3, b: V3, m: Materials, r_lobe, r1,
     lobe = torch.where(take_diff, 0, torch.where(take_spec, 1, 2)).to(
         torch.int32)
     return l, pdf, lobe
+
+
+def disney_sample(v: torch.Tensor, n: torch.Tensor, t: torch.Tensor,
+                  b: torch.Tensor, m: Materials, r_lobe, r1, r2, u_diff1,
+                  u_diff2, compat: bool = False):
+    """[..., 3] form of :func:`disney_sample_v`: (l [..., 3], pdf, lobe)."""
+    l, pdf, lobe = disney_sample_v(V3.of(v), V3.of(n), V3.of(t), V3.of(b), m,
+                                   r_lobe, r1, r2, u_diff1, u_diff2, compat)
+    return l.rows(), pdf, lobe

@@ -194,29 +194,57 @@ def bilinear_lookup(image: torch.Tensor, u: torch.Tensor,
     return top * (1 - ty) + bot * ty
 
 
-def envmap_lookup_v(env: EnvMap, dirs: V3) -> V3:
-    """Bilinear radiance along escaped rays (GetHDRImageColor,
-    comp:190-193) through the packed quad rows: u wraps, v clamps."""
-    u, v = spherical_uv_v(dirs)
-    h, w = env.quad12.shape[0], env.quad12.shape[1]
+def _quad_rows(quad12: torch.Tensor, u, v):
+    """(the [..., 12] quad rows at normalized (u, v), tx, ty): u wraps, v
+    clamps; one row gather."""
+    h, w = quad12.shape[0], quad12.shape[1]
     fx = u * w - 0.5
     fy = v * h - 0.5
     x0 = torch.floor(fx)
     y0 = torch.floor(fy)
-    tx = fx - x0
-    ty = fy - y0
     x0i = torch.remainder(x0.to(torch.int64), w)
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
-    q = gather_row(y0i * w + x0i, env.quad12.reshape(h * w, 12))
+    idx = y0i * w + x0i
+    q = gather_row(idx.reshape(-1), quad12.reshape(h * w, 12))
+    return q.reshape(*idx.shape, 12), fx - x0, fy - y0
 
-    def lerp2(c00, c10, c01, c11):
-        top = c00 * (1 - tx) + c10 * tx
-        bot = c01 * (1 - tx) + c11 * tx
-        return top * (1 - ty) + bot * ty
 
-    return V3(lerp2(q[:, 0], q[:, 3], q[:, 6], q[:, 9]),
-              lerp2(q[:, 1], q[:, 4], q[:, 7], q[:, 10]),
-              lerp2(q[:, 2], q[:, 5], q[:, 8], q[:, 11]))
+def _lerp2(c00, c10, c01, c11, tx, ty):
+    top = c00 * (1 - tx) + c10 * tx
+    bot = c01 * (1 - tx) + c11 * tx
+    return top * (1 - ty) + bot * ty
+
+
+def bilinear_lookup_quads(quad12: torch.Tensor, u, v) -> torch.Tensor:
+    """[..., 3] bilinear fetch through the pre-packed quad rows of
+    ``quad12`` [H, W, 12] (texels (x, y), (x+1, y), (x, y+1), (x+1, y+1)):
+    one row gather."""
+    q, tx, ty = _quad_rows(quad12, u, v)
+    tx, ty = tx[..., None], ty[..., None]
+    return _lerp2(q[..., 0:3], q[..., 3:6], q[..., 6:9], q[..., 9:12], tx,
+                  ty)
+
+
+def bilinear_lookup_quads_v(quad12: torch.Tensor, u, v) -> V3:
+    """Component form of :func:`bilinear_lookup_quads`."""
+    q, tx, ty = _quad_rows(quad12, u, v)
+    return V3(*(_lerp2(q[..., k], q[..., 3 + k], q[..., 6 + k],
+                       q[..., 9 + k], tx, ty) for k in range(3)))
+
+
+def envmap_lookup_v(env: EnvMap, dirs: V3) -> V3:
+    """Bilinear radiance along escaped rays (GetHDRImageColor,
+    comp:190-193) through the packed quad rows (the image itself where a
+    map has none): u wraps, v clamps."""
+    u, v = spherical_uv_v(dirs)
+    if env.quad12 is not None:
+        return bilinear_lookup_quads_v(env.quad12, u, v)
+    return V3.of(bilinear_lookup(env.image, u, v))
+
+
+def envmap_lookup(env: EnvMap, dirs: torch.Tensor) -> torch.Tensor:
+    """[R, 3] form of :func:`envmap_lookup_v`."""
+    return envmap_lookup_v(env, V3.of(dirs)).rows()
 
 
 def sample_envmap(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
@@ -304,3 +332,8 @@ def envmap_pdf_v(env: EnvMap, dirs: V3) -> torch.Tensor:
     theta = PI * (0.5 - v)
     cos_theta = maximum(torch.cos(theta), _POLE_EPS)
     return env.pdf_xy[x, y] * (w * h) / (2.0 * PI * PI * cos_theta)
+
+
+def envmap_pdf(env: EnvMap, dirs: torch.Tensor) -> torch.Tensor:
+    """[R, 3] form of :func:`envmap_pdf_v`."""
+    return envmap_pdf_v(env, V3.of(dirs))

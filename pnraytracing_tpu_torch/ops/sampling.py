@@ -4,7 +4,8 @@ PyTorch counterpart of ``pnraytracing_tpu/ops/sampling.py``
 (ray_tracing.comp:496-624): the wang-hash counter RNG with explicit seed
 threading (no generator object), the Sobol sequence with
 Cranley-Patterson rotation, area-light selection, uniform triangle
-sampling and the cosine-hemisphere sample in its [R, 3] form.
+sampling and the cosine- and uniform-hemisphere samples in their
+[R, 3] forms.
 
 32-bit words live in int64 tensors holding values in [0, 2^32): torch
 has no working shift on uint32 on every backend, and every product below
@@ -106,6 +107,13 @@ def sobol_direction_table() -> np.ndarray:
     return table
 
 
+def gray_code(i):
+    """i ^ (i >> 1) of a 32-bit word (a Python int or an int64 tensor of
+    words, taken modulo 2^32)."""
+    i = i & M32
+    return i ^ (i >> 1)
+
+
 def sobol_u32(d: int, i: int) -> int:
     """32-bit Sobol value of index i in dimension d (comp:518-526)."""
     v = sobol_direction_table()[d]
@@ -171,6 +179,17 @@ def cranley_patterson_rotation_c(su, sv, px: torch.Tensor, py: torch.Tensor,
     return torch.where(a > 1.0, a - 1.0, a), torch.where(b > 1.0, b - 1.0, b)
 
 
+def cranley_patterson_rotation(p: torch.Tensor, px: torch.Tensor,
+                               py: torch.Tensor, width: int,
+                               height: int) -> torch.Tensor:
+    """Per-pixel toroidal shift of samples ``p`` [..., 2] (comp:539-557):
+    the array form of :func:`cranley_patterson_rotation_c` without a
+    salt."""
+    a, b = cranley_patterson_rotation_c(p[..., 0], p[..., 1], px, py, width,
+                                        height)
+    return torch.stack([a, b], dim=-1)
+
+
 def pick_light(prefix_area: torch.Tensor, total_area: torch.Tensor,
                u: torch.Tensor) -> torch.Tensor:
     """Area-proportional light slot (GetLightIndex, comp:237-251): the
@@ -203,3 +222,12 @@ def sample_cosine_hemisphere_local(u1: torch.Tensor, u2: torch.Tensor,
         x = r * torch.cos(phi)
         y = r * torch.sin(phi)
     return torch.stack([x, y, safe_sqrt(1.0 - x * x - y * y)], dim=-1)
+
+
+def sample_uniform_hemisphere_local(u1: torch.Tensor,
+                                    u2: torch.Tensor) -> torch.Tensor:
+    """[..., 3] uniform hemisphere direction in the local frame
+    (UniformSampleHemisphere, comp:590-595): z = u1, r = sqrt(1 - z^2)."""
+    r = safe_sqrt(1.0 - u1 * u1)
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), u1], dim=-1)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pnraytracing_tpu_torch.accel.traverse_cuda import closest_hit
+from pnraytracing_tpu_torch.accel.traverse import closest_hit
 from pnraytracing_tpu_torch.core.camera import camera_rays, resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import FLOAT_MAX
@@ -27,8 +27,10 @@ def probe_pixel(scene: Scene, camera: Camera, cfg: RenderConfig, x: int,
     frame seeds that pixel, so its radiance equals that pixel of
     ``render_frame`` bit for bit (without ``jitter_primary``, which the
     probe does not apply, as in the JAX package).  The primary hit comes
-    from the resident closest-hit walk (``closest_hit``, its compat form
-    under ``cfg.compat_pnrt``).  Returns ``color`` [3], ``primary_tri``,
+    from the walk over the plain BVH (``accel/traverse.py::closest_hit``
+    over ``scene.bvh`` / ``scene.mesh``, ``cfg.max_leaf_size``, its
+    compat form under ``cfg.compat_pnrt``) on every scene, as in the JAX
+    package.  Returns ``color`` [3], ``primary_tri``,
     ``primary_t``, ``primary_bary`` [3] (b0, b1, b2), ``ray_origin`` and
     ``ray_dir`` [3]; ``device=None`` means the card."""
     dev = resolve_device(device)
@@ -42,10 +44,12 @@ def probe_pixel(scene: Scene, camera: Camera, cfg: RenderConfig, x: int,
 
     color = render_rays(scene, o, d, px, py, frame, cfg)
     comps = lambda a: V3(*(a[:, k].contiguous() for k in range(3)))
-    hit = closest_hit(scene.trav, comps(o), comps(d),
+    hit = closest_hit(scene.bvh, scene.mesh, comps(o), comps(d),
                       torch.full((1,), FLOAT_MAX, dtype=torch.float32,
                                  device=dev),
-                      stack_depth=cfg.stack_depth, compat=cfg.compat_pnrt)
+                      stack_depth=cfg.stack_depth,
+                      max_leaf_size=cfg.max_leaf_size,
+                      compat=cfg.compat_pnrt)
     return {
         "color": color[0],
         "primary_tri": hit.tri[0],

@@ -57,9 +57,15 @@ The traversal route is the JAX package's (``accel/route.py::
 traversal_route``): the resident kernels of ``accel/traverse_cuda.py``
 (with the interaction fill from the kernel when ``kernel_interaction`` is
 set and the attribute rows fit the budget, else the closest hit +
-``make_interaction``), or the brick-streaming kernels of
+``make_interaction``), the brick-streaming kernels of
 ``accel/traverse_stream_cuda.py`` for a scene too large for the resident
-route.  Each runs its CUDA kernel on the card and its plain version on
+route, the binary walks of ``accel/traverse_cuda.py`` for such a scene
+without a stream layout, or, for a scene outside the packed layout
+(``scene.trav`` None), the walk over the plain BVH of
+``accel/traverse.py``, which tests at most ``cfg.max_leaf_size``
+triangles of a leaf.  On that last route no sort key is computed: live
+rays are only compacted, as the JAX package does without a layout.
+Each route runs its CUDA kernels on the card and their plain versions on
 the CPU.
 """
 
@@ -71,6 +77,10 @@ import torch
 
 from pnraytracing_tpu_torch.accel.layout import ATTR_TEX_BASE
 from pnraytracing_tpu_torch.accel.route import traversal_route
+from pnraytracing_tpu_torch.accel.traverse import any_hit as any_hit_bvh
+from pnraytracing_tpu_torch.accel.traverse import (
+    closest_hit as closest_hit_bvh,
+)
 from pnraytracing_tpu_torch.accel.traverse_cuda import (
     any_hit,
     closest_hit,
@@ -260,8 +270,6 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     walk, no sort); ``record`` returns the frame's records.  Nothing here
     reads a device value on the host."""
     replay = records is not None
-    if scene.trav is None:
-        raise ValueError("the scene has no traversal layout (TravData)")
     if scene.bvh_depth is not None and cfg.stack_depth < scene.bvh_depth:
         raise ValueError(
             f"RenderConfig.stack_depth={cfg.stack_depth} is too shallow for "
@@ -293,8 +301,25 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         mat_tbl = apply_compat_material_decode(mat_tbl)
     o_v, d_v = _comps(o), _comps(d)
     route = traversal_route(trav, cfg.kernel_interaction)
-    closest_fn, any_fn = ((closest_hit_stream, any_hit_stream)
-                          if route == "stream" else (closest_hit, any_hit))
+    # the route's walks: (closest, any), the tables they read first, and
+    # their keyword arguments
+    walk_kw = dict(stack_depth=sd, compat=compat)
+    if route == "bvh":
+        closest_fn, any_fn = closest_hit_bvh, any_hit_bvh
+        tables = (scene.bvh, mesh)
+        walk_kw["max_leaf_size"] = cfg.max_leaf_size
+    else:
+        closest_fn, any_fn = ((closest_hit_stream, any_hit_stream)
+                              if route == "stream" else (closest_hit, any_hit))
+        tables = (trav,)
+        if route == "binary":
+            walk_kw["variant"] = "binary"
+
+    def closest_q(o_, d_, tm_, mask_=None):
+        return closest_fn(*tables, o_, d_, tm_, mask_, **walk_kw)
+
+    def any_q(o_, d_, tm_, mask_=None):
+        return any_fn(*tables, o_, d_, tm_, mask_, **walk_kw)
 
     def closest_inter(o_: V3, d_: V3, tm_, mask_=None):
         """Closest hit + interaction fill (hit, pos, nrm, (u, v), mat id,
@@ -309,8 +334,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                                      nrm_raw))
             return (hit_, o_ + d_ * hit_.t, nrm_, (u_, v_),
                     mt // ATTR_TEX_BASE, mt % ATTR_TEX_BASE - 1)
-        hit_ = closest_fn(trav, o_, d_, tm_, mask_, stack_depth=sd,
-                          compat=compat)
+        hit_ = closest_q(o_, d_, tm_, mask_)
         return (hit_,) + make_interaction(hit_, d_, o_, irows)
 
     def env_radiance(dirs: V3) -> V3:
@@ -428,7 +452,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         # ONE gather of a [C, R] pack (each row comes out contiguous); a
         # replay never sorts
         if cfg.compact_rays and bounce < cfg.sort_max_bounce and not replay:
-            if not cfg.sort_rays:
+            if not cfg.sort_rays or trav is None:
                 perm, _ = compact_indices(active)
             elif cfg.sort_key == "entry" and trav.treelets is not None:
                 key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
@@ -504,19 +528,15 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             if has_env:
                 e_occ = records.env_occ[bounce]
         elif has_lights and has_env and cfg.fuse_shadows:
-            occ2 = any_fn(trav, vcat(s_origin, e_origin), vcat(sdir, en_l),
-                          torch.cat([s_tmax, t_max0]),
-                          torch.cat([active, active & facing]),
-                          stack_depth=sd, compat=compat)
+            occ2 = any_q(vcat(s_origin, e_origin), vcat(sdir, en_l),
+                         torch.cat([s_tmax, t_max0]),
+                         torch.cat([active, active & facing]))
             occluded, e_occ = occ2[:r], occ2[r:]
         else:
             if has_lights:
-                occluded = any_fn(trav, s_origin, sdir, s_tmax, active,
-                                  stack_depth=sd, compat=compat)
+                occluded = any_q(s_origin, sdir, s_tmax, active)
             if has_env:
-                e_occ = any_fn(trav, e_origin, en_l, t_max0,
-                               active & facing, stack_depth=sd,
-                               compat=compat)
+                e_occ = any_q(e_origin, en_l, t_max0, active & facing)
         if record:
             if has_lights:
                 rec_occ.append(_unsort(occluded, orig))

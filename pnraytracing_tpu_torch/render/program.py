@@ -41,7 +41,11 @@ import time
 
 import torch
 
-from pnraytracing_tpu_torch.accel import traverse_cuda, traverse_stream_cuda
+from pnraytracing_tpu_torch.accel import (
+    traverse,
+    traverse_cuda,
+    traverse_stream_cuda,
+)
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.types import Camera, Scene
@@ -51,7 +55,7 @@ from pnraytracing_tpu_torch.render.renderer import frame_image
 
 PROGRAM_CACHE_SIZE = 4
 _LAUNCH_TABLES = (traverse_cuda.LAUNCHES, traverse_stream_cuda.LAUNCHES,
-                  compaction.LAUNCHES)
+                  traverse.LAUNCHES, compaction.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -31,6 +31,7 @@ from pnraytracing_tpu_torch.accel.layout import (
     pack_tri_attr16,
     pack_wide_nodes_compact,
 )
+from pnraytracing_tpu_torch.accel.bvh import BVHArrays, triangle_bounds
 from pnraytracing_tpu_torch.accel.native import bvh_builder
 from pnraytracing_tpu_torch.accel.route import scene_fits_smem
 from pnraytracing_tpu_torch.core.camera import resolve_device
@@ -47,21 +48,21 @@ from pnraytracing_tpu_torch.ops.texture import build_atlas
 
 def pack_traversal(built, positions: np.ndarray, normals: np.ndarray,
                    uvs: np.ndarray, idx_o: np.ndarray, mat_o: np.ndarray,
-                   tex_o: np.ndarray, mesh: TriangleMesh, dev) -> TravData:
+                   tex_o: np.ndarray, mesh: TriangleMesh,
+                   dev) -> TravData | None:
     """The traversal layout of a built BVH on ``dev``: ``idx_o``,
     ``mat_o``, ``tex_o`` are the triangle arrays in its leaf order,
     ``mesh`` the scene's mesh (the bricks read it).  A scene too large
     for the resident kernels (accel/route.py) also gets the
-    brick-streaming layout, under the JAX package's condition.  Raises
-    for a tree outside the packed layout."""
+    brick-streaming layout, under the JAX package's condition.  None for
+    a tree outside the packed layout (a leaf of more than 15 triangles,
+    more than 2^22 nodes or 2^20 triangles), as in the JAX package: such
+    a scene is walked over its plain BVH (route 'bvh')."""
     max_count = int((built.end - built.start)[built.right_child == -1]
                     .max())
     if (max_count > MAX_PACKED_LEAF or len(built.start) > MAX_PACKED_NODES
             or len(idx_o) > MAX_PACKED_TRIS):
-        raise ValueError(
-            f"scene exceeds the packed traversal layout (leaf of "
-            f"{max_count} triangles, {len(built.start)} nodes, "
-            f"{len(idx_o)} triangles)")
+        return None
     t = lambda a: torch.as_tensor(np.array(a), device=dev)
     tri9 = positions[idx_o].reshape(len(idx_o), 9)
     treelets = treelet_cut_aabbs(built)
@@ -117,7 +118,7 @@ class SceneBuilder:
         ))
         return self
 
-    def build(self, max_leaf_size: int = 4,
+    def build(self, max_leaf_size: int = 4, flat_bvh: bool = False,
               env_image: np.ndarray | None = None, env_constant=None,
               use_native_builder: bool | None = None,
               device=None) -> Scene:
@@ -127,9 +128,13 @@ class SceneBuilder:
         the C++ SAH builder when g++ exists (``accel/native.py``), True
         requires it, False takes the numpy one (which may split SAH ties
         otherwise: the trees of the two packages' builders of one kind
-        are equal).
+        are equal).  ``flat_bvh=True`` builds one leaf over every
+        triangle in input order (the JAX package's brute-force oracle
+        tree), which is outside the packed layout.
         A scene too large for the resident route (accel/route.py) also
-        gets the brick-streaming layout (accel/bricks.py)."""
+        gets the brick-streaming layout (accel/bricks.py); a scene
+        outside the packed layout gets no traversal layout at all
+        (``trav=None``) and is walked over its plain BVH."""
         dev = resolve_device(device)
         positions, normals, uvs = [], [], []
         indices, mat_ids, tex_ids = [], [], []
@@ -180,8 +185,19 @@ class SceneBuilder:
         areas = 0.5 * np.linalg.norm(
             np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=1)
 
-        built = bvh_builder(use_native_builder)(
-            positions, indices, max_leaf_size=max_leaf_size)
+        if flat_bvh:
+            tri_min, tri_max, _ = triangle_bounds(positions, indices)
+            built = BVHArrays(
+                node_min=tri_min.min(axis=0)[None],
+                node_max=tri_max.max(axis=0)[None],
+                axis=np.array([-1], np.int32),
+                right_child=np.array([-1], np.int32),
+                start=np.array([0], np.int32),
+                end=np.array([len(indices)], np.int32),
+                order=np.arange(len(indices), dtype=np.int32))
+        else:
+            built = bvh_builder(use_native_builder)(
+                positions, indices, max_leaf_size=max_leaf_size)
         order = built.order
         idx_o = indices[order]
         t = lambda a, dt=None: torch.as_tensor(np.array(a, dt), device=dev)

@@ -162,14 +162,11 @@ def config1_triangle(device=None):
 def config2_teapot(flat_bvh: bool = False, device=None):
     """Config 2: teapot (~6k triangles) + floor, diffuse materials, an
     area light and a constant environment.  Returns (scene on ``device``,
-    camera state).  ``flat_bvh=True`` (one leaf of every triangle, an
-    A/B control of the JAX package's XLA walks) is not ported: it is
-    queue-1 item 20 of ROADMAP.md."""
-    if flat_bvh:
-        raise NotImplementedError(
-            "config2_teapot(flat_bvh=True) needs SceneBuilder.build("
-            "flat_bvh=True), queue-1 item 20 of ROADMAP.md, which is not "
-            "ported yet")
+    camera state).  ``flat_bvh=True`` builds one leaf of every triangle
+    (the brute-force oracle tree): ``trav`` is None and the scene renders
+    over its plain BVH (route 'bvh'), with ``RenderConfig.max_leaf_size``
+    set to its triangle count for the leaf's every triangle to be
+    tested."""
     b = SceneBuilder()
     b.add(shapes.teapot(), dict(base_color=(0.6, 0.7, 0.2), roughness=0.8),
           name="teapot", transform=scale(0.55))
@@ -178,7 +175,8 @@ def config2_teapot(flat_bvh: bool = False, device=None):
     b.add(shapes.quad(half=1.5), dict(emissive=(20.0, 20.0, 20.0)),
           name="key_light",
           transform=compose(translate(2.5, 6, 2.5), rotate(180, (0, 0, 1))))
-    scene = b.build(env_constant=(0.15, 0.18, 0.22), device=device)
+    scene = b.build(flat_bvh=flat_bvh, env_constant=(0.15, 0.18, 0.22),
+                    device=device)
     return scene, _camera((0, 5, 5), (0, 0.8, 0), 45.0)
 
 
@@ -270,7 +268,10 @@ def config5_large(subdiv: int = 6, device=None):
     icospheres of 81,920 and 20,480 triangles + floor + lamp), HDR env.
     Its binary packing exceeds the resident budget (accel/route.py), so
     it carries the brick-streaming layout and renders through the stream
-    kernels.  Returns (scene on ``device``, camera state)."""
+    kernels; from ``subdiv=8`` on (1,638,404 triangles) it exceeds the
+    packed layout's 2^20 triangles, has no traversal layout and renders
+    over its plain BVH (route 'bvh').  Returns (scene on ``device``,
+    camera state)."""
     b = SceneBuilder()
     b.add(
         shapes.icosphere(subdiv),

@@ -3,7 +3,8 @@
 * every scene's arrays, built by the port's ``SceneBuilder``, equal the
   JAX package's ``SceneBuilder`` gives, bit for bit (``cornell_box``
   with both centerpieces, ``scene_flat``, ``teapot_scene``,
-  ``config2_teapot``), and so do the camera states;
+  ``config2_teapot``, also with ``flat_bvh=True``, which has no
+  traversal layout), and so do the camera states;
 * ``cornell_box`` and ``config2_teapot`` frames, rendered by the port
   from its own scene, against the JAX ``render_frame`` with
   ``traversal="packet"`` at 16x16, depth 2: at most 2 pixels outside
@@ -81,8 +82,14 @@ def test_catalog_builders_and_aspect():
         "ceiling", "ceiling_light"]
     assert cam.aspect == 1.5
     assert scenes.scene_flat(aspect=2.0)[1].aspect == 2.0
-    with pytest.raises(NotImplementedError, match="item 20"):
-        scenes.config2_teapot(flat_bvh=True, device="cpu")
+    # the flat config 2: one leaf of every triangle, outside the packed
+    # layout (trav None, walked over the plain BVH), the JAX flat scene's
+    # arrays bit for bit
+    flat, _ = scenes.config2_teapot(flat_bvh=True, device="cpu")
+    jflat, _ = jax_scenes.config2_teapot(flat_bvh=True)
+    assert flat.trav is None and jflat.trav is None
+    assert flat.bvh.end.tolist() == [flat.mesh.indices.shape[0]]
+    _assert_leaves_equal(scene_to_arrays(jflat), scene_to_arrays(flat))
 
 
 @pytest.mark.parametrize("name", ["cornell_teapot", "config2"])

@@ -1021,3 +1021,141 @@ def test_primitive_queries_run_kernels_5_and_6(flagship, nccl_world, compat):
                                   cpu(t_max), compat=compat)
     assert torch.equal(got4.t.cpu(), want4.t)
     assert torch.equal(got4.t.cpu(), want.t)
+
+
+# ---- the walk over the plain BVH (accel/traverse.py, route 'bvh') ---------
+
+@pytest.fixture(scope="module")
+def bvh_scenes():
+    """A cube, an icosphere(3), a floor and a lamp on the card, as an SAH
+    tree with no traversal layout (route 'bvh') and as one flat leaf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from pnraytracing_tpu_torch.scene.transform import (
+        compose,
+        rotate,
+        translate,
+    )
+
+    out = {}
+    for form in ("sah", "flat"):
+        b = SceneBuilder()
+        b.add(shapes.cube(0.8), dict(base_color=(0.7, 0.3, 0.3)),
+              name="cube", transform=translate(-1.0, 0.8, 0))
+        b.add(shapes.icosphere(3), dict(base_color=(0.3, 0.7, 0.3)),
+              name="ball", transform=translate(1.2, 1.0, 0))
+        b.add(shapes.quad(half=4.0), dict(base_color=(0.6, 0.6, 0.6)),
+              name="floor")
+        b.add(shapes.quad(half=1.0), dict(emissive=(15.0, 15.0, 15.0)),
+              name="lamp", transform=compose(translate(0, 5.0, 0),
+                                             rotate(180, (0, 0, 1))))
+        scene = b.build(flat_bvh=form == "flat",
+                        env_constant=(0.3, 0.3, 0.3), device="cuda")
+        out[form] = dataclasses.replace(scene, trav=None)
+    return out
+
+
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("form", ["sah", "flat"])
+def test_bvh_kernels_equal_plain(bvh_scenes, form, compat):
+    """The kernel pair of csrc/traverse_bvh.cu against its plain version,
+    default and compat, on the SAH tree (max_leaf_size 4) and the flat
+    leaf (max_leaf_size = T): hits, t, barycentrics, occlusion and the
+    [3, R] stats (pops, slab tests, triangle tests) equal, one launch
+    each under its own name, and ``traversal_stats`` the closest walk's
+    pops."""
+    from pnraytracing_tpu_torch.accel import traverse as trb
+
+    scene = bvh_scenes[form]
+    mls = int(scene.mesh.indices.shape[0]) if form == "flat" else 4
+    kw = dict(max_leaf_size=mls, compat=compat, with_stats=True)
+    o, d, t_max, mask = _rays(1 << 13, 30)
+    before = dict(trb.LAUNCHES)
+    hit, st = trb.closest_hit(scene.bvh, scene.mesh, o, d, t_max, mask,
+                              **kw)
+    occ, ast = trb.any_hit(scene.bvh, scene.mesh, o, d, t_max, mask, **kw)
+    torch.cuda.synchronize()
+    suffix = "_compat" if compat else ""
+    assert trb.LAUNCHES["closest_hit_bvh" + suffix] == before[
+        "closest_hit_bvh" + suffix] + 1
+    assert trb.LAUNCHES["any_hit_bvh" + suffix] == before[
+        "any_hit_bvh" + suffix] + 1
+    want, wst = trb.plain_closest_hit(scene.bvh, scene.mesh, o, d, t_max,
+                                      mask, **kw)
+    wocc, wast = trb.plain_any_hit(scene.bvh, scene.mesh, o, d, t_max, mask,
+                                   **kw)
+    for a, b in ((hit.tri, want.tri), (hit.t, want.t), (hit.b1, want.b1),
+                 (hit.b2, want.b2), (occ, wocc), (st, wst), (ast, wast)):
+        assert torch.equal(a, b)
+    assert 0 < int(hit.valid.sum()) and 0 < int(occ.sum()) < int(mask.sum())
+    visits, iters = trb.traversal_stats(scene.bvh, scene.mesh, o, d, t_max,
+                                        max_leaf_size=mls, compat=compat)
+    _, full = trb.plain_closest_hit(scene.bvh, scene.mesh, o, d, t_max,
+                                    **kw)
+    assert torch.equal(visits, full[0]) and int(iters) == int(full[0].max())
+
+
+def test_bvh_kernels_on_non_finite_rays(bvh_scenes):
+    """Rays with NaN and infinite components: the kernel equals its plain
+    version (a NaN ray pops the root and fails its box: one pop, one slab
+    test, no hit)."""
+    from pnraytracing_tpu_torch.accel import traverse as trb
+
+    scene = bvh_scenes["sah"]
+    o, d, t_max, mask = _rays(1 << 12, 31)
+    for c, v in ((o.x, float("nan")), (d.y, float("nan")),
+                 (o.z, float("inf")), (d.z, float("inf"))):
+        c[::7] = v
+    got = trb.closest_hit(scene.bvh, scene.mesh, o, d, t_max, mask,
+                          with_stats=True)
+    want = trb.plain_closest_hit(scene.bvh, scene.mesh, o, d, t_max, mask,
+                                 with_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].tri, want[0].tri)
+    assert torch.equal(got[0].t, want[0].t)
+    bad = compaction.never_enters(o, d) & mask
+    assert int(bad.sum()) > 0
+    assert bool((got[1][0][bad] == 1).all()) and not got[0].valid[bad].any()
+
+
+def test_bvh_route_frame_on_card(bvh_scenes, monkeypatch):
+    """A frame of a scene without a traversal layout: 1 + depth closest
+    and depth any-hit launches of the new walk and no key kernel (rays
+    are only compacted); the frame through the kernels against the plain
+    versions; the captured frame equals the eager one bit for bit."""
+    from pnraytracing_tpu_torch.accel import traverse as trb
+    from pnraytracing_tpu_torch.render import integrator
+    from pnraytracing_tpu_torch.render.program import FrameProgram
+    from pnraytracing_tpu_torch.scene.scenes import _camera
+
+    scene = bvh_scenes["sah"]
+    cam = _camera((0, 2.5, 6), (0, 1.0, 0), 45.0).basis(device="cuda")
+    cfg = RenderConfig(width=64, height=64, max_depth=3)
+    for table in (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES,
+                  compaction.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    img = render_frame(scene, cam, cfg, 0, eager=True)
+    assert trb.LAUNCHES == dict({k: 0 for k in trb.LAUNCHES},
+                                closest_hit_bvh=4, any_hit_bvh=3)
+    assert not any(trv.LAUNCHES.values()) and not any(
+        trs.LAUNCHES.values()) and not any(compaction.LAUNCHES.values())
+    prog = FrameProgram(scene, cfg, "cuda")
+    assert torch.equal(prog.replay(cam, 0), img)
+    monkeypatch.setattr(integrator, "closest_hit_bvh", trb.plain_closest_hit)
+    monkeypatch.setattr(integrator, "any_hit_bvh", trb.plain_any_hit)
+    want = render_frame(scene, cam, cfg, 0, eager=True)
+    off = (img - want).abs().amax(dim=-1) > 3e-5
+    assert int(off.sum()) <= 1 and float(img.mean()) > 0.01
+
+
+def test_bvh_wrapper_raises_on_deep_stack(bvh_scenes):
+    from pnraytracing_tpu_torch.accel import traverse as trb
+
+    scene = bvh_scenes["sah"]
+    o, d, t_max, mask = _rays(64, 32)
+    with pytest.raises(ValueError, match="64-entry stack"):
+        trb.closest_hit(scene.bvh, scene.mesh, o, d, t_max, mask,
+                        stack_depth=trb.KERNEL_STACK + 1)

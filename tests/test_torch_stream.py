@@ -443,9 +443,13 @@ def test_route_matches_jax(name, want):
         assert route._scene_bytes(ps.trav, variant) == \
             jax_tp._scene_bytes(js.trav, variant)
     if name == "config5":
+        # over the budget without bricks: the JAX package takes its XLA
+        # packet walk, which it holds bit-identical to the binary kernel;
+        # the port takes that kernel (kernels 5 / 6)
         no_stream = dataclasses.replace(ps.trav, stream=None)
-        with pytest.raises(NotImplementedError, match="packet"):
-            route.traversal_route(no_stream, True)
+        assert jax_route(dataclasses.replace(js.trav, stream=None),
+                         True) == "packet"
+        assert route.traversal_route(no_stream, True) == "binary"
 
 
 def _count_calls(monkeypatch, names):
