@@ -49,7 +49,22 @@ script exits non-zero without printing a result.  Phases:
    against the eager mean, device memory with the programs alive;
 9. session: a ``RenderSession`` on the flagship, each step against the
    eager frame it stands for (samples, a material edit, an orbit, the
-   previews), and the steps' times; then ``grad``, the gradient path
+   previews), and the steps' times; then ``app`` (utils/resilience.py
+   and scripts/): ``app/probe`` (``probe_device`` on the card),
+   ``app/resilient`` (a ``ResilientRenderLoop`` on the flagship at
+   512x512 depth 4, 8 samples, its worker SIGKILLed with sample 2 in
+   flight: one loss recovered, the image bit for bit an uninterrupted
+   loop's and within 1e-6 of ``render_average``, each worker's captured
+   frame 5 / 4 / 2 launches of kernels 1, 2, 4; worker start and
+   recovery seconds, ms a sample through the worker beside in process),
+   ``app/cli`` (the render CLI on the flagship, its PNG equal to
+   ``render_average``'s; ``--model`` on a written OBJ and ``--sharded``
+   under torchrun, PNGs equal; ``optimize``, ``interactive`` on a
+   command script, ``gallery``; all at once, each one's seconds and
+   return code) and ``app/sticky`` (a device-side assert in a process
+   of its own: not a device loss, raised by ``run_resilient`` after one
+   call, the next op of that process failing, a fresh process working);
+   then ``grad``, the gradient path
    (diff/grad.py) on the flagship at 512x512 depth 4: ``trace_paths``
    through kernels 1, 2, 4 (launches counted) with its records equal
    bit for bit to those of the plain walks on the card, the replay
@@ -167,7 +182,9 @@ eager=True)``), whose launch counters count each frame.
 Then the ``{"kernels": [...]}`` line (each row with its launches on
 phase 17's paths by world and path: ``parallel_launches``, and
 ``primitive_launches`` for the primitive queries; ``assets_launches``
-on phase 18's scenes; kernels 5 / 6 their ``binary_route_launches`` and
+on phase 18's scenes; ``app_launches``, a captured flagship frame in
+the resilient loop's worker and in the render CLI's (phase app);
+kernels 5 / 6 their ``binary_route_launches`` and
 the new walk its ``probe_pixel_launches`` of phase 10), the nvidia-smi
 line,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of
@@ -1330,6 +1347,318 @@ def session_phase(RenderConfig, scene, cam_state, dev, smi) -> None:
           "preview_first_step_ms": preview_first_ms,
           "preview_step_ms": preview_ms,
           "rays_per_s": s.stats.rays_per_s, "card": smi})
+
+
+# ---- phase app: the resilient render loop and the command lines ------------
+
+APP_SPP = 8  # samples of the resilient loop
+APP_KILL_FRAME = 2  # the sample in flight when its worker is SIGKILLed
+APP_ROUNDS = 3  # alternating timing rounds, worker against in process
+APP_ROUND_SAMPLES = 4
+APP_MAX_ABS = 1e-6  # the loop against render_average of the same frames
+APP_CLI_SIZE, APP_CLI_SPP = 128, 2  # the --model and --sharded renders
+APP_FLAGSHIP_SPP = 4  # the render CLI on the flagship
+
+# the sticky fact: a device-side assert (an out-of-range index_select) in
+# a process of its own, classified, run through run_resilient (it must
+# propagate after one call), then one more CUDA op in that process
+STICKY_CODE = r"""
+import json
+import os
+import torch
+from pnraytracing_tpu_torch.utils import resilience
+calls, out = [], {}
+def trigger():
+    calls.append(1)
+    x = torch.ones(4, device="cuda")
+    torch.index_select(x, 0, torch.tensor([1 << 20], device="cuda"))
+    torch.cuda.synchronize()
+try:
+    resilience.run_resilient(trigger)
+except Exception as e:
+    out.update(error_type=type(e).__name__,
+               message=str(e).strip().splitlines()[0],
+               is_device_loss=resilience.is_device_loss(e))
+out["run_resilient_calls"] = len(calls)
+try:
+    float(torch.ones(2, device="cuda").sum())
+    out["next_op_fails"] = False
+except Exception as e:
+    out.update(next_op_fails=True,
+               next_message=str(e).strip().splitlines()[0])
+print(json.dumps(out), flush=True)
+os._exit(0)  # no teardown in a poisoned context
+"""
+
+INTERACTIVE_SCRIPT = ("spp 2", "orbit 10 0", "mat 0 base_color 1 0 0",
+                      "save {work}/s.npz", "load {work}/s.npz", "status",
+                      "quit")
+
+
+def _start(name, module_args, work, stdin=None):
+    """Start one command of the app layer as a subprocess of the repo's
+    root, its output in ``work/<name>.log``."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    log = open(os.path.join(work, name + ".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, *module_args], cwd=root, env=env, stdout=log,
+        stderr=subprocess.STDOUT,
+        stdin=subprocess.PIPE if stdin is not None else subprocess.DEVNULL,
+        text=True)
+    if stdin is not None:
+        proc.stdin.write(stdin)
+        proc.stdin.close()
+    return {"proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def _wait_all(runs, work, timeout=600) -> dict:
+    """Wait for every started command: each one's wall seconds from its
+    start to its exit, return code and output; raises with the output's
+    tail of one that failed or did not end within ``timeout``."""
+    import os
+
+    ends, deadline = {}, time.perf_counter() + timeout
+    while len(ends) < len(runs) and time.perf_counter() < deadline:
+        for name, run in runs.items():
+            if name not in ends and run["proc"].poll() is not None:
+                ends[name] = time.perf_counter()
+        time.sleep(0.05)
+    done = {}
+    for name, run in runs.items():
+        if name not in ends:
+            run["proc"].kill()
+        rc = run["proc"].wait()
+        run["log"].close()
+        with open(os.path.join(work, name + ".log")) as f:
+            text = f.read()
+        if name not in ends or rc != 0:
+            raise AssertionError(f"app/cli {name}: rc {rc} (ended: "
+                                 f"{name in ends}):\n{text[-4000:]}")
+        done[name] = {"rc": rc, "seconds": ends[name] - run["t0"],
+                      "text": text}
+    return done
+
+
+def _worker_facts(w, expected) -> dict:
+    """A worker's start and its launch tables after its first reply,
+    gated: the captured frame launches kernels 1, 2, 4 as ``expected``
+    says (5 / 4 / 2), and its first reply counts the warm-up frame and
+    the captured one."""
+    twice = {k: 2 * v for k, v in expected.items()}
+    if w.frame_launches != expected or w.launches != twice:
+        raise AssertionError(f"worker launches {w.frame_launches} / first "
+                             f"reply {w.launches}, expected {expected} / "
+                             f"{twice}")
+    return {"start_s": w.start_seconds, **w.timings,
+            "captured_frame_launches": {k: v for k, v in
+                                        w.frame_launches.items() if v}}
+
+
+def app_phase(RenderConfig, dev, expected, smi) -> dict:
+    """``utils/resilience.py`` and ``scripts/`` on the card: ``probe``,
+    ``sticky``, ``resilient`` (a ``ResilientRenderLoop`` on the flagship
+    at 512x512 depth 4, 8 samples, its worker SIGKILLed with sample 2 in
+    flight: one loss recovered, the image equal to an uninterrupted
+    loop's bit for bit and within ``APP_MAX_ABS`` of ``render_average``;
+    the worker's start, the recovery seconds and the ms a sample through
+    the worker beside in process) and ``cli`` (each command line as a
+    subprocess on the card, all at once).  Returns the kernels' launches
+    a frame by path (the workers' captured frames)."""
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from pnraytracing_tpu_torch.io.png import read_png_rgb
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.render.renderer import (
+        render_average,
+        render_frame,
+    )
+    from pnraytracing_tpu_torch.scene import shapes
+    from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
+    from pnraytracing_tpu_torch.utils import resilience
+    from pnraytracing_tpu_torch.utils.image import save_png
+
+    t_phase = time.perf_counter()
+    work = os.path.abspath(os.path.join("build", "app_smoke"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # ---- probe: a fresh process on the card
+    t0 = time.perf_counter()
+    if not resilience.probe_device():
+        raise AssertionError("app/probe: probe_device() is False on the card")
+    emit({"phase": "app/probe", "ok": True,
+          "seconds": time.perf_counter() - t0})
+
+    # ---- resilient: the loop's worker killed with sample 2 in flight
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    scene_h, cam_state = config3_teapot_night(env_height=256, device="cpu")
+    cam_h = cam_state.basis(device="cpu")
+    logs, marks = [], {}
+    with resilience.ResilientRenderLoop(scene_h, cam_h, cfg, device=dev,
+                                        log=logs.append) as loop:
+        real = loop._render_one
+
+        def kill_in_flight(frame, scene):
+            if frame == APP_KILL_FRAME and "kill" not in marks:
+                w = loop.worker
+                w.request(frame)
+                os.kill(w.process.pid, signal.SIGKILL)
+                marks["kill"] = time.perf_counter()
+                return w.reply()  # raises WorkerLost
+            img = real(frame, scene)
+            if frame == APP_KILL_FRAME:
+                marks["back"] = time.perf_counter()
+            return img
+
+        loop._render_one = kill_in_flight
+        loop.render(APP_KILL_FRAME)
+        first = _worker_facts(loop.worker, expected)
+        img = loop.render(APP_SPP - APP_KILL_FRAME)
+        second = _worker_facts(loop.worker, expected)
+    if loop.count != APP_SPP or loop.losses_recovered != 1:
+        raise AssertionError(f"app/resilient: count {loop.count}, losses "
+                             f"recovered {loop.losses_recovered}: {logs}")
+    with resilience.ResilientRenderLoop(scene_h, cam_h, cfg,
+                                        device=dev) as plain_loop:
+        want = plain_loop.render(APP_SPP)
+        scene_d, cam_d = scene_h.to(dev), cam_h.to(dev)
+        ref = render_average(scene_d, cam_d, cfg, 0, APP_SPP,
+                             device=dev).cpu().numpy()
+        max_abs = float(np.abs(img - ref).max())
+        if not np.array_equal(img, want) or max_abs > APP_MAX_ABS:
+            raise AssertionError(
+                f"app/resilient: recovered loop equal to the uninterrupted "
+                f"one: {np.array_equal(img, want)}, max abs from "
+                f"render_average {max_abs} (gate {APP_MAX_ABS})")
+
+        def in_process(start):
+            acc = np.zeros((HEIGHT, WIDTH, 3), np.float32)
+            for f in range(start, start + APP_ROUND_SAMPLES):
+                acc += render_frame(scene_d, cam_d, cfg, f,
+                                    device=dev).cpu().numpy()
+
+        worker_ms, process_ms = [], []
+        for r in range(APP_ROUNDS):
+            sides = [(worker_ms, lambda: plain_loop.render(
+                APP_ROUND_SAMPLES)), (process_ms, lambda: in_process(
+                    100 + r * APP_ROUND_SAMPLES))]
+            for out, fn in (sides if r % 2 == 0 else sides[::-1]):
+                t0 = time.perf_counter()
+                fn()
+                out.append((time.perf_counter() - t0) * 1e3
+                           / APP_ROUND_SAMPLES)
+    emit({"phase": "app/resilient", "width": WIDTH, "height": HEIGHT,
+          "depth": DEPTH, "spp": APP_SPP, "count": loop.count,
+          "losses_recovered": loop.losses_recovered,
+          "equal_to_uninterrupted": True, "max_abs_vs_render_average":
+          max_abs, "first_worker": first, "replacement_worker": second,
+          "recovery_s": marks["back"] - marks["kill"],
+          "ms_per_sample_worker": worker_ms,
+          "ms_per_sample_in_process": process_ms,
+          "image_bytes": int(img.nbytes), "log": logs, "card": smi})
+
+    # ---- cli: every command line at once, and the sticky subprocess;
+    # first the flagship PNG the render CLI must write
+    ref_png = os.path.join(work, "render_average.png")
+    save_png(ref_png, render_average(scene_d, cam_d, cfg, 0,
+                                     APP_FLAGSHIP_SPP, device=dev))
+    m = shapes.teapot()
+    obj = os.path.join(work, "teapot.obj")
+    pos, nrm, idx = first_use_order(m["indices"], m["positions"],
+                                    m["normals"])
+    write_obj(obj, [(None, pos, nrm, None, idx)])
+    render = ["-m", "pnraytracing_tpu_torch.scripts.render"]
+    small = ["--model", obj, "--width", str(APP_CLI_SIZE), "--height",
+             str(APP_CLI_SIZE), "--spp", str(APP_CLI_SPP)]
+    out = lambda name: os.path.join(work, name)
+    runs = {
+        "render": _start("render", [*render, "--scene", "teapot_night",
+                                    "--width", str(WIDTH), "--height",
+                                    str(HEIGHT), "--spp",
+                                    str(APP_FLAGSHIP_SPP), "--depth",
+                                    str(DEPTH), "--out", out("render.png")],
+                         work),
+        "render_model": _start("render_model", [*render, *small, "--out",
+                                                out("model.png")], work),
+        "render_sharded": _start("render_sharded", [
+            "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", *render, "--sharded", *small,
+            "--out", out("model_sharded.png")], work),
+        "optimize": _start("optimize", [
+            "-m", "pnraytracing_tpu_torch.scripts.optimize", "--size", "32",
+            "--steps", "4", "--out", out("optimize")], work),
+        "interactive": _start("interactive", [
+            "-m", "pnraytracing_tpu_torch.scripts.interactive", "--out",
+            out("interactive.png")], work, stdin="\n".join(
+                INTERACTIVE_SCRIPT).format(work=work) + "\n"),
+        "gallery": _start("gallery", [
+            "-m", "pnraytracing_tpu_torch.scripts.gallery", "--small",
+            "--scenes", "cornell,flat", "--out", out("gallery")], work),
+        "sticky": _start("sticky", ["-c", STICKY_CODE], work),
+    }
+    done = _wait_all(runs, work)
+    sticky = json.loads(next(ln for ln in done.pop("sticky")["text"]
+                             .splitlines()[::-1] if ln.startswith("{")))
+    t0 = time.perf_counter()
+    sticky["fresh_process_probe"] = resilience.probe_device()
+    sticky["probe_s"] = time.perf_counter() - t0
+    emit(dict(phase="app/sticky", **sticky))
+    if (sticky.get("is_device_loss") is not False
+            or sticky["run_resilient_calls"] != 1
+            or not sticky["fresh_process_probe"]):
+        raise AssertionError(f"app/sticky: a device-side assert must be "
+                             f"classified a programming error, raised "
+                             f"after one call, and leave the card usable "
+                             f"to a fresh process: {sticky}")
+
+    checks = {}
+    png = lambda name: read_png_rgb(out(name))
+    checks["render_png_equals_render_average"] = bool(np.array_equal(
+        png("render.png"), read_png_rgb(ref_png)))
+    line = next((ln for ln in done["render"]["text"].splitlines()
+                 if ln.startswith("worker launches: ")), None)
+    if line is None:
+        raise AssertionError("app/cli: the render CLI printed no worker "
+                             "launches")
+    cli_launches = json.loads(line[len("worker launches: "):])
+    checks["render_launches"] = cli_launches["captured_frame"] == expected
+    checks["sharded_png_equals_unsharded"] = bool(np.array_equal(
+        png("model_sharded.png"), png("model.png")))
+    checks["model_png_shape"] = png("model.png").shape == (
+        APP_CLI_SIZE, APP_CLI_SIZE, 3)
+    losses = re.search(r"loss: ([0-9.e+-]+) -> ([0-9.e+-]+)",
+                       done["optimize"]["text"])
+    checks["optimize_loss_falls"] = float(losses[2]) < float(losses[1])
+    checks["interactive"] = (png("interactive.png").shape == (256, 256, 3)
+                             and os.path.exists(out("s.npz"))
+                             and "restored frame" in
+                             done["interactive"]["text"])
+    checks["gallery"] = all(
+        png(f"gallery/{s}_128_8spp.png").shape == (128, 128, 3)
+        for s in ("cornell", "flat"))
+    emit({"phase": "app/cli", "checks": checks,
+          "seconds": {k: v["seconds"] for k, v in done.items()},
+          "rc": {k: v["rc"] for k, v in done.items()},
+          "optimize_losses": [float(losses[1]), float(losses[2])],
+          "render_launches": cli_launches, "card": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"app/cli: {checks}")
+    program.clear_programs()  # the phase's captured frames
+    torch.cuda.synchronize()
+    emit({"phase": "app", "seconds": time.perf_counter() - t_phase,
+          "card": smi})
+    return {"resilient_worker": second["captured_frame_launches"],
+            "cli_render": {k: v for k, v in
+                           cli_launches["captured_frame"].items() if v}}
 
 
 def host_ms(fn, reps: int = 3):
@@ -3691,6 +4020,7 @@ def main() -> int:
     program_phase("flagship", scene, camera, cfg, dev, expected, tables,
                   counts, smi)
     session_phase(RenderConfig, scene, cam_state, dev, smi)
+    app_launches = app_phase(RenderConfig, dev, expected, smi)
     grad_launches = grad_phase(RenderConfig, scene, camera, dev, modules,
                                tables, counts, smi)
 
@@ -3741,6 +4071,10 @@ def main() -> int:
         row["parallel_launches"] = {
             w: {p: n for p, n in v.items() if not p.startswith("primitive")}
             for w, v in on.items()}
+        # launches a captured 512x512 depth-4 flagship frame in the
+        # resilient loop's worker and in the render CLI's (phase app)
+        row["app_launches"] = {k: v.get(row["name"], 0)
+                               for k, v in app_launches.items()}
         # launches a 512x512 depth-4 frame on the loaded scenes (phase
         # assets)
         row["assets_launches"] = {k: v.get(row["name"], 0)

@@ -23,7 +23,8 @@ gradients: the trace/replay split (``trace_paths``,
 ``torch.autograd`` and the optimizer checkpoints; ``parallel/`` on
 ``torch.distributed`` (tile-sharded frames, data-parallel gradients,
 primitive-sharded walks); ``utils/`` (image output, profiling, the
-kernels' build directory).
+kernels' build directory, the resilient render loop of
+``utils.resilience``); the command lines of ``scripts/``.
 ROADMAP.md lists what is still to port.  Entry points take
 ``device=None``, which means the card.
 """
