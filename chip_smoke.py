@@ -59,7 +59,9 @@ script exits non-zero without printing a result.  Phases:
    recovery seconds, ms a sample through the worker beside in process),
    ``app/cli`` (the render CLI on the flagship, its PNG equal to
    ``render_average``'s; ``--model`` on a written OBJ and ``--sharded``
-   under torchrun, PNGs equal; ``optimize``, ``interactive`` on a
+   under torchrun, PNGs equal; ``--model`` with ``--traversal wide4``,
+   its worker's frame through the 4-wide kernels; ``optimize``,
+   ``interactive`` on a
    command script, ``gallery``; all at once, each one's seconds and
    return code) and ``app/sticky`` (a device-side assert in a process
    of its own: not a device loss, raised by ``run_resilient`` after one
@@ -176,7 +178,27 @@ script exits non-zero without printing a result.  Phases:
    ``config2_teapot()``; route ``binary``: config5 (subdiv 6) without its
    stream layout through kernels 5 / 6, launches and 128x128 parity.
 
-Phases 1-7 and 10-19 run the eager frame (``render_frame(...,
+20. traversal (after phase 19, before 17): ``RenderConfig.traversal``'s
+   six values (``pallas``, ``packed``, ``pop``, ``packet``, ``wide``,
+   ``wide4``) on the flagship at 512x512 depth 4: each value's launches
+   (its kernels: the packed walk of csrc/traverse_bvh.cu, kernels 5 / 6,
+   3 / 2 with the leaf cap, the 4-wide walk of csrc/traverse_wide4.cu
+   with kernels 5 / 6 as its fallback), ms/frame eager and replayed,
+   replay = eager bit for bit, the image within atol 3e-5 of the
+   ``pallas`` frame with ``kernel_interaction=False`` on all but 0.02%
+   of pixels; compat frames under ``packed`` and ``wide4``; the packed
+   and 4-wide kernels (default and compat) against their plain versions
+   on the flagship's bounce-0 rays (tri mismatches <= 0.001%, t / b
+   equal where tri is, occlusion, overflow and stats exact; the 4-wide
+   walk at 32 and 4 buffer slots, and with its fallback against the
+   packed walk), timed with bounds and what holds them back; config5
+   under ``packed`` and ``wide4`` (launches, eager and replayed ms,
+   against its ``pallas`` frame) and ``collapse_binary``'s seconds on
+   its tree; a scene of 6-triangle leaves at 128x128 depth 2 under
+   ``pop``, ``wide`` and ``pallas`` against the plain versions (the cap
+   of 4 changes its image).
+
+Phases 1-7 and 10-20 run the eager frame (``render_frame(...,
 eager=True)``), whose launch counters count each frame.
 
 Then the ``{"kernels": [...]}`` line (each row with its launches on
@@ -185,7 +207,9 @@ phase 17's paths by world and path: ``parallel_launches``, and
 on phase 18's scenes; ``app_launches``, a captured flagship frame in
 the resilient loop's worker and in the render CLI's (phase app);
 kernels 5 / 6 their ``binary_route_launches`` and
-the new walk its ``probe_pixel_launches`` of phase 10), the nvidia-smi
+the new walk its ``probe_pixel_launches`` of phase 10; every row its
+``traversal_launches``, one flagship frame under each value of phase
+20), the nvidia-smi
 line,
 and last the ``{"ok": true, "device": ...}`` line.  Imports nothing of
 JAX.
@@ -272,6 +296,8 @@ class Recorder:
 
     def __init__(self, integrator, traverse, stream, compaction):
         from pnraytracing_tpu_torch.accel import traverse as bvh_walk
+        from pnraytracing_tpu_torch.accel import traverse_packed as trp
+        from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
 
         self.mod = integrator
 
@@ -289,6 +315,13 @@ class Recorder:
             "any_hit_stream": stream.plain_any_hit_stream,
             "closest_hit_bvh": bvh_walk.plain_closest_hit,
             "any_hit_bvh": bvh_walk.plain_any_hit,
+            # the walks of the XLA traversal values (the 4-wide walk's
+            # fallback is the recorded pop walk)
+            **{f"{q}_hit_{v}": trp.plain(f"{q}_hit_{v}")
+               for q in ("closest", "any")
+               for v in ("packed", "pop", "packet", "wide")},
+            "closest_hit_wide4": tw4.plain_closest_hit_wide4,
+            "any_hit_wide4": tw4.plain_any_hit_wide4,
             # the all-K plain version keys from the boxes alone
             "entry_key": lambda o, d, treelets, tree:
                 compaction.treelet_entry_key(o, d, treelets),
@@ -582,30 +615,37 @@ def check_stats(name, got, want) -> None:
 def port_kernel_name(key: str):
     """The LAUNCHES name of one of the port's kernels from its profiler
     key (demangled "closest_hit_kernel<true, false>" or mangled
-    "...ILb1ELb0EE"), else None.  The walk kernels' last template flag is
-    the compat one; the resident closest kernel's, the stream kernel's
-    and the plain-BVH walk's first says attr / closest."""
+    "...ILb1ELb0EE"), else None.  The walk kernels' last boolean template
+    flag is the compat one; the resident closest kernel's, the stream
+    kernel's, the BVH walk's and the 4-wide walk's first says attr /
+    closest; the BVH walk over the packed rows (layout PackedRows) is
+    the packed walk."""
     m = re.search(r"(closest_hit_binary|any_hit_binary|closest_hit|any_hit"
-                  r"|entry_key|stream|bvh_walk)_kernel"
-                  r"(?:<([^>]*)>|I((?:Lb[01]E)+)E)?", key)
+                  r"|entry_key|stream|bvh_walk|wide4_walk)_kernel"
+                  r"(?:<([^>]*)>|I((?:Lb[01]E)+))?", key)
     if not m:
         return None
     base = m.group(1)
     if base == "entry_key":
         return "treelet_entry_key"
-    flags = ([a.strip() == "true" for a in m.group(2).split(",")]
+    flags = ([a.strip() == "true" for a in m.group(2).split(",")
+              if a.strip() in ("true", "false")]
              if m.group(2) is not None else
              [f == "1" for f in re.findall(r"Lb([01])E", m.group(3) or "")])
     compat = "_compat" if flags and flags[-1] and (
         len(flags) == 2
-        or base not in ("closest_hit", "stream", "bvh_walk")) else ""
+        or base not in ("closest_hit", "stream", "bvh_walk",
+                        "wide4_walk")) else ""
     first = bool(flags) and flags[0]
+    q = "closest_hit" if first else "any_hit"
     if base == "closest_hit":
         base = "closest_hit_attr" if first else "closest_hit"
     elif base == "stream":
-        base = "closest_hit_stream" if first else "any_hit_stream"
+        base = q + "_stream"
     elif base == "bvh_walk":
-        base = "closest_hit_bvh" if first else "any_hit_bvh"
+        base = q + ("_packed" if "PackedRows" in key else "_bvh")
+    elif base == "wide4_walk":
+        base = q + "_wide4"
     return base + compat
 
 
@@ -1589,6 +1629,9 @@ def app_phase(RenderConfig, dev, expected, smi) -> dict:
                          work),
         "render_model": _start("render_model", [*render, *small, "--out",
                                                 out("model.png")], work),
+        "render_wide4": _start("render_wide4", [
+            *render, *small, "--traversal", "wide4", "--out",
+            out("model_wide4.png")], work),
         "render_sharded": _start("render_sharded", [
             "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", "1", *render, "--sharded", *small,
@@ -1631,6 +1674,16 @@ def app_phase(RenderConfig, dev, expected, smi) -> dict:
                              "launches")
     cli_launches = json.loads(line[len("worker launches: "):])
     checks["render_launches"] = cli_launches["captured_frame"] == expected
+    # --traversal wide4: the 4-wide kernels in the worker's frame
+    line = next((ln for ln in done["render_wide4"]["text"].splitlines()
+                 if ln.startswith("worker launches: ")), "{}")
+    wide4_launches = json.loads(line[len("worker launches: "):] or "{}")
+    frame = wide4_launches.get("captured_frame", {})
+    checks["wide4_launches"] = (frame.get("closest_hit_wide4", 0) > 0
+                                and frame.get("any_hit_wide4", 0) > 0
+                                and frame.get("closest_hit_attr", 1) == 0)
+    checks["wide4_png_shape"] = png("model_wide4.png").shape == (
+        APP_CLI_SIZE, APP_CLI_SIZE, 3)
     checks["sharded_png_equals_unsharded"] = bool(np.array_equal(
         png("model_sharded.png"), png("model.png")))
     checks["model_png_shape"] = png("model.png").shape == (
@@ -1649,7 +1702,8 @@ def app_phase(RenderConfig, dev, expected, smi) -> dict:
           "seconds": {k: v["seconds"] for k, v in done.items()},
           "rc": {k: v["rc"] for k, v in done.items()},
           "optimize_losses": [float(losses[1]), float(losses[2])],
-          "render_launches": cli_launches, "card": smi})
+          "render_launches": cli_launches,
+          "render_wide4_launches": wide4_launches, "card": smi})
     if not all(checks.values()):
         raise AssertionError(f"app/cli: {checks}")
     program.clear_programs()  # the phase's captured frames
@@ -2626,6 +2680,408 @@ def bvh_phase(render_frame, RenderConfig, dev, modules, tables, counts,
     return rows, {k: v for k, v in bin_launches.items() if v}
 
 
+# ---- 20. traversal: the walks of RenderConfig.traversal's XLA values -------
+
+TRAVERSAL_VALUES = ("pallas", "packed", "pop", "packet", "wide", "wide4")
+# the walk kernels each value's frame launches (closest, any) besides the
+# key kernel; wide4 launches kernels 5 / 6 too, as its fallback
+TRAVERSAL_KERNELS = {
+    "pallas": ("closest_hit_attr", "any_hit"),
+    "packed": ("closest_hit_packed", "any_hit_packed"),
+    "pop": ("closest_hit_binary", "any_hit_binary"),
+    "packet": ("closest_hit_binary", "any_hit_binary"),
+    "wide": ("closest_hit", "any_hit"),
+    "wide4": ("closest_hit_wide4", "any_hit_wide4"),
+}
+TRAVERSAL_PARITY_RAYS = 65536  # compat parity and the leaf-buffer sweep
+LEAF_CAP_CUBES = 120  # the leaf-cap scene: 6-triangle leaves
+
+
+def traversal_launches(value, depth, keys, key_launches, compat=False):
+    """The launches of one frame of ``value`` at ``depth`` bounces."""
+    c = "_compat" if compat else ""
+    closest, anyh = TRAVERSAL_KERNELS[value]
+    want = dict({k: 0 for k in keys}, **{closest + c: depth + 1,
+                                         anyh + c: depth})
+    if value == "wide4":
+        want.update({"closest_hit_binary" + c: depth + 1,
+                     "any_hit_binary" + c: depth})
+    if key_launches:
+        want["treelet_entry_key"] = key_launches
+    return want
+
+
+def leaf_cap_scene(dev, n_cubes=LEAF_CAP_CUBES, seed=2):
+    """A scene of 6-triangle groups, each spanning all of one random cube
+    (one centroid bound a group, so the builder keeps each as one leaf of
+    6 with ``max_leaf_size=8``), over a floor, with its camera: the
+    scene on which ``RenderConfig.max_leaf_size=4`` leaves triangles 5
+    and 6 of a leaf untested."""
+    import itertools
+
+    import numpy as np
+
+    from pnraytracing_tpu_torch.core.camera import CameraState
+    from pnraytracing_tpu_torch.scene import shapes
+    from pnraytracing_tpu_torch.scene.build import SceneBuilder
+
+    rng = np.random.default_rng(seed)
+    corners = np.array(list(itertools.product((0, 1), repeat=3)),
+                       np.float32)
+    spans = [c for c in itertools.combinations(range(8), 3)
+             if all(len(set(corners[list(c), k])) == 2 for k in range(3))]
+    pick = corners[np.array([spans[j] for j in rng.choice(
+        len(spans), 6, replace=False)])]
+    base = rng.uniform(-3, 3, (n_cubes, 3)).astype(np.float32)
+    base[:, 1] = rng.uniform(0, 3, n_cubes)
+    size = rng.uniform(0.3, 0.8, (n_cubes, 1)).astype(np.float32)
+    pos = (base[:, None, None] + size[:, None, None] * pick[None]).reshape(
+        -1, 3).astype(np.float32)
+    b = SceneBuilder()
+    b.add(dict(positions=pos, normals=np.zeros_like(pos),
+               uvs=np.zeros((len(pos), 2), np.float32),
+               indices=np.arange(len(pos), dtype=np.int32).reshape(-1, 3)),
+          dict(base_color=(0.7, 0.5, 0.3), roughness=0.4), name="cubes")
+    b.add(shapes.quad(12.0), dict(base_color=(0.6, 0.6, 0.6)), name="floor")
+    scene = b.build(max_leaf_size=8, env_constant=(0.6, 0.6, 0.7),
+                    device=dev)
+    cam = CameraState(eye=np.array([0.0, 4.0, 11.0]),
+                      center=np.array([0.0, 1.5, 0.0]),
+                      up=np.array([0.0, 1.0, 0.0]), fov_deg=45.0,
+                      aspect=1.0)
+    return scene, cam.basis(device=dev)
+
+
+def _xla_parity(name, got, want, r, closest):
+    """A walk kernel against its plain version: hits (tri mismatches <=
+    0.001%, t / b equal where tri is) or occlusion exact; returns
+    (mismatches, max |dt|)."""
+    if closest:
+        bad, err = check_closest(name, got, want, r)
+        same = got.tri == want.tri
+        ulps = max(_ulp_max(getattr(got, k)[same], getattr(want, k)[same])
+                   for k in ("t", "b1", "b2"))
+        if ulps:
+            raise AssertionError(f"{name}: t / b differ from the plain "
+                                 f"version by {ulps} ulp")
+        return bad, err
+    return check_occ(name, got, want), 0.0
+
+
+def traversal_kernel_rows(trav, cont, shadow, launches, smi) -> list:
+    """The packed walk (csrc/traverse_bvh.cu over nodes8 + tri12) and the
+    4-wide walk (csrc/traverse_wide4.cu) against their plain versions on
+    the flagship's bounce-0 continuation rays and fused shadow batch (the
+    4-wide one at the frame's 32-slot buffer, and at 4 slots, where rays
+    overflow): hits, occlusion, overflow flags and per-ray stats; the
+    compat forms the same way on ``TRAVERSAL_PARITY_RAYS`` of them.  Then
+    each kernel's time at the path shapes, its plain version's, its bound
+    and what holds it back (pops, leaves, tests a ray, overflow share).
+    Returns the kernels line's rows."""
+    import torch
+
+    from pnraytracing_tpu_torch.accel import traverse_packed as trp
+    from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
+
+    w4 = trav.w4
+    w4_kw = dict(stack_depth=max(16, (w4.width - 1) * w4.depth4 + 4),
+                 max_leaf_size=4)
+    info = {**trp.kernel_info(), **tw4.kernel_info()}
+    packed_bytes = 4 * (trav.nodes8.numel() + trav.tri12.numel())
+    w4_bytes = 4 * (w4.nodes32.numel() + w4.leaf40.numel())
+    codes = w4.nodes32[:, 6 * w4.width:7 * w4.width]
+    slots_per_row = float((codes != 0).sum()) / codes.shape[0]
+    rows, res = [], {}
+    for closest, args in ((True, cont), (False, shadow)):
+        o, d, tm, mask = rays_of(args)
+        r = o.x.shape[0]
+        q = "closest" if closest else "any"
+        for compat in (False, True):
+            c = "_compat" if compat else ""
+            po, pd, ptm, pmask = ((o, d, tm, mask) if not compat else
+                                  (_strided(x, TRAVERSAL_PARITY_RAYS)
+                                   for x in (o, d, tm, mask)))
+            n = po.x.shape[0]
+            # the packed walk
+            name = f"{q}_hit_packed{c}"
+            kern = getattr(trp, f"{q}_hit_packed")
+            plain = trp.plain(f"{q}_hit_packed")
+            got, st = kern(trav, po, pd, ptm, pmask, compat=compat,
+                           with_stats=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, wst = plain(trav, po, pd, ptm, pmask, compat=compat,
+                              with_stats=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            check_stats(name, st, wst)
+            bad, err = _xla_parity(name, got, want, n, closest)
+            ref = got
+            _, fst = kern(trav, o, d, tm, mask, compat=compat,
+                          with_stats=True)
+            slabs, tests = (int(fst[k].sum()) for k in (1, 2))
+            bnd = bound(r * (RAY_IN + (16 if closest else 1)) + packed_bytes,
+                        OPS_AABB * slabs + OPS_TRIANGLE * tests)
+            rows.append(dict(
+                name=name, source="pnraytracing_tpu_torch/csrc/"
+                "traverse_bvh.cu",
+                replaces="pnraytracing_tpu/accel/traverse_packed.py:"
+                         + ("62" if closest else "130")
+                         + " (an XLA walk, not a TPU kernel)",
+                launches=launches.get(name, 0), max_abs_err=err,
+                mismatches=bad, parity_rays=n, rays=r,
+                ms=time_ms(lambda: kern(trav, o, d, tm, mask,
+                                        compat=compat), 10),
+                plain_ms=plain_ms, plain_rays=n,
+                bound_ms=bnd[0], bound_by=bnd[1],
+                pops_per_ray=float(fst[0].sum()) / r,
+                slabs_per_ray=slabs / r, tri_tests_per_ray=tests / r,
+                max_pops=int(fst[0].max()), **info[name]))
+            res[name] = {"rays": n, "mismatches": bad, "stats_equal": True}
+            # the 4-wide walk, at the frame's buffer and at 4 slots
+            name = f"{q}_hit_wide4{c}"
+            kern = getattr(tw4, f"{q}_hit_wide4")
+            plain = getattr(tw4, f"plain_{q}_hit_wide4")
+            sweep = {}
+            for lb in (32, 4):
+                kw = dict(w4_kw, leaf_buffer=lb, compat=compat,
+                          with_stats=True)
+                got, gov, st = kern(w4, po, pd, ptm, pmask, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want, wov, wst = plain(w4, po, pd, ptm, pmask, **kw)
+                torch.cuda.synchronize()
+                if lb == 32:
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                check_stats(f"{name}/buffer{lb}", st, wst)
+                if not torch.equal(gov, wov):
+                    raise AssertionError(f"{name}/buffer{lb}: overflow "
+                                         "flags differ from the plain "
+                                         "version")
+                b_, e_ = _xla_parity(f"{name}/buffer{lb}", got, want, n,
+                                     closest)
+                # the walk as the frame runs it: overflowed rays walked
+                # again by kernels 5 / 6, answers the packed walk's
+                fb = kern(w4, po, pd, ptm, pmask, **dict(
+                    kw, with_stats=False), fallback=lambda *a: getattr(
+                        trp, f"{q}_hit_pop")(trav, *a, compat=compat))[0]
+                # gated in the default form; the compat form is only
+                # reported: its phase 1 prunes by the clipped slab test
+                # (as JAX's), where the compat packed walk enters every
+                # box the line crosses and so reaches the sheared test's
+                # hits outside their leaf's box
+                if compat:
+                    vs_packed = int(((fb.tri != ref.tri) if closest
+                                     else (fb != ref)).sum())
+                elif closest:
+                    vs_packed = check_closest(
+                        f"{name}/buffer{lb}_vs_packed", fb, ref, n)[0]
+                else:
+                    vs_packed = check_occ(f"{name}/buffer{lb}_vs_packed",
+                                          fb, ref)
+                sweep[lb] = {"mismatches": b_, "overflow": int(gov.sum()),
+                             "vs_packed_mismatches": vs_packed}
+                if lb == 32:
+                    bad, err = b_, e_
+            kw = dict(w4_kw, leaf_buffer=32, compat=compat)
+            _, fov, fst = kern(w4, o, d, tm, mask, **kw, with_stats=True)
+            pops, leaves, tests = (int(fst[k].sum()) for k in range(3))
+            bnd = bound(r * (RAY_IN + (16 if closest else 1) + 1) + w4_bytes,
+                        OPS_AABB * pops * slots_per_row
+                        + OPS_TRIANGLE * tests)
+            fb_kw = dict(kw, fallback=lambda *a: getattr(
+                trp, f"{q}_hit_pop")(trav, *a, compat=compat))
+            rows.append(dict(
+                name=name, source="pnraytracing_tpu_torch/csrc/"
+                "traverse_wide4.cu",
+                replaces="pnraytracing_tpu/accel/traverse_wide4.py:"
+                         + ("164" if closest else "204")
+                         + " (an XLA walk, not a TPU kernel)",
+                launches=launches.get(name, 0), max_abs_err=err,
+                mismatches=bad, parity_rays=n, rays=r,
+                ms=time_ms(lambda: kern(w4, o, d, tm, mask, **kw), 10),
+                with_fallback_ms=time_ms(lambda: kern(w4, o, d, tm, mask,
+                                                      **fb_kw), 10),
+                plain_ms=plain_ms, plain_rays=n,
+                bound_ms=bnd[0], bound_by=bnd[1],
+                pops_per_ray=pops / r, leaves_per_ray=leaves / r,
+                tri_tests_per_ray=tests / r, max_pops=int(fst[0].max()),
+                max_leaves=int(fst[1].max()),
+                overflow_share=float(fov.sum()) / r,
+                buffer_sweep=sweep, width=w4.width, depth4=w4.depth4,
+                **info[name]))
+            res[name] = {"rays": n, "mismatches": bad, "overflow_equal": True,
+                         "stats_equal": True, "buffers": sweep}
+    emit({"phase": "traversal_kernels", "parity": res,
+          "ms": {row["name"]: row["ms"] for row in rows},
+          "plain_ms": {row["name"]: row["plain_ms"] for row in rows},
+          "card": smi})
+    return rows
+
+
+def traversal_phase(render_frame, RenderConfig, scene, camera, cont, shadow,
+                    c5, c5_cam, dev, modules, tables, counts, smi):
+    """Phase traversal: ``RenderConfig.traversal``'s six values on the
+    card.  (1) The flagship at 512x512 depth 4 under each value: the
+    launches of one eager frame (counters zeroed just before, read just
+    after) against the value's kernels, ms/frame eager and replayed, the
+    replay equal to the eager frame bit for bit, and the image within
+    atol 3e-5 of the ``pallas`` frame with ``kernel_interaction=False``
+    (the interaction route of every other value, ``make_interaction``)
+    on all but 0.02% of pixels, the distance to the default ``pallas``
+    frame (the attribute kernel's fill) beside it; compat frames under
+    ``packed`` and ``wide4`` count the compat kernels.  (2)
+    :func:`traversal_kernel_rows`.  (3) config5 under ``packed`` and
+    ``wide4``: launches, ms/frame eager and replayed, replay = eager,
+    the image against config5's ``pallas`` frame (stream route, also
+    ``make_interaction``); ``collapse_binary`` and ``build_leaf40`` on
+    config5's tree timed on the host and equal to its layout.  (4) The
+    leaf-cap scene (:func:`leaf_cap_scene`) at 128x128 depth 2 under
+    ``pop`` and ``wide`` (kernels 5 / 6 and 3 / 2 with the cap 4) and
+    ``pallas``, each against its plain versions; the cap changes the
+    image.  Returns the kernels line's new rows and each value's flagship
+    launches."""
+    import numpy as np
+    import torch
+
+    from pnraytracing_tpu_torch.accel import wide4
+    from pnraytracing_tpu_torch.render import program
+    from pnraytracing_tpu_torch.render.renderer import (
+        render_frame as replayed_frame,
+    )
+
+    t_phase = time.perf_counter()
+    keys = list(counts())
+    limit = int(WIDTH * HEIGHT * 2e-4)
+    base = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    ref = render_frame(scene, camera, dataclasses.replace(
+        base, kernel_interaction=False), 1, device=dev)
+    attr = render_frame(scene, camera, base, 1, device=dev)
+
+    def run_value(label, scn, cam, cfg, want, refs, gate, frames=3):
+        img, got = frame_launches(render_frame, scn, cam, cfg, dev, tables,
+                                  counts)
+        if got != want:
+            raise AssertionError(f"traversal {label}: launches {got}, "
+                                 f"expected {want}")
+        check_image(f"traversal {label}", img, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(frames):
+            render_frame(scn, cam, cfg, 2 + f, device=dev)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / frames
+        rep = replayed_frame(scn, cam, cfg, 1, device=dev).clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in range(5):
+            replayed_frame(scn, cam, cfg, 2 + f, device=dev)
+        torch.cuda.synchronize()
+        replayed_ms = (time.perf_counter() - t0) * 1e3 / 5
+        program.clear_programs()
+        out = {"launches": {k: v for k, v in got.items() if v},
+               "eager_ms": eager_ms, "replayed_ms": replayed_ms,
+               "replay_equals_eager": bool(torch.equal(rep, img))}
+        for rname, r_img in refs.items():
+            px = (img - r_img).abs().amax(dim=-1)
+            out[rname] = {"outside_atol_3e-5": int((px > 3e-5).sum()),
+                          "max_abs_err": float(px.max())}
+        if not out["replay_equals_eager"]:
+            raise AssertionError(f"traversal {label}: replay differs from "
+                                 "the eager frame")
+        if out[gate]["outside_atol_3e-5"] > limit:
+            raise AssertionError(f"traversal {label}: {out[gate]}")
+        return out, got
+
+    flagship, launches = {}, {}
+    for value in TRAVERSAL_VALUES:
+        cfg = dataclasses.replace(base, traversal=value)
+        # gated against the pallas frame of its interaction route: the
+        # attribute fill for pallas itself, make_interaction for the rest
+        flagship[value], got = run_value(
+            value, scene, camera, cfg,
+            traversal_launches(value, DEPTH, keys, cfg.sort_max_bounce),
+            {"vs_pallas_kernel_interaction_off": ref, "vs_pallas": attr},
+            "vs_pallas" if value == "pallas" else
+            "vs_pallas_kernel_interaction_off")
+        launches[value] = {k: v for k, v in got.items() if v}
+    compat = {}
+    for value in ("packed", "wide4"):
+        cfg = dataclasses.replace(base, traversal=value, compat_pnrt=True)
+        img, got = frame_launches(render_frame, scene, camera, cfg, dev,
+                                  tables, counts)
+        want = traversal_launches(value, DEPTH, keys, cfg.sort_max_bounce,
+                                  compat=True)
+        if got != want:
+            raise AssertionError(f"traversal {value} compat: launches {got}"
+                                 f", expected {want}")
+        check_image(f"traversal {value} compat", img, cfg)
+        compat[value] = {k: v for k, v in got.items() if v}
+    emit({"phase": "traversal", "scene": "flagship", "width": WIDTH,
+          "height": HEIGHT, "depth": DEPTH, "values": flagship,
+          "compat_launches": compat, "limit": limit, "card": smi})
+
+    frame_counts = {k: v for got in (*launches.values(), *compat.values())
+                    for k, v in got.items()}
+    rows = traversal_kernel_rows(scene.trav, cont, shadow, frame_counts,
+                                 smi)
+
+    # config5: the packed and 4-wide walks at 102,404 triangles
+    t0 = time.perf_counter()
+    host = lambda t: t.cpu().numpy()
+    b5 = c5.bvh
+    n32, ls, lc, depth4 = wide4.collapse_binary(
+        host(b5.node_min), host(b5.node_max), host(b5.right_child),
+        host(b5.start), host(b5.end), width=c5.trav.w4.width)
+    collapse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaf40 = wide4.build_leaf40(host(c5.trav.tri9), ls, lc)
+    leaf40_s = time.perf_counter() - t0
+    if not (np.array_equal(n32, host(c5.trav.w4.nodes32))
+            and np.array_equal(leaf40, host(c5.trav.w4.leaf40))
+            and depth4 == c5.trav.w4.depth4):
+        raise AssertionError("config5: collapse_binary / build_leaf40 "
+                             "differ from the scene's 4-wide layout")
+    c5_ref = render_frame(c5, c5_cam, base, 1, device=dev)
+    on_c5 = {}
+    for value in ("packed", "wide4"):
+        cfg = dataclasses.replace(base, traversal=value)
+        on_c5[value], _ = run_value(
+            f"config5 {value}", c5, c5_cam, cfg,
+            traversal_launches(value, DEPTH, keys, cfg.sort_max_bounce),
+            {"vs_pallas": c5_ref}, "vs_pallas", frames=2)
+    emit({"phase": "traversal_config5", "triangles": int(
+        c5.mesh.indices.shape[0]), "wide_rows": int(n32.shape[0]),
+        "leaves": int(leaf40.shape[0]), "depth4": depth4,
+        "collapse_binary_s": collapse_s, "build_leaf40_s": leaf40_s,
+        "values": on_c5, "card": smi})
+
+    # the leaf cap: kernels 5 / 6 and 3 / 2 test 4 of a leaf's 6
+    lc_scene, lc_cam = leaf_cap_scene(dev)
+    leaf = lc_scene.bvh.right_child < 0
+    max_leaf = int((lc_scene.bvh.end - lc_scene.bvh.start)[leaf].max())
+    size = dict(width=PARITY_SIZE, height=PARITY_SIZE,
+                max_depth=PARITY_DEPTH)
+    cap = {"max_leaf": max_leaf, "w4": lc_scene.trav.w4 is not None}
+    for value in ("pop", "wide", "pallas"):
+        cfg = RenderConfig(traversal=value, **size)
+        cap[value] = frame_parity(render_frame, lc_scene, lc_cam, cfg, dev,
+                                  modules)
+    img4 = render_frame(lc_scene, lc_cam, RenderConfig(traversal="wide",
+                                                       **size), 1,
+                        device=dev)
+    img8 = render_frame(lc_scene, lc_cam, RenderConfig(
+        traversal="wide", max_leaf_size=8, **size), 1, device=dev)
+    cap["pixels_changed_by_the_cap"] = int(
+        ((img4 - img8).abs().amax(dim=-1) > 1e-3).sum())
+    if not (max_leaf == 6 and not cap["w4"]
+            and cap["pixels_changed_by_the_cap"] > 0):
+        raise AssertionError(f"leaf-cap scene: {cap}")
+    emit({"phase": "traversal_leaf_cap", **cap, "card": smi,
+          "phase_s": time.perf_counter() - t_phase})
+    return rows, launches
+
+
 # ---- 17. parallel: parallel/ on torch.distributed --------------------------
 
 PRIM_SHARDS = (2, 8)  # shard counts built from config5's triangle list
@@ -2765,10 +3221,13 @@ def dp_parts(scene, rays, target, keys, cfg, m) -> dict:
 def _launch_tables():
     from pnraytracing_tpu_torch.accel import traverse as trb
     from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+    from pnraytracing_tpu_torch.accel import traverse_packed as trp
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
+    from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
     from pnraytracing_tpu_torch.ops import compaction
 
-    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, compaction.LAUNCHES)
+    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, trp.LAUNCHES,
+              tw4.LAUNCHES, compaction.LAUNCHES)
     return tables, lambda: {k: v for t in tables for k, v in t.items()
                             if v}
 
@@ -3777,7 +4236,9 @@ def main() -> int:
     from pnraytracing_tpu_torch import cuda_build
     from pnraytracing_tpu_torch.accel import traverse as trb
     from pnraytracing_tpu_torch.accel import traverse_cuda as trv
+    from pnraytracing_tpu_torch.accel import traverse_packed as trp
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
+    from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
     from pnraytracing_tpu_torch.core.config import RenderConfig
     from pnraytracing_tpu_torch.ops import compaction
     from pnraytracing_tpu_torch.render import integrator, renderer
@@ -3892,7 +4353,8 @@ def main() -> int:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
     render_frame(scene, camera, cfg, 0, device=dev)  # warm-up 1
     torch.cuda.synchronize()
-    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, compaction.LAUNCHES)
+    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, trp.LAUNCHES,
+              tw4.LAUNCHES, compaction.LAUNCHES)
     counts = lambda: {k: v for t in tables for k, v in t.items()}
     zero_counts(*tables)
     img = render_frame(scene, camera, cfg, 1, device=dev)  # warm-up 2
@@ -4042,6 +4504,9 @@ def main() -> int:
     bvh_rows, binary_route = bvh_phase(render_frame, RenderConfig, dev,
                                        modules, tables, counts, c5, c5_cam,
                                        smi)
+    trav_rows, trav_launches = traversal_phase(
+        render_frame, RenderConfig, scene, camera, cont, shadow, c5, c5_cam,
+        dev, modules, tables, counts, smi)
     par_launches = parallel_phase(render_frame, RenderConfig, scene, camera,
                                   c5, c5_cam, dev, smi)
     for row in rows:  # kernels 1-3 on config5's rays
@@ -4050,8 +4515,11 @@ def main() -> int:
     for row in rows:  # kernels 5 / 6 on route 'binary' (phase bvh)
         if row["name"] in binary_route:
             row["binary_route_launches"] = binary_route[row["name"]]
-    rows += stream_rows + bvh_rows
+    rows += stream_rows + bvh_rows + trav_rows
     for row in rows:
+        # launches of one flagship frame under each traversal value
+        row["traversal_launches"] = {v: n.get(row["name"], 0)
+                                     for v, n in trav_launches.items()}
         if row["name"].startswith(("closest_hit_bvh", "any_hit_bvh")):
             # one compat probe_pixel call a scene (phase compat)
             row["probe_pixel_launches"] = {

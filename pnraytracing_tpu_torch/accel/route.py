@@ -3,8 +3,8 @@
 Copy of the routing predicates of ``pnraytracing_tpu/accel/
 traverse_pallas.py`` (``SMEM_SCENE_BUDGET_BYTES``, ``_scene_bytes``,
 ``scene_fits_smem``, ``pick_variant``) and of the choice that
-``pnraytracing_tpu/render/integrator.py`` makes for
-``traversal="pallas"``.  The budget is the JAX package's: the TPU's 1 MB
+``pnraytracing_tpu/render/integrator.py`` makes for each value of
+``RenderConfig.traversal``.  The budget is the JAX package's: the TPU's 1 MB
 of scalar memory less headroom for the stack.  The port's resident
 kernels read the scene from device memory and have no such limit; the
 budget is kept so that both packages choose the same route for the same
@@ -14,6 +14,7 @@ scene, and so the same scenes stream through bricks.
 from __future__ import annotations
 
 from pnraytracing_tpu_torch.accel.layout import TravData
+from pnraytracing_tpu_torch.core.config import TRAVERSALS
 
 SMEM_SCENE_BUDGET_BYTES = (1 << 20) - (16 << 10)
 
@@ -57,13 +58,18 @@ def pick_variant(trav: TravData, requested: str = "wide") -> str:
     return "binary"
 
 
-def traversal_route(trav: TravData | None, kernel_interaction: bool) -> str:
-    """The route ``render_rays`` takes, as the JAX integrator chooses it
-    for ``traversal="pallas"`` (render/integrator.py:351-384, 443-452):
+def traversal_route(trav: TravData | None, kernel_interaction: bool,
+                    traversal: str = "pallas") -> str:
+    """The route ``render_rays`` takes for ``RenderConfig.traversal``, as
+    the JAX integrator chooses its walk (render/integrator.py:340-452
+    there):
 
-    * ``"bvh"``: the walk over the plain BVH (``accel/traverse.py``) +
-      ``make_interaction``, when the scene has no traversal layout
-      (``trav`` is None: outside the packed layout);
+    * ``"bvh"``, whatever ``traversal``: the walk over the plain BVH
+      (``accel/traverse.py``) + ``make_interaction``, when the scene has
+      no traversal layout (``trav`` is None: outside the packed layout);
+
+    for ``traversal="pallas"``:
+
     * ``"attr"``: the resident closest-hit kernel with the interaction
       fill, when ``kernel_interaction`` is set and ``wide_attr`` fits;
     * ``"wide"``: the resident closest hit + ``make_interaction``, when
@@ -74,9 +80,33 @@ def traversal_route(trav: TravData | None, kernel_interaction: bool) -> str:
       binary walks of ``accel/traverse_cuda.py`` (kernels 5 and 6) +
       ``make_interaction``, where the JAX package takes its XLA packet
       walk, which it holds bit-identical to the binary Pallas kernel
-      (accel/traverse_pallas.py:26 there)."""
+      (accel/traverse_pallas.py:26 there);
+
+    for the values of the JAX package's XLA walks, each closest hit +
+    ``make_interaction`` (never the attribute kernel), whatever the
+    scene's size:
+
+    * ``"packed"`` (also ``"wide4"`` on a scene without the 4-wide
+      layout, JAX's fallback): ``accel/traverse_packed.py``'s packed
+      walk;
+    * ``"pop"`` and ``"packet"``: the pop-test walk, kernels 5 / 6 with
+      the leaf cap (``accel/traverse_packed.py``,
+      ``accel/traverse_packet.py``);
+    * ``"wide_capped"`` for ``"wide"``: kernels 3 / 2 with the leaf cap
+      (``accel/traverse_wide.py``);
+    * ``"wide4"``: the 4-wide collect-then-test walk
+      (``accel/traverse_wide4.py``)."""
+    if traversal not in TRAVERSALS:
+        raise ValueError(f"traversal must be one of {TRAVERSALS}, got "
+                         f"{traversal!r}")
     if trav is None:
         return "bvh"
+    if traversal == "wide":
+        return "wide_capped"
+    if traversal == "wide4":
+        return "wide4" if trav.w4 is not None else "packed"
+    if traversal != "pallas":
+        return traversal
     if scene_fits_smem(trav, "binary"):
         if kernel_interaction and scene_fits_smem(trav, "wide_attr"):
             return "attr"

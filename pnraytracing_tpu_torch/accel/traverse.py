@@ -41,14 +41,19 @@ returns the pops and their batch maximum, which is the JAX walk's
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
+from pnraytracing_tpu_torch.accel.loops import chunked_while
 from pnraytracing_tpu_torch.accel.traverse_cuda import (
     KERNEL_STACK,
     check_mask,
     check_rays,
     check_table,
     detached,
+    kernel_attributes,
     launch_name,
     ptr,
     stream_of,
@@ -98,24 +103,14 @@ def _check(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
 
 def kernel_info() -> dict:
     """Registers and local bytes a thread, threads a block and blocks an
-    SM of the four instantiations, by their LAUNCHES names; raises if the
-    card refuses to say."""
+    SM of the four instantiations, by their LAUNCHES names
+    (``traverse_cuda.kernel_attributes``)."""
     from pnraytracing_tpu_torch.cuda_build import library
 
-    lib = library("traverse_bvh")
-    out = {}
-    for compat in (False, True):
-        for closest, kernel in ((1, "closest_hit_bvh"), (0, "any_hit_bvh")):
-            name = launch_name(kernel, compat)
-            vals = {k: lib.pnrt_bvh_kernel_info(closest, int(compat), what)
-                    for what, k in enumerate(("registers", "blocks_per_sm",
-                                              "threads", "local_bytes"))}
-            if min(vals.values()) < 0:
-                raise RuntimeError(f"{name}: CUDA error "
-                                   f"{-min(vals.values())} reading the "
-                                   "kernel's attributes")
-            out[name] = vals
-    return out
+    query = library("traverse_bvh").pnrt_bvh_kernel_info
+    return kernel_attributes(
+        lambda closest, compat, what: query(0, closest, compat, what),
+        ((1, "closest_hit_bvh"), (0, "any_hit_bvh")))
 
 
 def _kernel(bvh, mesh, o, d, t_max, mask, closest: bool, stack_depth,
@@ -160,10 +155,35 @@ def _push(stack, top, rows, entry, commit, cap: int):
     top[rows] = t0 + commit
 
 
-def _walk_plain(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
-                stack_depth: int, max_leaf_size: int, compat: bool,
-                closest: bool):
-    """The JAX walk, plainly: ``(Hit, occlusion, [3, R] stats)``."""
+@dataclasses.dataclass
+class Tree:
+    """What the plain walk reads of a tree: per node its box
+    (``node_min`` / ``node_max`` [N, 3]), ``right`` child (-1 at a leaf),
+    split ``axis`` and leaf range ``start`` .. ``end`` ([N] integer
+    tensors), and ``corners(ti)``, the [n, 3, 3] corners of triangles
+    ``ti``.  :func:`plain_tree` makes it of a ``BVH`` and its mesh;
+    ``accel/traverse_packed.py`` of the packed rows."""
+
+    node_min: torch.Tensor
+    node_max: torch.Tensor
+    right: torch.Tensor
+    axis: torch.Tensor
+    start: torch.Tensor
+    end: torch.Tensor
+    corners: Callable[[torch.Tensor], torch.Tensor]
+
+
+def plain_tree(bvh: BVH, mesh: TriangleMesh) -> Tree:
+    return Tree(bvh.node_min, bvh.node_max, bvh.right_child, bvh.axis,
+                bvh.start, bvh.end,
+                lambda ti: mesh.positions[mesh.indices[ti].long()])
+
+
+def walk_tree(tree: Tree, o: V3, d: V3, t_max, mask, stack_depth: int,
+              max_leaf_size: int, compat: bool, closest: bool,
+              chunk: int = 1):
+    """The JAX walk, plainly: ``(Hit, occlusion, [3, R] stats)``; the
+    loop's condition is read every ``chunk`` steps (accel/loops.py)."""
     o_r, d_r = o.rows(), d.rows()
     inv = safe_inv_dir(d_r)
     r, dev = t_max.shape[0], t_max.device
@@ -179,25 +199,26 @@ def _walk_plain(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
     occ = torch.zeros(r, dtype=torch.bool, device=dev)
     stats = torch.zeros((3, r), dtype=torch.int32, device=dev)
     box = lambda nodes, rows, t_lim: intersect_aabb(
-        bvh.node_min[nodes], bvh.node_max[nodes], o_r[rows], inv[rows],
+        tree.node_min[nodes], tree.node_max[nodes], o_r[rows], inv[rows],
         t_lim, compat)
-    while True:
+
+    def step(_):
         idx = torch.nonzero(top > 0).squeeze(1)
         if idx.numel() == 0:
-            break
+            return None
         node = stack[idx, (top[idx] - 1).clamp(max=cap)]
         top[idx] -= 1
         stats[0, idx] += 1
         stats[1, idx] += 1
         t_lim = t_best[idx] if closest else t_max[idx]
         hit = box(node, idx, t_lim)
-        right = bvh.right_child[node].long()
+        right = tree.right[node].long()
 
         leaf = hit & (right < 0)
         lrows, lnode = idx[leaf], node[leaf]
         if lrows.numel():
-            s = bvh.start[lnode].long()
-            count = torch.minimum(bvh.end[lnode].long(),
+            s = tree.start[lnode].long()
+            count = torch.minimum(tree.end[lnode].long(),
                                   s + max_leaf_size) - s
             t_leaf = t_lim[leaf]
             for k in range(int(count.max())):
@@ -208,7 +229,7 @@ def _walk_plain(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
                 if rows.numel() == 0:
                     continue
                 ti = s[sel] + k
-                p = mesh.positions[mesh.indices[ti].long()]  # [n, 3, 3]
+                p = tree.corners(ti)  # [n, 3, 3]
                 stats[2, rows] += 1
                 h, t, u, v = intersect_triangle(
                     p[:, 0], p[:, 1], p[:, 2], o_r[rows], d_r[rows],
@@ -226,7 +247,7 @@ def _walk_plain(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
         inner = hit & (right >= 0)
         irows, inode = idx[inner], node[inner]
         if irows.numel():
-            ax = bvh.axis[inode].long().clamp(min=0)
+            ax = tree.axis[inode].long().clamp(min=0)
             neg = d_r[irows, ax] < 0
             left, rc = inode + 1, right[inner]
             near, far = torch.where(neg, rc, left), torch.where(neg, left, rc)
@@ -237,7 +258,17 @@ def _walk_plain(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
             _push(stack, top, irows, near, near_ok, cap)
         if not closest:
             top[occ] = 0
+        return None
+
+    chunked_while(lambda _: bool((top > 0).any()), step, None, chunk)
     return Hit(tri=tri, t=t_best, b1=b1, b2=b2), occ, stats
+
+
+def _walk_plain(bvh: BVH, mesh: TriangleMesh, o: V3, d: V3, t_max, mask,
+                stack_depth: int, max_leaf_size: int, compat: bool,
+                closest: bool):
+    return walk_tree(plain_tree(bvh, mesh), o, d, t_max, mask, stack_depth,
+                     max_leaf_size, compat, closest)
 
 
 def plain_closest_hit(bvh, mesh, o, d, t_max, mask=None, *, stack_depth=64,

@@ -43,6 +43,11 @@ Every entry point and plain version takes ``compat`` (the JAX package's
 ray setup and interval-free slab test (``ops/intersect.py``), so a walk
 prunes no box by its ``t``.  On the card it launches the kernel's compat
 instantiation, counted under the kernel's name with ``_compat`` appended.
+
+``max_leaf_size`` caps the triangles tested a leaf, as the JAX package's
+Pallas kernels and XLA walks cap them: the integrator passes
+``RenderConfig.max_leaf_size`` on every route.  It defaults to 15, the
+packed layout's largest leaf, which tests every triangle.
 """
 
 from __future__ import annotations
@@ -51,7 +56,14 @@ import dataclasses
 
 import torch
 
-from pnraytracing_tpu_torch.accel.layout import TravData
+from pnraytracing_tpu_torch.accel.layout import (
+    MAX_PACKED_LEAF,
+    TravData,
+    decode_leaf_info,
+    unpack_node_rows,
+    unpack_wide_rows,
+)
+from pnraytracing_tpu_torch.accel.loops import chunked_while
 from pnraytracing_tpu_torch.accel.route import pick_variant
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import (
@@ -183,19 +195,18 @@ def launch_name(kernel: str, compat: bool) -> str:
     return kernel + ("_compat" if compat else "")
 
 
-def kernel_info() -> dict:
-    """What the card gives each resident walk kernel as built, both
-    instantiations (the compat ones under their ``_compat`` names):
-    registers and bytes of local memory a thread, threads a block and
-    the blocks an SM holds at once; raises if the card refuses to say."""
-    from pnraytracing_tpu_torch.cuda_build import library
-
-    lib = library("traverse")
+def kernel_attributes(query, kernels) -> dict:
+    """What the card gives each of ``kernels`` (``(which, name)`` pairs)
+    as built, both instantiations (the compat ones under their
+    ``_compat`` names): registers and bytes of local memory a thread,
+    threads a block and the blocks an SM holds at once, each read by
+    ``query(which, compat, what)`` (a library's ``*_kernel_info``, what
+    0-3); raises if the card refuses to say."""
     out = {}
     for compat in (False, True):
-        for which, kernel in enumerate(_KERNELS):
+        for which, kernel in kernels:
             name = launch_name(kernel, compat)
-            vals = {k: lib.pnrt_walk_kernel_info(which, int(compat), what)
+            vals = {k: query(which, int(compat), what)
                     for what, k in enumerate(("registers", "blocks_per_sm",
                                               "threads", "local_bytes"))}
             if min(vals.values()) < 0:
@@ -206,7 +217,16 @@ def kernel_info() -> dict:
     return out
 
 
-def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats, compat):
+def kernel_info() -> dict:
+    """:func:`kernel_attributes` of the resident walk kernels."""
+    from pnraytracing_tpu_torch.cuda_build import library
+
+    return kernel_attributes(library("traverse").pnrt_walk_kernel_info,
+                             tuple(enumerate(_KERNELS)))
+
+
+def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats, compat,
+                    max_leaf=MAX_PACKED_LEAF):
     from pnraytracing_tpu_torch.cuda_build import library
 
     r, dev = o.x.shape[0], o.x.device
@@ -218,7 +238,8 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats, compat):
     err = library("traverse").pnrt_closest_hit(
         ptr(trav.nodes16c), ptr(trav.tri12), ptr(trav.tri_attr16),
         ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
-        ptr(t_max), ptr(mask), r, int(attr), int(compat), ptr(t), ptr(tri),
+        ptr(t_max), ptr(mask), r, int(attr), int(compat), int(max_leaf),
+        ptr(t), ptr(tri),
         ptr(b1), ptr(b2), *[ptr(a) for a in attrs], ptr(stats),
         stream_of(o.x))
     _raise_on(err, "closest-hit")
@@ -227,27 +248,30 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats, compat):
     return Hit(tri=tri, t=t, b1=b1, b2=b2), (attrs if attr else None), stats
 
 
-def _kernel_any(trav, o, d, t_max, mask, with_stats, compat):
+def _kernel_any(trav, o, d, t_max, mask, with_stats, compat,
+                max_leaf=MAX_PACKED_LEAF):
     from pnraytracing_tpu_torch.cuda_build import library
 
     (occ,), stats = _outputs(o.x.shape[0], o.x.device, False, with_stats)
     err = library("traverse").pnrt_any_hit(
         ptr(trav.nodes16c), ptr(trav.tri12), ptr(o.x), ptr(o.y),
         ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z), ptr(t_max),
-        ptr(mask), o.x.shape[0], int(compat), ptr(occ), ptr(stats),
+        ptr(mask), o.x.shape[0], int(compat), int(max_leaf), ptr(occ),
+        ptr(stats),
         stream_of(o.x))
     _raise_on(err, "any-hit")
     LAUNCHES[launch_name("any_hit", compat)] += 1
     return occ, stats
 
 
-def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats, compat):
+def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats, compat,
+                   max_leaf=MAX_PACKED_LEAF):
     from pnraytracing_tpu_torch.cuda_build import library
 
     r = o.x.shape[0]
     outs, stats = _outputs(r, o.x.device, closest, with_stats)
     rays = (ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y), ptr(d.z),
-            ptr(t_max), ptr(mask), r, int(compat))
+            ptr(t_max), ptr(mask), r, int(compat), int(max_leaf))
     lib = library("traverse")
     fn = lib.pnrt_closest_hit_binary if closest else lib.pnrt_any_hit_binary
     err = fn(ptr(trav.nodes8), ptr(trav.tri12), *rays,
@@ -314,10 +338,13 @@ class Rays:
 class WalkState:
     """The results a plain walk carries per ray: the closest hit, the
     occlusion flag and the stats (``n_stats`` rows:
-    pops, leaf pops, triangle tests, and what the walk adds)."""
+    pops, leaf pops, triangle tests, and what the walk adds); a leaf's
+    tests stop after ``max_leaf`` triangles."""
 
-    def __init__(self, ray: Rays, mode: str, n_stats: int = 3):
+    def __init__(self, ray: Rays, mode: str, n_stats: int = 3,
+                 max_leaf: int = MAX_PACKED_LEAF):
         r, dev = ray.t_max.shape[0], ray.t_max.device
+        self.max_leaf = max_leaf
         self.any_mode = mode == "any"
         self.t_best = ray.t_max.clone()
         self.tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
@@ -335,6 +362,7 @@ class WalkState:
         triangle start[j] + k), in slot order; ``fetch_tri(rows, ti)``
         gives their [n, 9] corners and global ids."""
         self.stats[1, lrows] += 1
+        count = count.clamp(max=self.max_leaf)
         for k in range(int(count.max()) if count.numel() else 0):
             sel = count > k
             if self.any_mode:
@@ -388,10 +416,10 @@ def order_children(ray: Rays, rows, row, t_lim):
     """Both children of wide rows [n, 16] slab-tested against ``t_lim``:
     (near, far, hit near, hit far) by each ray's direction sign on the
     row's split axis."""
-    hl = ray.slab(rows, row[:, 0:3], row[:, 3:6], t_lim)
-    hr = ray.slab(rows, row[:, 6:9], row[:, 9:12], t_lim)
-    li, ri = row[:, 12].to(torch.int32), row[:, 13].to(torch.int32)
-    d_neg = ray.d_on(rows, row[:, 14].to(torch.int32)) < 0
+    lmin, lmax, rmin, rmax, li, ri, axis = unpack_wide_rows(row)
+    hl = ray.slab(rows, lmin, lmax, t_lim)
+    hr = ray.slab(rows, rmin, rmax, t_lim)
+    d_neg = ray.d_on(rows, axis) < 0
     return (torch.where(d_neg, ri, li), torch.where(d_neg, li, ri),
             torch.where(d_neg, hr, hl), torch.where(d_neg, hl, hr))
 
@@ -413,19 +441,21 @@ def push(stack, top, rows, entry, commit):
 
 
 def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
-              fetch_row, fetch_tri):
+              fetch_row, fetch_tri, chunk: int = 1):
     """Plain version of the kernels' push-test wide walk: every ray keeps
     its own stack (a row of an [R, stack_depth] tensor); each step pops
     one entry for every ray whose stack is not empty and works on just
-    those rays.  ``fetch_row(rows, info)`` gives the popped wide rows
-    [n, 16]."""
+    those rays (the loop's condition read every ``chunk`` steps,
+    accel/loops.py).  ``fetch_row(rows, info)`` gives the popped wide
+    rows [n, 16]."""
     r, dev = ray.t_max.shape[0], ray.t_max.device
     stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
     top = active.to(torch.int64)  # the root row 0 sits in slot 0
-    while True:
+
+    def step(_):
         idx = torch.nonzero(top > 0).squeeze(1)
         if idx.numel() == 0:
-            break
+            return None
         top[idx] -= 1
         info = stack[idx, top[idx]]
         st.stats[0, idx] += 1
@@ -433,10 +463,8 @@ def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
 
         lrows = idx[leaf]
         if lrows.numel():
-            meta = (-info[leaf] - 1).long()
-            st.test_leaves(ray, lrows, torch.div(meta, 16,
-                                                 rounding_mode="floor"),
-                           meta % 16, fetch_tri)
+            st.test_leaves(ray, lrows, *decode_leaf_info(info[leaf]),
+                           fetch_tri)
 
         irows = idx[~leaf]
         if irows.numel():
@@ -448,97 +476,109 @@ def wide_walk(ray: Rays, st: WalkState, active, stack_depth: int,
 
         if st.any_mode:
             top[st.occ] = 0
+        return None
+
+    chunked_while(lambda _: bool((top > 0).any()), step, None, chunk)
 
 
 def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, stack_depth: int,
-                mode: str, compat: bool):
+                mode: str, compat: bool, max_leaf: int = MAX_PACKED_LEAF,
+                chunk: int = 1):
     """The resident wide walk of csrc/traverse.cu, plainly: same visit
     order, same arithmetic, same results.  ``mode``: 'closest' or 'any'."""
     ray = Rays.of(o, d, t_max, compat)
-    st = WalkState(ray, mode)
+    st = WalkState(ray, mode, max_leaf=max_leaf)
     wide_walk(ray, st, walking(mask, o, d), stack_depth,
               lambda rows, info: trav.nodes16c[info],
-              lambda rows, ti: (trav.tri9[ti], ti))
+              lambda rows, ti: (trav.tri9[ti], ti), chunk)
     return st
 
 
 def _walk_plain_binary(trav: TravData, o: V3, d: V3, t_max, mask,
-                       stack_depth: int, mode: str, compat: bool):
+                       stack_depth: int, mode: str, compat: bool,
+                       max_leaf: int = MAX_PACKED_LEAF, chunk: int = 1):
     """The binary pop-test walk of csrc/traverse.cu, plainly: a popped
     node tests its own box against the ray's t, then tests its leaf's
     triangles or pushes both children (left = node + 1), far first."""
     ray = Rays.of(o, d, t_max, compat)
-    st = WalkState(ray, mode)
+    st = WalkState(ray, mode, max_leaf=max_leaf)
     r, dev = t_max.shape[0], t_max.device
     stack = torch.zeros((r, stack_depth), dtype=torch.int32, device=dev)
     top = walking(mask, o, d).to(torch.int64)
     nodes = trav.nodes8
-    while True:
+
+    def step(_):
         idx = torch.nonzero(top > 0).squeeze(1)
         if idx.numel() == 0:
-            break
+            return None
         top[idx] -= 1
         node = stack[idx, top[idx]]
         st.stats[0, idx] += 1
         row = nodes[node.long()]
-        hit = ray.slab(idx, row[:, 0:3], row[:, 3:6], st.t_lim(ray, idx))
-        enc_right = row[:, 6].to(torch.int32)
-        meta = row[:, 7].to(torch.int64)
-        leaf = hit & (enc_right < 0)
+        nmin, nmax, right, start, count, axis = unpack_node_rows(row)
+        hit = ray.slab(idx, nmin, nmax, st.t_lim(ray, idx))
+        leaf = hit & (right < 0)
         lrows = idx[leaf]
         if lrows.numel():
-            st.test_leaves(ray, lrows, torch.div(meta[leaf], 16,
-                                                 rounding_mode="floor"),
-                           meta[leaf] % 16,
+            st.test_leaves(ray, lrows, start[leaf], count[leaf],
                            lambda rows, ti: (trav.tri9[ti], ti))
-        inner = hit & (enc_right >= 0)
+        inner = hit & (right >= 0)
         irows = idx[inner]
         if irows.numel():
-            enc = enc_right[inner]
-            left, right = node[inner] + 1, torch.div(enc, 4,
-                                                     rounding_mode="floor")
-            d_neg = ray.d_on(irows, enc % 4) < 0
+            left, right = node[inner] + 1, right[inner]
+            d_neg = ray.d_on(irows, axis[inner]) < 0
             one = torch.ones_like(irows)
             push(stack, top, irows, torch.where(d_neg, left, right), one)
             push(stack, top, irows, torch.where(d_neg, right, left), one)
         if st.any_mode:
             top[st.occ] = 0
+        return None
+
+    chunked_while(lambda _: bool((top > 0).any()), step, None, chunk)
     return st
 
 
 def plain_closest_hit_attr(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                           with_stats=False, compat=False):
+                           with_stats=False, compat=False,
+                           max_leaf_size=MAX_PACKED_LEAF):
     """The plain version of :func:`closest_hit_attr` on any device (also
     for holding the kernel against it on the card); never launches a
     kernel."""
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest", compat)
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest", compat,
+                     max_leaf_size)
     out = (st.hit(), interaction_fill(trav.tri_attr16, st.tri, st.b1, st.b2))
     return out + (st.stats,) if with_stats else out
 
 
 def plain_closest_hit(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                      with_stats=False, compat=False):
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest", compat)
+                      with_stats=False, compat=False,
+                      max_leaf_size=MAX_PACKED_LEAF, chunk=1):
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "closest", compat,
+                     max_leaf_size, chunk)
     return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                  with_stats=False, compat=False):
-    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "any", compat)
+                  with_stats=False, compat=False,
+                  max_leaf_size=MAX_PACKED_LEAF, chunk=1):
+    st = _walk_plain(trav, o, d, t_max, mask, stack_depth, "any", compat,
+                     max_leaf_size, chunk)
     return (st.occ, st.stats) if with_stats else st.occ
 
 
 def plain_closest_hit_binary(trav, o, d, t_max, mask=None, *,
-                             stack_depth=64, with_stats=False, compat=False):
+                             stack_depth=64, with_stats=False, compat=False,
+                             max_leaf_size=MAX_PACKED_LEAF, chunk=1):
     st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "closest",
-                            compat)
+                            compat, max_leaf_size, chunk)
     return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit_binary(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                         with_stats=False, compat=False):
+                         with_stats=False, compat=False,
+                         max_leaf_size=MAX_PACKED_LEAF, chunk=1):
     st = _walk_plain_binary(trav, o, d, t_max, mask, stack_depth, "any",
-                            compat)
+                            compat, max_leaf_size, chunk)
     return (st.occ, st.stats) if with_stats else st.occ
 
 
@@ -547,57 +587,70 @@ def plain_any_hit_binary(trav, o, d, t_max, mask=None, *, stack_depth=64,
 def closest_hit_attr(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                      mask: torch.Tensor | None = None, *,
                      stack_depth: int = 64, with_stats: bool = False,
-                     compat: bool = False):
+                     compat: bool = False,
+                     max_leaf_size: int = MAX_PACKED_LEAF):
     """Closest hit + interaction fill: ``(Hit, (nx, ny, nz, u, v, mt))``
     (+ stats).  ``nx..nz`` is the barycentric-interpolated, unnormalized,
     unflipped shading normal; ``mt`` the int32 material/texture word."""
     o, d, t_max, mask = detached(o, d, t_max, mask)
+    cap = _leaf_cap(max_leaf_size)
     if _check(trav, o, d, t_max, mask, stack_depth, "attr").type == "cpu":
         return plain_closest_hit_attr(trav, o, d, t_max, mask,
                                       stack_depth=stack_depth,
-                                      with_stats=with_stats, compat=compat)
+                                      with_stats=with_stats, compat=compat,
+                                      max_leaf_size=cap)
     hit, attrs, stats = _kernel_closest(trav, o, d, t_max, mask, True,
-                                        with_stats, compat)
+                                        with_stats, compat, cap)
     return (hit, attrs, stats) if with_stats else (hit, attrs)
+
+
+def _leaf_cap(max_leaf_size: int) -> int:
+    if max_leaf_size < 0:
+        raise ValueError(f"max_leaf_size must be >= 0, got {max_leaf_size}")
+    return min(int(max_leaf_size), MAX_PACKED_LEAF)
 
 
 def closest_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                 mask: torch.Tensor | None = None, *, stack_depth: int = 64,
                 variant: str = "wide", with_stats: bool = False,
-                compat: bool = False):
+                compat: bool = False,
+                max_leaf_size: int = MAX_PACKED_LEAF):
     """Closest hit: ``Hit`` (+ stats), by the wide or binary walk."""
     o, d, t_max, mask = detached(o, d, t_max, mask)
     variant = pick_variant(trav, variant)
     binary = variant == "binary"
+    cap = _leaf_cap(max_leaf_size)
     if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
         fn = plain_closest_hit_binary if binary else plain_closest_hit
         return fn(trav, o, d, t_max, mask, stack_depth=stack_depth,
-                  with_stats=with_stats, compat=compat)
+                  with_stats=with_stats, compat=compat, max_leaf_size=cap)
     if binary:
         hit, stats = _kernel_binary(trav, o, d, t_max, mask, True,
-                                    with_stats, compat)
+                                    with_stats, compat, cap)
     else:
         hit, _, stats = _kernel_closest(trav, o, d, t_max, mask, False,
-                                        with_stats, compat)
+                                        with_stats, compat, cap)
     return (hit, stats) if with_stats else hit
 
 
 def any_hit(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
             mask: torch.Tensor | None = None, *, stack_depth: int = 64,
             variant: str = "wide", with_stats: bool = False,
-            compat: bool = False):
+            compat: bool = False, max_leaf_size: int = MAX_PACKED_LEAF):
     """Occlusion: True where a triangle is hit within ``t_max`` (+ stats),
     by the wide or binary walk."""
     o, d, t_max, mask = detached(o, d, t_max, mask)
     variant = pick_variant(trav, variant)
     binary = variant == "binary"
+    cap = _leaf_cap(max_leaf_size)
     if _check(trav, o, d, t_max, mask, stack_depth, variant).type == "cpu":
         fn = plain_any_hit_binary if binary else plain_any_hit
         return fn(trav, o, d, t_max, mask, stack_depth=stack_depth,
-                  with_stats=with_stats, compat=compat)
+                  with_stats=with_stats, compat=compat, max_leaf_size=cap)
     if binary:
         occ, stats = _kernel_binary(trav, o, d, t_max, mask, False,
-                                    with_stats, compat)
+                                    with_stats, compat, cap)
     else:
-        occ, stats = _kernel_any(trav, o, d, t_max, mask, with_stats, compat)
+        occ, stats = _kernel_any(trav, o, d, t_max, mask, with_stats, compat,
+                                 cap)
     return (occ, stats) if with_stats else occ

@@ -32,11 +32,16 @@ from __future__ import annotations
 import torch
 
 from pnraytracing_tpu_torch.accel.bricks import BRICK_HEADER_WORDS
-from pnraytracing_tpu_torch.accel.layout import TravData
+from pnraytracing_tpu_torch.accel.layout import (
+    MAX_PACKED_LEAF,
+    TravData,
+    decode_leaf_info,
+)
 from pnraytracing_tpu_torch.accel.traverse_cuda import (
     KERNEL_STACK,
     Rays,
     WalkState,
+    _leaf_cap,
     _outputs,
     _raise_on,
     check_mask,
@@ -110,7 +115,8 @@ def kernel_info(trav: TravData) -> dict:
                                   ("any_hit_stream", 0))}
 
 
-def _kernel(trav, o, d, t_max, mask, closest, with_stats, compat):
+def _kernel(trav, o, d, t_max, mask, closest, with_stats, compat,
+            max_leaf):
     from pnraytracing_tpu_torch.cuda_build import library
 
     s = trav.stream
@@ -119,7 +125,8 @@ def _kernel(trav, o, d, t_max, mask, closest, with_stats, compat):
     hit_outs = outs if closest else (None,) * 4
     occ = None if closest else outs[0]
     err = library("traverse_stream").pnrt_stream(
-        int(closest), int(compat), ptr(s.top16), ptr(s.bricks),
+        int(closest), int(compat), int(max_leaf), ptr(s.top16),
+        ptr(s.bricks),
         s.brick_words, ptr(o.x), ptr(o.y), ptr(o.z), ptr(d.x), ptr(d.y),
         ptr(d.z), ptr(t_max), ptr(mask), r, *[ptr(x) for x in hit_outs],
         ptr(occ), ptr(stats), stream_of(o.x))
@@ -135,7 +142,7 @@ def _kernel(trav, o, d, t_max, mask, closest, with_stats, compat):
 # ---- the plain versions ---------------------------------------------------
 
 def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str,
-                compat: bool):
+                compat: bool, max_leaf: int):
     """The stream kernel's walk, plainly: every ray keeps one stack (a
     row of an [R, depth] tensor) whose entries carry the brick they
     belong to in a second tensor (-1: the top tree).  Each step pops one
@@ -147,7 +154,7 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str,
     ``compat``, against nothing)."""
     s = trav.stream
     ray = Rays.of(o, d, t_max, compat)
-    st = WalkState(ray, mode, n_stats=4)
+    st = WalkState(ray, mode, n_stats=4, max_leaf=max_leaf)
     r, dev = t_max.shape[0], t_max.device
     depth = walk_stack_depth(s)
     stack = torch.zeros((r, depth), dtype=torch.int32, device=dev)
@@ -183,11 +190,9 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str,
 
         lrows = idx[leaf]
         if lrows.numel():
-            meta = -info[leaf] - 1
             cur[lrows] = brick[leaf]
-            st.test_leaves(ray, lrows, torch.div(meta, 16,
-                                                 rounding_mode="floor"),
-                           meta % 16, fetch_tri)
+            st.test_leaves(ray, lrows, *decode_leaf_info(info[leaf]),
+                           fetch_tri)
 
         irows = idx[~leaf]
         if irows.numel():
@@ -209,17 +214,20 @@ def _walk_plain(trav: TravData, o: V3, d: V3, t_max, mask, mode: str,
 
 
 def plain_closest_hit_stream(trav, o, d, t_max, mask=None, *,
-                             stack_depth=64, with_stats=False, compat=False):
+                             stack_depth=64, with_stats=False, compat=False,
+                             max_leaf_size=MAX_PACKED_LEAF):
     """The plain version of :func:`closest_hit_stream` on any device (also
     for holding the kernel against it on the card); never launches a
     kernel."""
-    st = _walk_plain(trav, o, d, t_max, mask, "closest", compat)
+    st = _walk_plain(trav, o, d, t_max, mask, "closest", compat,
+                     max_leaf_size)
     return (st.hit(), st.stats) if with_stats else st.hit()
 
 
 def plain_any_hit_stream(trav, o, d, t_max, mask=None, *, stack_depth=64,
-                         with_stats=False, compat=False):
-    st = _walk_plain(trav, o, d, t_max, mask, "any", compat)
+                         with_stats=False, compat=False,
+                         max_leaf_size=MAX_PACKED_LEAF):
+    st = _walk_plain(trav, o, d, t_max, mask, "any", compat, max_leaf_size)
     return (st.occ, st.stats) if with_stats else st.occ
 
 
@@ -228,26 +236,34 @@ def plain_any_hit_stream(trav, o, d, t_max, mask=None, *, stack_depth=64,
 def closest_hit_stream(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                        mask: torch.Tensor | None = None, *,
                        stack_depth: int = 64, with_stats: bool = False,
-                       compat: bool = False):
+                       compat: bool = False,
+                       max_leaf_size: int = MAX_PACKED_LEAF):
     """Closest hit over the brick layout: ``Hit`` (+ stats).
     ``stack_depth`` is unused, as in the JAX package: the walk's depth
     follows from the layout's ``brick_stack``."""
     o, d, t_max, mask = detached(o, d, t_max, mask)
+    cap = _leaf_cap(max_leaf_size)
     if _check(trav, o, d, t_max, mask).type == "cpu":
         return plain_closest_hit_stream(trav, o, d, t_max, mask,
-                                        with_stats=with_stats, compat=compat)
-    hit, stats = _kernel(trav, o, d, t_max, mask, True, with_stats, compat)
+                                        with_stats=with_stats, compat=compat,
+                                        max_leaf_size=cap)
+    hit, stats = _kernel(trav, o, d, t_max, mask, True, with_stats, compat,
+                         cap)
     return (hit, stats) if with_stats else hit
 
 
 def any_hit_stream(trav: TravData, o: V3, d: V3, t_max: torch.Tensor,
                    mask: torch.Tensor | None = None, *,
                    stack_depth: int = 64, with_stats: bool = False,
-                   compat: bool = False):
+                   compat: bool = False,
+                   max_leaf_size: int = MAX_PACKED_LEAF):
     """Occlusion over the brick layout (+ stats)."""
     o, d, t_max, mask = detached(o, d, t_max, mask)
+    cap = _leaf_cap(max_leaf_size)
     if _check(trav, o, d, t_max, mask).type == "cpu":
         return plain_any_hit_stream(trav, o, d, t_max, mask,
-                                    with_stats=with_stats, compat=compat)
-    occ, stats = _kernel(trav, o, d, t_max, mask, False, with_stats, compat)
+                                    with_stats=with_stats, compat=compat,
+                                    max_leaf_size=cap)
+    occ, stats = _kernel(trav, o, d, t_max, mask, False, with_stats, compat,
+                         cap)
     return (occ, stats) if with_stats else occ

@@ -7,7 +7,8 @@ package's, whose arrays convert with ``np.asarray``), so this module
 never imports JAX.  :func:`scene_from_arrays` builds the port's ``Scene``
 from such a dict on a device.  A scene outside the packed layout
 (``trav`` None) has no ``trav.*`` leaves and converts to a scene with
-``trav=None``.  Tests use the pair to render the very
+``trav=None``; the brick-streaming and 4-wide layouts travel as
+``stream.*`` and ``w4.*`` leaves.  Tests use the pair to render the very
 scene the JAX package built.
 
 The same holds for the state of a gradient step: :func:`params_to_arrays`
@@ -30,7 +31,11 @@ import numpy as np
 import torch
 
 from pnraytracing_tpu_torch.accel.bricks import StreamData, treelet_index_tree
-from pnraytracing_tpu_torch.accel.layout import TravData, pack_tri12
+from pnraytracing_tpu_torch.accel.layout import (
+    TravData,
+    Wide4Data,
+    pack_tri12,
+)
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
     BVH,
@@ -49,6 +54,8 @@ _TRAV_FIELDS = ("tri9", "nodes8", "nodes16c", "tri_attr16", "treelets")
 _STREAM_ARRAYS = ("top16", "bricks")
 _STREAM_INTS = ("brick_words", "n_bricks", "n_top_rows", "brick_stack",
                 "n_tris")
+_W4_ARRAYS = ("nodes32", "leaf40")
+_W4_INTS = ("depth4", "width")
 
 
 def _np(x) -> np.ndarray:
@@ -89,13 +96,15 @@ def scene_to_arrays(scene) -> dict[str, np.ndarray]:
         out["trav.treelet_tree"] = _np(tree)
     elif "trav.treelets" in out:
         out["trav.treelet_tree"] = treelet_index_tree(out["trav.treelets"])
-    stream = getattr(scene.trav, "stream", None)
-    if stream is not None:
-        for name in _STREAM_ARRAYS:
-            out[f"stream.{name}"] = _np(getattr(stream, name))
-        for name in _STREAM_INTS:
-            out[f"stream.{name}"] = np.asarray(getattr(stream, name),
-                                               np.int64)
+    for group, arrays, ints in (("stream", _STREAM_ARRAYS, _STREAM_INTS),
+                                ("w4", _W4_ARRAYS, _W4_INTS)):
+        obj = getattr(scene.trav, group, None)
+        if obj is not None:
+            for name in arrays:
+                out[f"{group}.{name}"] = _np(getattr(obj, name))
+            for name in ints:
+                out[f"{group}.{name}"] = np.asarray(getattr(obj, name),
+                                                    np.int64)
     return out
 
 
@@ -121,8 +130,12 @@ def scene_from_arrays(leaves: dict[str, np.ndarray], device=None) -> Scene:
         stream = StreamData(
             **{n: t(leaves[f"stream.{n}"]) for n in _STREAM_ARRAYS},
             **{n: int(leaves[f"stream.{n}"]) for n in _STREAM_INTS})
+    w4 = None
+    if "w4.nodes32" in leaves:
+        w4 = Wide4Data(**{n: t(leaves[f"w4.{n}"]) for n in _W4_ARRAYS},
+                       **{n: int(leaves[f"w4.{n}"]) for n in _W4_INTS})
     opt = lambda k: t(leaves[k]) if k in leaves else None
-    trav = TravData(bvh_depth=depth, stream=stream,
+    trav = TravData(bvh_depth=depth, stream=stream, w4=w4,
                     tri12=t(leaves["trav.tri12"]),
                     treelets=opt("trav.treelets"),
                     treelet_tree=opt("trav.treelet_tree"),

@@ -1,19 +1,39 @@
 """Static render configuration.
 
-PyTorch counterpart of ``pnraytracing_tpu/core/config.py``: the fields
-this port honours, with the JAX package's defaults.  There is no
-``traversal`` field: the port always takes the route the JAX package
-takes for ``traversal="pallas"`` (``accel/route.py``), running the
-hand-written CUDA kernels on CUDA tensors and their plain PyTorch
-versions on CPU tensors.  ``trav_tile``, ``trav_chunk`` and
-``trav_leaf_buffer`` are absent for the same reason: they tune the JAX
-package's XLA walks (the packet tile, the chunked while loop, the 4-wide
-leaf buffer), which the kernels do not need.
+PyTorch counterpart of ``pnraytracing_tpu/core/config.py``: the same
+fields with the JAX package's defaults, but one.  ``traversal`` selects
+the walk the frame's rays take over a scene with a traversal layout
+(``accel/route.py::traversal_route``); every value runs a CUDA kernel on
+CUDA tensors and its plain PyTorch version on CPU tensors, and gives the
+answers of the JAX walk of that value:
+
+* ``"pallas"`` (the port's default): the resident kernels of
+  ``accel/traverse_cuda.py`` (the attribute, wide, binary routes) or the
+  brick-streaming kernels of ``accel/traverse_stream_cuda.py``, as the
+  JAX package routes ``traversal="pallas"``;
+* ``"packed"``: the push-test walk of ``accel/traverse_packed.py``;
+* ``"pop"`` and ``"packet"``: the pop-test walk (kernels 5 / 6);
+* ``"wide"``: the push-test walk over the wide rows (kernels 3 / 2);
+* ``"wide4"``: the 4-wide collect-then-test walk of
+  ``accel/traverse_wide4.py``, or ``"packed"`` when the scene has no
+  4-wide layout.
+
+The JAX package defaults to ``"packed"`` because XLA on a CPU would
+otherwise run its Pallas kernels under the interpreter; its production
+entry points choose ``"pallas"`` on their accelerator, the route every
+measurement of this port was taken on.  The images do not depend on the
+value, so the port defaults to ``"pallas"``.  ``trav_tile`` and
+``trav_chunk`` tune the JAX package's XLA loops; the port's plain
+versions honour them and its kernels, which walk one ray a thread, do
+not need them.  ``trav_leaf_buffer`` is the 4-wide walk's per-ray leaf
+buffer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+TRAVERSALS = ("wide", "packed", "pop", "packet", "wide4", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,16 +46,36 @@ class RenderConfig:
     # Per-ray traversal stack capacity; must cover the scene's BVH depth.
     stack_depth: int = 64
 
-    # The walk of a scene outside the packed layout (route 'bvh',
-    # accel/traverse.py) tests at most this many triangles of a leaf, as
-    # the JAX package's XLA walk does: a larger leaf's other triangles are
-    # never tested.  That cap is the reference's and is kept; a flat BVH
-    # (one leaf) is rendered with max_leaf_size = its triangle count.  The
-    # packed routes read each leaf's own count and ignore this field.
+    # Every walk tests at most this many triangles of a leaf, as every
+    # walk of the JAX package does (its Pallas kernels and XLA walks): a
+    # larger leaf's other triangles are never tested.  That cap is the
+    # reference's and is kept; the scene builder's leaves hold at most 4
+    # by default, and a flat BVH (one leaf, route 'bvh',
+    # accel/traverse.py) is rendered with max_leaf_size = its triangle
+    # count.
     max_leaf_size: int = 4
 
     # Rays per render_rays call; larger frames render in sequential tiles.
     tile_pixels: int = 1 << 18
+
+    # Rays a plain version of an XLA walk runs at once (None: all); the
+    # kernels walk one ray a thread and ignore it.
+    trav_tile: int | None = 4096
+
+    # The plain versions' walk loops test their exit condition every
+    # trav_chunk steps (accel/loops.py::chunked_while); the kernels have
+    # no such condition.
+    trav_chunk: int = 1
+
+    # Per-ray leaf buffer of the 4-wide collect-then-test walk
+    # (traversal='wide4', accel/traverse_wide4.py); a ray that collects
+    # more leaves is walked again by the exact pop-test walk.
+    trav_leaf_buffer: int = 32
+
+    # The walk (see the module docstring): 'pallas', 'packed', 'pop',
+    # 'packet', 'wide' or 'wide4'.  The JAX package's default is
+    # 'packed'; images do not depend on the value.
+    traversal: str = "pallas"
 
     # 'sobol' = Sobol + Cranley-Patterson for the BRDF lobe sample like the
     # reference (ray_tracing.comp:928-929); 'hash' = counter-hash streams.
@@ -109,6 +149,9 @@ class RenderConfig:
         if self.loop not in ("unroll", "scan"):
             raise ValueError(f"loop must be 'unroll' or 'scan', got "
                              f"{self.loop!r}")
+        if self.traversal not in TRAVERSALS:
+            raise ValueError(f"traversal must be one of {TRAVERSALS}, got "
+                             f"{self.traversal!r}")
         if self.sort_key not in ("dir", "pos", "entry"):
             raise ValueError(f"sort_key must be 'dir', 'pos' or 'entry', "
                              f"got {self.sort_key!r}")

@@ -79,6 +79,17 @@
 // Rays of never_enters (a NaN component, or an infinite origin and
 // direction on one axis) walk nothing in every kernel, as in the plain
 // versions (intersect.cuh).
+//
+// The leaf cap.  Every kernel takes max_leaf and tests at most that many
+// triangles of a leaf (min(count, max_leaf)), as the Pallas kernels'
+// leaf loops do (`for k in range(max_leaf_size)`, traverse_pallas.py:185
+// and after) and the JAX package's XLA walks (traverse_packed.py:40-49,
+// traverse_packet.py:66, traverse_wide.py:38 there).  The integrator
+// passes RenderConfig.max_leaf_size on every route: the routes of
+// traversal="pallas" and those of the XLA values that reuse these kernels
+// (5 / 6 for "pop" and "packet", 3 / 2 for "wide").  A scene built with
+// the default leaf size (4) has no leaf over the default cap, so the cap
+// changes nothing there.
 
 #include "intersect.cuh"
 
@@ -105,16 +116,16 @@ struct Best {
   float b1, b2;
 };
 
-// The triangle tests of leaf `info` against the closest hit so far.  The
-// next triangle's row is loaded before this one is tested (past the
-// leaf's end the last row is read again).
+// The triangle tests of leaf `info` (its first max_leaf triangles) against
+// the closest hit so far.  The next triangle's row is loaded before this
+// one is tested (past the leaf's end the last row is read again).
 __device__ __forceinline__ void closest_leaf(const Ray& r,
                                              const float* __restrict__ tris,
-                                             int info, Best& h,
+                                             int info, int max_leaf, Best& h,
                                              int& tri_tests) {
   const int meta = -info - 1;
   const int start = meta >> 4;
-  const int count = meta & 15;
+  const int count = min(meta & 15, max_leaf);
   if (count == 0) return;
   tri_tests += count;
   const float* p = tris + 12 * (int64_t)start;
@@ -132,15 +143,15 @@ __device__ __forceinline__ void closest_leaf(const Ray& r,
   }
 }
 
-// True when a triangle of leaf `info` is hit within t_max; stops at the
-// first.
+// True when one of the first max_leaf triangles of leaf `info` is hit
+// within t_max; stops at the first.
 __device__ __forceinline__ bool any_leaf(const Ray& r,
                                          const float* __restrict__ tris,
-                                         int info, float t_max,
+                                         int info, int max_leaf, float t_max,
                                          int& tri_tests) {
   const int meta = -info - 1;
   const int start = meta >> 4;
-  const int count = meta & 15;
+  const int count = min(meta & 15, max_leaf);
   for (int k = 0; k < count; ++k) {
     float t, b1, b2;
     ++tri_tests;
@@ -160,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 closest_hit_kernel(const float* __restrict__ nodes,
                    const float* __restrict__ tris,
                    const float* __restrict__ attr16, Rays rays,
-                   ClosestOut out) {
+                   int max_leaf, ClosestOut out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
   const Ray r = make_ray<COMPAT>(rays.ox[i], rays.oy[i], rays.oz[i],
@@ -181,7 +192,7 @@ closest_hit_kernel(const float* __restrict__ nodes,
     if (cur != kWalkDone) {
       ++pops;
       ++leaf_pops;
-      closest_leaf(r, tris, cur, h, tri_tests);
+      closest_leaf(r, tris, cur, max_leaf, h, tri_tests);
       cur = pop_node(stack, top);
     }
   }
@@ -219,7 +230,7 @@ closest_hit_kernel(const float* __restrict__ nodes,
 template <bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 any_hit_kernel(const float* __restrict__ nodes,
-               const float* __restrict__ tris, Rays rays,
+               const float* __restrict__ tris, Rays rays, int max_leaf,
                uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
@@ -242,7 +253,7 @@ any_hit_kernel(const float* __restrict__ nodes,
     if (cur != kWalkDone) {
       ++pops;
       ++leaf_pops;
-      occ = any_leaf(r, tris, cur, t_max, tri_tests);
+      occ = any_leaf(r, tris, cur, max_leaf, t_max, tri_tests);
       cur = occ ? kWalkDone : pop_node(stack, top);  // occluded: stop
     }
   }
@@ -313,7 +324,8 @@ template <bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 closest_hit_binary_kernel(const float* __restrict__ nodes8,
                           const float* __restrict__ tri12, Rays rays,
-                          float* __restrict__ t_out, int* __restrict__ tri_out,
+                          int max_leaf, float* __restrict__ t_out,
+                          int* __restrict__ tri_out,
                           float* __restrict__ b1_out,
                           float* __restrict__ b2_out,
                           int* __restrict__ stats) {
@@ -338,7 +350,7 @@ closest_hit_binary_kernel(const float* __restrict__ nodes8,
     }
     if (meta >= 0) {
       ++leaf_pops;
-      closest_leaf(r, tri12, -meta - 1, h, tri_tests);
+      closest_leaf(r, tri12, -meta - 1, max_leaf, h, tri_tests);
       cur = pop_node(stack, top);
     }
   }
@@ -368,7 +380,7 @@ template <bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 1)
 any_hit_binary_kernel(const float* __restrict__ nodes8,
                       const float* __restrict__ tri12, Rays rays,
-                      uint8_t* __restrict__ occ_out,
+                      int max_leaf, uint8_t* __restrict__ occ_out,
                       int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays.n) return;
@@ -392,7 +404,7 @@ any_hit_binary_kernel(const float* __restrict__ nodes8,
     }
     if (meta >= 0) {
       ++leaf_pops;
-      occ = any_leaf(r, tri12, -meta - 1, t_max, tri_tests);
+      occ = any_leaf(r, tri12, -meta - 1, max_leaf, t_max, tri_tests);
       cur = occ ? kWalkDone : pop_node(stack, top);  // occluded: stop
     }
   }
@@ -417,15 +429,16 @@ extern "C" {
 
 // Closest hit over the wide rows and the padded triangle rows tri12; with
 // attr != 0 also the interaction fill (nx..mt must then be non-null);
-// compat != 0 launches the compat instantiation.  stats may be null, else
-// [3, n] int32: pops, leaf pops, triangle tests.  Returns
-// cudaGetLastError() after the launch.
+// compat != 0 launches the compat instantiation; at most max_leaf
+// triangles of a leaf are tested.  stats may be null, else [3, n] int32:
+// pops, leaf pops, triangle tests.  Returns cudaGetLastError() after the
+// launch.
 int pnrt_closest_hit(const float* nodes, const float* tri12,
                      const float* attr16, const float* ox, const float* oy,
                      const float* oz, const float* dx, const float* dy,
                      const float* dz, const float* t_max,
                      const uint8_t* mask, int n, int attr, int compat,
-                     float* t_out, int* tri_out, float* b1_out,
+                     int max_leaf, float* t_out, int* tri_out, float* b1_out,
                      float* b2_out, float* nx_out, float* ny_out,
                      float* nz_out, float* u_out, float* v_out, int* mt_out,
                      int* stats, void* stream) {
@@ -438,20 +451,20 @@ int pnrt_closest_hit(const float* nodes, const float* tri12,
                      : (compat ? closest_hit_kernel<false, true>
                                : closest_hit_kernel<false, false>);
   kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, tri12, attr ? attr16 : nullptr, rays, out);
+      nodes, tri12, attr ? attr16 : nullptr, rays, max_leaf, out);
   return (int)cudaGetLastError();
 }
 
 int pnrt_any_hit(const float* nodes, const float* tri12, const float* ox,
                  const float* oy, const float* oz, const float* dx,
                  const float* dy, const float* dz, const float* t_max,
-                 const uint8_t* mask, int n, int compat, uint8_t* occ_out,
-                 int* stats, void* stream) {
+                 const uint8_t* mask, int n, int compat, int max_leaf,
+                 uint8_t* occ_out, int* stats, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   auto kernel = compat ? any_hit_kernel<true> : any_hit_kernel<false>;
   kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, tri12, rays, occ_out, stats);
+      nodes, tri12, rays, max_leaf, occ_out, stats);
   return (int)cudaGetLastError();
 }
 
@@ -477,21 +490,21 @@ int pnrt_walk_kernel_info(int which, int compat, int what) {
   return what == 0 ? a.numRegs : (int)a.localSizeBytes;
 }
 
-// Binary pop-test closest hit over nodes8 rows and tri12; outputs and
-// stats as pnrt_closest_hit without the fill.
+// Binary pop-test closest hit over nodes8 rows and tri12; max_leaf,
+// outputs and stats as pnrt_closest_hit without the fill.
 int pnrt_closest_hit_binary(const float* nodes8, const float* tri12,
                             const float* ox, const float* oy, const float* oz,
                             const float* dx, const float* dy, const float* dz,
                             const float* t_max, const uint8_t* mask, int n,
-                            int compat, float* t_out, int* tri_out,
-                            float* b1_out, float* b2_out, int* stats,
-                            void* stream) {
+                            int compat, int max_leaf, float* t_out,
+                            int* tri_out, float* b1_out, float* b2_out,
+                            int* stats, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   auto kernel = compat ? closest_hit_binary_kernel<true>
                        : closest_hit_binary_kernel<false>;
   kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes8, tri12, rays, t_out, tri_out, b1_out, b2_out, stats);
+      nodes8, tri12, rays, max_leaf, t_out, tri_out, b1_out, b2_out, stats);
   return (int)cudaGetLastError();
 }
 
@@ -499,14 +512,14 @@ int pnrt_any_hit_binary(const float* nodes8, const float* tri12,
                         const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
                         const float* t_max, const uint8_t* mask, int n,
-                        int compat, uint8_t* occ_out, int* stats,
-                        void* stream) {
+                        int compat, int max_leaf, uint8_t* occ_out,
+                        int* stats, void* stream) {
   if (n <= 0) return 0;
   const Rays rays = make_rays(ox, oy, oz, dx, dy, dz, t_max, mask, n);
   auto kernel = compat ? any_hit_binary_kernel<true>
                        : any_hit_binary_kernel<false>;
   kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes8, tri12, rays, occ_out, stats);
+      nodes8, tri12, rays, max_leaf, occ_out, stats);
   return (int)cudaGetLastError();
 }
 

@@ -75,7 +75,7 @@ template <bool CLOSEST, bool COMPAT>
 __global__ void __launch_bounds__(kThreads, 4)
 stream_kernel(const float* __restrict__ top16,
               const float* __restrict__ bricks, int brick_words, Rays rays,
-              float* __restrict__ t_out, int* __restrict__ tri_out,
+              int max_leaf, float* __restrict__ t_out, int* __restrict__ tri_out,
               float* __restrict__ b1_out, float* __restrict__ b2_out,
               uint8_t* __restrict__ occ_out, int* __restrict__ stats) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -111,7 +111,7 @@ stream_kernel(const float* __restrict__ top16,
         ++leaf_pops;
         const int meta = -info - 1;
         const int start = meta >> 4;
-        const int count = meta & 15;
+        const int count = min(meta & 15, max_leaf);
         for (int k = 0; k < count; ++k) {
           const int ti = start + k;
           float t, b1, b2;
@@ -160,8 +160,8 @@ stream_kernel(const float* __restrict__ top16,
 }
 
 // The instantiation of one mode of the kernel.
-using StreamKernel = void (*)(const float*, const float*, int, Rays, float*,
-                              int*, float*, float*, uint8_t*, int*);
+using StreamKernel = void (*)(const float*, const float*, int, Rays, int,
+                              float*, int*, float*, float*, uint8_t*, int*);
 
 StreamKernel stream_kernel_of(int closest, int compat) {
   return closest ? (compat ? stream_kernel<true, true>
@@ -175,10 +175,12 @@ StreamKernel stream_kernel_of(int closest, int compat) {
 extern "C" {
 
 // closest != 0: t/tri/b1/b2 outputs (occ_out unused); else occ_out.
-// compat != 0 launches the compat instantiation.  stats may be null, else
-// [4, n] int32 per ray: pops (top tree and bricks), leaf pops, triangle
-// tests, bricks entered.  Returns cudaGetLastError() after the launch.
-int pnrt_stream(int closest, int compat, const float* top16,
+// compat != 0 launches the compat instantiation; at most max_leaf
+// triangles of a leaf are tested (RenderConfig.max_leaf_size, the cap of
+// the Pallas kernel's leaf loop).  stats may be null, else [4, n] int32
+// per ray: pops (top tree and bricks), leaf pops, triangle tests, bricks
+// entered.  Returns cudaGetLastError() after the launch.
+int pnrt_stream(int closest, int compat, int max_leaf, const float* top16,
                 const float* bricks, int brick_words, const float* ox,
                 const float* oy, const float* oz, const float* dx,
                 const float* dy, const float* dz, const float* t_max,
@@ -190,8 +192,9 @@ int pnrt_stream(int closest, int compat, const float* top16,
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const StreamKernel kernel = stream_kernel_of(closest, compat);
-  kernel<<<blocks, kThreads, 0, s>>>(top16, bricks, brick_words, rays, t_out,
-                                     tri_out, b1_out, b2_out, occ_out, stats);
+  kernel<<<blocks, kThreads, 0, s>>>(top16, bricks, brick_words, rays,
+                                     max_leaf, t_out, tri_out, b1_out,
+                                     b2_out, occ_out, stats);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,8 @@ DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                                  "torch_kernels")
 # where the libraries are built and loaded from (utils/cache.py moves it)
 BUILD_DIR = DEFAULT_BUILD_DIR
-SOURCES = ("traverse", "traverse_stream", "entry_key", "traverse_bvh")
+SOURCES = ("traverse", "traverse_stream", "entry_key", "traverse_bvh",
+           "traverse_wide4")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,17 +96,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every entry point; all return an int (the launchers a CUDA
 # error code)
 _SIGNATURES = {
-    "pnrt_closest_hit": [_P] * 11 + [_I] * 3 + [_P] * 12,
-    "pnrt_any_hit": [_P] * 10 + [_I] * 2 + [_P] * 3,
+    "pnrt_closest_hit": [_P] * 11 + [_I] * 4 + [_P] * 12,
+    "pnrt_any_hit": [_P] * 10 + [_I] * 3 + [_P] * 3,
     "pnrt_walk_kernel_info": [_I] * 3,
-    "pnrt_closest_hit_binary": [_P] * 10 + [_I] * 2 + [_P] * 6,
-    "pnrt_any_hit_binary": [_P] * 10 + [_I] * 2 + [_P] * 3,
-    "pnrt_stream": [_I, _I, _P, _P, _I] + [_P] * 8 + [_I] + [_P] * 7,
+    "pnrt_closest_hit_binary": [_P] * 10 + [_I] * 3 + [_P] * 6,
+    "pnrt_any_hit_binary": [_P] * 10 + [_I] * 3 + [_P] * 3,
+    "pnrt_stream": [_I, _I, _I, _P, _P, _I] + [_P] * 8 + [_I] + [_P] * 7,
     "pnrt_stream_kernel_info": [_I] * 3,
     "pnrt_entry_key": [_P] + [_I] * 3 + [_P] * 6 + [_I] + [_P] * 3,
     "pnrt_entry_key_kernel_info": [_I] * 2,
     "pnrt_bvh_walk": [_P] * 8 + [_I] * 2 + [_P] * 8 + [_I] * 3 + [_P] * 7,
-    "pnrt_bvh_kernel_info": [_I] * 3,
+    "pnrt_packed_walk": [_P, _P, _I, _I] + [_P] * 8 + [_I] * 3 + [_P] * 7,
+    "pnrt_bvh_kernel_info": [_I] * 4,
+    "pnrt_wide4_walk": [_P, _P] + [_I] * 6 + [_P] * 9 + [_I] * 3 + [_P] * 8,
+    "pnrt_wide4_kernel_info": [_I] * 3,
 }
 
 

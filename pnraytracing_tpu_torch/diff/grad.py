@@ -129,8 +129,10 @@ def refit_scene(scene: Scene, max_leaf_size: int = 4) -> Scene:
     ``SceneBuilder.build`` uses, so the next trace still runs the
     attribute and key kernels; the JAX package's refit keeps no
     ``tri_attr16`` or treelets, which changes only the ray order and the
-    ulps of its next frame, not what it computes.  ``bvh_depth`` follows
-    the new tree."""
+    ulps of its next frame, not what it computes.  A scene that had the
+    4-wide layout gets it repacked at its width (the JAX package repacks
+    it at width 4, the default), so ``traversal="wide4"`` walks the new
+    tree.  ``bvh_depth`` follows the new tree."""
     mesh0 = scene.mesh.detach()
     dev = mesh0.positions.device
     host = lambda t: t.cpu().numpy()
@@ -151,9 +153,11 @@ def refit_scene(scene: Scene, max_leaf_size: int = 4) -> Scene:
     bvh = BVH(node_min=t(built.node_min), node_max=t(built.node_max),
               axis=t(built.axis), right_child=t(built.right_child),
               start=t(built.start), end=t(built.end))
+    w4 = scene.trav.w4 if scene.trav is not None else None
     trav = pack_traversal(
         built, positions, host(mesh0.normals), host(mesh0.uvs), idx_o,
-        host(mesh.material_id), host(mesh.texture_id), mesh.detach(), dev)
+        host(mesh.material_id), host(mesh.texture_id), mesh.detach(), dev,
+        with_w4=w4 is not None, width=w4.width if w4 is not None else None)
     return dataclasses.replace(scene, mesh=mesh, bvh=bvh, lights=lights,
                                trav=trav, bvh_depth=built.max_depth)
 

@@ -75,17 +75,34 @@ def triangle_setup_c(dx, dy, dz, compat: bool = False):
     return kx, ky, kz, dpx * inv_dz, dpy * inv_dz, inv_dz
 
 
+def triangle_setup_static(ax: int, dx, dy, dz):
+    """The setup of rays that ALL have dominant axis ``ax`` (a Python
+    int): the permutation is three ints, so :func:`intersect_triangle_c`
+    picks components instead of selecting per ray.  Only valid when every
+    ray's argmax |d| (first index among maxima) is ``ax``; it then equals
+    :func:`triangle_setup_c`'s setup value for value."""
+    comps = (dx, dy, dz)
+    kz = ax
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+    inv_dz = 1.0 / comps[kz]
+    return kx, ky, kz, comps[kx] * inv_dz, comps[ky] * inv_dz, inv_dz
+
+
 def intersect_triangle_c(v0, v1, v2, ox, oy, oz, dx, dy, dz, t_max,
                          compat: bool = False, setup=None):
     """Watertight ray-triangle test.  ``v0/v1/v2`` are 3-tuples of vertex
     components (tensors broadcasting against the rays).  Returns
     (hit, t, b1, b2) with x = b0*p0 + b1*p1 + b2*p2, b0 = 1-b1-b2.
-    ``compat`` selects the setup when none is given."""
+    ``compat`` selects the setup when none is given; a setup of
+    :func:`triangle_setup_static` carries its permutation as ints."""
     if setup is None:
         setup = triangle_setup_c(dx, dy, dz, compat=compat)
     kx, ky, kz, sx, sy, inv_dz = setup
 
     def sel(k, x, y, z):
+        if isinstance(k, int):  # static permutation
+            return (x, y, z)[k]
         return torch.where(k == 0, x, torch.where(k == 1, y, z))
 
     def perm(x, y, z):

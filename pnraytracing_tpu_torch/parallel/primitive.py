@@ -18,9 +18,10 @@ the same code combines one shard a rank through ``all_reduce``
 or ``D`` shards walked in one process (:func:`place_all`,
 :func:`shards_closest_hit`, :func:`shards_any_hit`).  The JAX
 functions' ``tile_size`` and ``check_vma`` (XLA tiling of the walk,
-``shard_map``'s replication check) and ``max_leaf_size`` (the unrolled
-leaf loop of its XLA walk; the port's walks read each leaf's count) have
-no counterpart.
+``shard_map``'s replication check) and ``max_leaf_size`` (the cap of its
+walk's leaf loop; the shards' leaves hold at most the builder's 4
+triangles, so the port's walks, which test a whole leaf by default, give
+the same answers) have no counterpart.
 
 Shards are built on the host in numpy by the port's own builder
 (``accel/bvh.py``), as the JAX package builds them.

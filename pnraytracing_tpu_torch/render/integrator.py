@@ -54,7 +54,8 @@ RNG words are int64 tensors holding uint32 values (ops/sampling.py); the
 frame counter is an int or a 0-d tensor (``frame_word``), so the whole
 frame can run inside a captured CUDA graph (``render/program.py``).
 The traversal route is the JAX package's (``accel/route.py::
-traversal_route``): the resident kernels of ``accel/traverse_cuda.py``
+traversal_route``).  For ``cfg.traversal="pallas"`` (the port's
+default): the resident kernels of ``accel/traverse_cuda.py
 (with the interaction fill from the kernel when ``kernel_interaction`` is
 set and the attribute rows fit the budget, else the closest hit +
 ``make_interaction``), the brick-streaming kernels of
@@ -62,9 +63,16 @@ set and the attribute rows fit the budget, else the closest hit +
 route, the binary walks of ``accel/traverse_cuda.py`` for such a scene
 without a stream layout, or, for a scene outside the packed layout
 (``scene.trav`` None), the walk over the plain BVH of
-``accel/traverse.py``, which tests at most ``cfg.max_leaf_size``
-triangles of a leaf.  On that last route no sort key is computed: live
+``accel/traverse.py``.  On that last route no sort key is computed: live
 rays are only compacted, as the JAX package does without a layout.
+For the values of the JAX package's XLA walks (``"packed"``, ``"pop"``,
+``"packet"``, ``"wide"``, ``"wide4"``) the walk of that value
+(``accel/traverse_packed.py``, ``traverse_packet.py``,
+``traverse_wide.py``, ``traverse_wide4.py``, the last with the pop-test
+walk for the rays that overflow its leaf buffer), closest hit +
+``make_interaction``; the sort key does not depend on the value.  Every
+route tests at most ``cfg.max_leaf_size`` triangles of a leaf, as every
+walk of the JAX package does.
 Each route runs its CUDA kernels on the card and their plain versions on
 the CPU.
 """
@@ -86,9 +94,27 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
     closest_hit,
     closest_hit_attr,
 )
+from pnraytracing_tpu_torch.accel.traverse_packed import (
+    any_hit_packed,
+    any_hit_pop,
+    closest_hit_packed,
+    closest_hit_pop,
+)
+from pnraytracing_tpu_torch.accel.traverse_packet import (
+    any_hit_packet,
+    closest_hit_packet,
+)
 from pnraytracing_tpu_torch.accel.traverse_stream_cuda import (
     any_hit_stream,
     closest_hit_stream,
+)
+from pnraytracing_tpu_torch.accel.traverse_wide import (
+    any_hit_wide,
+    closest_hit_wide,
+)
+from pnraytracing_tpu_torch.accel.traverse_wide4 import (
+    any_hit_wide4,
+    closest_hit_wide4,
 )
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import (
@@ -300,26 +326,56 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     if compat:
         mat_tbl = apply_compat_material_decode(mat_tbl)
     o_v, d_v = _comps(o), _comps(d)
-    route = traversal_route(trav, cfg.kernel_interaction)
+    route = traversal_route(trav, cfg.kernel_interaction, cfg.traversal)
     # the route's walks: (closest, any), the tables they read first, and
     # their keyword arguments
-    walk_kw = dict(stack_depth=sd, compat=compat)
+    walk_kw = dict(stack_depth=sd, compat=compat,
+                   max_leaf_size=cfg.max_leaf_size)
     if route == "bvh":
         closest_fn, any_fn = closest_hit_bvh, any_hit_bvh
         tables = (scene.bvh, mesh)
-        walk_kw["max_leaf_size"] = cfg.max_leaf_size
-    else:
+    elif route in ("attr", "wide", "stream", "binary"):
         closest_fn, any_fn = ((closest_hit_stream, any_hit_stream)
                               if route == "stream" else (closest_hit, any_hit))
         tables = (trav,)
         if route == "binary":
             walk_kw["variant"] = "binary"
+    else:  # the JAX package's XLA walks (traversal != 'pallas')
+        walk_kw.update(tile_size=cfg.trav_tile, chunk=cfg.trav_chunk)
+        closest_fn, any_fn = {
+            "packed": (closest_hit_packed, any_hit_packed),
+            "pop": (closest_hit_pop, any_hit_pop),
+            "packet": (closest_hit_packet, any_hit_packet),
+            "wide_capped": (closest_hit_wide, any_hit_wide),
+            "wide4": (closest_hit_pop, any_hit_pop),  # its fallback
+        }[route]
+        tables = (trav,)
 
-    def closest_q(o_, d_, tm_, mask_=None):
-        return closest_fn(*tables, o_, d_, tm_, mask_, **walk_kw)
+    def walk(fn, o_, d_, tm_, mask_):
+        return fn(*tables, o_, d_, tm_, mask_, **walk_kw)
 
-    def any_q(o_, d_, tm_, mask_=None):
-        return any_fn(*tables, o_, d_, tm_, mask_, **walk_kw)
+    if route == "wide4":
+        # overflowed rays are walked again by the pop-test walk
+        # (render/integrator.py:395-440 of the JAX package)
+        w4 = trav.w4
+        w4_kw = dict(stack_depth=max(16, (w4.width - 1) * w4.depth4 + 4),
+                     max_leaf_size=cfg.max_leaf_size, compat=compat,
+                     leaf_buffer=cfg.trav_leaf_buffer, chunk=cfg.trav_chunk)
+
+        def closest_q(o_, d_, tm_, mask_=None):
+            return closest_hit_wide4(
+                w4, o_, d_, tm_, mask_, **w4_kw,
+                fallback=lambda *a: walk(closest_fn, *a))[0]
+
+        def any_q(o_, d_, tm_, mask_=None):
+            return any_hit_wide4(w4, o_, d_, tm_, mask_, **w4_kw,
+                                 fallback=lambda *a: walk(any_fn, *a))[0]
+    else:
+        def closest_q(o_, d_, tm_, mask_=None):
+            return walk(closest_fn, o_, d_, tm_, mask_)
+
+        def any_q(o_, d_, tm_, mask_=None):
+            return walk(any_fn, o_, d_, tm_, mask_)
 
     def closest_inter(o_: V3, d_: V3, tm_, mask_=None):
         """Closest hit + interaction fill (hit, pos, nrm, (u, v), mat id,
@@ -328,7 +384,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         closest kernel + make_interaction."""
         if route == "attr":
             hit_, (nx, ny, nz, u_, v_, mt) = closest_hit_attr(
-                trav, o_, d_, tm_, mask_, stack_depth=sd, compat=compat)
+                trav, o_, d_, tm_, mask_, **walk_kw)
             nrm_raw = V3(nx, ny, nz)
             nrm_ = vnormalize(vwhere(vdot(nrm_raw, d_) > 0, -nrm_raw,
                                      nrm_raw))

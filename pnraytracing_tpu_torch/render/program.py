@@ -44,7 +44,9 @@ import torch
 from pnraytracing_tpu_torch.accel import (
     traverse,
     traverse_cuda,
+    traverse_packed,
     traverse_stream_cuda,
+    traverse_wide4,
 )
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
@@ -55,7 +57,8 @@ from pnraytracing_tpu_torch.render.renderer import frame_image
 
 PROGRAM_CACHE_SIZE = 4
 _LAUNCH_TABLES = (traverse_cuda.LAUNCHES, traverse_stream_cuda.LAUNCHES,
-                  traverse.LAUNCHES, compaction.LAUNCHES)
+                  traverse.LAUNCHES, traverse_packed.LAUNCHES,
+                  traverse_wide4.LAUNCHES, compaction.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -11,6 +11,7 @@ this port's traversal reads (``accel/layout.py::TravData``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -34,6 +35,7 @@ from pnraytracing_tpu_torch.accel.layout import (
 from pnraytracing_tpu_torch.accel.bvh import BVHArrays, triangle_bounds
 from pnraytracing_tpu_torch.accel.native import bvh_builder
 from pnraytracing_tpu_torch.accel.route import scene_fits_smem
+from pnraytracing_tpu_torch.accel.wide4 import pack_wide4
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.types import (
     BVH,
@@ -46,16 +48,25 @@ from pnraytracing_tpu_torch.ops.envmap import build_envmap
 from pnraytracing_tpu_torch.ops.texture import build_atlas
 
 
+def wide_width() -> int:
+    """The branching factor of the 4-wide layout: the environment's
+    ``PNRT_WIDE_WIDTH``, 4 without it, as the JAX package reads it."""
+    return int(os.environ.get("PNRT_WIDE_WIDTH", "4"))
+
+
 def pack_traversal(built, positions: np.ndarray, normals: np.ndarray,
                    uvs: np.ndarray, idx_o: np.ndarray, mat_o: np.ndarray,
-                   tex_o: np.ndarray, mesh: TriangleMesh,
-                   dev) -> TravData | None:
+                   tex_o: np.ndarray, mesh: TriangleMesh, dev,
+                   with_w4: bool = True,
+                   width: int | None = None) -> TravData | None:
     """The traversal layout of a built BVH on ``dev``: ``idx_o``,
     ``mat_o``, ``tex_o`` are the triangle arrays in its leaf order,
     ``mesh`` the scene's mesh (the bricks read it).  A scene too large
     for the resident kernels (accel/route.py) also gets the
-    brick-streaming layout, under the JAX package's condition.  None for
-    a tree outside the packed layout (a leaf of more than 15 triangles,
+    brick-streaming layout, and with ``with_w4`` a tree whose leaves all
+    hold at most 4 triangles the 4-wide layout at ``width`` (None:
+    :func:`wide_width`), under the JAX package's conditions.  None for a
+    tree outside the packed layout (a leaf of more than 15 triangles,
     more than 2^22 nodes or 2^20 triangles), as in the JAX package: such
     a scene is walked over its plain BVH (route 'bvh')."""
     max_count = int((built.end - built.start)[built.right_child == -1]
@@ -77,6 +88,9 @@ def pack_traversal(built, positions: np.ndarray, normals: np.ndarray,
         treelet_tree=t(treelet_index_tree(treelets)),
         bvh_depth=built.max_depth,
     )
+    if with_w4 and max_count <= 4:
+        trav.w4 = pack_wide4(built, tri9, width=width or wide_width(),
+                             device=dev)
     if not scene_fits_smem(trav, "binary"):
         trav.stream = build_stream_data(built, mesh, device=dev)
     return trav

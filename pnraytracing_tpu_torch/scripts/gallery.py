@@ -36,8 +36,10 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = "cpu" if args.cpu else None
     os.makedirs(args.out, exist_ok=True)
+    # traversal 'pallas', the card's counterpart of the JAX gallery's
+    # accelerator choice
     cfg = RenderConfig(width=args.size, height=args.size,
-                       max_depth=args.depth)
+                       max_depth=args.depth, traversal="pallas")
     for name in args.scenes.split(","):
         t0 = time.perf_counter()
         scene, cam_state = build_scene(name, 1.0, device=dev)

@@ -7,6 +7,7 @@ Usage:
   python -m pnraytracing_tpu_torch.scripts.render --scene teapot_night --width 512 --height 512
   python -m pnraytracing_tpu_torch.scripts.render --cpu --scene cornell --width 48 --height 48 --spp 2 --depth 2
   python -m pnraytracing_tpu_torch.scripts.render --model asset.obj
+  python -m pnraytracing_tpu_torch.scripts.render --scene teapot_night --traversal wide4
   torchrun --standalone --nproc_per_node 4 -m pnraytracing_tpu_torch.scripts.render --sharded
   python -m pnraytracing_tpu_torch.scripts.render --list
 
@@ -28,6 +29,8 @@ import json
 import os
 import sys
 import time
+
+from pnraytracing_tpu_torch.core.config import TRAVERSALS
 
 
 def build_scene(name: str, aspect: float, device=None):
@@ -168,6 +171,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="bounce-loop construction of the integrator")
     ap.add_argument("--compat", action="store_true",
                     help="reproduce the reference's quirks exactly")
+    ap.add_argument("--traversal", default=None, choices=TRAVERSALS,
+                    help="the walk (default: RenderConfig's, 'pallas'; "
+                    "the others are the walks of the JAX package's XLA "
+                    "values, each a CUDA kernel here)")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (default: the card)")
     ap.add_argument("--sharded", action="store_true",
@@ -185,9 +192,13 @@ def main(argv: list[str] | None = None) -> int:
     from pnraytracing_tpu_torch.utils.image import save_png
     from pnraytracing_tpu_torch.utils.resilience import ResilientRenderLoop
 
+    overrides = {}
+    if args.traversal:
+        overrides["traversal"] = args.traversal
     cfg = RenderConfig(
         width=args.width, height=args.height, max_depth=args.depth,
-        sampler=args.sampler, compat_pnrt=args.compat, loop=args.loop)
+        sampler=args.sampler, compat_pnrt=args.compat, loop=args.loop,
+        **overrides)
     aspect = args.width / args.height
     # built on the host: the worker (or the rank) moves it to its card
     if args.model:

@@ -1159,3 +1159,187 @@ def test_bvh_wrapper_raises_on_deep_stack(bvh_scenes):
     with pytest.raises(ValueError, match="64-entry stack"):
         trb.closest_hit(scene.bvh, scene.mesh, o, d, t_max, mask,
                         stack_depth=trb.KERNEL_STACK + 1)
+
+
+# ---- RenderConfig.traversal: the walks of the JAX package's XLA values --
+
+def _random_rays(trav, n, seed=0):
+    """``n`` rays from random points of the scene's box in random
+    directions, a third with a short t_max, a tenth masked out."""
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = trav.nodes8[0, :3].cpu(), trav.nodes8[0, 3:6].cpu()
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    d = torch.randn((n, 3), generator=g)
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.full((n,), 3.4e38)
+    t_max[::3] = 0.5
+    v3 = lambda a: V3(*(a[:, k].contiguous().cuda() for k in range(3)))
+    return (v3(o), v3(d), t_max.cuda(),
+            (torch.rand(n, generator=g) < 0.9).cuda())
+
+
+def _assert_same(got, want):
+    if isinstance(got, torch.Tensor):
+        assert torch.equal(got, want)
+    else:
+        for k in ("tri", "t", "b1", "b2"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("walk", ["packed", "pop", "packet", "wide"])
+def test_xla_walk_kernels_equal_plain(flagship, walk, compat):
+    """The kernel of each XLA value (the packed instantiation of the BVH
+    walk; kernels 5 / 6 and 3 / 2 with the leaf cap, here 2, below the
+    flagship's leaves) against its plain version: hits, occlusion and
+    stats bit for bit, each launch counted once."""
+    from pnraytracing_tpu_torch.accel import (
+        traverse_packed,
+        traverse_packet,
+        traverse_wide,
+    )
+
+    mod = {"packed": traverse_packed, "pop": traverse_packed,
+           "packet": traverse_packet, "wide": traverse_wide}[walk]
+    trav = flagship[0].trav
+    rays = _random_rays(trav, 1 << 14)
+    counter = {"packed": "hit_packed", "pop": "hit_binary",
+               "packet": "hit_binary", "wide": "hit"}[walk]
+    for q in ("closest", "any"):
+        name = f"{q}_hit_{walk}"
+        table = (traverse_packed if walk == "packed" else trv).LAUNCHES
+        key = f"{q}_{counter}" + ("_compat" if compat else "")
+        before = table[key]
+        got, st = getattr(mod, name)(trav, *rays, compat=compat,
+                                     max_leaf_size=2, with_stats=True)
+        want, wst = traverse_packed.plain(name)(
+            trav, *rays, compat=compat, max_leaf_size=2, with_stats=True)
+        torch.cuda.synchronize()
+        assert table[key] == before + 1
+        _assert_same(got, want)
+        assert torch.equal(st, wst)
+
+
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("width,leaf_buffer", [(4, 32), (4, 2), (8, 32),
+                                               (8, 2)])
+def test_wide4_kernel_equals_plain(flagship, width, leaf_buffer, compat):
+    """The 4-wide kernel against its plain version at widths 4 and 8:
+    hits, occlusion, overflow and the [4, R] stats bit for bit; the
+    2-slot buffer overflows; with the pop-walk fallback (kernels 5 / 6,
+    launched whatever the overflow) the answers equal the packed walk's
+    in the default form.  Not in compat: there phase 1 prunes by the
+    clipped slab test (as the JAX walk does), where the compat packed
+    walk enters every box the ray's line crosses and so reaches the
+    sheared test's hits outside their leaf's box (2 of 16,384 rays)."""
+    from pnraytracing_tpu_torch.accel import traverse_packed as trp
+    from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
+    from pnraytracing_tpu_torch.accel.wide4 import pack_wide4
+
+    scene = flagship[0]
+    trav = scene.trav
+    w4 = trav.w4
+    if width != w4.width:
+        from pnraytracing_tpu_torch.accel.native import bvh_builder
+
+        mesh = scene.mesh
+        pos = mesh.positions.cpu().numpy()
+        built = bvh_builder()(pos, mesh.indices.cpu().numpy(),
+                              max_leaf_size=4)
+        assert np.array_equal(built.node_min,
+                              scene.bvh.node_min.cpu().numpy())
+        w4 = pack_wide4(built, trav.tri9.cpu().numpy(), width=width,
+                        device="cuda")
+    rays = _random_rays(trav, 1 << 14, seed=1)
+    kw = dict(stack_depth=(width - 1) * w4.depth4 + 4,
+              leaf_buffer=leaf_buffer, compat=compat, with_stats=True)
+    for closest in (True, False):
+        q = "closest" if closest else "any"
+        got = getattr(tw4, f"{q}_hit_wide4")(w4, *rays, **kw)
+        want = getattr(tw4, f"plain_{q}_hit_wide4")(w4, *rays, **kw)
+        torch.cuda.synchronize()
+        _assert_same(got[0], want[0])
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        assert bool(got[1].any()) == (leaf_buffer == 2)
+        if compat:
+            continue
+        fb = getattr(tw4, f"{q}_hit_wide4")(
+            w4, *rays, **dict(kw, with_stats=False),
+            fallback=lambda *a: getattr(trp, f"{q}_hit_pop")(
+                trav, *a, compat=compat))[0]
+        ref = getattr(trp, f"{q}_hit_packed")(trav, *rays, compat=compat)
+        if closest:
+            same = fb.tri == ref.tri
+            assert int((~same).sum()) <= 1  # an exact-t tie at most
+            assert torch.equal(fb.t[same], ref.t[same])
+        else:
+            assert torch.equal(fb, ref)
+
+
+def test_pallas_kernels_take_the_cap(flagship, stream_scene):
+    """The attribute kernel and the stream kernels with a leaf cap of 1
+    against their plain versions (hits, fill, stats bit for bit), and
+    with the default cap of 15 as before."""
+    trav = flagship[0].trav
+    rays = _random_rays(trav, 1 << 13, seed=2)
+    for cap in (1, 15):
+        got, attrs, st = trv.closest_hit_attr(trav, *rays, max_leaf_size=cap,
+                                              with_stats=True)
+        want, wattrs, wst = trv.plain_closest_hit_attr(
+            trav, *rays, max_leaf_size=cap, with_stats=True)
+        _assert_same(got, want)
+        assert torch.equal(st, wst)
+        assert all(torch.equal(a, b) for a, b in zip(attrs, wattrs))
+    srays = _random_rays(stream_scene.trav, 1 << 13, seed=3)
+    for cap in (1, 15):
+        for q in ("closest", "any"):
+            got, st = getattr(trs, f"{q}_hit_stream")(
+                stream_scene.trav, *srays, max_leaf_size=cap,
+                with_stats=True)
+            want, wst = getattr(trs, f"plain_{q}_hit_stream")(
+                stream_scene.trav, *srays, max_leaf_size=cap,
+                with_stats=True)
+            _assert_same(got, want)
+            assert torch.equal(st, wst)
+
+
+@pytest.mark.parametrize("value", ["packed", "pop", "packet", "wide",
+                                   "wide4"])
+def test_traversal_frame_on_card(flagship, value):
+    """A 64x64 depth-2 frame of each XLA value: the captured frame's
+    launches are the value's kernels, the replay equals the eager frame
+    bit for bit, and the eager frame equals the frame through the plain
+    versions (at most 0.02% of pixels outside atol 3e-5) and the
+    kernel_interaction=False 'pallas' frame within the same bound."""
+    from chip_smoke import record_frame
+    from pnraytracing_tpu_torch.accel import traverse_stream_cuda
+    from pnraytracing_tpu_torch.render import integrator
+    from pnraytracing_tpu_torch.render.program import FrameProgram
+
+    scene, cam = flagship
+    cfg = RenderConfig(**_SMALL, traversal=value)
+    prog = FrameProgram(scene, cfg)
+    rep = prog.replay(cam, 3).clone()
+    eager = render_frame(scene, cam, cfg, 3, eager=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rep, eager)
+    d = _SMALL["max_depth"]
+    kernels = {"packed": ("closest_hit_packed", "any_hit_packed"),
+               "pop": ("closest_hit_binary", "any_hit_binary"),
+               "packet": ("closest_hit_binary", "any_hit_binary"),
+               "wide": ("closest_hit", "any_hit"),
+               "wide4": ("closest_hit_wide4", "any_hit_wide4")}[value]
+    want = {kernels[0]: d + 1, kernels[1]: d, "treelet_entry_key": 2}
+    if value == "wide4":
+        want.update(closest_hit_binary=d + 1, any_hit_binary=d)
+    assert {k: v for k, v in prog.launches.items() if v} == want
+    plain, _ = record_frame(functools.partial(render_frame, eager=True),
+                            scene, cam, cfg, "cuda", integrator, trv,
+                            traverse_stream_cuda, compaction)
+    eager0 = render_frame(scene, cam, cfg, 0, eager=True)
+    ref = render_frame(scene, cam, dataclasses.replace(
+        cfg, traversal="pallas", kernel_interaction=False), 0, eager=True)
+    limit = int(cfg.width * cfg.height * 2e-4)
+    for other in (plain, ref):
+        off = (eager0 - other).abs().amax(dim=-1) > 3e-5
+        assert int(off.sum()) <= limit

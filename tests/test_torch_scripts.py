@@ -33,10 +33,12 @@ from tests.test_torch_scene import _torch_threads  # noqa: F401
 SMALL = ["--width", "8", "--height", "8", "--spp", "2", "--depth", "2"]
 
 
-def reference_png(tmp_path, scene, cam_state, spp=2, depth=2, size=8):
+def reference_png(tmp_path, scene, cam_state, spp=2, depth=2, size=8,
+                  **cfg_kw):
     """The PNG ``save_png`` writes from the port's in-process
-    ``render_average`` of frames 0 .. spp-1, decoded."""
-    cfg = RenderConfig(width=size, height=size, max_depth=depth)
+    ``render_average`` of frames 0 .. spp-1 (``cfg_kw``: more fields of
+    the config), decoded."""
+    cfg = RenderConfig(width=size, height=size, max_depth=depth, **cfg_kw)
     cam_state.aspect = 1.0
     img = render_average(scene, cam_state.basis(device="cpu"), cfg, 0, spp,
                          device="cpu")
