@@ -142,7 +142,11 @@ script exits non-zero without printing a result.  Phases:
    their plain versions at those shapes, and config5's 128x128 depth-2
    sharded frame (kernel 7); then a world of two processes on the one card (gloo:
    NCCL refuses two ranks on one device) runs the same paths with 2
-   shards, each result equal to world one's (frames bit for bit).  Each
+   shards, each result equal to world one's (frames bit for bit); and
+   the leaf cap of the primitive walks: shards of 6-triangle leaves
+   (``leaf_cap_soup`` built with ``max_leaf_size=8``) walked by kernels
+   5 / 6 at the default cap of 4, equal to their plain versions at that
+   cap, and the caps 4 and 8 giving other hits.  Each
    path's launches are counted with the counters zeroed just before it;
    ms of each sharded call and of its collective alone, the dp step's
    trace / forward / backward / all-reduce ms, the primitive walks' ms
@@ -198,13 +202,24 @@ script exits non-zero without printing a result.  Phases:
    ``pop``, ``wide`` and ``pallas`` against the plain versions (the cap
    of 4 changes its image).
 
+21. bench (after phase 17): the repo's entry points as the port has
+   them.  ``python -m pnraytracing_tpu_torch.bench`` forward, ``--bwd
+   --frames 2`` and ``--bwd --no-replay --frames 2``, each a process of
+   its own, one after another: one JSON line of ``bench.py``'s form,
+   the card's ``nvidia-smi`` line last on stderr; ``entry()``'s step
+   twice, bit for bit, and equal to the replayed flagship frame, its
+   launches of kernels 1, 2, 4; ``dryrun_multichip(2,
+   backend="gloo")``, two processes on the one card, each rank's
+   launches of kernels 5 / 6 (the ``packet`` walk).
+
 Phases 1-7 and 10-20 run the eager frame (``render_frame(...,
 eager=True)``), whose launch counters count each frame.
 
 Then the ``{"kernels": [...]}`` line (each row with its launches on
 phase 17's paths by world and path: ``parallel_launches``, and
 ``primitive_launches`` for the primitive queries; ``assets_launches``
-on phase 18's scenes; ``app_launches``, a captured flagship frame in
+on phase 18's scenes; ``bench_launches``, ``entry()``'s step and each
+dryrun rank (phase 21); ``app_launches``, a captured flagship frame in
 the resilient loop's worker and in the render CLI's (phase app);
 kernels 5 / 6 their ``binary_route_launches`` and
 the new walk its ``probe_pixel_launches`` of phase 10; every row its
@@ -2711,19 +2726,15 @@ def traversal_launches(value, depth, keys, key_launches, compat=False):
     return want
 
 
-def leaf_cap_scene(dev, n_cubes=LEAF_CAP_CUBES, seed=2):
-    """A scene of 6-triangle groups, each spanning all of one random cube
-    (one centroid bound a group, so the builder keeps each as one leaf of
-    6 with ``max_leaf_size=8``), over a floor, with its camera: the
-    scene on which ``RenderConfig.max_leaf_size=4`` leaves triangles 5
-    and 6 of a leaf untested."""
+def leaf_cap_soup(n_cubes=LEAF_CAP_CUBES, seed=2):
+    """``(positions [18 n, 3], indices [6 n, 3])``: groups of 6
+    triangles, each group spanning all of one random cube (one centroid
+    bound a group, so the builder keeps each as one leaf of 6 with
+    ``max_leaf_size=8``): the geometry on which a cap of 4 leaves
+    triangles 5 and 6 of a leaf untested."""
     import itertools
 
     import numpy as np
-
-    from pnraytracing_tpu_torch.core.camera import CameraState
-    from pnraytracing_tpu_torch.scene import shapes
-    from pnraytracing_tpu_torch.scene.build import SceneBuilder
 
     rng = np.random.default_rng(seed)
     corners = np.array(list(itertools.product((0, 1), repeat=3)),
@@ -2737,10 +2748,38 @@ def leaf_cap_scene(dev, n_cubes=LEAF_CAP_CUBES, seed=2):
     size = rng.uniform(0.3, 0.8, (n_cubes, 1)).astype(np.float32)
     pos = (base[:, None, None] + size[:, None, None] * pick[None]).reshape(
         -1, 3).astype(np.float32)
+    return pos, np.arange(len(pos), dtype=np.int32).reshape(-1, 3)
+
+
+def leaf_cap_rays(pos, n: int, seed: int = 4):
+    """``(o, d)`` [n, 3] float32: rays from around :func:`leaf_cap_soup`'s
+    groups (origins in [-6, 6]^3), each aimed at a point inside the
+    bounds of one random triangle's cube."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    corners = pos.reshape(-1, 3, 3)[rng.integers(0, len(pos) // 3, n)]
+    lo, hi = corners.min(axis=1), corners.max(axis=1)
+    aim = lo + (hi - lo) * rng.uniform(0.1, 0.9, o.shape)
+    d = (aim - o) / np.linalg.norm(aim - o, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def leaf_cap_scene(dev, n_cubes=LEAF_CAP_CUBES, seed=2):
+    """The groups of :func:`leaf_cap_soup` over a floor, with its camera:
+    the scene on which ``RenderConfig.max_leaf_size=4`` leaves
+    triangles 5 and 6 of a leaf untested."""
+    import numpy as np
+
+    from pnraytracing_tpu_torch.core.camera import CameraState
+    from pnraytracing_tpu_torch.scene import shapes
+    from pnraytracing_tpu_torch.scene.build import SceneBuilder
+
+    pos, idx = leaf_cap_soup(n_cubes, seed)
     b = SceneBuilder()
     b.add(dict(positions=pos, normals=np.zeros_like(pos),
-               uvs=np.zeros((len(pos), 2), np.float32),
-               indices=np.arange(len(pos), dtype=np.int32).reshape(-1, 3)),
+               uvs=np.zeros((len(pos), 2), np.float32), indices=idx),
           dict(base_color=(0.7, 0.5, 0.3), roughness=0.4), name="cubes")
     b.add(shapes.quad(12.0), dict(base_color=(0.6, 0.6, 0.6)), name="floor")
     scene = b.build(max_leaf_size=8, env_constant=(0.6, 0.6, 0.7),
@@ -3096,14 +3135,6 @@ WORLD2 = 2
 DP_REL = 1e-6
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _build_shard(args):
     """One shard's BVH and rows on the host (a process-pool task)."""
     from pnraytracing_tpu_torch.parallel.primitive import build_shard
@@ -3169,6 +3200,64 @@ def check_prim(name, hit, occ, ref_hit, ref_occ) -> dict:
         raise AssertionError(f"{name}: primitive-sharded answer differs "
                              f"from the unsharded walk: {out}")
     return out
+
+
+LEAF_CAP_SHARDS, LEAF_CAP_RAYS = 2, 65536
+
+
+def leaf_cap_shards_check(pp, trv, dev) -> tuple[dict, dict]:
+    """Kernels 5 / 6 at the default cap of 4 over shards whose leaves
+    hold 6 triangles (:func:`leaf_cap_soup` built with
+    ``max_leaf_size=8``): each shard's walk (``walk_closest`` /
+    ``walk_any``) against the plain binary walks at the same cap, hits
+    and occlusion equal (tri mismatches <= 0.001%); and the combine at
+    cap 4 against cap 8, which must differ (the cap is applied).
+    Returns (results, launches of the cap-4 combine)."""
+    import torch
+
+    from pnraytracing_tpu_torch.ops.intersect import Hit
+
+    pos, idx = leaf_cap_soup(1000, 5)
+    shards = pp.build_primitive_shards(pos, idx, LEAF_CAP_SHARDS,
+                                       max_leaf_size=8)
+    o, d = (torch.from_numpy(x).to(dev)
+            for x in leaf_cap_rays(pos, LEAF_CAP_RAYS))
+    t_max = torch.full((len(o),), 1e6, device=dev)
+    placed = pp.place_all(shards, dev)
+    ov, dv = pp.ray_components(o, d)
+    out = {"rays": len(o), "shards": LEAF_CAP_SHARDS}
+    for p in placed:
+        kw = dict(stack_depth=p.stack_depth, max_leaf_size=4)
+        got_c = pp.walk_closest(p, o, d, t_max)
+        want = trv.plain_closest_hit_binary(p.trav, ov, dv, t_max, **kw)
+        want_tri = torch.where(want.valid, p.tri_map[
+            want.tri.clamp_min(0).long()], -1)
+        got = Hit(tri=got_c[1], t=got_c[0], b1=got_c[2], b2=got_c[3])
+        ref = Hit(tri=want_tri, t=want.t, b1=want.b1, b2=want.b2)
+        bad, err = check_closest(f"closest_hit_binary/leaf_cap{p.shard}",
+                                 got, ref, len(o))
+        occ_bad = check_occ(f"any_hit_binary/leaf_cap{p.shard}",
+                            pp.walk_any(p, o, d, t_max),
+                            trv.plain_any_hit_binary(p.trav, ov, dv, t_max,
+                                                     **kw))
+        out[f"shard{p.shard}"] = {"tri_mismatch": bad, "err": err,
+                                  "occlusion_mismatch": occ_bad}
+    tables, counts = _launch_tables()
+    torch.cuda.synchronize()
+    zero_counts(*tables)
+    cap4 = pp.shards_closest_hit(placed, o, d, t_max)
+    occ4 = pp.shards_any_hit(placed, o, d, t_max)
+    torch.cuda.synchronize()
+    launches = counts()
+    cap8 = pp.shards_closest_hit(placed, o, d, t_max, max_leaf_size=8)
+    occ8 = pp.shards_any_hit(placed, o, d, t_max, max_leaf_size=8)
+    out["t_changed_by_cap"] = int((cap4.t != cap8.t).sum())
+    out["occlusion_changed_by_cap"] = int((occ4 != occ8).sum())
+    out["hits_cap4"] = int(cap4.valid.sum())
+    if out["t_changed_by_cap"] < len(o) // 20:
+        raise AssertionError(f"leaf cap: caps 4 and 8 give nearly the same "
+                             f"hits ({out}); the cap is not applied")
+    return out, launches
 
 
 def rel_err(a, b) -> float:
@@ -3440,7 +3529,7 @@ def parallel_phase(render_frame, RenderConfig, flagship, flag_cam, c5,
                                                   int(b[s]), int(b[s + 1])))
                        for s in range(n)]
         t0 = time.perf_counter()
-        distributed.initialize(f"tcp://localhost:{_free_port()}",
+        distributed.initialize(f"tcp://localhost:{distributed.free_port()}",
                                world_size=1, rank=0)
         try:
             m = pm.make_device_mesh()
@@ -3578,6 +3667,11 @@ def parallel_phase(render_frame, RenderConfig, flagship, flag_cam, c5,
                     "mismatches": check_occ(name_a + "/primitive", got_a,
                                             want_a), "plain_ms": plain_a}
 
+            # kernels 5 / 6 at the default leaf cap over shards of
+            # 6-triangle leaves (fault 5)
+            checks["leaf_cap"], launches["primitive_leaf_cap"] = (
+                leaf_cap_shards_check(pp, trv, dev))
+
             # world 2: two processes on the one card
             host = lambda t: t.detach().cpu().numpy()
             np.savez(os.path.join(workdir, "flagship.npz"),
@@ -3651,7 +3745,9 @@ def parallel_phase(render_frame, RenderConfig, flagship, flag_cam, c5,
         "primitive_one_process_8": dict(closest_hit_binary=8,
                                         any_hit_binary=8),
         "primitive_one_process_8_compat": dict(
-            closest_hit_binary_compat=8, any_hit_binary_compat=8)}
+            closest_hit_binary_compat=8, any_hit_binary_compat=8),
+        "primitive_leaf_cap": dict(closest_hit_binary=LEAF_CAP_SHARDS,
+                                   any_hit_binary=LEAF_CAP_SHARDS)}
     by_world = {"world1": launches, **{f"world2_rank{k}": w["launches"]
                                        for k, w in enumerate(world2)}}
     for world, got in by_world.items():
@@ -3670,6 +3766,117 @@ def parallel_phase(render_frame, RenderConfig, flagship, flag_cam, c5,
                seconds=time.perf_counter() - t_phase)
     emit(out)
     return by_world
+
+
+# ---- phase 21: the repo's entry points -----------------------------------
+
+BENCH_RUNS = {"fwd": [], "bwd": ["--bwd", "--frames", "2"],
+              "bwd_no_replay": ["--bwd", "--no-replay", "--frames", "2"]}
+BENCH_KEYS = ["metric", "unit", "value", "vs_baseline"]
+DRYRUN_RANKS = 2
+
+
+def bench_run(name, flags, smi) -> dict:
+    """``python -m pnraytracing_tpu_torch.bench`` with ``flags`` in a
+    process of its own: its last stdout line must be the bench's one JSON
+    line, and its last stderr line the card's ``nvidia-smi`` line."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pnraytracing_tpu_torch.bench", *flags],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench {name} exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    line = json.loads(lines[-1])
+    mode = "fwd+bwd" if "--bwd" in flags else "fwd"
+    metric = (f"rays/s/chip {mode} ({WIDTH}x{HEIGHT}, 1spp, {DEPTH} "
+              "bounces, teapot_night)")
+    err = out.stderr.splitlines()
+    if not (len(lines) == 1 and sorted(line) == BENCH_KEYS
+            and line["metric"] == metric and line["value"] > 0
+            and line["unit"] == "rays/s/chip" and err[-1] == smi):
+        raise AssertionError(f"bench {name}: stdout {out.stdout!r}, last "
+                             f"stderr line {err[-1]!r}")
+    counts = re.search(r"launches: warm-up (\{.*\}); timed (\{.*\})",
+                       out.stderr)
+    return {"flags": flags, "line": line, "wall_s": wall,
+            "phases": [x for x in err if x.startswith("[bench")],
+            "launches": {"warmup": json.loads(counts.group(1)),
+                         "timed": json.loads(counts.group(2))},
+            "card": err[-1]}
+
+
+def bench_phase(camera, smi) -> dict:
+    """Phase 21: the repo's two entry points as the port has them.  The
+    bench (``python -m pnraytracing_tpu_torch.bench``) forward, ``--bwd``
+    and ``--bwd --no-replay``, each in a process of its own, one after
+    another; ``entry()``'s step twice (bit for bit the same) against the
+    replayed flagship frame (``render_average`` of frame 0: the frame
+    the bench times), with its launches counted (kernels 1, 2, 4); and
+    ``dryrun_multichip(2, backend="gloo")``, two processes on the one
+    card, with each rank's launches (kernels 5, 6 of the packet walk,
+    and 4).  Fails if a kernel of 1, 2, 4, 5, 6 was launched no time.
+    Returns the launches by path for the kernels line."""
+    import torch
+
+    from pnraytracing_tpu_torch.entry import dryrun_multichip, entry
+    from pnraytracing_tpu_torch.render.renderer import render_average
+
+    t_phase = time.perf_counter()
+    out = {"phase": "bench", "card": smi,
+           "bench": {k: bench_run(k, f, smi) for k, f in BENCH_RUNS.items()}}
+    launches = {f"bench_{k}_{w}": v["launches"][w]
+                for k, v in out["bench"].items() for w in ("warmup", "timed")}
+
+    tables, counts = _launch_tables()
+    t0 = time.perf_counter()
+    fn, args = entry()
+    out["entry_build_s"] = time.perf_counter() - t0
+    cfg = fn.keywords["cfg"]
+    torch.cuda.synchronize()
+    zero_counts(*tables)
+    first = fn(*args)
+    torch.cuda.synchronize()
+    launches["entry"] = counts()
+    second = fn(*args)
+    replayed = render_average(args[0], camera, cfg, 0, 1).reshape(-1, 3)
+    ok = (first.shape == (WIDTH * HEIGHT, 3) and bool(
+        torch.isfinite(first).all()) and torch.equal(first, second)
+        and torch.equal(first, replayed))
+    out["entry"] = {"equal_second_call": torch.equal(first, second),
+                    "equal_replayed_frame": torch.equal(first, replayed),
+                    "max_abs_diff_replayed": float(
+                        (first - replayed).abs().max()),
+                    "ms": host_ms(lambda: fn(*args))[0],
+                    "traversal": cfg.traversal}
+    if not ok:
+        raise AssertionError(f"entry(): {out['entry']}")
+
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(DRYRUN_RANKS, backend="gloo")
+    out["dryrun"] = {"seconds": time.perf_counter() - t0,
+                     "losses": [r["losses"] for r in ranks],
+                     "params_digest": ranks[0]["digest"]}
+    for k, r in enumerate(ranks):
+        launches[f"dryrun_rank{k}"] = r["launches"]
+    # the forward bench's capture and each gradient step run kernels 1,
+    # 2, 4 (the live gradient 3, 2, 4); the dryrun's packet walk 5, 6
+    resident = ("closest_hit_attr", "any_hit", "treelet_entry_key")
+    need = {"entry": resident, "bench_fwd_warmup": resident,
+            "bench_bwd_timed": resident,
+            "bench_bwd_no_replay_timed": ("closest_hit", "any_hit",
+                                          "treelet_entry_key"),
+            **{f"dryrun_rank{k}": ("closest_hit_binary", "any_hit_binary")
+               for k in range(DRYRUN_RANKS)}}
+    for path, names in need.items():
+        if not all(launches[path].get(n, 0) > 0 for n in names):
+            raise AssertionError(f"{path} launched {launches[path]}: "
+                                 f"each of {names} must run")
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return launches
 
 
 # ---- phase 18: the asset loaders -------------------------------------------
@@ -4509,6 +4716,7 @@ def main() -> int:
         dev, modules, tables, counts, smi)
     par_launches = parallel_phase(render_frame, RenderConfig, scene, camera,
                                   c5, c5_cam, dev, smi)
+    bench_launches = bench_phase(camera, smi)
     for row in rows:  # kernels 1-3 on config5's rays
         if row["name"] in on_config5:
             row["config5_ms"] = on_config5[row["name"]]
@@ -4547,6 +4755,9 @@ def main() -> int:
         # assets)
         row["assets_launches"] = {k: v.get(row["name"], 0)
                                   for k, v in asset_launches.items()}
+        # launches of entry()'s step and of each dryrun rank (phase bench)
+        row["bench_launches"] = {k: v.get(row["name"], 0)
+                                 for k, v in bench_launches.items()}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

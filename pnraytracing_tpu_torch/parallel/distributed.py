@@ -74,6 +74,16 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
         torch.cuda.set_device(rank_device())
 
 
+def free_port() -> int:
+    """A TCP port on ``localhost`` free at the time of the call, for an
+    ``init_method`` of ``tcp://localhost:<port>``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def is_initialized() -> bool:
     """Whether the default process group is up (public API)."""
     return dist.is_available() and dist.is_initialized()

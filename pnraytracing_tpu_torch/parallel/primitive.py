@@ -16,12 +16,12 @@ is a function of the per-shard answers and of a ``reduce`` callable, so
 the same code combines one shard a rank through ``all_reduce``
 (:func:`primitive_sharded_closest_hit`, :func:`primitive_sharded_any_hit`)
 or ``D`` shards walked in one process (:func:`place_all`,
-:func:`shards_closest_hit`, :func:`shards_any_hit`).  The JAX
-functions' ``tile_size`` and ``check_vma`` (XLA tiling of the walk,
-``shard_map``'s replication check) and ``max_leaf_size`` (the cap of its
-walk's leaf loop; the shards' leaves hold at most the builder's 4
-triangles, so the port's walks, which test a whole leaf by default, give
-the same answers) have no counterpart.
+:func:`shards_closest_hit`, :func:`shards_any_hit`).  Every walk takes
+the JAX functions' ``max_leaf_size`` (default 4), the most triangles it
+tests a leaf, and hands it to kernels 5 / 6, so shards built with larger
+leaves give the JAX package's answers.  ``tile_size`` and ``check_vma``
+have no counterpart: a kernel walks every ray in one launch, and no
+``shard_map`` checks replication here.
 
 Shards are built on the host in numpy by the port's own builder
 (``accel/bvh.py``), as the JAX package builds them.
@@ -172,23 +172,27 @@ def ray_components(o: torch.Tensor, d: torch.Tensor) -> tuple[V3, V3]:
             V3.of(d).map(torch.Tensor.contiguous))
 
 
-def walk_closest(placed: PlacedShard, o, d, t_max, compat: bool = False):
+def walk_closest(placed: PlacedShard, o, d, t_max, compat: bool = False,
+                 max_leaf_size: int = 4):
     """One shard's closest hit over all rays by the binary walk (kernel 5
-    on the card), ``tri`` as GLOBAL ids: ``(t, tri, b1, b2)``."""
+    on the card), testing at most ``max_leaf_size`` triangles a leaf,
+    ``tri`` as GLOBAL ids: ``(t, tri, b1, b2)``."""
     hit = closest_hit(placed.trav, *ray_components(o, d), t_max,
                       stack_depth=placed.stack_depth, variant="binary",
-                      compat=compat)
+                      compat=compat, max_leaf_size=max_leaf_size)
     gtri = torch.where(hit.valid,
                        placed.tri_map[torch.clamp_min(hit.tri, 0).long()],
                        torch.full_like(hit.tri, -1))
     return hit.t, gtri, hit.b1, hit.b2
 
 
-def walk_any(placed: PlacedShard, o, d, t_max, compat: bool = False):
-    """One shard's occlusion over all rays (kernel 6 on the card)."""
+def walk_any(placed: PlacedShard, o, d, t_max, compat: bool = False,
+             max_leaf_size: int = 4):
+    """One shard's occlusion over all rays (kernel 6 on the card), at
+    most ``max_leaf_size`` triangles a leaf."""
     return any_hit(placed.trav, *ray_components(o, d), t_max,
                    stack_depth=placed.stack_depth, variant="binary",
-                   compat=compat)
+                   compat=compat, max_leaf_size=max_leaf_size)
 
 
 def local_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
@@ -240,22 +244,24 @@ def combine_any(occ, reduce) -> torch.Tensor:
 
 
 def primitive_sharded_closest_hit(placed: PlacedShard, o, d, t_max, mesh, *,
+                                  max_leaf_size: int = 4,
                                   compat: bool = False) -> Hit:
     """Closest hit over the partitioned scene: this rank walks its shard
     for ALL rays (``o``, ``d`` [R, 3], ``t_max`` [R], the same on every
     rank), then the global winner is combined over the mesh.  Returns
     the same Hit, with GLOBAL triangle ids, on every rank."""
-    t, tri, b1, b2 = walk_closest(placed, o, d, t_max, compat)
+    t, tri, b1, b2 = walk_closest(placed, o, d, t_max, compat, max_leaf_size)
     return combine_closest(t[None], tri[None], b1[None], b2[None],
                            [placed.shard], placed.n_shards, t_max,
                            collective_reduce(mesh.group))
 
 
 def primitive_sharded_any_hit(placed: PlacedShard, o, d, t_max, mesh, *,
+                              max_leaf_size: int = 4,
                               compat: bool = False) -> torch.Tensor:
     """Occlusion over the partitioned scene: this rank's any-hit, OR'd
     over the mesh."""
-    occ = walk_any(placed, o, d, t_max, compat)
+    occ = walk_any(placed, o, d, t_max, compat, max_leaf_size)
     return combine_any(occ[None], collective_reduce(mesh.group))
 
 
@@ -266,19 +272,22 @@ def place_all(shards: PrimShards, device=None) -> list[PlacedShard]:
 
 
 def shards_closest_hit(placed: list[PlacedShard], o, d, t_max, *,
-                       compat: bool = False) -> Hit:
+                       max_leaf_size: int = 4, compat: bool = False) -> Hit:
     """The closest hit of :func:`primitive_sharded_closest_hit` with every
     shard (:func:`place_all`) walked in this one process."""
     t, tri, b1, b2 = (torch.stack(x) for x in zip(*[
-        walk_closest(p, o, d, t_max, compat) for p in placed]))
+        walk_closest(p, o, d, t_max, compat, max_leaf_size)
+        for p in placed]))
     n = placed[0].n_shards
     return combine_closest(t, tri, b1, b2, [p.shard for p in placed], n,
                            t_max, local_reduce)
 
 
 def shards_any_hit(placed: list[PlacedShard], o, d, t_max, *,
+                   max_leaf_size: int = 4,
                    compat: bool = False) -> torch.Tensor:
     """The occlusion of :func:`primitive_sharded_any_hit`, every shard
     walked in this one process."""
-    occ = torch.stack([walk_any(p, o, d, t_max, compat) for p in placed])
+    occ = torch.stack([walk_any(p, o, d, t_max, compat, max_leaf_size)
+                       for p in placed])
     return combine_any(occ, local_reduce)

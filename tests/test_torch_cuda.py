@@ -1343,3 +1343,56 @@ def test_traversal_frame_on_card(flagship, value):
     for other in (plain, ref):
         off = (eager0 - other).abs().amax(dim=-1) > 3e-5
         assert int(off.sum()) <= limit
+
+
+# ---- the entry points (pnraytracing_tpu_torch/bench.py, entry.py) -----------
+
+def test_bench_forward_line_on_card(flagship):
+    """``python -m pnraytracing_tpu_torch.bench`` at 128x128 on the card:
+    one JSON line of ``bench.py``'s form, the card's ``nvidia-smi`` line
+    last on stderr."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from pnraytracing_tpu_torch.bench import nvidia_smi_line
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "pnraytracing_tpu_torch.bench", "--width",
+         "128", "--height", "128", "--frames", "4"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert sorted(line) == ["metric", "unit", "value", "vs_baseline"]
+    assert line["metric"] == ("rays/s/chip fwd (128x128, 1spp, 4 bounces, "
+                              "teapot_night)")
+    assert line["value"] > 0 and line["vs_baseline"] > 0
+    assert out.stderr.splitlines()[-1] == nvidia_smi_line()
+
+
+def test_entry_arguments_on_card(flagship):
+    """``entry()``: ``render_rays`` on the ``pallas`` route, its arguments
+    on the card; one step launches kernels 1, 2 and 4."""
+    from pnraytracing_tpu_torch.entry import entry
+    from pnraytracing_tpu_torch.render.integrator import render_rays
+
+    fn, args = entry()
+    assert fn.func is render_rays
+    assert fn.keywords["cfg"].traversal == "pallas"
+    scene, o, d, px, py, frame = args
+    assert frame == 0
+    for t in (o, d, px, py, scene.mesh.positions, scene.trav.nodes16c):
+        assert t.is_cuda
+    for k in trv.LAUNCHES:
+        trv.LAUNCHES[k] = 0
+    compaction.LAUNCHES["treelet_entry_key"] = 0
+    img = fn(*args)
+    torch.cuda.synchronize()
+    assert img.shape == (512 * 512, 3) and bool(torch.isfinite(img).all())
+    assert trv.LAUNCHES["closest_hit_attr"] == 5
+    assert trv.LAUNCHES["any_hit"] == 4
+    assert compaction.LAUNCHES["treelet_entry_key"] == 2

@@ -105,22 +105,46 @@ def dp_job(workdir, cfg, keys, live_keys, lr):
     return out
 
 
+def _prim_inputs(workdir, shards, rays):
+    a = _load(workdir, rays)
+    return (prim_shards_from_arrays(_load(workdir, shards)),
+            *(torch.from_numpy(a[k]) for k in ("o", "d", "t_max")))
+
+
+def _prim_query(out, tag, placed, o, d, t_max, m, **kw):
+    hit = primitive.primitive_sharded_closest_hit(placed, o, d, t_max, m,
+                                                  **kw)
+    occ = primitive.primitive_sharded_any_hit(placed, o, d, t_max, m, **kw)
+    out.update({f"{tag}.{f}": getattr(hit, f).numpy()
+                for f in ("tri", "t", "b1", "b2")})
+    out[f"{tag}.occ"] = occ.numpy()
+
+
 def primitive_job(workdir):
     """This rank's shard of the shards in ``workdir`` walked for every
     ray, combined over the mesh: closest hit and occlusion, in the
-    default and the compat form (``compat0.*`` / ``compat1.*``)."""
-    shards = prim_shards_from_arrays(_load(workdir, "shards"))
-    a = _load(workdir, "prim_rays")
-    o, d, t_max = (torch.from_numpy(a[k]) for k in ("o", "d", "t_max"))
+    default and the compat form (``compat0.*`` / ``compat1.*``); then
+    the leaf-cap shards (leaves of up to 8 triangles) at the default
+    cap and at a cap of 8 (``cap4.*`` / ``cap8.*``)."""
     m = mesh.make_device_mesh()
-    placed = primitive.put_shards(shards, m, device="cpu")
     out = {}
+    shards, o, d, t_max = _prim_inputs(workdir, "shards", "prim_rays")
+    placed = primitive.put_shards(shards, m, device="cpu")
     for compat in (False, True):
-        hit = primitive.primitive_sharded_closest_hit(placed, o, d, t_max, m,
-                                                      compat=compat)
-        occ = primitive.primitive_sharded_any_hit(placed, o, d, t_max, m,
-                                                  compat=compat)
-        out.update({f"compat{int(compat)}.{f}": getattr(hit, f).numpy()
-                    for f in ("tri", "t", "b1", "b2")})
-        out[f"compat{int(compat)}.occ"] = occ.numpy()
+        _prim_query(out, f"compat{int(compat)}", placed, o, d, t_max, m,
+                    compat=compat)
+    shards, o, d, t_max = _prim_inputs(workdir, "cap_shards", "cap_rays")
+    placed = primitive.put_shards(shards, m, device="cpu")
+    _prim_query(out, "cap4", placed, o, d, t_max, m)
+    _prim_query(out, "cap8", placed, o, d, t_max, m, max_leaf_size=8)
     return out
+
+
+def dryrun_job(workdir, width, height):
+    """``entry._dryrun_rank`` (the body of ``entry.dryrun_multichip``) at
+    ``width`` x ``height`` on the CPU: its losses and final
+    parameters."""
+    from pnraytracing_tpu_torch.entry import _dryrun_rank
+
+    out = _dryrun_rank(width, height, device="cpu")
+    return {"losses": np.array(out["losses"]), **out["params"]}

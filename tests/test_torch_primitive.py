@@ -18,6 +18,11 @@ walk.
   BVH over the whole soup, default and compat: ``t`` and occlusion
   equal, ``tri`` equal but on exact-``t`` ties, ``b1`` / ``b2`` equal
   where ``tri`` is;
+* the leaf cap: shards built with leaves of up to 8 triangles
+  (``chip_smoke.leaf_cap_soup``, 6-triangle leaves) walked at the
+  default cap of 4 and at a cap of 8, one shard a rank and all in one
+  process, against the JAX package's ``max_leaf_size`` on
+  ``make_device_mesh(2)``;
 * the combine's tie rule (lowest shard) and misses, and what
   ``put_shards`` places.
 """
@@ -30,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import leaf_cap_rays, leaf_cap_soup
 from pnraytracing_tpu.parallel import primitive as jax_primitive
 from pnraytracing_tpu.parallel.mesh import make_device_mesh
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
@@ -50,6 +56,22 @@ T_MAX = 1e6
 @functools.lru_cache(maxsize=4)
 def shards(n):
     return primitive.build_primitive_shards(*_soup(), n)
+
+
+@functools.lru_cache(maxsize=1)
+def cap_soup():
+    """The leaf-cap soup (150 groups of 6 triangles, 6-triangle leaves
+    with ``max_leaf_size=8``) and 2048 rays aimed into its cubes from
+    around it, numpy."""
+    pos, idx = leaf_cap_soup(150, 5)
+    o, d = leaf_cap_rays(pos, 2048)
+    return pos, idx, o, d, np.full(len(o), T_MAX, np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def cap_shards():
+    return primitive.build_primitive_shards(*cap_soup()[:2], 2,
+                                            max_leaf_size=8)
 
 
 @functools.lru_cache(maxsize=1)
@@ -96,6 +118,10 @@ def world2(tmp_path_factory):
     o, d, t_max = rays()
     np.savez(os.path.join(wd, "prim_rays.npz"), o=o.numpy(), d=d.numpy(),
              t_max=t_max.numpy())
+    np.savez(os.path.join(wd, "cap_shards.npz"), **prim_shards_to_arrays(
+        cap_shards()))
+    o, d, t_max = cap_soup()[2:]
+    np.savez(os.path.join(wd, "cap_rays.npz"), o=o, d=d, t_max=t_max)
     return workers.spawn(workers.primitive_job, 2, wd)
 
 
@@ -132,6 +158,52 @@ def test_sharded_hits_match_jax(world2, compat):
         np.testing.assert_array_equal(world2[0][k + f],
                                       getattr(h, f).numpy())
     np.testing.assert_array_equal(world2[1][k + "occ"], occ.numpy())
+
+
+@pytest.mark.parametrize("cap", [None, 8])
+def test_leaf_cap_matches_jax(world2, cap):
+    """Shards whose leaves hold 6 triangles (built with
+    ``max_leaf_size=8``), queried at the default cap (4, as the JAX
+    functions' default) and at a cap of 8, one shard a rank (world two)
+    and both shards in one process, against the JAX package's
+    ``primitive_sharded_*_hit`` with the same ``max_leaf_size``.
+    Occlusion exact; ``t`` within rtol 1e-5 and atol 1e-5 (this module's
+    bounds); triangle ids equal except where two triangles of a cube
+    cross within an ulp: a ray whose ids differ has both packages' ``t``
+    within 1e-6 relative (the leaf-cap soup's rule of
+    ``tests/test_torch_xla_walks.py``; 2 ulp at most here).  The cap
+    changes ``t`` on a fifth of the rays, so a walk that tests whole
+    leaves at the default fails here."""
+    pos, idx, o, d, t_max = cap_soup()
+    mesh = make_device_mesh(2)
+    js = jax_primitive.put_shards(
+        jax_primitive.build_primitive_shards(pos, idx, 2, max_leaf_size=8),
+        mesh)
+    for f in ("nodes8", "tri9", "tri_map"):
+        np.testing.assert_array_equal(getattr(cap_shards(), f),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    kw = {} if cap is None else {"max_leaf_size": cap}
+    jr = (jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))
+    want = jax_primitive.primitive_sharded_closest_hit(js, *jr, mesh, **kw)
+    want_occ = np.asarray(jax_primitive.primitive_sharded_any_hit(
+        js, *jr, mesh, **kw))
+    placed = primitive.place_all(cap_shards(), "cpu")
+    pr = [torch.from_numpy(x) for x in (o, d, t_max)]
+    h = primitive.shards_closest_hit(placed, *pr, **kw)
+    one = {f: getattr(h, f).numpy() for f in ("tri", "t", "b1", "b2")}
+    one["occ"] = primitive.shards_any_hit(placed, *pr, **kw).numpy()
+    k = f"cap{cap or 4}."
+    for got in (*({f: w[k + f] for f in one} for w in world2), one):
+        np.testing.assert_array_equal(got["occ"], want_occ)
+        t_j = np.asarray(want.t)
+        np.testing.assert_allclose(got["t"], t_j, rtol=1e-5, atol=1e-5)
+        tie = np.abs(got["t"] - t_j) <= 1e-6 * np.abs(t_j)
+        assert (tie | (got["tri"] == np.asarray(want.tri))).all()
+    for f in one:  # the collective combine is the one-process combine
+        np.testing.assert_array_equal(world2[0][k + f], one[f])
+    assert 0.5 < want_occ.mean() < 1.0
+    other = world2[0]["cap8.t" if cap is None else "cap4.t"]
+    assert (other != one["t"]).mean() > 0.2
 
 
 @pytest.mark.parametrize("compat", [False, True])

@@ -18,10 +18,11 @@ import os
 import numpy as np
 import pytest
 
-from chip_smoke import _free_port, first_use_order, write_obj
+from chip_smoke import first_use_order, write_obj
 from pnraytracing_tpu_torch.convert import scene_to_arrays
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.io.png import read_png_rgb
+from pnraytracing_tpu_torch.parallel.distributed import free_port
 from pnraytracing_tpu_torch.render.renderer import render_average
 from pnraytracing_tpu_torch.scene import shapes
 from pnraytracing_tpu_torch.scripts import gallery, interactive, optimize
@@ -89,7 +90,7 @@ def test_render_sharded_world_of_one(tmp_path, monkeypatch):
     """``--sharded`` as ``torchrun`` starts it (the environment names
     the world), on gloo: the PNG equals the unsharded one."""
     for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT",
-                                                str(_free_port())),
+                                                str(free_port())),
                  ("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
         monkeypatch.setenv(k, v)
     paths = [str(tmp_path / f"{n}.png") for n in ("plain", "sharded")]
