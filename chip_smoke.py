@@ -75,14 +75,20 @@ script exits non-zero without printing a result.  Phases:
    forward and backward ms, peak memory, gradient norms; finite and
    non-zero; ``grad_profile``: one replay forward and one backward
    under the profiler, the backward's device busy ms beside its budget
-   ``BACKWARD_BUDGET_MS``), two runs of one step (materials, env texels
-   and vertex positions) equal bit for bit, the live gradient (kernels 3, 2, 4; ms, peak memory, its
-   gradient within 1e-4 in norm of the replay's on the same route,
-   ``kernel_interaction=False``; the default route's distance beside
-   it), one positions step
-   with ``refit_scene`` (host ms; the refit scene traced through the
-   same kernels and captured anew) and three ``adam_optimize`` steps
-   (losses, step ms); ``grad_stream`` at the end of phase 16 traces
+   ``BACKWARD_BUDGET_MS``); the step as one captured CUDA graph
+   (diff/program.py, ``captured_replay``): launches at capture, capture
+   seconds and pool bytes, the replayed step against the eager step
+   (loss and every gradient leaf bit for bit; wall ms, device busy ms
+   and idle share of both); two runs of one step (materials, env texels
+   and vertex positions) equal bit for bit and equal to the eager step,
+   the live gradient (kernels 3, 2, 4; captured and eager as the
+   replay's, ``captured_live``; its gradient within 1e-4 in norm of the
+   replay's on the same route, ``kernel_interaction=False``; the default
+   route's distance beside it), one positions step with
+   ``refit_scene`` (host ms; the refit scene traced through the same
+   kernels and captured anew) and three ``adam_optimize`` steps (one
+   capture, losses and parameters equal to the eager run's, step ms;
+   a positions run's captures); ``grad_stream`` at the end of phase 16 traces
    config5 at 128x128 depth 2 through the stream kernels, records equal
    to the plain stream walks';
 10. binary: the binary pop-test kernels (the ``variant="binary"`` entry
@@ -1788,6 +1794,91 @@ def trace_parity(label, scene, rays, frame, cfg, modules, tables, counts,
             "valid_primary": int(recs.primary.valid.sum())}
 
 
+def layout_changes(a, b, path="scene") -> list:
+    """The fields of two scenes whose layout differs (a tensor's shape,
+    dtype or device, another field's value), by path."""
+    import dataclasses
+
+    from pnraytracing_tpu_torch.diff.program import _layout
+
+    if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+        return [c for f in dataclasses.fields(a) for c in layout_changes(
+            getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")]
+    return [] if _layout(a) == _layout(b) else [path]
+
+
+def captured_step(label, call, tables, counts, expected):
+    """A gradient entry point on the card as one captured program
+    (diff/program.py): ``call(eager=False)`` replays the step's program,
+    ``call(eager=True)`` runs it op by op.  The programs are cleared and
+    the counters zeroed just before the first call, which captures
+    (``WARMUP_STEPS`` warm-up steps and the capture each count
+    ``expected``; the program keeps ``expected``), and read just after;
+    the pool bytes are what the program keeps reserved.  Then replays
+    against eager steps, loss and every gradient leaf bit for bit (a
+    replay counts no launch), wall ms of each (3 eager, 5 replayed), one
+    of each under the profiler (device busy ms, idle share) and each
+    one's peak memory.  Returns ``(figures, the replayed step's (loss,
+    grads), its median ms)``."""
+    import torch
+
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.diff import program as sp
+    from pnraytracing_tpu_torch.render.program import clear_programs
+
+    clear_programs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    captures0 = sp.CAPTURES["steps"]
+    zero_counts(*tables)
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    got = counts()
+    (prog,) = sp._programs.values()
+    want = dict({k: 0 for k in got}, **expected)
+    n = sp.WARMUP_STEPS + 1
+    if (prog.launches != want or sp.CAPTURES["steps"] != captures0 + 1
+            or got != {k: n * v for k, v in want.items()}):
+        raise AssertionError(f"{label}: launches at capture {prog.launches} "
+                             f"(counters {got}), expected {want} ({n} "
+                             f"times with the warm-up)")
+    torch.cuda.empty_cache()  # the warm-up's blocks; the pool stays
+    pool_bytes = torch.cuda.memory_reserved() - reserved0
+    figures = {"capture_s": capture_s,
+               "graph_capture_s": prog.capture_seconds,
+               "pool_bytes": pool_bytes, "warmup_steps": sp.WARMUP_STEPS,
+               "launches_at_capture": {k: v for k, v in
+                                       prog.launches.items() if v}}
+    results = {}
+    for mode, eager, reps in (("eager", True, 3), ("captured", False, 5)):
+        got = counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, results[mode] = host_ms(lambda: call(eager=eager), reps=reps)
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = profile_frame(lambda: call(eager=eager), ms, top=5)
+        figures[mode] = {"wall_ms": ms, "max_memory_allocated": peak,
+                         "device_busy_ms": prof["device_busy_ms"],
+                         "device_idle_share": prof["device_idle_share"],
+                         "device_kernel_calls": prof.get(
+                             "device_kernel_calls")}
+    if counts() != got:  # since the eager steps
+        raise AssertionError(f"{label}: a replay counted launches")
+    (lc, gc), (le, ge) = results["captured"], results["eager"]
+    equal = {"loss": bool(torch.equal(lc, le))}
+    for k in gc:
+        equal[k] = all(torch.equal(a, b) for a, b in zip(
+            dg.param_leaves({k: gc[k]}), dg.param_leaves({k: ge[k]})))
+    if not all(equal.values()):
+        raise AssertionError(f"{label}: the captured step differs from the "
+                             f"eager step: {equal}")
+    figures["captured_equals_eager"] = equal
+    return figures, results["captured"], figures["captured"]["wall_ms"]
+
+
 def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
                smi, size=WIDTH, depth=DEPTH) -> dict:
     """The gradient path on the flagship at ``size``^2, depth ``depth``,
@@ -1796,10 +1887,13 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
     frame, the replay gradient (materials and env texels, spp 2, dual
     loss: trace, replay forward and backward timed apart, peak memory,
     norms), the live gradient (kernel 3 instead of 1; its gradient
-    against the replay's), one positions step with ``refit_scene`` (and
-    the refit scene's trace and captured frame), three ``adam_optimize``
-    steps.  Returns the launches of the trace and of the live gradient
-    for the kernels line."""
+    against the replay's), each step also as one captured program
+    against its eager step (:func:`captured_step`), one positions step
+    with ``refit_scene`` (and the refit scene's trace and captured
+    frame), three ``adam_optimize`` steps captured and eager (one
+    capture; equal losses and parameters) and three positions steps
+    (captures reported).  Returns the launches of the trace, of the live
+    gradient and of the captured steps for the kernels line."""
     import torch
 
     from pnraytracing_tpu_torch.core.camera import camera_rays
@@ -1873,11 +1967,15 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
         "device_kernel_calls": bwd_profile.get("device_kernel_calls"),
         "budget_ms": BACKWARD_BUDGET_MS,
         "within_budget": busy is not None and busy <= BACKWARD_BUDGET_MS}
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    step_ms, (loss_r, g_r) = host_ms(lambda: dg.loss_and_grad_replay(
-        params, scene, *rays, 3, target, cfg, spp=spp), reps=3)
-    peak_r = torch.cuda.max_memory_allocated() - base
+    # the step as one captured program (diff/program.py): its capture
+    # (launches counted), then the captured step against the eager step,
+    # loss and every gradient leaf bit for bit, timed and profiled
+    replay_step = lambda p_, eager=False: dg.loss_and_grad_replay(
+        p_, scene, *rays, 3, target, cfg, spp=spp, eager=eager)
+    out["captured_replay"], (loss_r, g_r), step_ms = captured_step(
+        "replay", lambda eager=False: replay_step(params, eager),
+        tables, counts, {k: spp * v for k, v in trace_expected.items()})
+    peak_r = out["captured_replay"]["eager"]["max_memory_allocated"]
     norms = {k: float(torch.linalg.vector_norm(torch.cat([
         g.reshape(-1) for g in dg.param_leaves({k: g_r[k]})])))
         for k in keys}
@@ -1887,17 +1985,21 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
                              f"{norms}")
     # the gate: two runs of one step give the same gradient bit for bit
     # (ops/gather.py: the gathers' backward sums each row in a fixed
-    # order), for materials, env texels and vertex positions
+    # order), for materials, env texels and vertex positions; the step
+    # replayed from its program, each run a copy of the program's
+    # outputs, and both equal to the eager step
     all_keys = ("materials", "env_image", "positions")
     p_all = dg.extract_params(scene, all_keys)
-    runs = [dg.loss_and_grad_replay(p_all, scene, *rays, 3, target, cfg,
-                                    spp=spp) for _ in range(2)]
-    same = {k: all(torch.equal(a, b) for a, b in zip(
-        dg.param_leaves({k: runs[0][1][k]}),
-        dg.param_leaves({k: runs[1][1][k]}))) for k in all_keys}
-    same["loss"] = torch.equal(runs[0][0], runs[1][0])
+    runs = [replay_step(p_all) for _ in range(2)] + [replay_step(p_all,
+                                                                 True)]
+    same = {k: all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(*(dg.param_leaves({k: r_[1][k]})
+                                        for r_ in runs))) for k in all_keys}
+    same["loss"] = (torch.equal(runs[0][0], runs[1][0])
+                    and torch.equal(runs[0][0], runs[2][0]))
     if not all(same.values()):
-        raise AssertionError(f"two runs of one gradient step differ: {same}")
+        raise AssertionError(f"two runs of one gradient step, or a run and "
+                             f"the eager step, differ: {same}")
     out["reproducible"] = same
     del runs
     out["replay_gradient"] = {
@@ -1908,7 +2010,8 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
 
     # 4. the live gradient: the walks inside the differentiated pass
     zero_counts(*tables)
-    dg.loss_and_grad(params, scene, *rays, 3, target, cfg, spp=spp)
+    dg.loss_and_grad(params, scene, *rays, 3, target, cfg, spp=spp,
+                     eager=True)
     live_launches = counts()
     want = dict({k: 0 for k in live_launches}, closest_hit=spp * (1 + depth),
                 any_hit=spp * depth,
@@ -1916,11 +2019,11 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
     if live_launches != want:
         raise AssertionError(f"loss_and_grad launched {live_launches}, "
                              f"expected {want}")
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    live_ms, (loss_l, g_l) = host_ms(lambda: dg.loss_and_grad(
-        params, scene, *rays, 3, target, cfg, spp=spp), reps=3)
-    peak_l = torch.cuda.max_memory_allocated() - base
+    out["captured_live"], (loss_l, g_l), live_ms = captured_step(
+        "live", lambda eager=False: dg.loss_and_grad(
+            params, scene, *rays, 3, target, cfg, spp=spp, eager=eager),
+        tables, counts, {k: v for k, v in want.items() if v})
+    peak_l = out["captured_live"]["eager"]["max_memory_allocated"]
     # gate: the live gradient against the replay gradient of a trace on
     # the live pass's own route (kernel_interaction off: kernel 3 and
     # make_interaction, so the same rays and records): per key within
@@ -1931,7 +2034,7 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
     # reported beside it (not gated), with the records that differ.
     cfg_live = dataclasses.replace(cfg, kernel_interaction=False)
     _, g_same = dg.loss_and_grad_replay(params, scene, *rays, 3, target,
-                                        cfg_live, spp=spp)
+                                        cfg_live, spp=spp, eager=True)
 
     def versus(g_a, g_b):
         out_ = {}
@@ -1996,25 +2099,59 @@ def grad_phase(RenderConfig, scene, camera, dev, modules, tables, counts,
                                  if v},
         "refit_replayed_equals_eager": True}
 
-    # 6. three steps of the optimizer
-    logs = []
-    t0 = time.perf_counter()
-    _, losses = dg.adam_optimize(
-        scene, camera, cfg, target.reshape(size, size, 3), keys=keys,
-        steps=3, spp_per_step=spp, log_every=1, log_fn=logs.append,
-        device=dev)
-    adam_s = time.perf_counter() - t0
-    if not all(map(lambda x: x == x and abs(x) < 1e30, losses)):
-        raise AssertionError(f"adam losses {losses}")
-    out["adam"] = {"losses": losses, "seconds": adam_s,
-                   "step_ms": [json.loads(x)["step_s"] * 1e3 for x in logs],
-                   "rays_per_s": [json.loads(x)["rays_per_s"]
-                                  for x in logs]}
+    # 6. three steps of the optimizer on materials and env texels: one
+    # captured step replayed three times, its losses and parameters those
+    # of the eager run; then three positions steps, each refit copied
+    # into the program's scene while its layout holds
+    from pnraytracing_tpu_torch.diff import program as sp
+
+    adam = {}
+    for label, keys_, spp_, eager in (
+            ("captured", keys, spp, False), ("eager", keys, spp, True),
+            ("positions", ("positions",), 1, False)):
+        logs = []
+        captures0 = sp.CAPTURES["steps"]
+        t0 = time.perf_counter()
+        res, losses = dg.adam_optimize(
+            scene, camera, cfg, target.reshape(size, size, 3), keys=keys_,
+            steps=3, spp_per_step=spp_, log_every=1, log_fn=logs.append,
+            device=dev, eager=eager)
+        adam_s = time.perf_counter() - t0
+        if not all(map(lambda x: x == x and abs(x) < 1e30, losses)):
+            raise AssertionError(f"adam {label} losses {losses}")
+        adam[label] = {"losses": losses, "seconds": adam_s,
+                       "captures": sp.CAPTURES["steps"] - captures0,
+                       "step_ms": [json.loads(x)["step_s"] * 1e3
+                                   for x in logs],
+                       "rays_per_s": [json.loads(x)["rays_per_s"]
+                                      for x in logs]}
+        adam[label]["params"] = dg.param_leaves(dg.extract_params(res,
+                                                                  keys_))
+        if label == "positions":  # what the refits changed the shape of
+            adam[label]["layout_changed"] = layout_changes(scene, res)
+    same = (adam["captured"]["losses"] == adam["eager"]["losses"]
+            and all(torch.equal(a, b) for a, b in zip(
+                adam["captured"]["params"], adam["eager"]["params"])))
+    if not (same and adam["captured"]["captures"] == 1
+            and adam["eager"]["captures"] == 0
+            and adam["positions"]["captures"] >= 1):
+        raise AssertionError(f"adam_optimize: captured run equal to the "
+                             f"eager run {same}, captures "
+                             f"{[v['captures'] for v in adam.values()]}")
+    for v in adam.values():
+        del v["params"]
+    out["adam"] = dict(adam["captured"], eager=adam["eager"],
+                       positions=adam["positions"],
+                       captured_equals_eager=True)
     out["card"] = smi
     emit(out)
     return {"trace": out["trace"]["launches"],
             "live_gradient": {k: v // spp for k, v in
-                              out["live_gradient"]["launches"].items()}}
+                              out["live_gradient"]["launches"].items()},
+            "captured_replay_step": out["captured_replay"][
+                "launches_at_capture"],
+            "captured_live_step": out["captured_live"][
+                "launches_at_capture"]}
 
 
 def grad_stream_phase(RenderConfig, scene, camera, dev, modules, tables,
@@ -3567,23 +3704,25 @@ def parallel_phase(render_frame, RenderConfig, flagship, flag_cam, c5,
             o, d, _ = camera_rays(flag_cam, WIDTH, HEIGHT)
             target = torch.full((cfg.num_pixels, 3), 0.25, device=dev)
             params = dg.extract_params(flagship, keys)
+            # the single-process steps eager, as the dp step runs (their
+            # captured programs equal them bit for bit: phase grad)
             single = {
                 "dp_replay": dg.loss_and_grad_replay(
                     params, flagship, o, d, px, py, 3, target, cfg, spp=1,
-                    dual=False),
+                    dual=False, eager=True),
                 "dp_live": dg.loss_and_grad(
                     params, flagship, o, d, px, py, 3, target, cfg, spp=1,
-                    dual=False)}
+                    dual=False, eager=True)}
             # the same single-process steps again: the distance between two
             # runs of one step (0: the gathers' backward sums in a fixed
             # order, ops/gather.py)
             again = {
                 "dp_replay": dg.loss_and_grad_replay(
                     params, flagship, o, d, px, py, 3, target, cfg, spp=1,
-                    dual=False),
+                    dual=False, eager=True),
                 "dp_live": dg.loss_and_grad(
                     params, flagship, o, d, px, py, 3, target, cfg, spp=1,
-                    dual=False)}
+                    dual=False, eager=True)}
             grad_rel = lambda a, b: {
                 "loss": rel_err(a[0], b[0]),
                 **{k: rel_err(dg.param_leaves({k: a[1][k]}),
@@ -3863,17 +4002,23 @@ def bench_phase(camera, smi) -> dict:
         launches[f"dryrun_rank{k}"] = r["launches"]
     # the forward bench's capture and each gradient step run kernels 1,
     # 2, 4 (the live gradient 3, 2, 4); the dryrun's packet walk 5, 6
+    # (counted at the capture in the first warm-up call: the timed calls
+    # replay the captured frame or step and count none)
     resident = ("closest_hit_attr", "any_hit", "treelet_entry_key")
     need = {"entry": resident, "bench_fwd_warmup": resident,
-            "bench_bwd_timed": resident,
-            "bench_bwd_no_replay_timed": ("closest_hit", "any_hit",
-                                          "treelet_entry_key"),
+            "bench_bwd_warmup": resident,
+            "bench_bwd_no_replay_warmup": ("closest_hit", "any_hit",
+                                           "treelet_entry_key"),
             **{f"dryrun_rank{k}": ("closest_hit_binary", "any_hit_binary")
                for k in range(DRYRUN_RANKS)}}
     for path, names in need.items():
         if not all(launches[path].get(n, 0) > 0 for n in names):
             raise AssertionError(f"{path} launched {launches[path]}: "
                                  f"each of {names} must run")
+    replayed = [k for k in BENCH_RUNS if launches[f"bench_{k}_timed"]]
+    if replayed:
+        raise AssertionError(f"the timed calls of bench {replayed} launched "
+                             f"kernels: they must replay a captured program")
     out.update(launches=launches, seconds=time.perf_counter() - t_phase)
     emit(out)
     return launches

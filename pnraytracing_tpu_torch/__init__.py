@@ -20,7 +20,8 @@ progressive state (``AccumState``, ``accum_add``) and the interactive
 gradients: the trace/replay split (``trace_paths``,
 ``render_rays_replay``), ``diff.grad`` (``loss_and_grad``,
 ``loss_and_grad_replay``, ``adam_optimize``, ``refit_scene``) on
-``torch.autograd`` and the optimizer checkpoints; ``parallel/`` on
+``torch.autograd``, each step captured once as a CUDA graph and replayed
+on the card (``diff.program``), and the optimizer checkpoints; ``parallel/`` on
 ``torch.distributed`` (tile-sharded frames, data-parallel gradients,
 primitive-sharded walks); ``utils/`` (image output, profiling, the
 kernels' build directory, the resilient render loop of

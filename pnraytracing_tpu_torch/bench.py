@@ -14,7 +14,8 @@ traced rays a second on one card, counting every query a pixel's path
 issues (primary + per bounce: light shadow + env shadow + continuation),
 rays/pixel = 1 + 3 * depth, as ``bench.py`` counts them.  ``--bwd``
 times the forward + backward step (gradients to the materials and the
-env texels) instead.
+env texels) instead: on the card one replayed CUDA graph a step
+(``diff/program.py``), captured by the first warm-up call.
 
 Method: a call of the forward bench is ``render_average`` of
 ``--frames-per-call`` frames, which on the card replays the frame's
@@ -137,40 +138,25 @@ def render_config(args: argparse.Namespace):
 
 def frames_loss_and_grad(params: dict, scene, o, d, px, py, start: int,
                          k: int, target: torch.Tensor, cfg,
-                         replay: bool = True):
+                         replay: bool = True, eager: bool = False):
     """``(loss, grads)`` of the JAX bench's ``--bwd`` step: the mean over
     frames ``start`` .. ``start + k - 1`` of each frame's
     ``mean((img - target) ** 2)``, summed in frame order, and its
-    gradient to ``params``.  ``diff/grad.py``'s losses are another
-    quantity for ``k >= 2`` (the dual-buffer estimator, or the squared
-    error of the mean of the frames), so the step is built here from its
-    parts, as ``bench.py`` builds it.  ``replay``: the walks run once a
-    frame, forward only (``trace_paths``), then one backward through the
-    walk-free ``render_rays_replay``; else the live integrator
-    (``render_image_from_params``) is differentiated."""
-    from pnraytracing_tpu_torch.diff.grad import (
-        _value_and_grad,
-        apply_params,
-        leaf_copies,
-        render_image_from_params,
-    )
-    from pnraytracing_tpu_torch.render.integrator import (
-        render_rays_replay,
-        trace_paths,
-    )
+    gradient to ``params`` (``diff/grad.py::frames_loss``).
+    ``diff/grad.py``'s other losses are another quantity for ``k >= 2``
+    (the dual-buffer estimator, or the squared error of the mean of the
+    frames), so the step is built from its parts, as ``bench.py`` builds
+    it.  ``replay``: the walks run once a frame, forward only
+    (``trace_paths``), then one backward through the walk-free
+    ``render_rays_replay``; else the live integrator
+    (``render_image_from_params``) is differentiated.  On the card the
+    step replays its captured program (``diff/program.py``, captured at
+    the first call), the counterpart of the JAX bench's jitted step;
+    ``eager=True``, and the CPU, run it op by op."""
+    from pnraytracing_tpu_torch.diff.grad import step_loss_and_grad
 
-    if replay:
-        recs = [trace_paths(scene, o, d, px, py, start + j, cfg)
-                for j in range(k)]
-    p, leaves = leaf_copies(params)
-    sc = apply_params(scene, p) if replay else None
-    loss = torch.zeros((), dtype=torch.float32, device=o.device)
-    for j in range(k):
-        img = (render_rays_replay(sc, o, d, px, py, start + j, cfg, recs[j])
-               if replay else render_image_from_params(
-                   p, scene, o, d, px, py, start + j, cfg))
-        loss = loss + torch.mean((img - target) ** 2)
-    return _value_and_grad(loss / k, p, leaves)
+    return step_loss_and_grad("frames", params, scene, o, d, px, py, start,
+                              target, cfg, eager, k=k, replay=replay)
 
 
 def nvidia_smi_line() -> str:
@@ -229,9 +215,9 @@ def main(argv=None) -> int:
                              device=dev)
 
         def run(call_idx):
-            # the loss is enqueued on the stream before the backward's
-            # kernels, and a fetch of it waits for them all the same: the
-            # stream runs in order and the fetch is enqueued last
+            # a fetch of the loss waits for the whole step: the stream runs
+            # in order and the fetch is enqueued last (on the card after
+            # the step's graph and the copy of its loss)
             loss, _ = frames_loss_and_grad(params, scene, o, d, px, py,
                                            call_idx * k, k, target, cfg,
                                            replay=not args.no_replay)
@@ -250,7 +236,8 @@ def main(argv=None) -> int:
 
     start = launch_counts()
     for i in range(args.warmup):
-        phase(f"warmup call {i} (the first captures the frame on the card)")
+        phase(f"warmup call {i} (the first captures the frame or the step "
+              "on the card)")
         float(run(0).item())
         phase(f"warmup call {i} fetched")
 
@@ -263,8 +250,8 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     rays_total = cfg.num_pixels * (1 + 3 * cfg.max_depth) * frames
     phase(f"timed fetch complete: {rays_total} rays in {dt!r} s")
-    # the kernels' launch counters (a captured frame counts once, at its
-    # capture in the first warm-up call; its replays count nothing)
+    # the kernels' launch counters (a captured frame or step counts at
+    # its capture in the first warm-up call; its replays count nothing)
     phase(f"launches: warm-up {json.dumps(launched_since(start))}; timed "
           f"{json.dumps(launched_since(warm))}")
     if not args.quiet:

@@ -16,6 +16,13 @@ grafted onto a scene template per evaluation (:func:`apply_params`):
   and after a step that moves geometry :func:`refit_scene` rebuilds the
   walk's tables.
 
+Each step's loss is a function of the params (:data:`LOSSES`:
+:func:`replay_loss`, :func:`live_loss` and the bench's
+:func:`frames_loss`), and :func:`step_body` differentiates it.  On the
+card the entry points replay that body captured as one CUDA graph
+(``diff/program.py``, the counterpart of the JAX package's ``jax.jit``);
+``eager=True``, and the CPU, run it op by op.
+
 A params dict flattens to its leaves in the JAX package's order
 (:func:`param_leaves`: keys sorted, a ``Materials`` by field), which is
 also the order of the optimizer checkpoints (``render/session.py``) and
@@ -208,19 +215,14 @@ def _value_and_grad(loss: torch.Tensor, p: dict, leaves):
     return loss.detach(), params_like(p, gs)
 
 
-def loss_and_grad(params: dict, scene: Scene, o, d, px, py, frame,
-                  target: torch.Tensor, cfg: RenderConfig, spp: int = 1,
-                  dual: bool = True):
-    """Squared-error loss against a target ray-color batch [R, 3] and its
-    gradient: ``(loss, grads)`` with ``grads`` of ``params``' structure.
-
-    With ``spp >= 2`` the samples are split into two independent halves
-    A, B and the loss is the dual-buffer estimator ``mean((A-t)*(B-t))``:
-    ``E[(A-t)(B-t)] = (E[render]-t)^2`` exactly, with no ``Var/n`` term.
-    ``spp == 1`` (or ``dual=False``) is plain MSE, the right choice
-    under common random numbers.  Sample j renders frame ``frame + j``.
-    The walks run inside the differentiated pass (detached)."""
-    p, leaves = leaf_copies(params)
+def live_loss(p: dict, scene: Scene, o, d, px, py, frame,
+              target: torch.Tensor, cfg: RenderConfig, spp: int = 1,
+              dual: bool = True) -> torch.Tensor:
+    """The loss of :func:`loss_and_grad` as a function of ``p`` (a params
+    dict whose leaves may require grad): sample j renders frame
+    ``frame + j`` through the live integrator, the walks inside the
+    differentiated pass (detached).  ``frame`` is an int or a 0-d
+    integer tensor (a captured step's counter, ``diff/program.py``)."""
 
     def renders(j0, k):
         img = torch.zeros_like(target)
@@ -229,24 +231,20 @@ def loss_and_grad(params: dict, scene: Scene, o, d, px, py, frame,
                                                  frame + j, cfg)
         return img / k
 
-    return _value_and_grad(_loss(renders, target, spp, dual), p, leaves)
+    return _loss(renders, target, spp, dual)
 
 
-def loss_and_grad_replay(params: dict, scene: Scene, o, d, px, py, frame,
-                         target: torch.Tensor, cfg: RenderConfig,
-                         spp: int = 1, dual: bool = True):
-    """The estimator and gradients of :func:`loss_and_grad` by the
-    trace/replay split: each sample's walks run once, forward only, with
-    the current parameter values (:func:`trace_paths`), and the
-    differentiated function is the walk-free replay, so the backward
-    never walks the BVH.  Gradients match the live ones because every
-    recorded quantity (hit ids, occlusion bits) is one the live pass
-    detaches."""
+def replay_loss(p: dict, scene: Scene, o, d, px, py, frame,
+                target: torch.Tensor, cfg: RenderConfig, spp: int = 1,
+                dual: bool = True) -> torch.Tensor:
+    """The loss of :func:`loss_and_grad_replay` as a function of ``p``:
+    each sample's walks run once, forward only, with ``p``'s values
+    (:func:`trace_paths`), then the walk-free replay of every sample is
+    the differentiated function.  ``frame`` as in :func:`live_loss`."""
     with torch.no_grad():
-        scene_now = apply_params(scene, detached_params(params))
+        scene_now = apply_params(scene, detached_params(p))
         recs = [trace_paths(scene_now, o, d, px, py, frame + j, cfg)
                 for j in range(spp)]
-    p, leaves = leaf_copies(params)
 
     def renders(j0, k):
         sc = apply_params(scene, p)
@@ -256,7 +254,109 @@ def loss_and_grad_replay(params: dict, scene: Scene, o, d, px, py, frame,
                                            recs[j])
         return img / k
 
-    return _value_and_grad(_loss(renders, target, spp, dual), p, leaves)
+    return _loss(renders, target, spp, dual)
+
+
+def frames_loss(p: dict, scene: Scene, o, d, px, py, start,
+                target: torch.Tensor, cfg: RenderConfig, k: int = 1,
+                replay: bool = True) -> torch.Tensor:
+    """The JAX bench's ``--bwd`` loss as a function of ``p``: the mean
+    over frames ``start`` .. ``start + k - 1`` of each frame's
+    ``mean((img - target) ** 2)``, summed in frame order
+    (``bench.py::frames_loss_and_grad``).  ``replay``: each frame's
+    walks run once on ``scene`` itself, forward only, then the walk-free
+    replay is differentiated; else the live integrator."""
+    if replay:
+        recs = [trace_paths(scene, o, d, px, py, start + j, cfg)
+                for j in range(k)]
+        sc = apply_params(scene, p)
+    loss = torch.zeros((), dtype=torch.float32, device=o.device)
+    for j in range(k):
+        img = (render_rays_replay(sc, o, d, px, py, start + j, cfg, recs[j])
+               if replay else render_image_from_params(
+                   p, scene, o, d, px, py, start + j, cfg))
+        loss = loss + torch.mean((img - target) ** 2)
+    return loss / k
+
+
+LOSSES = {"live": live_loss, "replay": replay_loss, "frames": frames_loss}
+
+
+def step_body(kind: str, params: dict, leaves, scene: Scene, o, d, px, py,
+              frame, target, cfg: RenderConfig, **static):
+    """One gradient step op by op: ``(loss, gradient leaves)`` of the loss
+    ``LOSSES[kind]`` at ``params``, whose leaves ``leaves`` (in
+    :func:`param_leaves` order) require grad.  The eager step, and the
+    body of a captured one (``diff/program.py``), whose ``frame`` is a
+    0-d int64 tensor."""
+    loss = LOSSES[kind](params, scene, o, d, px, py, frame, target, cfg,
+                        **static)
+    loss, grads = _value_and_grad(loss, params, leaves)
+    return loss, param_leaves(grads)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def step_loss_and_grad(kind: str, params: dict, scene: Scene, o, d, px, py,
+                       frame, target: torch.Tensor, cfg: RenderConfig,
+                       eager: bool = False, **static):
+    """``(loss, grads)`` of the loss ``LOSSES[kind]`` (static arguments
+    ``static``) at ``params``.  On a CUDA device it replays the step's
+    captured program (``diff/program.py::step_program``, captured at the
+    first call for this scene's tensors, ``cfg``, kind, static
+    arguments, params shapes, ray count and device) and returns copies
+    of its loss and gradients, which the next replay overwrites; with
+    ``eager=True``, and always on the CPU, the step runs op by op.  Both
+    give the same loss and gradients bit for bit."""
+    if eager or not _on_card(o):
+        p, leaves = leaf_copies(params)
+        loss, grads = step_body(kind, p, leaves, scene, o, d, px, py, frame,
+                                target, cfg, **static)
+        return loss, params_like(params, grads)
+    from pnraytracing_tpu_torch.diff.program import step_program
+
+    prog = step_program(kind, scene, cfg, params, o.shape[0], o.device,
+                        **static)
+    loss, grads = prog.replay(params, o, d, px, py, frame, target)
+    return loss.clone(), params_like(params, [g.clone() for g in
+                                              param_leaves(grads)])
+
+
+def loss_and_grad(params: dict, scene: Scene, o, d, px, py, frame,
+                  target: torch.Tensor, cfg: RenderConfig, spp: int = 1,
+                  dual: bool = True, eager: bool = False):
+    """Squared-error loss against a target ray-color batch [R, 3] and its
+    gradient: ``(loss, grads)`` with ``grads`` of ``params``' structure.
+
+    With ``spp >= 2`` the samples are split into two independent halves
+    A, B and the loss is the dual-buffer estimator ``mean((A-t)*(B-t))``:
+    ``E[(A-t)(B-t)] = (E[render]-t)^2`` exactly, with no ``Var/n`` term.
+    ``spp == 1`` (or ``dual=False``) is plain MSE, the right choice
+    under common random numbers.  Sample j renders frame ``frame + j``.
+    The walks run inside the differentiated pass (detached).  On the
+    card the step is one replayed CUDA graph (the counterpart of the JAX
+    package's ``jax.jit``; :func:`step_loss_and_grad`), ``eager=True``
+    runs it op by op."""
+    return step_loss_and_grad("live", params, scene, o, d, px, py, frame,
+                              target, cfg, eager, spp=spp, dual=dual)
+
+
+def loss_and_grad_replay(params: dict, scene: Scene, o, d, px, py, frame,
+                         target: torch.Tensor, cfg: RenderConfig,
+                         spp: int = 1, dual: bool = True,
+                         eager: bool = False):
+    """The estimator and gradients of :func:`loss_and_grad` by the
+    trace/replay split: each sample's walks run once, forward only, with
+    the current parameter values (:func:`trace_paths`), and the
+    differentiated function is the walk-free replay, so the backward
+    never walks the BVH.  Gradients match the live ones because every
+    recorded quantity (hit ids, occlusion bits) is one the live pass
+    detaches.  On the card one replayed CUDA graph a step, as
+    :func:`loss_and_grad`."""
+    return step_loss_and_grad("replay", params, scene, o, d, px, py, frame,
+                              target, cfg, eager, spp=spp, dual=dual)
 
 
 def _global_norm(ts) -> float:
@@ -268,7 +368,8 @@ def adam_optimize(scene: Scene, camera: Camera, cfg: RenderConfig,
                   steps: int = 32, lr: float = 2e-2, frame_offset: int = 0,
                   spp_per_step: int = 4, use_replay: bool = True,
                   resample: bool = True, grad_mask: dict | None = None,
-                  log_every: int | None = None, log_fn=None, device=None):
+                  log_every: int | None = None, log_fn=None, device=None,
+                  eager: bool = False):
     """A small inverse-rendering loop on ``device`` (None = the card):
     ``(optimized scene, loss history)``.  ``torch.optim.Adam`` with the
     JAX package's ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8); after
@@ -282,7 +383,24 @@ def adam_optimize(scene: Scene, camera: Camera, cfg: RenderConfig,
     broadcastable leaves) freezes coordinates where it is 0.
     ``log_every=N`` emits one JSON line per N steps through ``log_fn``
     (default print): step, loss, global grad norm, per-key grad norms,
-    rays/s and step wall time, the JAX package's keys."""
+    rays/s and step wall time, the JAX package's keys.
+
+    On a CUDA device every step replays one captured gradient step
+    (``diff/program.py::StepProgram``, the counterpart of the JAX loop's
+    one compiled step); ``eager=True``, and the CPU, run it op by op,
+    with the same losses and parameters bit for bit.  The update (the
+    mask, ``Adam.step()``, ``sanitized()``, the env clamp) stays outside
+    the graph, a few multi-tensor kernels on the parameters in place
+    (the counterpart of JAX's jitted, donating ``_update``): it is ~10
+    kernels against the step's thousands, and Adam's moments then live
+    outside any program, so a recapture keeps them.  A positions run
+    refits the scene on the host after each step, as JAX does, and as
+    JAX reuses its compiled step when the refit arrays keep their
+    shapes, the refit tables are copied into the program's own copy of
+    the scene (:meth:`StepProgram.load_scene`) and a new program is
+    captured only when a shape changes (``diff/program.py::CAPTURES``
+    counts the captures).  The only host read of a step is
+    ``float(loss)``, beside the refit's and the log's."""
     dev = resolve_device(device)
     scene, camera = scene.to(dev), camera.to(dev)
     params, leaves = leaf_copies(extract_params(scene, keys))
@@ -296,15 +414,30 @@ def adam_optimize(scene: Scene, camera: Camera, cfg: RenderConfig,
     target = torch.as_tensor(target_image, dtype=torch.float32,
                              device=dev).reshape(-1, 3)
 
-    grad_fn = loss_and_grad_replay if use_replay else loss_and_grad
+    kind = "replay" if use_replay else "live"
+    static = dict(spp=spp_per_step, dual=resample)
+    prog = None
+    if dev.type == "cuda" and not eager:
+        from pnraytracing_tpu_torch.core.types import _map
+        from pnraytracing_tpu_torch.diff.program import StepProgram
+
+        new_program = lambda sc: StepProgram(kind, sc, cfg, params,
+                                             o.shape[0], dev, **static)
+        # a positions run refits into the program's scene: its own copy
+        prog = new_program(_map(scene, torch.clone) if "positions" in params
+                           else scene)
     losses = []
     emit = log_fn or (lambda line: print(line, flush=True))
     rays_per_sample = cfg.num_pixels * (1 + 3 * cfg.max_depth)
     t_prev = time.perf_counter()
     for step in range(steps):
         frame = frame_offset + (step * spp_per_step if resample else 0)
-        loss, grads = grad_fn(params, scene, o, d, px, py, frame, target,
-                              cfg, spp=spp_per_step, dual=resample)
+        if prog is None:
+            loss, grads = step_loss_and_grad(kind, params, scene, o, d, px,
+                                             py, frame, target, cfg, True,
+                                             **static)
+        else:
+            loss, grads = prog.replay(params, o, d, px, py, frame, target)
         g_leaves = param_leaves(grads)
         with torch.no_grad():
             for i, (x, g) in enumerate(zip(leaves, g_leaves)):
@@ -322,6 +455,8 @@ def adam_optimize(scene: Scene, camera: Camera, cfg: RenderConfig,
             # finite motion invalidates the template's BVH and layout
             scene = refit_scene(apply_params(
                 scene, {"positions": params["positions"].detach().clone()}))
+            if prog is not None and not prog.load_scene(scene):
+                prog = new_program(scene)
         losses.append(float(loss))
         if log_every and (step % log_every == 0 or step == steps - 1):
             now = time.perf_counter()  # float(loss) synchronized the step

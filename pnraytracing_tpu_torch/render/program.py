@@ -30,7 +30,9 @@ keeps the captured frame's counts.
 
 :func:`frame_program` keeps the last :data:`PROGRAM_CACHE_SIZE` programs
 by (the scene's tensors, ``cfg``, which fixes the tile shape, device);
-:func:`clear_programs` drops them and their memory pools.
+:func:`clear_programs` drops them and their memory pools, and those of
+every cache registered with :func:`register_cache` (the captured
+gradient steps of ``diff/program.py``).
 """
 
 from __future__ import annotations
@@ -179,6 +181,12 @@ def _leaves(obj):
 
 
 _programs: collections.OrderedDict = collections.OrderedDict()
+_caches = [_programs]
+
+
+def register_cache(cache) -> None:
+    """Have :func:`clear_programs` empty ``cache`` too."""
+    _caches.append(cache)
 
 
 def frame_program(scene: Scene, cfg: RenderConfig, device=None
@@ -202,5 +210,7 @@ def frame_program(scene: Scene, cfg: RenderConfig, device=None
 
 
 def clear_programs() -> None:
-    """Drop every cached program (and so its graph and memory pool)."""
-    _programs.clear()
+    """Drop every cached program, frame or gradient step (and so its
+    graph and memory pool)."""
+    for cache in _caches:
+        cache.clear()

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is
 false (decided inside the fixture, never at import).  On the card:
-``python -m pytest -m gpu tests/test_torch_cuda.py``.
+``python -m pytest --noconftest -m gpu tests/test_torch_cuda.py``.
 
 Bounds: the kernels are built with --fmad=false and repeat their plain
 versions op for op, so hits, barycentrics, attributes, occlusion,
@@ -11,7 +11,9 @@ exact-t tie.  A frame replayed from its captured CUDA graph
 path: a trace's records through the kernels equal those of the plain
 walks bit for bit; the replay gradient is within 1e-3 (in norm) of the
 live one; two runs of one gradient step are equal bit for bit; the
-kernels' answers carry no gradient.  ``parallel/`` in a
+kernels' answers carry no gradient.  The captured gradient step
+(diff/program.py) equals the eager step bit for bit, and an
+``adam_optimize`` run captures once.  ``parallel/`` in a
 world of one on NCCL: the sharded frame equals the eager frame bit for
 bit, and the primitive-sharded queries launch kernels 5 and 6 (or their
 compat forms) once each and equal the same queries through the plain
@@ -862,6 +864,113 @@ def test_gradient_step_reproducible_on_card(flagship):
     a, b = (dg.param_leaves(g) for _, g in runs)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert float(torch.cat([x.reshape(-1) for x in a]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("kind", ["replay", "live"])
+def test_captured_step_equals_eager(flagship, kind):
+    """``loss_and_grad_replay`` / ``loss_and_grad`` on the card replay one
+    captured CUDA graph a step (diff/program.py): the loss and every
+    gradient leaf (materials, env texels, vertex positions) equal the
+    ``eager=True`` step bit for bit, at spp 2 and at another frame; the
+    launch counters count the warm-up and the capture, not the
+    replays."""
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.diff import program as sp
+    from pnraytracing_tpu_torch.render.program import (
+        clear_programs,
+        launch_counts,
+    )
+
+    scene, camera = flagship
+    cfg, rays = _frame_rays(camera, 64)
+    params = dg.extract_params(scene, ("materials", "env_image",
+                                       "positions"))
+    target = torch.full((64 * 64, 3), 0.25, device="cuda")
+    fn = dg.loss_and_grad_replay if kind == "replay" else dg.loss_and_grad
+    clear_programs()
+    captures = sp.CAPTURES["steps"]
+    for frame in (3, 9):
+        got = fn(params, scene, *rays, frame, target, cfg, spp=2)
+        before = launch_counts()
+        again = fn(params, scene, *rays, frame, target, cfg, spp=2)
+        torch.cuda.synchronize()
+        assert launch_counts() == before  # a replay counts nothing
+        want = fn(params, scene, *rays, frame, target, cfg, spp=2,
+                  eager=True)
+        for out in (got, again):
+            assert torch.equal(out[0], want[0])
+            a, b = dg.param_leaves(out[1]), dg.param_leaves(want[1])
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert sp.CAPTURES["steps"] == captures + 1
+    prog = next(iter(sp._programs.values()))
+    walk = "closest_hit_attr" if kind == "replay" else "closest_hit"
+    assert prog.launches[walk] == 2 * 3  # 2 samples of 1 + depth
+    assert prog.launches["any_hit"] == 2 * 2
+    assert prog.launches["treelet_entry_key"] == 2 * cfg.sort_max_bounce
+    clear_programs()
+
+
+def test_step_program_replays_equal(flagship):
+    """Two replays of one StepProgram at one input give one loss and one
+    gradient, bit for bit; the bench's loss (kind "frames") replayed
+    equals its eager step."""
+    from pnraytracing_tpu_torch.bench import frames_loss_and_grad
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.diff.program import StepProgram
+
+    scene, camera = flagship
+    cfg, rays = _frame_rays(camera, 64)
+    params = dg.extract_params(scene, ("materials", "env_image"))
+    target = torch.zeros((64 * 64, 3), device="cuda")
+    prog = StepProgram("frames", scene, cfg, params, 64 * 64, k=2,
+                       replay=True)
+    runs = []
+    for _ in range(2):
+        loss, grads = prog.replay(params, *rays, 4, target)
+        runs.append((loss.clone(), [g.clone() for g in
+                                    dg.param_leaves(grads)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1]))
+    want_loss, want = frames_loss_and_grad(params, scene, *rays, 4, 2,
+                                           target, cfg, eager=True)
+    assert torch.equal(runs[0][0], want_loss)
+    assert all(torch.equal(x, y) for x, y in
+               zip(runs[0][1], dg.param_leaves(want)))
+    with pytest.raises(ValueError, match="not on cuda:0"):
+        StepProgram("frames", scene.to("cpu"), cfg, params, 64 * 64, k=2,
+                    replay=True)
+
+
+def test_adam_optimize_captures_once(flagship):
+    """Three ``adam_optimize`` steps on materials and env texels replay
+    one captured step: one capture, and the losses and parameters equal
+    the eager run's bit for bit."""
+    from pnraytracing_tpu_torch.core.types import Materials
+    from pnraytracing_tpu_torch.diff import grad as dg
+    from pnraytracing_tpu_torch.diff import program as sp
+    from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
+
+    scene, _ = flagship
+    _, cam_state = config3_teapot_night(env_height=64, device="cuda")
+    cfg = RenderConfig(width=64, height=64, max_depth=2)
+    keys = ("materials", "env_image")
+    target = torch.full((64, 64, 3), 0.3, device="cuda")
+    runs = {}
+    for eager in (False, True):
+        before = sp.CAPTURES["steps"]
+        out, losses = dg.adam_optimize(
+            scene, cam_state.basis(device="cuda"), cfg, target, keys=keys,
+            steps=3, spp_per_step=2, eager=eager)
+        runs[eager] = (out, losses, sp.CAPTURES["steps"] - before)
+    assert runs[False][2] == 1 and runs[True][2] == 0
+    assert runs[False][1] == runs[True][1]
+    assert np.isfinite(runs[False][1]).all()
+    a = dg.param_leaves(dg.extract_params(runs[False][0], keys))
+    b = dg.param_leaves(dg.extract_params(runs[True][0], keys))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert isinstance(runs[False][0].materials, Materials)
+    assert not torch.equal(runs[False][0].materials.base_color,
+                           scene.materials.base_color)
 
 
 @pytest.mark.parametrize("n,r,c", [(4, 262144, 18), (131072, 262144, 3)])
