@@ -705,34 +705,57 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def union_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
 def profile_frame(fn, frame_ms: float, top: int = 8) -> dict:
     """Where one frame's time goes: torch.profiler over one call of
-    ``fn`` — device busy time (sum of the CUDA kernels' self times), the
-    number of device kernels, the profiled wall time and the top kernels
-    by device time.  The device's idle share is taken against
-    ``frame_ms``, the unprofiled time of the same frame, since the
-    profiler's own host overhead stretches the profiled wall time.
-    Device fields are None when the profiler records no device activity
-    on this machine."""
+    ``fn`` — device busy time (the union of the device operations'
+    intervals: overlapping kernels count once), the number of device
+    kernels, the profiled wall time and the top kernels by device time.
+    The device's idle share is 1 - busy / the profiled wall time, both on
+    the profiler's clock; ``frame_ms``, the unprofiled time of the same
+    frame, is reported beside it (the profiler's own host work stretches
+    the profiled wall time).  Device fields are None when the profiler
+    records no device activity on this machine."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        with record_function("profiled_frame"):
+            fn()
+            torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
+    events = prof.events()
+    wall = [e.time_range for e in events if e.name == "profiled_frame"
+            and e.device_type == DeviceType.CPU][0]
+    profiled_wall_ms = (wall.end - wall.start) / 1e3
+    # device operations only; a record_function range shows on the device
+    # too, as an annotation over its kernels
+    device_ops = [(e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name != "profiled_frame"]
+    busy_ms = union_us(device_ops) / 1e3
     dev_us = lambda e: getattr(e, "device_time_total", None) or getattr(
         e, "cuda_time_total", 0)
     # device-side kernel records only (the CPU-side aten ops that launch
     # them carry the same time and would count it twice)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     if not kernels:
         return {"profiled_wall_ms": profiled_wall_ms, "frame_ms": frame_ms,
                 "device_busy_ms": None,
@@ -746,8 +769,7 @@ def profile_frame(fn, frame_ms: float, top: int = 8) -> dict:
     return {
         "profiled_wall_ms": profiled_wall_ms, "frame_ms": frame_ms,
         "device_busy_ms": busy_ms,
-        # negative if the busy time exceeds the frame: reported, not hidden
-        "device_idle_share": 1.0 - busy_ms / frame_ms,
+        "device_idle_share": 1.0 - busy_ms / profiled_wall_ms,
         "device_kernel_calls": sum(e.count for e in kernels),
         "port_kernels": ours,
         "top_kernels": [{"name": e.key[:80], "calls": e.count,

@@ -66,6 +66,7 @@ from pnraytracing_tpu_torch.ops.intersect import (
     intersect_triangle,
     safe_inv_dir,
 )
+from pnraytracing_tpu_torch.utils.profiling import launched
 
 _KERNELS = ("closest_hit_bvh", "any_hit_bvh")
 # Launches per kernel since the last reset (the caller zeroes them)
@@ -139,7 +140,7 @@ def _kernel(bvh, mesh, o, d, t_max, mask, closest: bool, stack_depth,
     name = "closest_hit_bvh" if closest else "any_hit_bvh"
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[launch_name(name, compat)] += 1
+    launched(LAUNCHES, launch_name(name, compat))
     out = Hit(tri=tri, t=t, b1=b1, b2=b2) if closest else occ
     return (out, stats) if with_stats else out
 

@@ -74,6 +74,7 @@ from pnraytracing_tpu_torch.ops.intersect import (
     safe_inv_dir,
     triangle_setup_c,
 )
+from pnraytracing_tpu_torch.utils.profiling import launched
 
 _KERNELS = ("closest_hit_attr", "closest_hit", "any_hit",
             "closest_hit_binary", "any_hit_binary")
@@ -243,8 +244,8 @@ def _kernel_closest(trav, o, d, t_max, mask, attr, with_stats, compat,
         ptr(b1), ptr(b2), *[ptr(a) for a in attrs], ptr(stats),
         stream_of(o.x))
     _raise_on(err, "closest-hit")
-    LAUNCHES[launch_name("closest_hit_attr" if attr else "closest_hit",
-                         compat)] += 1
+    launched(LAUNCHES, launch_name(
+        "closest_hit_attr" if attr else "closest_hit", compat))
     return Hit(tri=tri, t=t, b1=b1, b2=b2), (attrs if attr else None), stats
 
 
@@ -260,7 +261,7 @@ def _kernel_any(trav, o, d, t_max, mask, with_stats, compat,
         ptr(stats),
         stream_of(o.x))
     _raise_on(err, "any-hit")
-    LAUNCHES[launch_name("any_hit", compat)] += 1
+    launched(LAUNCHES, launch_name("any_hit", compat))
     return occ, stats
 
 
@@ -278,7 +279,7 @@ def _kernel_binary(trav, o, d, t_max, mask, closest, with_stats, compat,
              *[ptr(x) for x in outs], ptr(stats), stream_of(o.x))
     name = "closest_hit_binary" if closest else "any_hit_binary"
     _raise_on(err, name)
-    LAUNCHES[launch_name(name, compat)] += 1
+    launched(LAUNCHES, launch_name(name, compat))
     if closest:
         t, tri, b1, b2 = outs
         return Hit(tri=tri, t=t, b1=b1, b2=b2), stats

@@ -54,6 +54,7 @@ from pnraytracing_tpu_torch.accel.layout import TravData, unpack_node_rows
 from pnraytracing_tpu_torch.accel.traverse import Tree, walk_tree
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import Hit
+from pnraytracing_tpu_torch.utils.profiling import launched
 
 _KERNELS = ("closest_hit_packed", "any_hit_packed")
 # Launches per kernel since the last reset (the caller zeroes them)
@@ -123,7 +124,7 @@ def _kernel_packed(trav, o, d, t_max, mask, closest, stack_depth,
         trv.ptr(stats), trv.stream_of(o.x))
     name = "closest_hit_packed" if closest else "any_hit_packed"
     trv._raise_on(err, name)
-    LAUNCHES[trv.launch_name(name, compat)] += 1
+    launched(LAUNCHES, trv.launch_name(name, compat))
     out = Hit(tri=tri, t=t, b1=b1, b2=b2) if closest else occ
     return (out, stats) if with_stats else out
 

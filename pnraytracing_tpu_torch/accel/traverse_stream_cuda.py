@@ -57,6 +57,7 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
 )
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import Hit
+from pnraytracing_tpu_torch.utils.profiling import launched
 
 # Launches per kernel since the last reset (the caller zeroes them).
 LAUNCHES = {k + c: 0 for c in ("", "_compat")
@@ -132,7 +133,7 @@ def _kernel(trav, o, d, t_max, mask, closest, with_stats, compat,
         ptr(occ), ptr(stats), stream_of(o.x))
     name = "closest_hit_stream" if closest else "any_hit_stream"
     _raise_on(err, name)
-    LAUNCHES[launch_name(name, compat)] += 1
+    launched(LAUNCHES, launch_name(name, compat))
     if closest:
         t, tri, b1, b2 = outs
         return Hit(tri=tri, t=t, b1=b1, b2=b2), stats

@@ -46,6 +46,7 @@ from pnraytracing_tpu_torch.accel.loops import chunked_while
 from pnraytracing_tpu_torch.accel.wide4 import _row_width
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import Hit, intersect_aabb_c
+from pnraytracing_tpu_torch.utils.profiling import launched
 
 _KERNELS = ("closest_hit_wide4", "any_hit_wide4")
 # Launches per kernel since the last reset (the caller zeroes them)
@@ -105,7 +106,7 @@ def _kernel(w4, o, d, t_max, mask, closest, stack_depth, max_leaf_size,
         trv.stream_of(o.x))
     name = "closest_hit_wide4" if closest else "any_hit_wide4"
     trv._raise_on(err, name)
-    LAUNCHES[trv.launch_name(name, compat)] += 1
+    launched(LAUNCHES, trv.launch_name(name, compat))
     out = Hit(tri=tri, t=t, b1=b1, b2=b2) if closest else occ
     return out, overflow, stats
 

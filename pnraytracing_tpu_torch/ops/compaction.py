@@ -25,6 +25,7 @@ from pnraytracing_tpu_torch.accel.traverse_cuda import (
 )
 from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import never_enters, safe_inv_dir
+from pnraytracing_tpu_torch.utils.profiling import launched
 
 # Launches of the key kernel since the last reset (the caller zeroes it).
 LAUNCHES = {"treelet_entry_key": 0}
@@ -262,7 +263,7 @@ def entry_key(o: V3, d: V3, treelets: torch.Tensor, tree: torch.Tensor, *,
     if err:
         raise RuntimeError(f"entry-key kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["treelet_entry_key"] += 1
+    launched(LAUNCHES, "treelet_entry_key")
     return (key, counts) if with_stats else key
 
 

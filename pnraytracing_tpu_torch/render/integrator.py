@@ -17,6 +17,17 @@ batch.  Each bounce runs in three phases, as in the JAX package:
    launch (two with ``fuse_shadows`` off), then the continuation closest
    hit.
 
+Each part of the frame runs inside a ``phase`` of ``utils/profiling.py``:
+``camera`` (the tile's set-up and primary hit), then a bounce each
+``shade`` (phase 1), ``sort`` (phase 2), ``shadow`` (the occlusion
+queries and the NEE terms they gate), ``next`` (the continuation closest
+hit and its interaction) and ``accumulate`` (the BRDF-sampled terms,
+their MIS weights, the throughput and Russian roulette), and ``image``
+(the tile's colours).  An eager frame inside an open ``collect()``
+counts, at the top of each bounce, the live rays (``rays.live``) and the
+rays launched (``rays.launched``); any other frame, and a captured one,
+counts nothing.
+
 ``loop="scan"`` runs the same loop.  The JAX package's scan runs the
 first ``min(sort_max_bounce, max_depth)`` bounces as an unrolled, sorted
 prologue when ``compact_rays`` is on and scans the rest unsorted
@@ -171,6 +182,8 @@ from pnraytracing_tpu_torch.ops.texture import (
     fetch_base_color,
     fetch_base_color_trilinear,
 )
+from pnraytracing_tpu_torch.utils.profiling import (capturing, collecting,
+                                                    count, phase)
 
 _EPS = 1e-10
 
@@ -309,23 +322,11 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     textures = scene.textures
     has_tex = textures is not None
     lod_on = has_tex and cfg.texture_lod_scale is not None
-    frame = frame_word(frame)
     dev = o.device
     r = o.shape[0]
     sd = cfg.stack_depth
     compat = cfg.compat_pnrt
-    env_const = (scene.env_constant if scene.env_constant is not None
-                 else torch.zeros(3, dtype=torch.float32, device=dev))
-
-    seed = pixel_seed(px, py, frame)
-    t_max0 = torch.full((r,), FLOAT_MAX, dtype=torch.float32, device=dev)
-    zero_r = torch.zeros(r, dtype=torch.float32, device=dev)
-    zero_v = V3(zero_r, zero_r, zero_r)
-    irows = pack_interaction_rows(mesh)
-    mat_tbl = materials.sanitized()
-    if compat:
-        mat_tbl = apply_compat_material_decode(mat_tbl)
-    o_v, d_v = _comps(o), _comps(d)
+    captured = capturing()
     route = traversal_route(trav, cfg.kernel_interaction, cfg.traversal)
     # the route's walks: (closest, any), the tables they read first, and
     # their keyword arguments
@@ -405,328 +406,358 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             return x.map(lambda a: minimum(a, cfg.max_radiance))
         return x
 
-    # ---- primary hit (comp:983) -------------------------------------------
-    if replay:
-        hit = records.primary
-        pos, nrm, (u_uv, v_uv), mat_id, tex_id = make_interaction(
-            hit, d_v, o_v, irows)
-    else:
-        hit, pos, nrm, (u_uv, v_uv), mat_id, tex_id = closest_inter(
-            o_v, d_v, t_max0)
-    primary_hit = hit.valid
-    if lod_on:  # path length, the ray cone's footprint
-        path_t = torch.where(primary_hit, hit.t, 0.0)
-    miss_color = env_radiance(d_v)
-    primary_emissive = _emissive_of(materials, mat_id)
+    # ---- camera: the primary hit (comp:983) -----------------------------
+    with phase("camera"):
+        frame = frame_word(frame)
+        env_const = (scene.env_constant if scene.env_constant is not None
+                     else torch.zeros(3, dtype=torch.float32, device=dev))
+        seed = pixel_seed(px, py, frame)
+        t_max0 = torch.full((r,), FLOAT_MAX, dtype=torch.float32, device=dev)
+        zero_r = torch.zeros(r, dtype=torch.float32, device=dev)
+        zero_v = V3(zero_r, zero_r, zero_r)
+        irows = pack_interaction_rows(mesh)
+        mat_tbl = materials.sanitized()
+        if compat:
+            mat_tbl = apply_compat_material_decode(mat_tbl)
+        o_v, d_v = _comps(o), _comps(d)
+        if replay:
+            hit = records.primary
+            pos, nrm, (u_uv, v_uv), mat_id, tex_id = make_interaction(
+                hit, d_v, o_v, irows)
+        else:
+            hit, pos, nrm, (u_uv, v_uv), mat_id, tex_id = closest_inter(
+                o_v, d_v, t_max0)
+        primary_hit = hit.valid
+        if lod_on:  # path length, the ray cone's footprint
+            path_t = torch.where(primary_hit, hit.t, 0.0)
+        miss_color = env_radiance(d_v)
+        primary_emissive = _emissive_of(materials, mat_id)
 
-    active = primary_hit
-    v_dir = -d_v
-    ones_r = torch.ones(r, dtype=torch.float32, device=dev)
-    c = V3(ones_r, ones_r, ones_r)
-    lo = zero_v
-    orig = torch.arange(r, dtype=torch.int64, device=dev)
-    px_l, py_l = px, py
-    rec_occ, rec_eocc, rec_hit2 = [], [], []  # record: a bounce each
-    env_terms = []  # replay: (direction, coefficient) of escaped paths
+        active = primary_hit
+        v_dir = -d_v
+        ones_r = torch.ones(r, dtype=torch.float32, device=dev)
+        c = V3(ones_r, ones_r, ones_r)
+        lo = zero_v
+        orig = torch.arange(r, dtype=torch.int64, device=dev)
+        px_l, py_l = px, py
+        rec_occ, rec_eocc, rec_hit2 = [], [], []  # record: a bounce each
+        env_terms = []  # replay: (direction, coefficient) of escaped paths
 
     # ---- path loop (comp:861-972) -----------------------------------------
     for bounce in range(cfg.max_depth):
-        mat, cdlin, _ = mat_tbl.gather_components(mat_id)
-        if has_tex:  # the texture overrides the base color (comp:870-872)
-            uv2 = torch.stack([u_uv, v_uv], dim=-1)
-            if lod_on and textures.mips is not None:
-                whs = textures.sizes[torch.clamp_min(tex_id, 0).long()].to(
-                    torch.float32)
-                texdim = torch.maximum(whs[:, 0], whs[:, 1])
-                lod = torch.log2(torch.clamp_min(
-                    path_t * cfg.texture_lod_scale * texdim, 1.0))
-                cdlin = V3.of(fetch_base_color_trilinear(
-                    textures, tex_id, uv2, cdlin.rows(), lod))
+        with phase("shade", bounce):
+            # a captured counter would join the graph
+            if not captured and collecting():
+                count("rays.live", active.sum())
+                count("rays.launched", r)
+            mat, cdlin, _ = mat_tbl.gather_components(mat_id)
+            if has_tex:  # the texture overrides the base color (comp:870-872)
+                uv2 = torch.stack([u_uv, v_uv], dim=-1)
+                if lod_on and textures.mips is not None:
+                    whs = textures.sizes[torch.clamp_min(tex_id, 0).long()].to(
+                        torch.float32)
+                    texdim = torch.maximum(whs[:, 0], whs[:, 1])
+                    lod = torch.log2(torch.clamp_min(
+                        path_t * cfg.texture_lod_scale * texdim, 1.0))
+                    cdlin = V3.of(fetch_base_color_trilinear(
+                        textures, tex_id, uv2, cdlin.rows(), lod))
+                else:
+                    cdlin = V3.of(fetch_base_color(textures, tex_id, uv2,
+                                                   cdlin.rows()))
+            t_tan, b_tan = build_tangent_space_v(nrm)
+
+            # phase 1a: NEE area-light draws (comp:878-909)
+            seed, u_light = rand01(seed)
+            if has_lights:
+                slot = pick_light(lights.prefix_area, lights.total_area,
+                                  u_light)
+                light_tri = lights.tri_index[slot.long()]
+                seed, u1 = rand01(seed)
+                seed, u2 = rand01(seed)
+                lp, ln = sample_light_point(light_tri, u1, u2, irows)
+                sdir = lp - pos  # unnormalized segment (comp:887)
+                dis2 = vdot(sdir, sdir)
+                lnorm = vnormalize(sdir)
+                cos_l = absolute(vdot(ln, -lnorm))
+                raw_pdf = dis2 / maximum(cos_l * lights.total_area, 1e-12)
+                lmat = irows[lights.tri_index.long(), 24].to(torch.int32)[
+                    slot.long()]
+                li = _emissive_of(materials, lmat)
+                light_f = disney_eval_v(v_dir, nrm, lnorm, t_tan, b_tan, mat,
+                                        cdlin)
+                nl = absolute(vdot(nrm, lnorm))
+                l_direct_pre = light_f * li * (nl * _safe_inv(raw_pdf))
+
+            # phase 1b: NEE environment draws (comp:911-926)
+            if has_env:
+                seed, r1e = rand01(seed)
+                seed, r2e = rand01(seed)
+                en_l, en_li, env_pdf_raw = sample_envmap_v(scene.env, r1e, r2e,
+                                                           compat)
+                env_f = disney_eval_v(v_dir, nrm, en_l, t_tan, b_tan, mat,
+                                      cdlin)
+                l_env_pre = env_f * en_li * (vdot(en_l, nrm)
+                                             * _safe_inv(env_pdf_raw))
+
+            # phase 1c: BRDF sample (comp:928-934)
+            if cfg.sampler == "sobol":
+                su, sv = sobol_vec2(frame + 1, bounce)
+                r1, r2 = cranley_patterson_rotation_c(
+                    su, sv, px_l, py_l, cfg.width, cfg.height,
+                    salt=(2 * bounce) // SOBOL_DIMS)
             else:
-                cdlin = V3.of(fetch_base_color(textures, tex_id, uv2,
-                                               cdlin.rows()))
-        t_tan, b_tan = build_tangent_space_v(nrm)
+                seed, r1 = rand01(seed)
+                seed, r2 = rand01(seed)
+            seed, r_lobe = rand01(seed)
+            # diffuse-lobe draws leave the stream only when that lobe is taken
+            s1 = wang_hash(seed)
+            s2 = wang_hash(s1)
+            l_out, d_pdf, lobe = disney_sample_v(
+                v_dir, nrm, t_tan, b_tan, mat, r_lobe, r1, r2, u32_to_unit(s1),
+                u32_to_unit(s2), compat)
+            seed = torch.where(lobe == 0, s2, seed)
 
-        # phase 1a: NEE area-light draws (comp:878-909)
-        seed, u_light = rand01(seed)
-        if has_lights:
-            slot = pick_light(lights.prefix_area, lights.total_area, u_light)
-            light_tri = lights.tri_index[slot.long()]
-            seed, u1 = rand01(seed)
-            seed, u2 = rand01(seed)
-            lp, ln = sample_light_point(light_tri, u1, u2, irows)
-            sdir = lp - pos  # unnormalized segment (comp:887)
-            dis2 = vdot(sdir, sdir)
-            lnorm = vnormalize(sdir)
-            cos_l = absolute(vdot(ln, -lnorm))
-            raw_pdf = dis2 / maximum(cos_l * lights.total_area, 1e-12)
-            lmat = irows[lights.tri_index.long(), 24].to(torch.int32)[
-                slot.long()]
-            li = _emissive_of(materials, lmat)
-            light_f = disney_eval_v(v_dir, nrm, lnorm, t_tan, b_tan, mat,
-                                    cdlin)
-            nl = absolute(vdot(nrm, lnorm))
-            l_direct_pre = light_f * li * (nl * _safe_inv(raw_pdf))
-
-        # phase 1b: NEE environment draws (comp:911-926)
-        if has_env:
-            seed, r1e = rand01(seed)
-            seed, r2e = rand01(seed)
-            en_l, en_li, env_pdf_raw = sample_envmap_v(scene.env, r1e, r2e,
-                                                       compat)
-            env_f = disney_eval_v(v_dir, nrm, en_l, t_tan, b_tan, mat, cdlin)
-            l_env_pre = env_f * en_li * (vdot(en_l, nrm)
-                                         * _safe_inv(env_pdf_raw))
-
-        # phase 1c: BRDF sample (comp:928-934)
-        if cfg.sampler == "sobol":
-            su, sv = sobol_vec2(frame + 1, bounce)
-            r1, r2 = cranley_patterson_rotation_c(
-                su, sv, px_l, py_l, cfg.width, cfg.height,
-                salt=(2 * bounce) // SOBOL_DIMS)
-        else:
-            seed, r1 = rand01(seed)
-            seed, r2 = rand01(seed)
-        seed, r_lobe = rand01(seed)
-        # diffuse-lobe draws leave the stream only when that lobe is taken
-        s1 = wang_hash(seed)
-        s2 = wang_hash(s1)
-        l_out, d_pdf, lobe = disney_sample_v(
-            v_dir, nrm, t_tan, b_tan, mat, r_lobe, r1, r2, u32_to_unit(s1),
-            u32_to_unit(s2), compat)
-        seed = torch.where(lobe == 0, s2, seed)
-
-        d_f = disney_eval_v(v_dir, nrm, l_out, t_tan, b_tan, mat, cdlin)
-        weight = d_f * (absolute(vdot(nrm, l_out)) * _safe_inv(d_pdf))
-        if cfg.mis == "balanced":
-            if has_lights:
-                p_b_light = maximum(disney_pdf_v(v_dir, nrm, lnorm, mat), 0.0)
-            if has_env:
-                p_b_env = maximum(disney_pdf_v(v_dir, nrm, en_l, mat), 0.0)
-
-        # phase 2: one live-first permutation of the whole path state, as
-        # ONE gather of a [C, R] pack (each row comes out contiguous); a
-        # replay never sorts
-        if cfg.compact_rays and bounce < cfg.sort_max_bounce and not replay:
-            if not cfg.sort_rays or trav is None:
-                perm, _ = compact_indices(active)
-            elif cfg.sort_key == "entry" and trav.treelets is not None:
-                key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
-                                trav.treelet_tree)
-                perm, _ = sort_live_first(active, key)
-            else:  # 'dir' / 'pos', and 'entry' without a treelet table
-                root = trav.nodes8[0]
-                lo_b, hi_b = root[0:3], root[3:6]
-                inv_ext = 1.0 / maximum(hi_b - lo_b, 1e-6)
-                key_fn = (coherence_key if cfg.sort_key == "dir"
-                          else coherence_key_pos)
-                perm, _ = sort_live_first(active,
-                                          key_fn(nrm, pos, lo_b, inv_ext))
-            f32 = lambda a: a.to(torch.float32)
-            v3s = lambda v: [v.x, v.y, v.z]
-            cols = [f32(active)] + v3s(pos) + v3s(nrm) + [f32(mat_id)]
-            if has_tex:
-                cols += [u_uv, v_uv, f32(tex_id)]
-                if lod_on:
-                    cols += [path_t]
-            cols += (v3s(c) + v3s(lo)
-                    + [f32(seed & 0xFFFF), f32(seed >> 16)]
-                    + [f32(orig), f32(px_l), f32(py_l)]
-                    + v3s(l_out) + v3s(weight) + [d_pdf])
-            if has_lights:
-                cols += v3s(sdir) + [raw_pdf] + v3s(l_direct_pre)
-            if has_env:
-                cols += v3s(en_l) + [env_pdf_raw] + v3s(l_env_pre)
-            if cfg.mis == "balanced":
-                cols += ([p_b_light] if has_lights else []) + (
-                    [p_b_env] if has_env else [])
-            packed = torch.stack(cols).index_select(1, perm)
-            rows_ = iter(packed.unbind(0))
-            nxt = lambda: next(rows_)
-            v3n = lambda: V3(nxt(), nxt(), nxt())
-            active = nxt() > 0.5
-            pos, nrm = v3n(), v3n()
-            mat_id = nxt().to(torch.int32)
-            if has_tex:
-                u_uv, v_uv, tex_id = nxt(), nxt(), nxt().to(torch.int32)
-                if lod_on:
-                    path_t = nxt()
-            c, lo = v3n(), v3n()
-            seed = nxt().to(torch.int64) | (nxt().to(torch.int64) << 16)
-            orig, px_l, py_l = (nxt().to(torch.int64), nxt().to(torch.int64),
-                                nxt().to(torch.int64))
-            l_out, weight, d_pdf = v3n(), v3n(), nxt()
-            if has_lights:
-                sdir, raw_pdf, l_direct_pre = v3n(), nxt(), v3n()
-            if has_env:
-                en_l, env_pdf_raw, l_env_pre = v3n(), nxt(), v3n()
+            d_f = disney_eval_v(v_dir, nrm, l_out, t_tan, b_tan, mat, cdlin)
+            weight = d_f * (absolute(vdot(nrm, l_out)) * _safe_inv(d_pdf))
             if cfg.mis == "balanced":
                 if has_lights:
-                    p_b_light = nxt()
+                    p_b_light = maximum(
+                        disney_pdf_v(v_dir, nrm, lnorm, mat), 0.0)
                 if has_env:
-                    p_b_env = nxt()
+                    p_b_env = maximum(disney_pdf_v(v_dir, nrm, en_l, mat), 0.0)
 
-        # phase 3: occlusion queries — replayed, or both NEE classes in one
-        # launch when the scene has both and fuse_shadows is on, else one
-        # each
-        if has_lights:
-            s_origin = pos + nrm * 1e-4
-            s_tmax = torch.full((r,), 1.0 - SHADOW_EPS, dtype=torch.float32,
-                                device=dev)
-        if has_env:
-            # the reference casts the env shadow ray from the surface
-            # point itself (comp:918)
-            e_origin = pos if compat else pos + nrm * 1e-4
-            facing = vdot(en_l, nrm) > 0
-        if replay:
-            if has_lights:
-                occluded = records.light_occ[bounce]
-            if has_env:
-                e_occ = records.env_occ[bounce]
-        elif has_lights and has_env and cfg.fuse_shadows:
-            occ2 = any_q(vcat(s_origin, e_origin), vcat(sdir, en_l),
-                         torch.cat([s_tmax, t_max0]),
-                         torch.cat([active, active & facing]))
-            occluded, e_occ = occ2[:r], occ2[r:]
-        else:
-            if has_lights:
-                occluded = any_q(s_origin, sdir, s_tmax, active)
-            if has_env:
-                e_occ = any_q(e_origin, en_l, t_max0, active & facing)
-        if record:
-            if has_lights:
-                rec_occ.append(_unsort(occluded, orig))
-            if has_env:
-                rec_eocc.append(_unsort(e_occ, orig))
+        with phase("sort", bounce):
+            # phase 2: one live-first permutation of the whole path state, as
+            # ONE gather of a [C, R] pack (each row comes out contiguous); a
+            # replay never sorts
+            if (cfg.compact_rays and bounce < cfg.sort_max_bounce
+                    and not replay):
+                if not cfg.sort_rays or trav is None:
+                    perm, _ = compact_indices(active)
+                elif cfg.sort_key == "entry" and trav.treelets is not None:
+                    key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
+                                    trav.treelet_tree)
+                    perm, _ = sort_live_first(active, key)
+                else:  # 'dir' / 'pos', and 'entry' without a treelet table
+                    root = trav.nodes8[0]
+                    lo_b, hi_b = root[0:3], root[3:6]
+                    inv_ext = 1.0 / maximum(hi_b - lo_b, 1e-6)
+                    key_fn = (coherence_key if cfg.sort_key == "dir"
+                              else coherence_key_pos)
+                    perm, _ = sort_live_first(active,
+                                              key_fn(nrm, pos, lo_b, inv_ext))
+                f32 = lambda a: a.to(torch.float32)
+                v3s = lambda v: [v.x, v.y, v.z]
+                cols = [f32(active)] + v3s(pos) + v3s(nrm) + [f32(mat_id)]
+                if has_tex:
+                    cols += [u_uv, v_uv, f32(tex_id)]
+                    if lod_on:
+                        cols += [path_t]
+                cols += (v3s(c) + v3s(lo)
+                        + [f32(seed & 0xFFFF), f32(seed >> 16)]
+                        + [f32(orig), f32(px_l), f32(py_l)]
+                        + v3s(l_out) + v3s(weight) + [d_pdf])
+                if has_lights:
+                    cols += v3s(sdir) + [raw_pdf] + v3s(l_direct_pre)
+                if has_env:
+                    cols += v3s(en_l) + [env_pdf_raw] + v3s(l_env_pre)
+                if cfg.mis == "balanced":
+                    cols += ([p_b_light] if has_lights else []) + (
+                        [p_b_env] if has_env else [])
+                packed = torch.stack(cols).index_select(1, perm)
+                rows_ = iter(packed.unbind(0))
+                nxt = lambda: next(rows_)
+                v3n = lambda: V3(nxt(), nxt(), nxt())
+                active = nxt() > 0.5
+                pos, nrm = v3n(), v3n()
+                mat_id = nxt().to(torch.int32)
+                if has_tex:
+                    u_uv, v_uv, tex_id = nxt(), nxt(), nxt().to(torch.int32)
+                    if lod_on:
+                        path_t = nxt()
+                c, lo = v3n(), v3n()
+                seed = nxt().to(torch.int64) | (nxt().to(torch.int64) << 16)
+                orig, px_l, py_l = (nxt().to(torch.int64),
+                                    nxt().to(torch.int64),
+                                    nxt().to(torch.int64))
+                l_out, weight, d_pdf = v3n(), v3n(), nxt()
+                if has_lights:
+                    sdir, raw_pdf, l_direct_pre = v3n(), nxt(), v3n()
+                if has_env:
+                    en_l, env_pdf_raw, l_env_pre = v3n(), nxt(), v3n()
+                if cfg.mis == "balanced":
+                    if has_lights:
+                        p_b_light = nxt()
+                    if has_env:
+                        p_b_env = nxt()
 
-        # NEE contributions (masks applied to the pre-folded terms)
-        light_pdf, l_direct = zero_r, zero_v
-        env_pdf, l_env = zero_r, zero_v
-        if has_lights:
-            lit = active & ~occluded
-            light_pdf = torch.where(lit, raw_pdf, 0.0)
-            l_direct = vwhere(lit, l_direct_pre, zero_v)
-        if has_env:
-            env_pdf = torch.where(active, env_pdf_raw, 0.0)
-            l_env = vwhere(active & facing & ~e_occ, l_env_pre, zero_v)
-
-        # MIS combine of the NEE estimators
-        if cfg.mis == "reference":
-            # the GLSL one-sample combine (comp:937-938)
-            pdf_sum = env_pdf + light_pdf + d_pdf
-            inv_sum = torch.where(
-                pdf_sum > _EPS, 1.0 / torch.where(pdf_sum == 0, 1.0, pdf_sum),
-                0.0)
-            nee = (l_env * env_pdf + l_direct * light_pdf) * inv_sum
-        else:
-            nee = zero_v
+        with phase("shadow", bounce):
+            # phase 3: occlusion queries — replayed, or both NEE classes in
+            # one launch when the scene has both and fuse_shadows is on, else
+            # one each
             if has_lights:
-                w_l = light_pdf / maximum(light_pdf + p_b_light, _EPS)
-                nee = nee + l_direct * w_l
+                s_origin = pos + nrm * 1e-4
+                s_tmax = torch.full((r,), 1.0 - SHADOW_EPS,
+                                    dtype=torch.float32, device=dev)
             if has_env:
-                w_e = env_pdf / maximum(env_pdf + p_b_env, _EPS)
-                nee = nee + l_env * w_e
-        lo = lo + clamp_contrib(vwhere(active, c * nee, zero_v))
-
-        # continue the path (comp:950-969)
-        b_origin = pos + nrm * 1e-4
-        if replay:
-            hit2 = Hit(*(f[bounce] for f in (
-                records.bounce.tri, records.bounce.t, records.bounce.b1,
-                records.bounce.b2)))
-            pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = make_interaction(
-                hit2, l_out, b_origin, irows)
-        else:
-            hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = (
-                closest_inter(b_origin, l_out, t_max0, active))
+                # the reference casts the env shadow ray from the surface
+                # point itself (comp:918)
+                e_origin = pos if compat else pos + nrm * 1e-4
+                facing = vdot(en_l, nrm) > 0
+            if replay:
+                if has_lights:
+                    occluded = records.light_occ[bounce]
+                if has_env:
+                    e_occ = records.env_occ[bounce]
+            elif has_lights and has_env and cfg.fuse_shadows:
+                occ2 = any_q(vcat(s_origin, e_origin), vcat(sdir, en_l),
+                             torch.cat([s_tmax, t_max0]),
+                             torch.cat([active, active & facing]))
+                occluded, e_occ = occ2[:r], occ2[r:]
+            else:
+                if has_lights:
+                    occluded = any_q(s_origin, sdir, s_tmax, active)
+                if has_env:
+                    e_occ = any_q(e_origin, en_l, t_max0, active & facing)
             if record:
-                rec_hit2.append(Hit(*(_unsort(f, orig) for f in (
-                    hit2.tri, hit2.t, hit2.b1, hit2.b2))))
-        miss_now = active & ~hit2.valid
-        if cfg.mis == "balanced" and has_env:
-            p_e_out = envmap_pdf_v(scene.env, l_out)
-            w_b_env = d_pdf / maximum(d_pdf + p_e_out, _EPS)
-        else:
-            w_b_env = 1.0
-        if replay and has_env:
-            # deferred: one batched lookup for every bounce after the loop
-            env_terms.append((l_out, vwhere(miss_now, c * weight * w_b_env,
-                                            zero_v)))
-        else:
+                if has_lights:
+                    rec_occ.append(_unsort(occluded, orig))
+                if has_env:
+                    rec_eocc.append(_unsort(e_occ, orig))
+
+            # NEE contributions (masks applied to the pre-folded terms)
+            light_pdf, l_direct = zero_r, zero_v
+            env_pdf, l_env = zero_r, zero_v
+            if has_lights:
+                lit = active & ~occluded
+                light_pdf = torch.where(lit, raw_pdf, 0.0)
+                l_direct = vwhere(lit, l_direct_pre, zero_v)
+            if has_env:
+                env_pdf = torch.where(active, env_pdf_raw, 0.0)
+                l_env = vwhere(active & facing & ~e_occ, l_env_pre, zero_v)
+
+            # MIS combine of the NEE estimators
+            if cfg.mis == "reference":
+                # the GLSL one-sample combine (comp:937-938)
+                pdf_sum = env_pdf + light_pdf + d_pdf
+                inv_sum = torch.where(
+                    pdf_sum > _EPS,
+                    1.0 / torch.where(pdf_sum == 0, 1.0, pdf_sum), 0.0)
+                nee = (l_env * env_pdf + l_direct * light_pdf) * inv_sum
+            else:
+                nee = zero_v
+                if has_lights:
+                    w_l = light_pdf / maximum(light_pdf + p_b_light, _EPS)
+                    nee = nee + l_direct * w_l
+                if has_env:
+                    w_e = env_pdf / maximum(env_pdf + p_b_env, _EPS)
+                    nee = nee + l_env * w_e
+            lo = lo + clamp_contrib(vwhere(active, c * nee, zero_v))
+
+        with phase("next", bounce):
+            # continue the path (comp:950-969)
+            b_origin = pos + nrm * 1e-4
+            if replay:
+                hit2 = Hit(*(f[bounce] for f in (
+                    records.bounce.tri, records.bounce.t, records.bounce.b1,
+                    records.bounce.b2)))
+                pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = (
+                    make_interaction(hit2, l_out, b_origin, irows))
+            else:
+                hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = (
+                    closest_inter(b_origin, l_out, t_max0, active))
+                if record:
+                    rec_hit2.append(Hit(*(_unsort(f, orig) for f in (
+                        hit2.tri, hit2.t, hit2.b1, hit2.b2))))
+
+        with phase("accumulate", bounce):
+            miss_now = active & ~hit2.valid
+            if cfg.mis == "balanced" and has_env:
+                p_e_out = envmap_pdf_v(scene.env, l_out)
+                w_b_env = d_pdf / maximum(d_pdf + p_e_out, _EPS)
+            else:
+                w_b_env = 1.0
+            if replay and has_env:
+                # deferred: one batched lookup for every bounce after the loop
+                env_terms.append((l_out, vwhere(miss_now, c * weight * w_b_env,
+                                                zero_v)))
+            else:
+                lo = lo + clamp_contrib(vwhere(
+                    miss_now, c * env_radiance(l_out) * weight * w_b_env,
+                    zero_v))
+
+            hit_now = active & hit2.valid
+            emissive2 = _emissive_of(materials, mat_id2)
+            if cfg.mis == "balanced" and has_lights:
+                # solid-angle pdf of the area-light NEE strategy at this hit
+                cos_h = absolute(vdot(nrm2, l_out))
+                p_l_hit = (hit2.t * hit2.t) / maximum(
+                    cos_h * lights.total_area, 1e-12)
+                is_emissive = ((emissive2.x != 0.0) | (emissive2.y != 0.0)
+                               | (emissive2.z != 0.0))
+                w_b_emis = torch.where(
+                    is_emissive, d_pdf / maximum(d_pdf + p_l_hit, _EPS), 1.0)
+            else:
+                w_b_emis = 1.0
             lo = lo + clamp_contrib(vwhere(
-                miss_now, c * env_radiance(l_out) * weight * w_b_env,
-                zero_v))
+                hit_now, c * emissive2 * weight * w_b_emis, zero_v))
 
-        hit_now = active & hit2.valid
-        emissive2 = _emissive_of(materials, mat_id2)
-        if cfg.mis == "balanced" and has_lights:
-            # solid-angle pdf of the area-light NEE strategy at this hit
-            cos_h = absolute(vdot(nrm2, l_out))
-            p_l_hit = (hit2.t * hit2.t) / maximum(
-                cos_h * lights.total_area, 1e-12)
-            is_emissive = ((emissive2.x != 0.0) | (emissive2.y != 0.0)
-                           | (emissive2.z != 0.0))
-            w_b_emis = torch.where(
-                is_emissive, d_pdf / maximum(d_pdf + p_l_hit, _EPS), 1.0)
-        else:
-            w_b_emis = 1.0
-        lo = lo + clamp_contrib(vwhere(
-            hit_now, c * emissive2 * weight * w_b_emis, zero_v))
+            # throughput update and state roll (comp:968-969)
+            c = vwhere(hit_now, c * weight, c)
+            v_dir = -l_out
+            pos = vwhere(hit_now, pos2, pos)
+            nrm = vwhere(hit_now, nrm2, nrm)
+            mat_id = torch.where(hit_now, mat_id2, mat_id)
+            if has_tex:
+                u_uv = torch.where(hit_now, u_uv2, u_uv)
+                v_uv = torch.where(hit_now, v_uv2, v_uv)
+                tex_id = torch.where(hit_now, tex_id2, tex_id)
+                if lod_on:
+                    path_t = torch.where(hit_now, path_t + hit2.t, path_t)
+            active = hit_now
 
-        # throughput update and state roll (comp:968-969)
-        c = vwhere(hit_now, c * weight, c)
-        v_dir = -l_out
-        pos = vwhere(hit_now, pos2, pos)
-        nrm = vwhere(hit_now, nrm2, nrm)
-        mat_id = torch.where(hit_now, mat_id2, mat_id)
-        if has_tex:
-            u_uv = torch.where(hit_now, u_uv2, u_uv)
-            v_uv = torch.where(hit_now, v_uv2, v_uv)
-            tex_id = torch.where(hit_now, tex_id2, tex_id)
-            if lod_on:
-                path_t = torch.where(hit_now, path_t + hit2.t, path_t)
-        active = hit_now
+            # Russian roulette (not in the reference), from rr_start on
+            if cfg.rr_start is not None and bounce >= cfg.rr_start:
+                seed, u_rr = rand01(seed)
+                p_survive = clip(c.max_component(), 0.05, 0.95)
+                survive = u_rr < p_survive
+                c = vwhere(active & survive, c / p_survive, c)
+                active = active & survive
 
-        # Russian roulette (not in the reference), from rr_start on
-        if cfg.rr_start is not None and bounce >= cfg.rr_start:
-            seed, u_rr = rand01(seed)
-            p_survive = clip(c.max_component(), 0.05, 0.95)
-            survive = u_rr < p_survive
-            c = vwhere(active & survive, c / p_survive, c)
-            active = active & survive
+    with phase("image"):
+        if env_terms:
+            # the deferred escaped-path terms: ONE radiance lookup over all
+            # [max_depth * R] directions, then each bounce's term summed
+            nb = len(env_terms)
+            stacked = lambda i, k: torch.stack([getattr(t_[i], k)
+                                                for t_ in env_terms])
+            li = env_radiance(V3(*(stacked(0, k).reshape(-1) for k in "xyz")))
 
-    if env_terms:
-        # the deferred escaped-path terms: ONE radiance lookup over all
-        # [max_depth * R] directions, then each bounce's term summed
-        nb = len(env_terms)
-        stacked = lambda i, k: torch.stack([getattr(t_[i], k)
-                                            for t_ in env_terms])
-        li = env_radiance(V3(*(stacked(0, k).reshape(-1) for k in "xyz")))
+            def deferred(k):
+                x = getattr(li, k).reshape(nb, r) * stacked(1, k)
+                if cfg.max_radiance is not None:
+                    x = minimum(x, cfg.max_radiance)
+                return x.sum(0)
 
-        def deferred(k):
-            x = getattr(li, k).reshape(nb, r) * stacked(1, k)
-            if cfg.max_radiance is not None:
-                x = minimum(x, cfg.max_radiance)
-            return x.sum(0)
+            lo = lo + V3(deferred("x"), deferred("y"), deferred("z"))
 
-        lo = lo + V3(deferred("x"), deferred("y"), deferred("z"))
+        if not replay:  # restore the original ray order after the permutations
+            lo = lo.map(lambda a: _unsort(a, orig))
 
-    if not replay:  # restore the original ray order after the permutations
-        lo = lo.map(lambda a: _unsort(a, orig))
-
-    # compose (comp:983-988): primary emissive + path radiance on a hit,
-    # the environment on a miss
-    color = vwhere(primary_hit, primary_emissive + lo, miss_color)
-    if cfg.clamp_radiance:
-        color = color.map(lambda a: clip(a, 0.0, 1.0))
-    recs = None
-    if record:
-        stack = lambda xs: torch.stack(xs) if xs else None
-        recs = TraceRecords(
-            primary=hit, light_occ=stack(rec_occ), env_occ=stack(rec_eocc),
-            bounce=Hit(*(torch.stack([getattr(h, k) for h in rec_hit2])
-                         for k in ("tri", "t", "b1", "b2"))))
-    return color.rows(), recs
+        # compose (comp:983-988): primary emissive + path radiance on a hit,
+        # the environment on a miss
+        color = vwhere(primary_hit, primary_emissive + lo, miss_color)
+        if cfg.clamp_radiance:
+            color = color.map(lambda a: clip(a, 0.0, 1.0))
+        recs = None
+        if record:
+            stack = lambda xs: torch.stack(xs) if xs else None
+            recs = TraceRecords(
+                primary=hit, light_occ=stack(rec_occ), env_occ=stack(rec_eocc),
+                bounce=Hit(*(torch.stack([getattr(h, k) for h in rec_hit2])
+                             for k in ("tri", "t", "b1", "b2"))))
+        radiance = color.rows()
+    return radiance, recs
 
 
 def render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,

@@ -26,7 +26,18 @@ then one frame under ``torch.cuda.graph`` with its private memory pool.
 A capture that fails raises with the CUDA error; nothing falls back to
 eager frames.  The kernels' launch counters (``LAUNCHES`` of the
 wrappers) count at capture, not at replay: :attr:`FrameProgram.launches`
-keeps the captured frame's counts.
+keeps the captured frame's counts.  The capture adds nothing to the
+graph, but keeps its layout (``utils/profiling.py``), and hands it to
+the record: ``nodes``, the graph's node count; ``phases``, ``(phase,
+bounce, tile, first_ordinal, n_nodes)`` ranges of the integrator's
+phases, in order, which tile ``[0, nodes)``; ``walks``, the node
+ordinals of its walk kernels; and ``counts``, the warm-up frame's
+counters (live and launched rays by bounce and tile), device tensors
+until :func:`profiling.record` reads them.  (A graph that is not one
+chain, as one stream's capture always is, keeps no layout.)  Spans:
+``capture.warmup``, ``capture.graph``
+(:attr:`FrameProgram.capture_seconds`), and ``frame.replay`` (each
+``graph.replay()``).
 
 :func:`frame_program` keeps the last :data:`PROGRAM_CACHE_SIZE` programs
 by (the scene's tensors, ``cfg``, which fixes the tile shape, device);
@@ -39,7 +50,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 
 import torch
 
@@ -56,11 +66,13 @@ from pnraytracing_tpu_torch.core.types import Camera, Scene
 from pnraytracing_tpu_torch.ops import compaction
 from pnraytracing_tpu_torch.ops.sampling import frame_word
 from pnraytracing_tpu_torch.render.renderer import frame_image
+from pnraytracing_tpu_torch.utils import profiling
 
 PROGRAM_CACHE_SIZE = 4
-_LAUNCH_TABLES = (traverse_cuda.LAUNCHES, traverse_stream_cuda.LAUNCHES,
-                  traverse.LAUNCHES, traverse_packed.LAUNCHES,
-                  traverse_wide4.LAUNCHES, compaction.LAUNCHES)
+_WALK_TABLES = (traverse_cuda.LAUNCHES, traverse_stream_cuda.LAUNCHES,
+                traverse.LAUNCHES, traverse_packed.LAUNCHES,
+                traverse_wide4.LAUNCHES)
+_LAUNCH_TABLES = _WALK_TABLES + (compaction.LAUNCHES,)
 
 
 def launch_counts() -> dict:
@@ -99,6 +111,10 @@ class FrameProgram:
         self.image = None
         self.launches = None
         self.capture_seconds = None
+        self.nodes = None
+        self.phases = None
+        self.walks = None
+        self.counts = None
 
     def _load(self, camera: Camera, frame) -> None:
         self.camera.copy_(camera)
@@ -109,33 +125,45 @@ class FrameProgram:
 
     def _body(self) -> torch.Tensor:
         img = frame_image(self.scene, self.camera, self.cfg, self.frame)
-        self.acc.add_(img)
-        self.frame.add_(1)
+        with profiling.phase("image"):
+            self.acc.add_(img)
+            self.frame.add_(1)
         return img
 
     def capture(self, camera: Camera, frame=0) -> None:
-        """Run one warm-up frame on a side stream, then capture one
-        frame.  Raises with the CUDA error if the capture fails."""
+        """Run one warm-up frame on a side stream (the span
+        ``capture.warmup``), then capture one frame (``capture.graph``).
+        Raises with the CUDA error if the capture fails."""
         self._load(camera, frame)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._body()
+        with profiling.span("capture.warmup"), profiling.collect() as warm:
+            with torch.cuda.stream(side):
+                self._body()
         main.wait_stream(side)
         self._load(camera, frame)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            with (profiling.span("capture.graph") as timed,
+                  profiling.collect() as layout, torch.cuda.graph(graph)):
                 image = self._body()
+                nodes = layout.nodes()
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing the frame as a CUDA graph failed: {e}") from e
-        self.capture_seconds = time.perf_counter() - t0
+        self.capture_seconds = timed.seconds
         self.launches = {k: v - before[k] for k, v in launch_counts().items()}
         self.graph, self.image = graph, image
+        self.counts = warm.counts
+        if nodes is not None:  # None: the graph is no chain
+            walk_keys = {k for t in _WALK_TABLES for k in t}
+            self.nodes, self.phases = nodes, layout.phases
+            self.walks = [n for k, n in layout.kernels if k in walk_keys]
+            profiling.keep_capture(dict(
+                nodes=self.nodes, phases=self.phases, walks=self.walks,
+                counts=self.counts))
 
     def replay(self, camera: Camera, frame) -> torch.Tensor:
         """The frame's image for this camera and frame counter (an int or
@@ -144,7 +172,8 @@ class FrameProgram:
         if self.graph is None:
             self.capture(camera, frame)
         self._load(camera, frame)
-        self.graph.replay()
+        with profiling.span("frame.replay"):
+            self.graph.replay()
         return self.image
 
     def average(self, camera: Camera, start_frame, spp: int
@@ -156,7 +185,8 @@ class FrameProgram:
         self._load(camera, start_frame)
         self.acc.zero_()
         for _ in range(spp):
-            self.graph.replay()
+            with profiling.span("frame.replay"):
+                self.graph.replay()
         return self.acc / float(spp)
 
 

@@ -29,6 +29,7 @@ from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.types import Camera, Scene
 from pnraytracing_tpu_torch.ops.sampling import frame_word, pixel_seed, rand01
 from pnraytracing_tpu_torch.render.integrator import render_rays
+from pnraytracing_tpu_torch.utils import profiling
 
 
 def pixel_coords(cfg: RenderConfig, device=None):
@@ -60,22 +61,28 @@ def primary_jitter(px: torch.Tensor, py: torch.Tensor, frame,
 def frame_image(scene: Scene, camera: Camera, cfg: RenderConfig,
                 frame) -> torch.Tensor:
     """One frame op by op: camera rays, ``render_rays`` over every tile,
-    the [H, W, 3] image.  ``scene``, ``camera`` and a tensor ``frame``
-    lie on one device.  The body of a captured frame (render/program.py)
-    and the eager frame."""
+    the [H, W, 3] image (the phases ``camera`` and ``image`` around the
+    integrator's, each tile's under its index: ``utils/profiling.py``).
+    ``scene``, ``camera`` and a tensor ``frame`` lie on one device.  The
+    body of a captured frame (render/program.py) and the eager frame."""
     dev = camera.eye.device
-    px, py = pixel_coords(cfg, dev)
-    o, d, _ = camera_rays(camera, cfg.width, cfg.height,
-                          jitter=primary_jitter(px, py, frame, cfg))
+    with profiling.phase("camera"):
+        px, py = pixel_coords(cfg, dev)
+        o, d, _ = camera_rays(camera, cfg.width, cfg.height,
+                              jitter=primary_jitter(px, py, frame, cfg))
     p = o.shape[0]
     tile = min(cfg.tile_pixels, p)
     if p % tile != 0:
         tile = p  # one batch for awkward sizes
-    chunks = [render_rays(scene, o[lo:lo + tile], d[lo:lo + tile],
-                          px[lo:lo + tile], py[lo:lo + tile], frame, cfg)
-              for lo in range(0, p, tile)]
-    color = torch.cat(chunks) if len(chunks) > 1 else chunks[0]
-    return color.reshape(cfg.height, cfg.width, 3)
+    chunks = []
+    for i, lo in enumerate(range(0, p, tile)):
+        with profiling.tile(i):
+            chunks.append(render_rays(scene, o[lo:lo + tile],
+                                      d[lo:lo + tile], px[lo:lo + tile],
+                                      py[lo:lo + tile], frame, cfg))
+    with profiling.phase("image"):
+        color = torch.cat(chunks) if len(chunks) > 1 else chunks[0]
+        return color.reshape(cfg.height, cfg.width, 3)
 
 
 def _on(frame, dev):
