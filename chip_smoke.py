@@ -346,6 +346,8 @@ class Recorder:
             # the all-K plain version keys from the boxes alone
             "entry_key": lambda o, d, treelets, tree:
                 compaction.treelet_entry_key(o, d, treelets),
+            # the shade phase's plain version (ops/shade.py::shade_plain)
+            "shade_on_card": lambda *a, **kw: False,
         }
         self.saved = {n: getattr(integrator, n) for n in plain}
         self.calls: list[tuple[str, tuple]] = []
@@ -681,6 +683,131 @@ def _clone(args):
             a = a.clone()
         out.append(a)
     return tuple(out)
+
+
+def ptxas_entry(lines, marker: str) -> list:
+    """The ``-Xptxas -v`` lines of the entry function whose mangled name
+    holds ``marker`` (its registers, stack and spills)."""
+    out, keep = [], False
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            keep = marker in ln
+        if keep:
+            out.append(ln)
+    return out
+
+
+# bytes the shade kernel moves (csrc/shade.cu): every lane reads its live
+# flag and seed and writes its outputs (the seed and `rows` floats, zeros
+# on a dead lane); a live lane reads its other state (position, normal,
+# view: 36; material id 4; pixel 16); the tables it gathers from
+# (shade_table_bytes) are read once each, since they stay in L2
+SHADE_LANE_BYTES = 1 + 8 + 8
+SHADE_LIVE_BYTES = 36 + 4 + 16
+
+
+def shade_table_bytes(scene, mat_rows) -> int:
+    """Bytes of the tables the shade kernel gathers from, each once: the
+    material rows, the lights' triangle ids, prefix areas, total and
+    interaction rows (26 floats), the environment's alias rows and fat
+    rows, and the Sobol directions (8 x 32 int64)."""
+    n = 4 * mat_rows.numel() + 8 * 32 * 8
+    lights = scene.lights.count
+    n += lights * (4 + 4 + 26 * 4) + 4
+    if scene.env is not None:
+        n += 4 * scene.env.alias_x.numel() + 4 * scene.env.alias_fat.numel()
+    return n
+
+
+def elementwise_per_lane(fn, r: int) -> int:
+    """Operations a lane of ``fn()``: the elements over ``r`` of every
+    result of each ATen operation it runs that is not a view (a torch
+    kernel writes them; each is one operation a lane at least)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    total = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor) and t.numel() >= r:
+                        total[0] += t.numel() // r
+            return out
+
+    with Count():
+        fn()
+    return total[0]
+
+
+def shade_row(render_frame, scene, camera, dev, integrator, built,
+              path_launches) -> dict:
+    """The shade kernel's row: one launch over the flagship's 262,144
+    bounce-0 rays (teapot's flags: lights, environment, Sobol, the
+    reference MIS), equal to the plain version on live lanes, timed
+    beside it, with its bound, registers, spills and blocks an SM.
+    ``path_launches`` holds what ``shade.LAUNCHES`` read on each path
+    (the counted flagship frame, and the program's capture, added when
+    phase ``program`` runs); ``launches`` is its eager frame's count."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.config import RenderConfig
+    from pnraytracing_tpu_torch.ops import shade
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    calls = record_inputs(render_frame, scene, camera, cfg, dev, integrator,
+                          name="shade_bounce")
+    if len(calls) != DEPTH:
+        raise AssertionError(f"shade: {len(calls)} calls a frame, "
+                             f"expected {DEPTH}")
+    args = calls[0]
+    state, active = args[3:], args[6]
+    tbl = scene.materials.sanitized()
+    got = shade.shade_bounce(*args)
+    want = shade.shade_plain(scene, tbl, args[2], *state)
+    bad = 0
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise AssertionError("shade: the kernel and the plain version "
+                                 "return other outputs")
+        if g is None:
+            continue
+        for gc, wc in ([(g.x, w.x), (g.y, w.y), (g.z, w.z)]
+                       if hasattr(g, "x") else [(g, w)]):
+            bits = lambda x: (x.view(torch.int32)
+                              if x.dtype == torch.float32 else x)
+            bad += int((bits(gc[active]) != bits(wc[active])).sum())
+    if bad:
+        raise AssertionError(f"shade: {bad} live values differ from the "
+                             "plain version")
+    r, live = int(active.shape[0]), int(active.sum())
+    n_out = sum(3 if hasattr(g, "x") else 1 for g in got[1:]
+                if g is not None)
+    table_bytes = shade_table_bytes(args[0], args[1])
+    ops_lane = elementwise_per_lane(
+        lambda: shade.shade_plain(scene, tbl, args[2], *state), r)
+    bnd, by = bound(r * (SHADE_LANE_BYTES + 4 * n_out)
+                    + live * SHADE_LIVE_BYTES + table_bytes,
+                    live * ops_lane)
+    ptx = ptxas_entry(built.get("shade", {}).get("ptxas", []),
+                      "ILb1ELb1ELb1ELb0E")
+    return dict(
+        name="shade", source="pnraytracing_tpu_torch/csrc/shade.cu",
+        replaces="none: phase 1 of render/integrator.py::_render_rays",
+        launches=path_launches["eager_frame"],
+        path_launches=path_launches, rays=r, live_rays=live,
+        mismatches=bad,
+        ms=time_ms(lambda: shade.shade_bounce(*args), 50),
+        plain_ms=time_ms(lambda: shade.shade_plain(scene, tbl, args[2],
+                                                   *state), 5),
+        bound_ms=bnd, bound_by=by, table_bytes=table_bytes,
+        ops_per_live_lane=ops_lane,
+        bound_formula=(f"max((R * ({SHADE_LANE_BYTES} + 4 * {n_out}) + "
+                       f"live * {SHADE_LIVE_BYTES} + {table_bytes}) B / "
+                       f"3.35 TB/s, live * {ops_lane} / 67 TFLOP/s)"),
+        ptxas=ptx, **shade.kernel_info())
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1261,13 +1388,22 @@ def replay_parity(scene, camera, cfg, dev, frames=(3, 4)) -> dict:
     return out
 
 
+def shade_per_frame(cfg) -> int:
+    """The shade kernel's launches in a frame: one a bounce a tile (the
+    tiles of render/renderer.py::frame_image)."""
+    p = cfg.width * cfg.height
+    tile = min(cfg.tile_pixels, p)
+    return cfg.max_depth * (p // tile if p % tile == 0 else 1)
+
+
 def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
                   smi) -> dict:
     """The frame of ``scene`` under ``cfg`` as one captured CUDA graph
     (render/program.py).  The counters are zeroed just before the
     program is captured and read just after: its warm-up frame and its
     capture each count ``expected`` once (the graph's own counts are
-    ``expected``), and replays count nothing.  Then: replays at frames 1
+    ``expected``; the shade kernel, read apart, ``shade_per_frame``
+    each), and replays count nothing.  Then: replays at frames 1
     and 2 against the eager frames (bit for bit, and the two differ);
     capture seconds and the bytes the program keeps reserved (its
     graph's private pool and its static buffers); ms/frame of
@@ -1281,6 +1417,7 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     the programs alive."""
     import torch
 
+    from pnraytracing_tpu_torch.ops import shade
     from pnraytracing_tpu_torch.render import program
     from pnraytracing_tpu_torch.render.renderer import (
         render_average,
@@ -1302,16 +1439,21 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     capture_s = time.perf_counter() - t0
     got = counts()
     want = dict({k: 0 for k in got}, **expected)
-    if prog.launches != want or got != {k: 2 * v for k, v in want.items()}:
+    shade_n = shade.LAUNCHES["shade"]
+    if (prog.launches != want or got != {k: 2 * v for k, v in want.items()}
+            or shade_n != 2 * shade_per_frame(cfg)):
         raise AssertionError(f"{label}: launches at capture "
-                             f"{prog.launches} (counters {got}), expected "
-                             f"{want} (and twice that with the warm-up)")
+                             f"{prog.launches} (counters {got}, shade "
+                             f"{shade_n}), expected {want} (and twice that "
+                             f"with the warm-up), shade twice "
+                             f"{shade_per_frame(cfg)}")
     torch.cuda.empty_cache()  # the warm-up's blocks; the pool stays
     pool_bytes = torch.cuda.memory_reserved() - reserved0
     a = replayed(1)
     b = replayed(2)
     torch.cuda.synchronize()
-    if counts() != got:
+    shade_replays = shade.LAUNCHES["shade"] - shade_n  # the two replays'
+    if counts() != got or shade_replays:
         raise AssertionError(f"{label}: a replay counted launches")
     equal = [bool(torch.equal(a, eager(1))), bool(torch.equal(b, eager(2)))]
     if not (all(equal) and not torch.equal(a, b)):
@@ -1368,6 +1510,10 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
            "pool_bytes": pool_bytes,
            "launches_at_capture": {k: v for k, v in prog.launches.items()
                                    if v},
+           # the shade kernel (not in prog.launches): its warm-up frame
+           # and its capture, then the two replays checked above
+           "shade_launches": {"program_capture": shade_n,
+                              "program_replays": shade_replays},
            "replay_equals_eager": equal, "ms_per_frame": ms,
            "sm_mhz_celsius_watts": clocks, "replay_split": splits,
            "eager_ms": mean(ms["eager"]), "replayed_ms": mean(ms["replayed"]),
@@ -4614,7 +4760,7 @@ def main() -> int:
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
     from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
     from pnraytracing_tpu_torch.core.config import RenderConfig
-    from pnraytracing_tpu_torch.ops import compaction
+    from pnraytracing_tpu_torch.ops import compaction, shade
     from pnraytracing_tpu_torch.render import integrator, renderer
     from pnraytracing_tpu_torch.scene.scenes import config3_teapot_night
 
@@ -4727,18 +4873,24 @@ def main() -> int:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
     render_frame(scene, camera, cfg, 0, device=dev)  # warm-up 1
     torch.cuda.synchronize()
-    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, trp.LAUNCHES,
-              tw4.LAUNCHES, compaction.LAUNCHES)
-    counts = lambda: {k: v for t in tables for k, v in t.items()}
+    walk_tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, trp.LAUNCHES,
+                   tw4.LAUNCHES, compaction.LAUNCHES)
+    # the shade kernel's table is zeroed with the walks' and read apart:
+    # ``counts`` (the walks and the key) is what each route is held to,
+    # as render/program.py::launch_counts() leaves the shade kernel out
+    tables = walk_tables + (shade.LAUNCHES,)
+    counts = lambda: {k: v for t in walk_tables for k, v in t.items()}
     zero_counts(*tables)
     img = render_frame(scene, camera, cfg, 1, device=dev)  # warm-up 2
     torch.cuda.synchronize()
     launches = counts()
     expected = dict({k: 0 for k in launches}, closest_hit_attr=1 + DEPTH,
                     any_hit=DEPTH, treelet_entry_key=cfg.sort_max_bounce)
-    if launches != expected:
-        raise AssertionError(f"launches per frame {launches}, expected "
-                             f"{expected}")
+    shade_launches = {"eager_frame": shade.LAUNCHES["shade"]}
+    if launches != expected or shade_launches["eager_frame"] != DEPTH:
+        raise AssertionError(f"launches per frame {launches}, shade "
+                             f"{shade_launches}, expected {expected}, "
+                             f"shade {DEPTH}")
     if not (img.shape == (HEIGHT, WIDTH, 3) and torch.isfinite(img).all()
             and float(img.min()) >= 0.0 and float(img.max()) <= 1.0):
         raise AssertionError("flagship frame is not a finite [0,1] image")
@@ -4749,10 +4901,12 @@ def main() -> int:
     img_off = render_frame(scene, camera, cfg_off, 1, device=dev)
     torch.cuda.synchronize()
     launches_off = counts()
+    shade_launches["kernel_interaction_off"] = shade.LAUNCHES["shade"]
     if launches_off != dict(expected, closest_hit_attr=0,
-                            closest_hit=1 + DEPTH):
+                            closest_hit=1 + DEPTH) or shade.LAUNCHES[
+                                "shade"] != DEPTH:
         raise AssertionError(f"kernel_interaction=False frame launched "
-                             f"{launches_off}")
+                             f"{launches_off}, shade {shade.LAUNCHES}")
     off_px = int(((img_off - img).abs().amax(dim=-1) > 1e-3).sum())
     # the same frame through closest_hit + make_interaction, timed: the
     # interaction route every streamed frame takes
@@ -4841,20 +4995,25 @@ def main() -> int:
         all_k_bound_ms=bound(r * (24 + 4) + 24 * k_total,
                              OPS_ENTRY_BOX * k_total * r)[0],
         **compaction.kernel_info(k_total)))
+    rows.append(shade_row(render_frame, scene, camera, dev, integrator,
+                          built, shade_launches))
     emit({"phase": "flagship", "width": WIDTH, "height": HEIGHT,
           "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
           "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),
           "queries_per_frame": QUERIES_PER_FRAME,
-          "launches_per_frame": launches,
-          "launches_kernel_interaction_off": launches_off,
+          "launches_per_frame": dict(
+              launches, shade=shade_launches["eager_frame"]),
+          "launches_kernel_interaction_off": dict(
+              launches_off, shade=shade_launches["kernel_interaction_off"]),
           "pixels_off_1e-3_kernel_interaction_off": off_px,
           "ms_per_frame_kernel_interaction_off": ms_off,
           "max_memory_allocated": peak,
           "card": smi})
     emit(dict(phase="profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
-    program_phase("flagship", scene, camera, cfg, dev, expected, tables,
-                  counts, smi)
+    flagship_program = program_phase("flagship", scene, camera, cfg, dev,
+                                     expected, tables, counts, smi)
+    shade_launches.update(flagship_program["shade_launches"])
     session_phase(RenderConfig, scene, cam_state, dev, smi)
     app_launches = app_phase(RenderConfig, dev, expected, smi)
     grad_launches = grad_phase(RenderConfig, scene, camera, dev, modules,
@@ -4892,6 +5051,13 @@ def main() -> int:
             row["binary_route_launches"] = binary_route[row["name"]]
     rows += stream_rows + bvh_rows + trav_rows
     for row in rows:
+        row.update(route="cuda", library_ms=None)
+        if row["name"] == "shade":
+            # the paths below count the walks' tables (the workers and
+            # ranks report render/program.py::launch_counts()), which the
+            # shade kernel stays out of: its row keeps what shade.LAUNCHES
+            # read (shade_row's ``path_launches``)
+            continue
         # launches of one flagship frame under each traversal value
         row["traversal_launches"] = {v: n.get(row["name"], 0)
                                      for v, n in trav_launches.items()}
@@ -4899,7 +5065,6 @@ def main() -> int:
             # one compat probe_pixel call a scene (phase compat)
             row["probe_pixel_launches"] = {
                 k: v.get(row["name"], 0) for k, v in PROBE_LAUNCHES.items()}
-        row.update(route="cuda", library_ms=None)
         if row["name"] in ("closest_hit_attr", "any_hit", "closest_hit",
                            "treelet_entry_key"):
             # launches a sample on the gradient path (phase grad)

@@ -30,6 +30,15 @@ def _map(obj, fn):
     return dataclasses.replace(obj, **changes)
 
 
+def tensors(obj):
+    """Every tensor of a dataclass, recursively, in field order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tensors(getattr(obj, f.name))
+
+
 class _Movable:
     def to(self, device):
         """A copy with every tensor on ``device``."""

@@ -31,7 +31,7 @@ DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 # where the libraries are built and loaded from (utils/cache.py moves it)
 BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("traverse", "traverse_stream", "entry_key", "traverse_bvh",
-           "traverse_wide4")
+           "traverse_wide4", "shade")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -92,7 +92,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     return info
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 # argtypes of every entry point; all return an int (the launchers a CUDA
 # error code)
 _SIGNATURES = {
@@ -110,6 +110,8 @@ _SIGNATURES = {
     "pnrt_bvh_kernel_info": [_I] * 4,
     "pnrt_wide4_walk": [_P, _P] + [_I] * 6 + [_P] * 9 + [_I] * 3 + [_P] * 8,
     "pnrt_wide4_kernel_info": [_I] * 3,
+    "pnrt_shade": [_I] * 10 + [_U] + [_P] * 32,
+    "pnrt_shade_kernel_info": [_I] * 2,
 }
 
 

@@ -57,7 +57,7 @@ import torch
 
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
-from pnraytracing_tpu_torch.core.types import Scene
+from pnraytracing_tpu_torch.core.types import Scene, tensors
 from pnraytracing_tpu_torch.diff.grad import (
     param_leaves,
     params_like,
@@ -67,7 +67,6 @@ from pnraytracing_tpu_torch.ops.sampling import frame_word
 from pnraytracing_tpu_torch.render import program as frame_programs
 from pnraytracing_tpu_torch.render.program import (
     _leaves,
-    _tensors,
     launch_counts,
 )
 
@@ -115,7 +114,7 @@ class StepProgram:
                              f"{dev}; the CPU runs gradient steps eagerly")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        away = sorted({str(t.device) for t in _tensors(scene)
+        away = sorted({str(t.device) for t in tensors(scene)
                        if t.device != dev})
         if away:
             raise ValueError(
@@ -217,7 +216,7 @@ class StepProgram:
         if _layout(scene) != _layout(self.scene):
             return False
         with torch.no_grad():
-            for dst, src in zip(_tensors(self.scene), _tensors(scene)):
+            for dst, src in zip(tensors(self.scene), tensors(scene)):
                 if dst is not src:
                     dst.copy_(src)
         return True

@@ -7,7 +7,12 @@ Python loop, and every stage is a masked operation over the whole ray
 batch.  Each bounce runs in three phases, as in the JAX package:
 
 1. draws and weights: every RNG draw and every pdf/BRDF weight of the
-   bounce (NEE area light, NEE environment, BRDF sample);
+   bounce (NEE area light, NEE environment, BRDF sample), in
+   ``ops/shade.py``: one launch of its CUDA kernel where
+   ``shade_on_card`` allows (a CUDA device, autograd recording nothing
+   through the scene), else its plain version, the torch code (the CPU,
+   the gradient's replay); a textured scene's base colors are overridden
+   in torch first;
 2. sort: with ``compact_rays``, for bounces below ``sort_max_bounce``,
    one permutation of the whole path state, live rays first, ordered by
    the ``sort_key`` of ``ops/compaction.py`` (the treelet-entry key of
@@ -139,19 +144,13 @@ from pnraytracing_tpu_torch.core.math import (
 from pnraytracing_tpu_torch.core.types import Scene, TriangleMesh, _Movable
 from pnraytracing_tpu_torch.core.vec import (
     V3,
-    build_tangent_space_v,
     vcat,
     vcross,
     vdot,
     vnormalize,
     vwhere,
 )
-from pnraytracing_tpu_torch.ops.brdf import (
-    apply_compat_material_decode,
-    disney_eval_v,
-    disney_pdf_v,
-    disney_sample_v,
-)
+from pnraytracing_tpu_torch.ops.brdf import apply_compat_material_decode
 from pnraytracing_tpu_torch.ops.compaction import (
     coherence_key,
     coherence_key_pos,
@@ -159,24 +158,19 @@ from pnraytracing_tpu_torch.ops.compaction import (
     entry_key,
     sort_live_first,
 )
-from pnraytracing_tpu_torch.ops.envmap import (
-    envmap_lookup_v,
-    envmap_pdf_v,
-    sample_envmap_v,
-)
+from pnraytracing_tpu_torch.ops.envmap import envmap_lookup_v, envmap_pdf_v
 from pnraytracing_tpu_torch.ops.gather import gather_row
 from pnraytracing_tpu_torch.ops.intersect import Hit, intersect_triangle_c
-from pnraytracing_tpu_torch.ops.sampling import (
-    SOBOL_DIMS,
-    cranley_patterson_rotation_c,
-    frame_word,
-    pick_light,
-    pixel_seed,
-    rand01,
-    sample_uniform_triangle,
-    sobol_vec2,
-    u32_to_unit,
-    wang_hash,
+from pnraytracing_tpu_torch.ops.sampling import frame_word, pixel_seed, rand01
+from pnraytracing_tpu_torch.ops.shade import (
+    any_zero,
+    contiguous_env,
+    corners,
+    emissive_of,
+    material_rows,
+    shade_bounce,
+    shade_on_card,
+    shade_plain,
 )
 from pnraytracing_tpu_torch.ops.texture import (
     fetch_base_color,
@@ -222,17 +216,6 @@ def pack_interaction_rows(mesh: TriangleMesh) -> torch.Tensor:
                       mesh.uvs[idx].reshape(t, 6), ids], dim=1)
 
 
-def _corners(rr: torch.Tensor, base: int) -> tuple[V3, V3, V3]:
-    c = lambda k: rr[:, base + k]
-    return (V3(c(0), c(1), c(2)), V3(c(3), c(4), c(5)),
-            V3(c(6), c(7), c(8)))
-
-
-def _any_zero(n0: V3, n1: V3, n2: V3) -> torch.Tensor:
-    zero3 = lambda a: (a.x == 0) & (a.y == 0) & (a.z == 0)
-    return zero3(n0) | zero3(n1) | zero3(n2)
-
-
 def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
     """Surface attributes from (tri, barycentrics) — the Interaction fill
     of TriangleIntersect (comp:327-355) — through one row gather of the
@@ -241,8 +224,8 @@ def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
     Returns (pos V3, nrm V3, (u, v), mat_id, tex_id)."""
     tri = torch.clamp_min(hit.tri, 0).long()
     rr = gather_row(tri, rows)
-    p0, p1, p2 = _corners(rr, 0)
-    n0, n1, n2 = _corners(rr, 9)
+    p0, p1, p2 = corners(rr, 0)
+    n0, n1, n2 = corners(rr, 9)
     ok, _, rb1, rb2 = intersect_triangle_c(
         (p0.x, p0.y, p0.z), (p1.x, p1.y, p1.z), (p2.x, p2.y, p2.z),
         ray_o.x, ray_o.y, ray_o.z, ray_d.x, ray_d.y, ray_d.z,
@@ -254,38 +237,13 @@ def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
     pos = p0 * b0 + p1 * b1 + p2 * b2
     geom_n = vnormalize(vcross(p1 - p0, p2 - p0))
     n_interp = n0 * b0 + n1 * b1 + n2 * b2
-    nrm = vwhere(_any_zero(n0, n1, n2), geom_n, n_interp)
+    nrm = vwhere(any_zero(n0, n1, n2), geom_n, n_interp)
     # backface flip toward the incoming ray (comp:345-348)
     nrm = vnormalize(vwhere(vdot(nrm, ray_d) > 0, -nrm, nrm))
     u_hit = rr[:, 18] * b0 + rr[:, 20] * b1 + rr[:, 22] * b2
     v_hit = rr[:, 19] * b0 + rr[:, 21] * b1 + rr[:, 23] * b2
     return (pos, nrm, (u_hit, v_hit), rr[:, 24].to(torch.int32),
             rr[:, 25].to(torch.int32))
-
-
-def sample_light_point(tri: torch.Tensor, u1, u2, rows: torch.Tensor):
-    """Uniform point + normal on light triangles (TriangleSample,
-    comp:604-624).  Returns (pos V3, nrm V3)."""
-    b0, b1 = sample_uniform_triangle(u1, u2)
-    rr = gather_row(tri, rows)
-    p0, p1, p2 = _corners(rr, 0)
-    n0, n1, n2 = _corners(rr, 9)
-    b2 = 1.0 - b0 - b1
-    pos = p0 * b0 + p1 * b1 + p2 * b2
-    geom_n = vnormalize(vcross(p1 - p0, p2 - p0))
-    n_interp = n0 * b0 + n1 * b1 + n2 * b2
-    return pos, vnormalize(vwhere(_any_zero(n0, n1, n2), geom_n, n_interp))
-
-
-def _emissive_of(materials, mat_id: torch.Tensor) -> V3:
-    # every gather from a table that can carry a gradient goes through
-    # ops/gather.py: a backward that sums in a fixed order
-    return V3.of(gather_row(mat_id, materials.emissive))
-
-
-def _safe_inv(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(torch.abs(x) > _EPS,
-                       1.0 / torch.where(x == 0, 1.0, x), 0.0)
 
 
 def _comps(a: torch.Tensor) -> V3:
@@ -419,6 +377,14 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         mat_tbl = materials.sanitized()
         if compat:
             mat_tbl = apply_compat_material_decode(mat_tbl)
+        # the shade phase's kernel, or its plain version (ops/shade.py)
+        on_card = shade_on_card(scene, dev, o, d)
+        if on_card:
+            mat_rows = material_rows(mat_tbl, materials)
+            card_scene = dataclasses.replace(
+                scene, env=contiguous_env(scene.env))
+            px, py = px.to(torch.int64).contiguous(), py.to(
+                torch.int64).contiguous()
         o_v, d_v = _comps(o), _comps(d)
         if replay:
             hit = records.primary
@@ -431,7 +397,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         if lod_on:  # path length, the ray cone's footprint
             path_t = torch.where(primary_hit, hit.t, 0.0)
         miss_color = env_radiance(d_v)
-        primary_emissive = _emissive_of(materials, mat_id)
+        primary_emissive = emissive_of(materials, mat_id)
 
         active = primary_hit
         v_dir = -d_v
@@ -443,6 +409,22 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         rec_occ, rec_eocc, rec_hit2 = [], [], []  # record: a bounce each
         env_terms = []  # replay: (direction, coefficient) of escaped paths
 
+    def textured(base_rows: torch.Tensor) -> torch.Tensor:
+        """[R, 3] base colors overridden by the texture fetch
+        (comp:870-872) at the paths' current uv, texture id and length."""
+        uv2 = torch.stack([u_uv, v_uv], dim=-1)
+        if lod_on and textures.mips is not None:
+            whs = textures.sizes[torch.clamp_min(tex_id, 0).long()].to(
+                torch.float32)
+            texdim = torch.maximum(whs[:, 0], whs[:, 1])
+            lod = torch.log2(torch.clamp_min(
+                path_t * cfg.texture_lod_scale * texdim, 1.0))
+            return fetch_base_color_trilinear(textures, tex_id, uv2,
+                                              base_rows, lod)
+        return fetch_base_color(textures, tex_id, uv2, base_rows)
+
+    texture = textured if has_tex else None
+
     # ---- path loop (comp:861-972) -----------------------------------------
     for bounce in range(cfg.max_depth):
         with phase("shade", bounce):
@@ -450,81 +432,18 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             if not captured and collecting():
                 count("rays.live", active.sum())
                 count("rays.launched", r)
-            mat, cdlin, _ = mat_tbl.gather_components(mat_id)
-            if has_tex:  # the texture overrides the base color (comp:870-872)
-                uv2 = torch.stack([u_uv, v_uv], dim=-1)
-                if lod_on and textures.mips is not None:
-                    whs = textures.sizes[torch.clamp_min(tex_id, 0).long()].to(
-                        torch.float32)
-                    texdim = torch.maximum(whs[:, 0], whs[:, 1])
-                    lod = torch.log2(torch.clamp_min(
-                        path_t * cfg.texture_lod_scale * texdim, 1.0))
-                    cdlin = V3.of(fetch_base_color_trilinear(
-                        textures, tex_id, uv2, cdlin.rows(), lod))
-                else:
-                    cdlin = V3.of(fetch_base_color(textures, tex_id, uv2,
-                                                   cdlin.rows()))
-            t_tan, b_tan = build_tangent_space_v(nrm)
-
-            # phase 1a: NEE area-light draws (comp:878-909)
-            seed, u_light = rand01(seed)
-            if has_lights:
-                slot = pick_light(lights.prefix_area, lights.total_area,
-                                  u_light)
-                light_tri = lights.tri_index[slot.long()]
-                seed, u1 = rand01(seed)
-                seed, u2 = rand01(seed)
-                lp, ln = sample_light_point(light_tri, u1, u2, irows)
-                sdir = lp - pos  # unnormalized segment (comp:887)
-                dis2 = vdot(sdir, sdir)
-                lnorm = vnormalize(sdir)
-                cos_l = absolute(vdot(ln, -lnorm))
-                raw_pdf = dis2 / maximum(cos_l * lights.total_area, 1e-12)
-                lmat = irows[lights.tri_index.long(), 24].to(torch.int32)[
-                    slot.long()]
-                li = _emissive_of(materials, lmat)
-                light_f = disney_eval_v(v_dir, nrm, lnorm, t_tan, b_tan, mat,
-                                        cdlin)
-                nl = absolute(vdot(nrm, lnorm))
-                l_direct_pre = light_f * li * (nl * _safe_inv(raw_pdf))
-
-            # phase 1b: NEE environment draws (comp:911-926)
-            if has_env:
-                seed, r1e = rand01(seed)
-                seed, r2e = rand01(seed)
-                en_l, en_li, env_pdf_raw = sample_envmap_v(scene.env, r1e, r2e,
-                                                           compat)
-                env_f = disney_eval_v(v_dir, nrm, en_l, t_tan, b_tan, mat,
-                                      cdlin)
-                l_env_pre = env_f * en_li * (vdot(en_l, nrm)
-                                             * _safe_inv(env_pdf_raw))
-
-            # phase 1c: BRDF sample (comp:928-934)
-            if cfg.sampler == "sobol":
-                su, sv = sobol_vec2(frame + 1, bounce)
-                r1, r2 = cranley_patterson_rotation_c(
-                    su, sv, px_l, py_l, cfg.width, cfg.height,
-                    salt=(2 * bounce) // SOBOL_DIMS)
+            state = (cfg, bounce, frame, active, pos, nrm, v_dir, mat_id,
+                     seed, px_l, py_l)
+            if on_card:
+                cdlin = None if texture is None else texture(
+                    mat_tbl.base_color.index_select(0, mat_id))
+                shaded = shade_bounce(card_scene, mat_rows, irows, *state,
+                                      cdlin=cdlin)
             else:
-                seed, r1 = rand01(seed)
-                seed, r2 = rand01(seed)
-            seed, r_lobe = rand01(seed)
-            # diffuse-lobe draws leave the stream only when that lobe is taken
-            s1 = wang_hash(seed)
-            s2 = wang_hash(s1)
-            l_out, d_pdf, lobe = disney_sample_v(
-                v_dir, nrm, t_tan, b_tan, mat, r_lobe, r1, r2, u32_to_unit(s1),
-                u32_to_unit(s2), compat)
-            seed = torch.where(lobe == 0, s2, seed)
-
-            d_f = disney_eval_v(v_dir, nrm, l_out, t_tan, b_tan, mat, cdlin)
-            weight = d_f * (absolute(vdot(nrm, l_out)) * _safe_inv(d_pdf))
-            if cfg.mis == "balanced":
-                if has_lights:
-                    p_b_light = maximum(
-                        disney_pdf_v(v_dir, nrm, lnorm, mat), 0.0)
-                if has_env:
-                    p_b_env = maximum(disney_pdf_v(v_dir, nrm, en_l, mat), 0.0)
+                shaded = shade_plain(scene, mat_tbl, irows, *state,
+                                     texture=texture)
+            (seed, l_out, weight, d_pdf, sdir, raw_pdf, l_direct_pre, en_l,
+             env_pdf_raw, l_env_pre, p_b_light, p_b_env) = shaded
 
         with phase("sort", bounce):
             # phase 2: one live-first permutation of the whole path state, as
@@ -687,7 +606,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                     zero_v))
 
             hit_now = active & hit2.valid
-            emissive2 = _emissive_of(materials, mat_id2)
+            emissive2 = emissive_of(materials, mat_id2)
             if cfg.mis == "balanced" and has_lights:
                 # solid-angle pdf of the area-light NEE strategy at this hit
                 cos_h = absolute(vdot(nrm2, l_out))

@@ -62,7 +62,7 @@ from pnraytracing_tpu_torch.accel import (
 )
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
-from pnraytracing_tpu_torch.core.types import Camera, Scene
+from pnraytracing_tpu_torch.core.types import Camera, Scene, tensors
 from pnraytracing_tpu_torch.ops import compaction
 from pnraytracing_tpu_torch.ops.sampling import frame_word
 from pnraytracing_tpu_torch.render.renderer import frame_image
@@ -92,7 +92,7 @@ class FrameProgram:
                              f"{dev}; the CPU renders frames eagerly")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        away = sorted({str(t.device) for t in _tensors(scene)
+        away = sorted({str(t.device) for t in tensors(scene)
                        if t.device != dev})
         if away:
             raise ValueError(
@@ -188,15 +188,6 @@ class FrameProgram:
             with profiling.span("frame.replay"):
                 self.graph.replay()
         return self.acc / float(spp)
-
-
-def _tensors(obj):
-    """Every tensor of a dataclass, recursively."""
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            yield from _tensors(getattr(obj, f.name))
 
 
 def _leaves(obj):

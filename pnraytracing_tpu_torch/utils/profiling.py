@@ -305,8 +305,8 @@ def collect():
     _rec.scopes.append(c)
     try:
         yield c
-    finally:
-        _rec.scopes.remove(c)
+    finally:  # by identity: two open collects may hold equal records
+        _rec.scopes[:] = [s for s in _rec.scopes if s is not c]
 
 
 def keep_capture(layout: dict) -> None:

@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from pnraytracing_tpu_torch.core.camera import resolve_device
-from pnraytracing_tpu_torch.core.types import _Movable
+from pnraytracing_tpu_torch.core.types import _Movable, tensors
 
 _LOSS_SIGNATURES = (
     "unspecified launch failure",
@@ -182,9 +182,7 @@ def _host_copy(tree):
     if isinstance(tree, torch.Tensor):
         return _Held(tree.cpu(), tree.device)
     if isinstance(tree, _Movable):
-        from pnraytracing_tpu_torch.render.program import _tensors
-
-        first = next(_tensors(tree), None)
+        first = next(tensors(tree), None)
         return _Held(tree.to("cpu"), first.device if first is not None
                      else None)
     return tree

@@ -42,7 +42,7 @@ from pnraytracing_tpu.render.integrator import (
 )
 from pnraytracing_tpu_torch.convert import params_to_arrays
 from pnraytracing_tpu_torch.core.config import RenderConfig
-from pnraytracing_tpu_torch.core.types import _map
+from pnraytracing_tpu_torch.core.types import _map, tensors
 from pnraytracing_tpu_torch.diff import grad as dg
 from pnraytracing_tpu_torch.diff import program as sp
 from pnraytracing_tpu_torch.render import program
@@ -266,16 +266,16 @@ def test_load_scene_copies_a_refit_in_place():
     ps = dg.refit_scene(_setup()[0])  # this builder's tree
     prog = object.__new__(sp.StepProgram)
     prog.scene = _map(ps, torch.clone)
-    held = list(program._tensors(prog.scene))
+    held = list(tensors(prog.scene))
     moved = dg.apply_params(ps, {"positions": ps.mesh.positions * 1.01})
     refit = dg.refit_scene(moved)
     assert sp._layout(refit) == sp._layout(ps)
     assert not torch.equal(refit.bvh.node_min, ps.bvh.node_min)
     assert prog.load_scene(refit)
-    now = list(program._tensors(prog.scene))
+    now = list(tensors(prog.scene))
     assert all(a is b for a, b in zip(now, held))  # the same storage
     assert all(torch.equal(a, b) for a, b in
-               zip(now, program._tensors(refit)))
+               zip(now, tensors(refit)))
     other = dataclasses.replace(refit, bvh_depth=refit.bvh_depth + 1)
     before = [t.clone() for t in now]
     assert not prog.load_scene(other)
@@ -283,7 +283,7 @@ def test_load_scene_copies_a_refit_in_place():
         refit.mesh, area=refit.mesh.area[:-1]))
     assert not prog.load_scene(shorter)
     assert all(torch.equal(a, b) for a, b in
-               zip(program._tensors(prog.scene), before))
+               zip(tensors(prog.scene), before))
 
 
 @pytest.mark.parametrize("keys", [("materials",), ("materials", "env_image")])

@@ -5,7 +5,8 @@ of the frame, on the CPU:
   first span's seconds;
 * a counter takes device tensors and numbers without reading them back:
   only ``record()`` reads them, those of a kept capture; a frame that no
-  ``collect()`` watches computes no counter;
+  ``collect()`` watches computes no counter; nested collects each close
+  their own;
 * an eager 32x32 frame, depth 3, one bounce sorted: under
   ``torch.profiler`` the ``pnrt.phase.*`` spans come in the frame's order,
   once a bounce; its ``rays.live`` a bounce equals the paths still
@@ -115,6 +116,21 @@ def test_counters_are_read_back_only_by_record(monkeypatch):
         ("rays.live", 2, 1, 2.0), ("rays.launched", 2, 1, 3.0),
         ("rays.live", None, None, 4.0)]
     assert rec["spans"]["phase.shade"]["count"] == 1
+
+
+def test_nested_collects_each_close_their_own():
+    """Two open collects receive the same counters (their records are
+    then equal), and each closes its own: the inner one first, then the
+    outer one, whatever the records hold."""
+    with profiling.collect() as outer:
+        with profiling.collect() as inner:
+            profiling.count("rays.launched", 3)
+        assert inner == outer and inner is not outer
+        assert profiling.collecting()
+        profiling.count("rays.launched", 4)
+    assert not profiling.collecting()
+    assert [v for *_, v in outer.counts] == [3, 4]
+    assert [v for *_, v in inner.counts] == [3]
 
 
 @functools.lru_cache(maxsize=1)
