@@ -30,8 +30,10 @@ hit and its interaction) and ``accumulate`` (the BRDF-sampled terms,
 their MIS weights, the throughput and Russian roulette), and ``image``
 (the tile's colours).  An eager frame inside an open ``collect()``
 counts, at the top of each bounce, the live rays (``rays.live``) and the
-rays launched (``rays.launched``); any other frame, and a captured one,
-counts nothing.
+rays launched (``rays.launched``), and on route ``bvh`` each walk's work
+from its per-ray stats (``walk.closest.*`` and ``walk.shadow.*``:
+``pops``, ``slabs``, ``tests`` and the live ``queries``); any other
+frame, and a captured one, counts nothing.
 
 ``loop="scan"`` runs the same loop.  The JAX package's scan runs the
 first ``min(sort_max_bounce, max_depth)`` bounces as an unrolled, sorted
@@ -246,6 +248,21 @@ def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
             rr[:, 25].to(torch.int32))
 
 
+WALK_STATS = ("pops", "slabs", "tests")  # the rows of a walk's stats
+
+
+def _count_walk(kind: str, stats: torch.Tensor, mask) -> None:
+    """Hand one walk's work to the open collects: ``walk.<kind>.pops``,
+    ``.slabs`` and ``.tests`` summed over its [3, R] per-ray stats (a
+    masked query does none) and ``walk.<kind>.queries``, its live
+    queries."""
+    total = stats.sum(dim=1)
+    for i, name in enumerate(WALK_STATS):
+        count(f"walk.{kind}.{name}", total[i])
+    count(f"walk.{kind}.queries",
+          stats.shape[1] if mask is None else mask.sum())
+
+
 def _comps(a: torch.Tensor) -> V3:
     """[R, 3] -> V3 of contiguous components (what the kernels take)."""
     return V3(a[:, 0].contiguous(), a[:, 1].contiguous(),
@@ -313,6 +330,19 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     def walk(fn, o_, d_, tm_, mask_):
         return fn(*tables, o_, d_, tm_, mask_, **walk_kw)
 
+    # the plain-BVH walks' work, counted only in an eager frame inside an
+    # open collect() (a capture's warm-up frame): a captured walk is
+    # launched without its stats buffer
+    count_walks = route == "bvh" and not captured and collecting()
+
+    def counted(fn, kind, o_, d_, tm_, mask_):
+        if not count_walks:
+            return walk(fn, o_, d_, tm_, mask_)
+        out, stats = fn(*tables, o_, d_, tm_, mask_, **walk_kw,
+                        with_stats=True)
+        _count_walk(kind, stats, mask_)
+        return out
+
     if route == "wide4":
         # overflowed rays are walked again by the pop-test walk
         # (render/integrator.py:395-440 of the JAX package)
@@ -331,10 +361,10 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                                  fallback=lambda *a: walk(any_fn, *a))[0]
     else:
         def closest_q(o_, d_, tm_, mask_=None):
-            return walk(closest_fn, o_, d_, tm_, mask_)
+            return counted(closest_fn, "closest", o_, d_, tm_, mask_)
 
         def any_q(o_, d_, tm_, mask_=None):
-            return walk(any_fn, o_, d_, tm_, mask_)
+            return counted(any_fn, "shadow", o_, d_, tm_, mask_)
 
     def closest_inter(o_: V3, d_: V3, tm_, mask_=None):
         """Closest hit + interaction fill (hit, pos, nrm, (u, v), mat id,

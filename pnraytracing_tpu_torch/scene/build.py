@@ -5,7 +5,8 @@ PyTorch counterpart of ``pnraytracing_tpu/scene/build.py``
 (model.hpp:101-135, BVH.hpp:16-19, main.cpp:374-383).  The arithmetic is
 the JAX package's numpy code, so both packages build identical arrays;
 the result lives on ``device`` as tensors.  The layout packs only what
-this port's traversal reads (``accel/layout.py::TravData``).
+this port's traversal reads (``accel/layout.py::TravData``).  The tree
+build runs inside the span ``build.tree`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from pnraytracing_tpu_torch.core.types import (
 )
 from pnraytracing_tpu_torch.ops.envmap import build_envmap
 from pnraytracing_tpu_torch.ops.texture import build_atlas
+from pnraytracing_tpu_torch.utils import profiling
 
 
 def wide_width() -> int:
@@ -199,19 +201,20 @@ class SceneBuilder:
         areas = 0.5 * np.linalg.norm(
             np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=1)
 
-        if flat_bvh:
-            tri_min, tri_max, _ = triangle_bounds(positions, indices)
-            built = BVHArrays(
-                node_min=tri_min.min(axis=0)[None],
-                node_max=tri_max.max(axis=0)[None],
-                axis=np.array([-1], np.int32),
-                right_child=np.array([-1], np.int32),
-                start=np.array([0], np.int32),
-                end=np.array([len(indices)], np.int32),
-                order=np.arange(len(indices), dtype=np.int32))
-        else:
-            built = bvh_builder(use_native_builder)(
-                positions, indices, max_leaf_size=max_leaf_size)
+        with profiling.span("build.tree"):
+            if flat_bvh:
+                tri_min, tri_max, _ = triangle_bounds(positions, indices)
+                built = BVHArrays(
+                    node_min=tri_min.min(axis=0)[None],
+                    node_max=tri_max.max(axis=0)[None],
+                    axis=np.array([-1], np.int32),
+                    right_child=np.array([-1], np.int32),
+                    start=np.array([0], np.int32),
+                    end=np.array([len(indices)], np.int32),
+                    order=np.arange(len(indices), dtype=np.int32))
+            else:
+                built = bvh_builder(use_native_builder)(
+                    positions, indices, max_leaf_size=max_leaf_size)
         order = built.order
         idx_o = indices[order]
         t = lambda a, dt=None: torch.as_tensor(np.array(a, dt), device=dev)

@@ -15,7 +15,8 @@ empties it):
   record by name (a count, a total and the first span's seconds: a
   graph's first replay also uploads it), so a span outside any profiler
   (set-up) can be read too.  Names: ``frame.*`` and ``capture.*``
-  (``render/program.py``), ``phase.*`` (:func:`phase`).
+  (``render/program.py``), ``build.tree`` (``scene/build.py``),
+  ``phase.*`` (:func:`phase`).
 - :func:`phase` is the span ``phase.<name>`` of one part of a frame.  A
   replayed CUDA graph runs no Python, so while a stream captures into an
   open :func:`collect`, a phase also notes the capture's node count at
