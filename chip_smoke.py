@@ -792,7 +792,7 @@ def shade_row(render_frame, scene, camera, dev, integrator, built,
                     + live * SHADE_LIVE_BYTES + table_bytes,
                     live * ops_lane)
     ptx = ptxas_entry(built.get("shade", {}).get("ptxas", []),
-                      "ILb1ELb1ELb1ELb0E")
+                      "shade_bounce_kernelILb1ELb1ELb1ELb0E")
     return dict(
         name="shade", source="pnraytracing_tpu_torch/csrc/shade.cu",
         replaces="none: phase 1 of render/integrator.py::_render_rays",
@@ -808,6 +808,86 @@ def shade_row(render_frame, scene, camera, dev, integrator, built,
                        f"live * {SHADE_LIVE_BYTES} + {table_bytes}) B / "
                        f"3.35 TB/s, live * {ops_lane} / 67 TFLOP/s)"),
         ptxas=ptx, **shade.kernel_info())
+
+
+# bytes the tail kernel moves (csrc/shade.cu accumulate_bounce_kernel):
+# every lane reads its live flag, radiance, throughput, sampled direction,
+# position, normal and material id (1 + 5 x 12 + 4) and writes the state
+# it rolls (15 floats, the material id, the live flag: 65); a live lane
+# reads the NEE terms and flags, the sample's weight and pdf and its hit's
+# triangle (55); a hit its interaction (normal, position, material id:
+# 28) and its 12-byte emission row; an escaped ray its 48-byte quad row
+TAIL_LANE_BYTES = 65 + 65
+TAIL_LIVE_BYTES = 55
+TAIL_HIT_BYTES = 28 + 12
+TAIL_MISS_BYTES = 48
+
+
+def accumulate_row(render_frame, scene, camera, dev, integrator, built,
+                   path_launches) -> dict:
+    """The tail kernel's row: one launch over the flagship's 262,144
+    bounce-0 rays (teapot's flags: lights, environment, the reference
+    MIS), every lane equal to the plain version bit for bit, timed beside
+    it, with its byte bound (the per-lane bytes above, the material rows
+    once), registers, spills and blocks an SM.  ``path_launches`` holds
+    what ``shade.LAUNCHES["accumulate"]`` read on each path."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.config import RenderConfig
+    from pnraytracing_tpu_torch.ops import shade
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    calls = record_inputs(render_frame, scene, camera, cfg, dev, integrator,
+                          name="accumulate_bounce")
+    if len(calls) != DEPTH:
+        raise AssertionError(f"accumulate: {len(calls)} calls a frame, "
+                             f"expected {DEPTH}")
+    args = calls[0]
+    plain_args = (args[0], *args[2:])
+    got = shade.accumulate_bounce(*args)
+    want = shade.accumulate_plain(*plain_args)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    bad = 0
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise AssertionError("accumulate: the kernel and the plain "
+                                 "version return other outputs")
+        if g is None:
+            continue
+        for gc, wc in ([(g.x, w.x), (g.y, w.y), (g.z, w.z)]
+                       if hasattr(g, "x") else [(g, w)]):
+            bad += int((bits(gc) != bits(wc)).sum())
+    if bad:
+        raise AssertionError(f"accumulate: {bad} values differ from the "
+                             "plain version")
+    path, hit = args[5], args[10][0]
+    r, live = int(path.active.shape[0]), int(path.active.sum())
+    hits = int((path.active & hit.valid).sum())
+    table_bytes = 4 * args[1].numel()
+    ops_lane = elementwise_per_lane(
+        lambda: shade.accumulate_plain(*plain_args), r)
+    bnd, by = bound(r * TAIL_LANE_BYTES + live * TAIL_LIVE_BYTES
+                    + hits * TAIL_HIT_BYTES
+                    + (live - hits) * TAIL_MISS_BYTES + table_bytes,
+                    live * ops_lane)
+    ptx = ptxas_entry(built.get("shade", {}).get("ptxas", []),
+                      "accumulate_bounce_kernelILb1ELb1ELb0ELb0E")
+    return dict(
+        name="accumulate", source="pnraytracing_tpu_torch/csrc/shade.cu",
+        replaces="none: the NEE combine and the accumulate phase of "
+                 "render/integrator.py::_render_rays",
+        launches=path_launches["eager_frame"],
+        path_launches=path_launches, rays=r, live_rays=live,
+        hit_rays=hits, mismatches=bad,
+        ms=time_ms(lambda: shade.accumulate_bounce(*args), 50),
+        plain_ms=time_ms(lambda: shade.accumulate_plain(*plain_args), 5),
+        bound_ms=bnd, bound_by=by, table_bytes=table_bytes,
+        ops_per_live_lane=ops_lane,
+        bound_formula=(f"max((R * {TAIL_LANE_BYTES} + live * "
+                       f"{TAIL_LIVE_BYTES} + hits * {TAIL_HIT_BYTES} + "
+                       f"misses * {TAIL_MISS_BYTES} + {table_bytes}) B / "
+                       f"3.35 TB/s, live * {ops_lane} / 67 TFLOP/s)"),
+        ptxas=ptx, **shade.accumulate_kernel_info())
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1440,12 +1520,15 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     got = counts()
     want = dict({k: 0 for k in got}, **expected)
     shade_n = shade.LAUNCHES["shade"]
+    tail_n = shade.LAUNCHES["accumulate"]
     if (prog.launches != want or got != {k: 2 * v for k, v in want.items()}
-            or shade_n != 2 * shade_per_frame(cfg)):
+            or shade_n != 2 * shade_per_frame(cfg)
+            or tail_n != 2 * shade_per_frame(cfg)):
         raise AssertionError(f"{label}: launches at capture "
                              f"{prog.launches} (counters {got}, shade "
-                             f"{shade_n}), expected {want} (and twice that "
-                             f"with the warm-up), shade twice "
+                             f"{shade_n}, accumulate {tail_n}), expected "
+                             f"{want} (and twice that with the warm-up), "
+                             f"shade and accumulate twice "
                              f"{shade_per_frame(cfg)}")
     torch.cuda.empty_cache()  # the warm-up's blocks; the pool stays
     pool_bytes = torch.cuda.memory_reserved() - reserved0
@@ -1453,7 +1536,8 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     b = replayed(2)
     torch.cuda.synchronize()
     shade_replays = shade.LAUNCHES["shade"] - shade_n  # the two replays'
-    if counts() != got or shade_replays:
+    tail_replays = shade.LAUNCHES["accumulate"] - tail_n
+    if counts() != got or shade_replays or tail_replays:
         raise AssertionError(f"{label}: a replay counted launches")
     equal = [bool(torch.equal(a, eager(1))), bool(torch.equal(b, eager(2)))]
     if not (all(equal) and not torch.equal(a, b)):
@@ -1514,6 +1598,8 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
            # and its capture, then the two replays checked above
            "shade_launches": {"program_capture": shade_n,
                               "program_replays": shade_replays},
+           "tail_launches": {"program_capture": tail_n,
+                             "program_replays": tail_replays},
            "replay_equals_eager": equal, "ms_per_frame": ms,
            "sm_mhz_celsius_watts": clocks, "replay_split": splits,
            "eager_ms": mean(ms["eager"]), "replayed_ms": mean(ms["replayed"]),
@@ -4887,10 +4973,13 @@ def main() -> int:
     expected = dict({k: 0 for k in launches}, closest_hit_attr=1 + DEPTH,
                     any_hit=DEPTH, treelet_entry_key=cfg.sort_max_bounce)
     shade_launches = {"eager_frame": shade.LAUNCHES["shade"]}
-    if launches != expected or shade_launches["eager_frame"] != DEPTH:
+    tail_launches = {"eager_frame": shade.LAUNCHES["accumulate"]}
+    if (launches != expected or shade_launches["eager_frame"] != DEPTH
+            or tail_launches["eager_frame"] != DEPTH):
         raise AssertionError(f"launches per frame {launches}, shade "
-                             f"{shade_launches}, expected {expected}, "
-                             f"shade {DEPTH}")
+                             f"{shade_launches}, accumulate "
+                             f"{tail_launches}, expected {expected}, "
+                             f"shade and accumulate {DEPTH}")
     if not (img.shape == (HEIGHT, WIDTH, 3) and torch.isfinite(img).all()
             and float(img.min()) >= 0.0 and float(img.max()) <= 1.0):
         raise AssertionError("flagship frame is not a finite [0,1] image")
@@ -4902,9 +4991,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_off = counts()
     shade_launches["kernel_interaction_off"] = shade.LAUNCHES["shade"]
+    tail_launches["kernel_interaction_off"] = shade.LAUNCHES["accumulate"]
     if launches_off != dict(expected, closest_hit_attr=0,
                             closest_hit=1 + DEPTH) or shade.LAUNCHES[
-                                "shade"] != DEPTH:
+                                "shade"] != DEPTH or shade.LAUNCHES[
+                                    "accumulate"] != DEPTH:
         raise AssertionError(f"kernel_interaction=False frame launched "
                              f"{launches_off}, shade {shade.LAUNCHES}")
     off_px = int(((img_off - img).abs().amax(dim=-1) > 1e-3).sum())
@@ -4997,14 +5088,18 @@ def main() -> int:
         **compaction.kernel_info(k_total)))
     rows.append(shade_row(render_frame, scene, camera, dev, integrator,
                           built, shade_launches))
+    rows.append(accumulate_row(render_frame, scene, camera, dev, integrator,
+                               built, tail_launches))
     emit({"phase": "flagship", "width": WIDTH, "height": HEIGHT,
           "depth": DEPTH, "frames": n_frames, "ms_per_frame": ms_frame,
           "rays_per_s": QUERIES_PER_FRAME / (ms_frame / 1e3),
           "queries_per_frame": QUERIES_PER_FRAME,
           "launches_per_frame": dict(
-              launches, shade=shade_launches["eager_frame"]),
+              launches, shade=shade_launches["eager_frame"],
+              accumulate=tail_launches["eager_frame"]),
           "launches_kernel_interaction_off": dict(
-              launches_off, shade=shade_launches["kernel_interaction_off"]),
+              launches_off, shade=shade_launches["kernel_interaction_off"],
+              accumulate=tail_launches["kernel_interaction_off"]),
           "pixels_off_1e-3_kernel_interaction_off": off_px,
           "ms_per_frame_kernel_interaction_off": ms_off,
           "max_memory_allocated": peak,
@@ -5014,6 +5109,7 @@ def main() -> int:
     flagship_program = program_phase("flagship", scene, camera, cfg, dev,
                                      expected, tables, counts, smi)
     shade_launches.update(flagship_program["shade_launches"])
+    tail_launches.update(flagship_program["tail_launches"])
     session_phase(RenderConfig, scene, cam_state, dev, smi)
     app_launches = app_phase(RenderConfig, dev, expected, smi)
     grad_launches = grad_phase(RenderConfig, scene, camera, dev, modules,
@@ -5052,7 +5148,7 @@ def main() -> int:
     rows += stream_rows + bvh_rows + trav_rows
     for row in rows:
         row.update(route="cuda", library_ms=None)
-        if row["name"] == "shade":
+        if row["name"] in ("shade", "accumulate"):
             # the paths below count the walks' tables (the workers and
             # ranks report render/program.py::launch_counts()), which the
             # shade kernel stays out of: its row keeps what shade.LAUNCHES

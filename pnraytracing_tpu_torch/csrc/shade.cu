@@ -1,5 +1,6 @@
 // The shade phase of one bounce for Hopper (sm_90a): phase 1 of
-// render/integrator.py::_render_rays, one thread a ray.
+// render/integrator.py::_render_rays, one thread a ray; and, further
+// down, the tail of the bounce after its walks (accumulate_bounce_kernel).
 //
 // Replaces no TPU kernel.  In the JAX package XLA fuses this chain; the
 // port ran it as plain PyTorch (ops/shade.py::shade_plain), ~1,570
@@ -47,6 +48,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -673,6 +675,332 @@ const Kernel kKernels[16] = {
     PNRT_SHADE(12), PNRT_SHADE(13), PNRT_SHADE(14), PNRT_SHADE(15)};
 #undef PNRT_SHADE
 
+// ---- the tail of a bounce ------------------------------------------------
+//
+// After the bounce's walks: the NEE combine of the shadow phase and the
+// accumulate phase of render/integrator.py::_render_rays, one thread a
+// ray (ops/shade.py::accumulate_bounce).  Its plain version,
+// accumulate_plain, is ~215 torch kernels a bounce (169 + 46 nodes of a
+// captured frame), ~0.58 ms a bounce of 262,144 rays on the H100.  A lane
+// reads its path state, the bounce's sample and NEE terms and its
+// continuation hit, and writes the state it rolls: about 230 bytes a live
+// lane, 130 a dead one, so ~60 MB a bounce of 262,144 live rays, 0.018 ms
+// at 3.35 TB/s (chip_smoke.py's accumulate row).  Only an escaped ray
+// reads a 48-byte quad row of the environment (and one pdf under
+// balanced MIS), only a hit its 12-byte emission.  The additions to
+// lo keep the torch code's order (NEE, escaped, emissive) and its
+// operations, so a lane's outputs equal the plain version's bit for bit,
+// a dead lane's too: its lo gains the three zero terms (through the
+// max_radiance clamp), its other state passes through, v_dir = -l_out,
+// and under Russian roulette its seed advances.
+
+// torch.maximum / torch.minimum: a NaN in either operand wins
+__device__ __forceinline__ float tmax(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float tmin(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+
+// core/math.py::fast_atan, fast_atan2, fast_asin
+__device__ __forceinline__ float fast_atan(float t) {
+  const float s = t * t;
+  float q = (float)-0.0117212;
+  q = q * s + (float)0.05265332;
+  q = q * s + (float)-0.11643287;
+  q = q * s + (float)0.19354346;
+  q = q * s + (float)-0.33262347;
+  q = q * s + (float)0.99997726;
+  return t * q;
+}
+__device__ __forceinline__ float fast_atan2(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float big = tmax(ax, ay);
+  float r = fast_atan(tmin(ax, ay) / cmin(big, (float)1e-30));
+  r = ay > ax ? (float)(0.5 * kPiD) - r : r;
+  r = x < 0.0f ? kPi - r : r;
+  return y < 0.0f ? -r : r;
+}
+__device__ __forceinline__ float fast_asin(float v) {
+  v = clamp(v, -1.0f, 1.0f);
+  return fast_atan2(v, sqrtf(cmin(1.0f - v * v, 0.0f)));
+}
+
+// core/vec.py::spherical_uv_v
+__device__ __forceinline__ void spherical_uv(F3 d, float* u, float* v) {
+  *u = fast_atan2(d.z, d.x) * (float)(0.5 * 0.31830988618379067154) + 0.5f;
+  const float w = fast_asin(d.y) * kInvPi + 0.5f;
+  *v = 1.0f - w;
+}
+
+// ops/envmap.py::bilinear_lookup_quads_v: one [12] row of the [h, w, 12]
+// quad table at (u, v): u wraps, v clamps
+__device__ F3 quad_lookup(const float* quad12, int w, int h, float u,
+                          float v) {
+  const float fx = u * (float)w - 0.5f;
+  const float fy = v * (float)h - 0.5f;
+  const float x0 = floorf(fx);
+  const float y0 = floorf(fy);
+  const int64_t x0i = wrap_index((int64_t)x0, w);
+  const int64_t y0i = clamp_index((int64_t)y0, h);
+  const float* q = quad12 + (y0i * w + x0i) * 12;
+  const float tx = fx - x0;
+  const float ty = fy - y0;
+  float out[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float top = q[k] * (1.0f - tx) + q[3 + k] * tx;
+    const float bot = q[6 + k] * (1.0f - tx) + q[9 + k] * tx;
+    out[k] = top * (1.0f - ty) + bot * ty;
+  }
+  return F3{out[0], out[1], out[2]};
+}
+
+// The inputs, in the order of ops/shade.py::accumulate_bounce's pointer
+// array (a V3 is its three components).  Null where the flags read none.
+struct TailIn {
+  const bool* active;
+  const float *c[3], *lo[3], *l_out[3], *weight[3], *d_pdf;
+  const int64_t* seed;
+  // the NEE terms (flag 1: the light's, flag 2: the environment's, flag
+  // 4: the BRDF pdfs of both directions)
+  const bool* occluded;
+  const float *raw_pdf, *l_direct_pre[3];
+  const bool *facing, *e_occ;
+  const float *env_pdf_raw, *l_env_pre[3];
+  const float *p_b_light, *p_b_env;
+  // the continuation hit and its interaction
+  const int* tri;
+  const float *t, *pos2[3], *nrm2[3];
+  const int* mat_id2;
+  const float *u2, *v2;
+  const int* tex_id2;
+  // the path's surface (flag 8: its uv and texture id; lod: its length)
+  const float *pos[3], *nrm[3];
+  const int* mat_id;
+  const float *u, *v;
+  const int* tex_id;
+  const float* path_t;
+  // tables: material rows (emission in columns 15-17), the lights' total
+  // area, the constant environment, the map's quad rows or image and pdf
+  const float *mat_rows, *total_area, *env_const;
+  const float *quad12, *env_image, *pdf_xy;
+};
+constexpr int kTailInputs = sizeof(TailIn) / sizeof(void*);
+
+struct TailParams {
+  int r, env_w, env_h, quad, lod, rr, clamp_on;
+  float max_radiance, env_scale;
+  TailIn in;
+  float* out;        // [15 (+ 2 with flag 8) (+ 1 with lod), r]
+  int* ids;          // [1 (+ 1 with flag 8), r]: mat_id, tex_id
+  bool* active_out;  // [r]
+  int64_t* seed_out;  // [r] with rr, else null
+};
+
+__device__ __forceinline__ F3 load3(const float* const* a, int i) {
+  return F3{a[0][i], a[1][i], a[2][i]};
+}
+
+// render/integrator.py's clamp_contrib: torch.clamp_max keeps a NaN
+__device__ __forceinline__ F3 clamp_contrib(const TailParams& p, F3 x) {
+  if (!p.clamp_on) return x;
+  auto c1 = [&](float a) { return isnan(a) ? a : fminf(a, p.max_radiance); };
+  return F3{c1(x.x), c1(x.y), c1(x.z)};
+}
+
+// ops/envmap.py::envmap_pdf_v at the direction's (u, v)
+__device__ __forceinline__ float env_pdf_at(const TailParams& p, float u,
+                                            float v) {
+  const int w = p.env_w, h = p.env_h;
+  const int64_t x = clamp_index((int64_t)(u * (float)w), w);
+  const int64_t y = clamp_index((int64_t)(v * (float)h), h);
+  const float theta = kPi * (0.5f - v);
+  const float cos_theta = cmin(cosf(theta), (float)1e-6);
+  return p.in.pdf_xy[x * h + y] * (float)((int64_t)w * h) /
+         ((float)(2.0 * kPiD * kPiD) * cos_theta);
+}
+
+template <bool kLights, bool kEnv, bool kBalanced, bool kTex>
+__global__ void __launch_bounds__(kThreads)
+    accumulate_bounce_kernel(const TailParams p) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= p.r) return;
+  const TailIn& a = p.in;
+  const int r = p.r;
+  const F3 zero = {0.0f, 0.0f, 0.0f};
+  const bool active = a.active[i];
+  F3 c = load3(a.c, i);
+  F3 lo = load3(a.lo, i);
+  const F3 l_out = load3(a.l_out, i);
+  F3 pos = load3(a.pos, i);
+  F3 nrm = load3(a.nrm, i);
+  int mat_id = a.mat_id[i];
+  float u = 0.0f, v = 0.0f, path_t = 0.0f;
+  int tex_id = 0;
+  if (kTex) {
+    u = a.u[i];
+    v = a.v[i];
+    tex_id = a.tex_id[i];
+    if (p.lod) path_t = a.path_t[i];
+  }
+
+  // the three terms lo gains, zero on a lane they do not reach
+  F3 nee_term = zero, escaped = zero, emitted = zero;
+  F3 c_next = c;
+  bool hit_now = false;
+  if (active) {
+    const float d_pdf = a.d_pdf[i];
+    // the NEE combine (the masks applied to the pre-folded terms)
+    float light_pdf = 0.0f, env_pdf = 0.0f;
+    F3 l_direct = zero, l_env = zero;
+    if (kLights) {
+      const bool lit = !a.occluded[i];
+      light_pdf = lit ? a.raw_pdf[i] : 0.0f;
+      l_direct = lit ? load3(a.l_direct_pre, i) : zero;
+    }
+    if (kEnv) {
+      env_pdf = a.env_pdf_raw[i];
+      l_env = a.facing[i] && !a.e_occ[i] ? load3(a.l_env_pre, i) : zero;
+    }
+    F3 nee;
+    if (!kBalanced) {  // the GLSL one-sample combine (comp:937-938)
+      const float pdf_sum = env_pdf + light_pdf + d_pdf;
+      const float inv_sum =
+          pdf_sum > kEps ? 1.0f / (pdf_sum == 0.0f ? 1.0f : pdf_sum) : 0.0f;
+      nee = scale(add(scale(l_env, env_pdf), scale(l_direct, light_pdf)),
+                  inv_sum);
+    } else {
+      nee = zero;
+      if (kLights) {
+        const float w_l =
+            light_pdf / cmin(light_pdf + a.p_b_light[i], kEps);
+        nee = add(nee, scale(l_direct, w_l));
+      }
+      if (kEnv) {
+        const float w_e = env_pdf / cmin(env_pdf + a.p_b_env[i], kEps);
+        nee = add(nee, scale(l_env, w_e));
+      }
+    }
+    nee_term = mul(c, nee);
+
+    const F3 weight = load3(a.weight, i);
+    if (a.tri[i] < 0) {  // escaped: the environment's radiance
+      float w_b_env = 1.0f;
+      F3 radiance;
+      if (kEnv) {
+        float su, sv;
+        spherical_uv(l_out, &su, &sv);
+        if (kBalanced) {
+          const float p_e_out = env_pdf_at(p, su, sv);
+          w_b_env = d_pdf / cmin(d_pdf + p_e_out, kEps);
+        }
+        radiance = p.quad ? quad_lookup(a.quad12, p.env_w, p.env_h, su, sv)
+                          : bilinear(a.env_image, p.env_w, p.env_h, su, sv);
+      } else {  // env_const * env_scale, times ones
+        radiance = scale(F3{a.env_const[0] * p.env_scale,
+                            a.env_const[1] * p.env_scale,
+                            a.env_const[2] * p.env_scale},
+                         1.0f);
+      }
+      escaped = scale(mul(mul(c, radiance), weight), w_b_env);
+    } else {  // a hit: its emission, the throughput and the state roll
+      hit_now = true;
+      const int mat2 = a.mat_id2[i];
+      const float* mr = a.mat_rows + (int64_t)mat2 * kMrow;
+      const F3 emissive = {mr[15], mr[16], mr[17]};
+      const F3 nrm2 = load3(a.nrm2, i);
+      float w_b_emis = 1.0f;
+      if (kBalanced && kLights) {
+        // the solid-angle pdf of the area-light strategy at this hit
+        const float t2 = a.t[i];
+        const float cos_h = fabsf(dot(nrm2, l_out));
+        const float p_l_hit =
+            (t2 * t2) / cmin(cos_h * *a.total_area, (float)1e-12);
+        const bool is_emissive = (emissive.x != 0.0f) |
+                                 (emissive.y != 0.0f) | (emissive.z != 0.0f);
+        w_b_emis = is_emissive ? d_pdf / cmin(d_pdf + p_l_hit, kEps) : 1.0f;
+      }
+      emitted = scale(mul(mul(c, emissive), weight), w_b_emis);
+      c_next = mul(c, weight);
+      pos = load3(a.pos2, i);
+      nrm = nrm2;
+      mat_id = mat2;
+      if (kTex) {
+        u = a.u2[i];
+        v = a.v2[i];
+        tex_id = a.tex_id2[i];
+        if (p.lod) path_t = path_t + a.t[i];
+      }
+    }
+  }
+  lo = add(lo, clamp_contrib(p, nee_term));
+  lo = add(lo, clamp_contrib(p, escaped));
+  lo = add(lo, clamp_contrib(p, emitted));
+  c = c_next;
+  bool alive = hit_now;
+
+  // Russian roulette (not in the reference): every lane draws
+  if (p.rr) {
+    uint32_t seed = (uint32_t)a.seed[i];
+    const float u_rr = rand01(seed);
+    const float p_survive = clamp(tmax(tmax(c.x, c.y), c.z), (float)0.05,
+                                  (float)0.95);
+    const bool survive = u_rr < p_survive;
+    if (alive && survive) {
+      c = F3{c.x / p_survive, c.y / p_survive, c.z / p_survive};
+    }
+    alive = alive && survive;
+    p.seed_out[i] = (int64_t)seed;
+  }
+
+  float* o = p.out + i;
+  const F3 rows[5] = {lo, c, neg(l_out), pos, nrm};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    o[(3 * k) * r] = rows[k].x;
+    o[(3 * k + 1) * r] = rows[k].y;
+    o[(3 * k + 2) * r] = rows[k].z;
+  }
+  p.ids[i] = mat_id;
+  if (kTex) {
+    o[15 * r] = u;
+    o[16 * r] = v;
+    if (p.lod) o[17 * r] = path_t;
+    p.ids[r + i] = tex_id;
+  }
+  p.active_out[i] = alive;
+}
+
+// by flags: 1 area lights, 2 environment map, 4 balanced MIS, 8 textures
+#define PNRT_TAIL(f)                                                       \
+  accumulate_bounce_kernel<((f) & 1) != 0, ((f) & 2) != 0, ((f) & 4) != 0, \
+                           ((f) & 8) != 0>
+using TailKernel = void (*)(const TailParams);
+const TailKernel kTailKernels[16] = {
+    PNRT_TAIL(0),  PNRT_TAIL(1),  PNRT_TAIL(2),  PNRT_TAIL(3),
+    PNRT_TAIL(4),  PNRT_TAIL(5),  PNRT_TAIL(6),  PNRT_TAIL(7),
+    PNRT_TAIL(8),  PNRT_TAIL(9),  PNRT_TAIL(10), PNRT_TAIL(11),
+    PNRT_TAIL(12), PNRT_TAIL(13), PNRT_TAIL(14), PNRT_TAIL(15)};
+#undef PNRT_TAIL
+
+// what == 0 registers, 1 blocks an SM, 2 threads a block, 3 local bytes of
+// kernel k; a negative value is minus the CUDA error
+int kernel_attribute(const void* k, int what) {
+  if (what == 2) return kThreads;
+  if (what == 1) {
+    int blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, 0);
+    return err == cudaSuccess ? blocks : -(int)err;
+  }
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return -(int)err;
+  return what == 0 ? attr.numRegs : (int)attr.localSizeBytes;
+}
+
 }  // namespace
 
 extern "C" {
@@ -729,17 +1057,52 @@ int pnrt_shade(int flags, int r, int bounce, int width, int height,
 // instantiation for flags.  A negative value is minus the CUDA error.
 int pnrt_shade_kernel_info(int flags, int what) {
   if (flags < 0 || flags > 15) return -(int)cudaErrorInvalidValue;
-  if (what == 2) return kThreads;
-  if (what == 1) {
-    int blocks = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kKernels[flags], kThreads, 0);
-    return err == cudaSuccess ? blocks : -(int)err;
-  }
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, kKernels[flags]);
-  if (err != cudaSuccess) return -(int)err;
-  return what == 0 ? a.numRegs : (int)a.localSizeBytes;
+  return kernel_attribute((const void*)kKernels[flags], what);
+}
+
+// The tail of a bounce over r rays.  flags as kTailKernels; quad 1 to
+// read the map's quad rows, 0 its image; lod 1 to roll the path length
+// (with flag 8); rr 1 for a bounce at or past rr_start; clamp_on 1 for a
+// max_radiance; in: kTailInputs pointers in TailIn's order (host
+// memory, read here).  out, ids, active_out as TailParams; seed_out only
+// with rr.  Returns cudaGetLastError() after the launch.
+int pnrt_accumulate(int flags, int r, int env_w, int env_h, int quad,
+                    int lod, int rr, int clamp_on, float max_radiance,
+                    float env_scale, const void* const* in, float* out,
+                    int* ids, bool* active_out, int64_t* seed_out,
+                    void* stream) {
+  if (r <= 0) return 0;
+  if (flags < 0 || flags > 15) return (int)cudaErrorInvalidValue;
+  TailParams p;
+  p.r = r;
+  p.env_w = env_w;
+  p.env_h = env_h;
+  p.quad = quad;
+  p.lod = lod;
+  p.rr = rr;
+  p.clamp_on = clamp_on;
+  p.max_radiance = max_radiance;
+  p.env_scale = env_scale;
+  static_assert(sizeof(TailIn) == kTailInputs * sizeof(void*),
+                "TailIn holds pointers only");
+  memcpy(&p.in, in, sizeof(TailIn));
+  p.out = out;
+  p.ids = ids;
+  p.active_out = active_out;
+  p.seed_out = seed_out;
+  const int blocks = (r + kThreads - 1) / kThreads;
+  kTailKernels[flags]<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The number of pointers pnrt_accumulate reads from `in`.
+int pnrt_accumulate_inputs() { return kTailInputs; }
+
+// As pnrt_shade_kernel_info, of the tail's instantiation for flags.
+int pnrt_accumulate_kernel_info(int flags, int what) {
+  if (flags < 0 || flags > 15) return -(int)cudaErrorInvalidValue;
+  return kernel_attribute((const void*)kTailKernels[flags], what);
 }
 
 }  // extern "C"

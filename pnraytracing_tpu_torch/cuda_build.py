@@ -92,7 +92,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     return info
 
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # argtypes of every entry point; all return an int (the launchers a CUDA
 # error code)
 _SIGNATURES = {
@@ -112,6 +112,9 @@ _SIGNATURES = {
     "pnrt_wide4_kernel_info": [_I] * 3,
     "pnrt_shade": [_I] * 10 + [_U] + [_P] * 32,
     "pnrt_shade_kernel_info": [_I] * 2,
+    "pnrt_accumulate": [_I] * 8 + [_F, _F] + [_P] * 6,
+    "pnrt_accumulate_inputs": [],
+    "pnrt_accumulate_kernel_info": [_I] * 2,
 }
 
 

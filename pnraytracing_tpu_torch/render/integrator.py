@@ -20,14 +20,19 @@ batch.  Each bounce runs in three phases, as in the JAX package:
    order (``compact_indices``);
 3. queries and contributions: the two NEE shadow queries in one any-hit
    launch (two with ``fuse_shadows`` off), then the continuation closest
-   hit.
+   hit, then the tail of the bounce (the NEE combine, the escaped and
+   emissive terms with their MIS weights, the throughput, the state roll
+   and Russian roulette) in ``ops/shade.py``: one launch of its kernel
+   under the same rule as phase 1, except in a replay, else its plain
+   version.
 
 Each part of the frame runs inside a ``phase`` of ``utils/profiling.py``:
 ``camera`` (the tile's set-up and primary hit), then a bounce each
 ``shade`` (phase 1), ``sort`` (phase 2), ``shadow`` (the occlusion
-queries and the NEE terms they gate), ``next`` (the continuation closest
-hit and its interaction) and ``accumulate`` (the BRDF-sampled terms,
-their MIS weights, the throughput and Russian roulette), and ``image``
+queries), ``next`` (the continuation closest hit and its interaction)
+and ``accumulate`` (the tail: the NEE terms the queries gate, the
+BRDF-sampled terms, their MIS weights, the throughput and Russian
+roulette), and ``image``
 (the tile's colours).  An eager frame inside an open ``collect()``
 counts, at the top of each bounce, the live rays (``rays.live``) and the
 rays launched (``rays.launched``), and on route ``bvh`` each walk's work
@@ -138,7 +143,6 @@ from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import (
     FLOAT_MAX,
     SHADOW_EPS,
-    absolute,
     clip,
     maximum,
     minimum,
@@ -160,15 +164,19 @@ from pnraytracing_tpu_torch.ops.compaction import (
     entry_key,
     sort_live_first,
 )
-from pnraytracing_tpu_torch.ops.envmap import envmap_lookup_v, envmap_pdf_v
 from pnraytracing_tpu_torch.ops.gather import gather_row
 from pnraytracing_tpu_torch.ops.intersect import Hit, intersect_triangle_c
-from pnraytracing_tpu_torch.ops.sampling import frame_word, pixel_seed, rand01
+from pnraytracing_tpu_torch.ops.sampling import frame_word, pixel_seed
 from pnraytracing_tpu_torch.ops.shade import (
+    Nee,
+    Path,
+    accumulate_bounce,
+    accumulate_plain,
     any_zero,
     contiguous_env,
     corners,
     emissive_of,
+    env_radiance,
     material_rows,
     shade_bounce,
     shade_on_card,
@@ -180,8 +188,6 @@ from pnraytracing_tpu_torch.ops.texture import (
 )
 from pnraytracing_tpu_torch.utils.profiling import (capturing, collecting,
                                                     count, phase)
-
-_EPS = 1e-10
 
 
 @dataclasses.dataclass
@@ -382,18 +388,6 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         hit_ = closest_q(o_, d_, tm_, mask_)
         return (hit_,) + make_interaction(hit_, d_, o_, irows)
 
-    def env_radiance(dirs: V3) -> V3:
-        if has_env:
-            return envmap_lookup_v(scene.env, dirs)
-        ones = torch.ones_like(dirs.x)
-        ec = env_const * cfg.env_scale
-        return V3(ec[0] * ones, ec[1] * ones, ec[2] * ones)
-
-    def clamp_contrib(x: V3) -> V3:
-        if cfg.max_radiance is not None:
-            return x.map(lambda a: minimum(a, cfg.max_radiance))
-        return x
-
     # ---- camera: the primary hit (comp:983) -----------------------------
     with phase("camera"):
         frame = frame_word(frame)
@@ -407,7 +401,8 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         mat_tbl = materials.sanitized()
         if compat:
             mat_tbl = apply_compat_material_decode(mat_tbl)
-        # the shade phase's kernel, or its plain version (ops/shade.py)
+        # the shade phase's and the tail's kernels, or their plain versions
+        # (ops/shade.py)
         on_card = shade_on_card(scene, dev, o, d)
         if on_card:
             mat_rows = material_rows(mat_tbl, materials)
@@ -424,9 +419,10 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             hit, pos, nrm, (u_uv, v_uv), mat_id, tex_id = closest_inter(
                 o_v, d_v, t_max0)
         primary_hit = hit.valid
+        path_t = None
         if lod_on:  # path length, the ray cone's footprint
             path_t = torch.where(primary_hit, hit.t, 0.0)
-        miss_color = env_radiance(d_v)
+        miss_color = env_radiance(scene, env_const, cfg.env_scale, d_v)
         primary_emissive = emissive_of(materials, mat_id)
 
         active = primary_hit
@@ -544,6 +540,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             # phase 3: occlusion queries — replayed, or both NEE classes in
             # one launch when the scene has both and fuse_shadows is on, else
             # one each
+            occluded = facing = e_occ = None
             if has_lights:
                 s_origin = pos + nrm * 1e-4
                 s_tmax = torch.full((r,), 1.0 - SHADOW_EPS,
@@ -574,35 +571,6 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                 if has_env:
                     rec_eocc.append(_unsort(e_occ, orig))
 
-            # NEE contributions (masks applied to the pre-folded terms)
-            light_pdf, l_direct = zero_r, zero_v
-            env_pdf, l_env = zero_r, zero_v
-            if has_lights:
-                lit = active & ~occluded
-                light_pdf = torch.where(lit, raw_pdf, 0.0)
-                l_direct = vwhere(lit, l_direct_pre, zero_v)
-            if has_env:
-                env_pdf = torch.where(active, env_pdf_raw, 0.0)
-                l_env = vwhere(active & facing & ~e_occ, l_env_pre, zero_v)
-
-            # MIS combine of the NEE estimators
-            if cfg.mis == "reference":
-                # the GLSL one-sample combine (comp:937-938)
-                pdf_sum = env_pdf + light_pdf + d_pdf
-                inv_sum = torch.where(
-                    pdf_sum > _EPS,
-                    1.0 / torch.where(pdf_sum == 0, 1.0, pdf_sum), 0.0)
-                nee = (l_env * env_pdf + l_direct * light_pdf) * inv_sum
-            else:
-                nee = zero_v
-                if has_lights:
-                    w_l = light_pdf / maximum(light_pdf + p_b_light, _EPS)
-                    nee = nee + l_direct * w_l
-                if has_env:
-                    w_e = env_pdf / maximum(env_pdf + p_b_env, _EPS)
-                    nee = nee + l_env * w_e
-            lo = lo + clamp_contrib(vwhere(active, c * nee, zero_v))
-
         with phase("next", bounce):
             # continue the path (comp:950-969)
             b_origin = pos + nrm * 1e-4
@@ -620,58 +588,25 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                         hit2.tri, hit2.t, hit2.b1, hit2.b2))))
 
         with phase("accumulate", bounce):
-            miss_now = active & ~hit2.valid
-            if cfg.mis == "balanced" and has_env:
-                p_e_out = envmap_pdf_v(scene.env, l_out)
-                w_b_env = d_pdf / maximum(d_pdf + p_e_out, _EPS)
+            # the tail: the NEE terms the queries gate, then the escaped and
+            # emissive terms, the throughput and the state roll; a replay
+            # defers its escaped terms to the image phase (plain version)
+            cont = (hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2)
+            nee = Nee(occluded, raw_pdf, l_direct_pre, facing, e_occ,
+                      env_pdf_raw, l_env_pre, p_b_light, p_b_env)
+            path = Path(lo, c, v_dir, pos, nrm, mat_id, u_uv, v_uv, tex_id,
+                        path_t, active, seed)
+            if on_card and not replay:
+                path = accumulate_bounce(card_scene, mat_rows, cfg, bounce,
+                                         env_const, path, l_out, weight,
+                                         d_pdf, nee, cont)
             else:
-                w_b_env = 1.0
-            if replay and has_env:
-                # deferred: one batched lookup for every bounce after the loop
-                env_terms.append((l_out, vwhere(miss_now, c * weight * w_b_env,
-                                                zero_v)))
-            else:
-                lo = lo + clamp_contrib(vwhere(
-                    miss_now, c * env_radiance(l_out) * weight * w_b_env,
-                    zero_v))
-
-            hit_now = active & hit2.valid
-            emissive2 = emissive_of(materials, mat_id2)
-            if cfg.mis == "balanced" and has_lights:
-                # solid-angle pdf of the area-light NEE strategy at this hit
-                cos_h = absolute(vdot(nrm2, l_out))
-                p_l_hit = (hit2.t * hit2.t) / maximum(
-                    cos_h * lights.total_area, 1e-12)
-                is_emissive = ((emissive2.x != 0.0) | (emissive2.y != 0.0)
-                               | (emissive2.z != 0.0))
-                w_b_emis = torch.where(
-                    is_emissive, d_pdf / maximum(d_pdf + p_l_hit, _EPS), 1.0)
-            else:
-                w_b_emis = 1.0
-            lo = lo + clamp_contrib(vwhere(
-                hit_now, c * emissive2 * weight * w_b_emis, zero_v))
-
-            # throughput update and state roll (comp:968-969)
-            c = vwhere(hit_now, c * weight, c)
-            v_dir = -l_out
-            pos = vwhere(hit_now, pos2, pos)
-            nrm = vwhere(hit_now, nrm2, nrm)
-            mat_id = torch.where(hit_now, mat_id2, mat_id)
-            if has_tex:
-                u_uv = torch.where(hit_now, u_uv2, u_uv)
-                v_uv = torch.where(hit_now, v_uv2, v_uv)
-                tex_id = torch.where(hit_now, tex_id2, tex_id)
-                if lod_on:
-                    path_t = torch.where(hit_now, path_t + hit2.t, path_t)
-            active = hit_now
-
-            # Russian roulette (not in the reference), from rr_start on
-            if cfg.rr_start is not None and bounce >= cfg.rr_start:
-                seed, u_rr = rand01(seed)
-                p_survive = clip(c.max_component(), 0.05, 0.95)
-                survive = u_rr < p_survive
-                c = vwhere(active & survive, c / p_survive, c)
-                active = active & survive
+                path = accumulate_plain(
+                    scene, cfg, bounce, env_const, path, l_out, weight,
+                    d_pdf, nee, cont,
+                    deferred=env_terms if replay and has_env else None)
+            (lo, c, v_dir, pos, nrm, mat_id, u_uv, v_uv, tex_id, path_t,
+             active, seed) = path
 
     with phase("image"):
         if env_terms:
@@ -680,7 +615,8 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             nb = len(env_terms)
             stacked = lambda i, k: torch.stack([getattr(t_[i], k)
                                                 for t_ in env_terms])
-            li = env_radiance(V3(*(stacked(0, k).reshape(-1) for k in "xyz")))
+            li = env_radiance(scene, env_const, cfg.env_scale,
+                              V3(*(stacked(0, k).reshape(-1) for k in "xyz")))
 
             def deferred(k):
                 x = getattr(li, k).reshape(nb, r) * stacked(1, k)
