@@ -311,16 +311,16 @@ def gpu_clocks() -> str:
 
 
 class Recorder:
-    """Swaps the integrator's kernel wrappers for recording versions that
-    clone their inputs and compute with the plain versions, so one frame
-    yields the path's real kernel inputs without launching a kernel."""
+    """Swaps the walk wrappers (``accel/walks.py``) and the integrator's
+    key and shade choice for recording versions that clone their inputs
+    and compute with the plain versions, so one frame yields the path's
+    real kernel inputs without launching a kernel."""
 
     def __init__(self, integrator, traverse, stream, compaction):
         from pnraytracing_tpu_torch.accel import traverse as bvh_walk
         from pnraytracing_tpu_torch.accel import traverse_packed as trp
         from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
-
-        self.mod = integrator
+        from pnraytracing_tpu_torch.accel import walks
 
         def by_variant(wide, binary):  # the resident walks' variant=
             return lambda *a, variant="wide", **kw: (
@@ -343,16 +343,20 @@ class Recorder:
                for v in ("packed", "pop", "packet", "wide")},
             "closest_hit_wide4": tw4.plain_closest_hit_wide4,
             "any_hit_wide4": tw4.plain_any_hit_wide4,
+        }
+        own = {
             # the all-K plain version keys from the boxes alone
             "entry_key": lambda o, d, treelets, tree:
                 compaction.treelet_entry_key(o, d, treelets),
             # the shade phase's plain version (ops/shade.py::shade_plain)
             "shade_on_card": lambda *a, **kw: False,
         }
-        self.saved = {n: getattr(integrator, n) for n in plain}
+        swaps = [(walks, n, fn) for n, fn in plain.items()] + [
+            (integrator, n, fn) for n, fn in own.items()]
+        self.saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
         self.calls: list[tuple[str, tuple]] = []
-        for n, fn in plain.items():
-            setattr(integrator, n, self._recording(n, fn))
+        for mod, n, fn in swaps:
+            setattr(mod, n, self._recording(n, fn))
 
     def _recording(self, name, fn):
         def call(*args, **kw):
@@ -361,8 +365,8 @@ class Recorder:
         return call
 
     def restore(self):
-        for n, f in self.saved.items():
-            setattr(self.mod, n, f)
+        for mod, n, f in self.saved:
+            setattr(mod, n, f)
 
     def by_name(self) -> dict:
         out = {}
@@ -608,21 +612,22 @@ def check_key(name, compaction, o, d, treelets, tree) -> dict:
     return out
 
 
-def record_inputs(render_frame, scene, camera, cfg, dev, integrator,
+def record_inputs(render_frame, scene, camera, cfg, dev, module,
                   name="entry_key"):
-    """The inputs of every call of the integrator's ``name`` wrapper in
-    one frame through the kernels."""
-    saved, calls = getattr(integrator, name), []
+    """The inputs of every call of ``module``'s ``name`` wrapper (the
+    integrator's, or a walk of ``accel/walks.py``) in one frame through
+    the kernels."""
+    saved, calls = getattr(module, name), []
 
     def call(*args, **kw):
         calls.append(_clone(args))
         return saved(*args, **kw)
 
-    setattr(integrator, name, call)
+    setattr(module, name, call)
     try:
         render_frame(scene, camera, cfg, 0, device=dev)
     finally:
-        setattr(integrator, name, saved)
+        setattr(module, name, saved)
     return calls
 
 
@@ -1323,17 +1328,19 @@ def compat_phase(label, render_frame, RenderConfig, scene, camera, dev,
         render_frame as replayed_frame,
     )
 
-    integrator, trv, trs, _ = modules
+    from pnraytracing_tpu_torch.accel import walks as walk_mod
+
+    _, trv, trs, _ = modules
     trav = scene.trav
     stream = "closest_hit_stream_compat" in expected
     closest_name = "closest_hit_stream" if stream else "closest_hit_attr"
     shadow_name = "any_hit_stream" if stream else "any_hit"
     cfg1 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=1,
                         compat_pnrt=True)
-    cont = record_inputs(render_frame, scene, camera, cfg1, dev, integrator,
+    cont = record_inputs(render_frame, scene, camera, cfg1, dev, walk_mod,
                          closest_name)[1]
     shadow = record_inputs(render_frame, scene, camera, cfg1, dev,
-                           integrator, shadow_name)[0]
+                           walk_mod, shadow_name)[0]
     rows = compat_kernel_rows(label, {"trv": trv, "trs": trs}, trav, cont,
                               shadow, walks, smi)
 
@@ -2977,6 +2984,7 @@ def bvh_phase(render_frame, RenderConfig, dev, modules, tables, counts,
     import torch
 
     from pnraytracing_tpu_torch.accel import traverse as trb
+    from pnraytracing_tpu_torch.accel import walks
     from pnraytracing_tpu_torch.accel.route import traversal_route
     from pnraytracing_tpu_torch.render import program
     from pnraytracing_tpu_torch.scene.scenes import (
@@ -2984,7 +2992,6 @@ def bvh_phase(render_frame, RenderConfig, dev, modules, tables, counts,
         config5_large,
     )
 
-    integrator = modules[0]
     t0 = time.perf_counter()
     scene, cam_state = config5_large(subdiv=BVH_SUBDIV, device=dev)
     torch.cuda.synchronize()
@@ -3005,10 +3012,10 @@ def bvh_phase(render_frame, RenderConfig, dev, modules, tables, counts,
                              "64-entry stack")
 
     cfg1 = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=1)
-    cont = record_inputs(render_frame, scene, camera, cfg1, dev, integrator,
+    cont = record_inputs(render_frame, scene, camera, cfg1, dev, walks,
                          "closest_hit_bvh")[1]
     shadow = record_inputs(render_frame, scene, camera, cfg1, dev,
-                           integrator, "any_hit_bvh")[0]
+                           walks, "any_hit_bvh")[0]
 
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
     img, launches = frame_launches(render_frame, scene, camera, cfg, dev,
@@ -3699,15 +3706,10 @@ def dp_parts(scene, rays, target, keys, cfg, m) -> dict:
 
 
 def _launch_tables():
-    from pnraytracing_tpu_torch.accel import traverse as trb
-    from pnraytracing_tpu_torch.accel import traverse_cuda as trv
-    from pnraytracing_tpu_torch.accel import traverse_packed as trp
-    from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
-    from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
+    from pnraytracing_tpu_torch.accel import walks
     from pnraytracing_tpu_torch.ops import compaction
 
-    tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, trp.LAUNCHES,
-              tw4.LAUNCHES, compaction.LAUNCHES)
+    tables = walks.LAUNCH_TABLES + (compaction.LAUNCHES,)
     return tables, lambda: {k: v for t in tables for k, v in t.items()
                             if v}
 
@@ -4840,11 +4842,8 @@ def main() -> int:
         return 2
 
     from pnraytracing_tpu_torch import cuda_build
-    from pnraytracing_tpu_torch.accel import traverse as trb
     from pnraytracing_tpu_torch.accel import traverse_cuda as trv
-    from pnraytracing_tpu_torch.accel import traverse_packed as trp
     from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
-    from pnraytracing_tpu_torch.accel import traverse_wide4 as tw4
     from pnraytracing_tpu_torch.core.config import RenderConfig
     from pnraytracing_tpu_torch.ops import compaction, shade
     from pnraytracing_tpu_torch.render import integrator, renderer
@@ -4959,8 +4958,7 @@ def main() -> int:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
     render_frame(scene, camera, cfg, 0, device=dev)  # warm-up 1
     torch.cuda.synchronize()
-    walk_tables = (trv.LAUNCHES, trs.LAUNCHES, trb.LAUNCHES, trp.LAUNCHES,
-                   tw4.LAUNCHES, compaction.LAUNCHES)
+    walk_tables = _launch_tables()[0]
     # the shade kernel's table is zeroed with the walks' and read apart:
     # ``counts`` (the walks and the key) is what each route is held to,
     # as render/program.py::launch_counts() leaves the shade kernel out

@@ -10,9 +10,12 @@ wrapper :func:`entry_key` over its hand-written CUDA kernel
 (``csrc/entry_key.cu``, replacing ``treelet_entry_key_pallas``), which
 walks a tree of unions over the boxes and tests a fraction of them;
 :func:`entry_key_walk` is the plain version of that walk.
+:func:`permute_state` moves a path state by a sort's permutation.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +101,69 @@ def sort_live_first(mask: torch.Tensor, key: torch.Tensor):
     ``key`` must be below 2^16."""
     composite = (~mask).to(torch.int64) * (1 << 16) + key.to(torch.int64)
     return torch.argsort(composite, stable=True), mask.sum()
+
+
+# uint32 RNG words in int64 (ops/sampling.py): moved as 16-bit halves
+WORDS = ("seed",)
+# the dtypes float32 holds exactly (ids, slots and pixels below 2^24)
+_EXACT = (torch.float32, torch.bool, torch.int32, torch.int64)
+
+
+class Lanes(NamedTuple):
+    """Each lane's slot in the original ray order and its pixel."""
+
+    orig: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+
+
+def permute_state(perm: torch.Tensor, records: tuple, dead=()) -> tuple:
+    """``records`` (NamedTuples of [R] tensors, V3 of them or None) with
+    every field gathered by ``perm``, in ONE [C, R] float32 stack and one
+    ``index_select``; each field comes back as contiguous rows of it,
+    exact: bools as 0/1, int32 and int64 ids, slots and pixels (below
+    2^24) as floats, a word of :data:`WORDS` as two halves.  None fields
+    stay None.  A name two records share is one field (the same tensor in
+    both), moved once.  A name in ``dead`` is state no phase reads before
+    writing it again (the view direction, which the tail rolls from the
+    sample): it is not moved and comes back None, so a stale read fails.
+    Raises on a dead name no record has, on two values under one name,
+    and on a field that cannot move exactly."""
+    fields = {}
+    for rec in records:
+        for name, x in zip(rec._fields, rec):
+            if fields.setdefault(name, x) is not x:
+                raise ValueError(f"permute_state: two records hold "
+                                 f"different {name!r}")
+    unknown = set(dead) - fields.keys()
+    if unknown:
+        raise ValueError(f"permute_state: no record has {sorted(unknown)}")
+    moved = {n: x for n, x in fields.items()
+             if x is not None and n not in dead}
+    f32, i64 = torch.float32, torch.int64
+    comps = lambda x: (x.x, x.y, x.z) if isinstance(x, V3) else (x,)
+    cols = []
+    for name, x in moved.items():
+        for c in comps(x):
+            if name in WORDS and c.dtype == i64:
+                cols += [(c & 0xFFFF).to(f32), (c >> 16).to(f32)]
+            elif name not in WORDS and c.dtype in _EXACT:
+                cols.append(c.to(f32))
+            else:
+                raise ValueError(f"permute_state: cannot move {name!r} "
+                                 f"({c.dtype}) exactly")
+    rows = iter(torch.stack(cols).index_select(1, perm).unbind(0))
+
+    def back(name, c):
+        row = next(rows)
+        if name in WORDS:
+            return row.to(i64) | (next(rows).to(i64) << 16)
+        return row > 0.5 if c.dtype == torch.bool else row.to(c.dtype)
+
+    out = {n: V3(*(back(n, c) for c in comps(x))) if isinstance(x, V3)
+           else back(n, x) for n, x in moved.items()}
+    return tuple(type(rec)(*(out.get(n) for n in rec._fields))
+                 for rec in records)
 
 
 def _octant(dx, dy, dz):

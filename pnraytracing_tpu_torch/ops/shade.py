@@ -6,12 +6,8 @@ Per ray: the material gather, the tangent frame, the NEE area-light draw
 and its BRDF value, the NEE environment draw (alias rows or CDFs) and its
 BRDF value, the BRDF sample (Sobol + Cranley-Patterson or two hash
 draws) with its own BRDF value, and under ``mis="balanced"`` the BRDF
-pdfs of both NEE directions.  Both versions return the tuple the later
-phases read, :data:`OUTPUTS` in order (None where the scene has no area
-light / no environment map, or the MIS mode needs no such term):
-
-    (seed, l_out, weight, d_pdf, sdir, raw_pdf, l_direct_pre, en_l,
-     env_pdf_raw, l_env_pre, p_b_light, p_b_env)
+pdfs of both NEE directions.  Both versions return what the later
+phases read, a :class:`Shade`.
 
 * :func:`shade_plain` is the integrator's own torch code: the CPU, and
   autograd through the scene (the op graph its backward needs).
@@ -101,9 +97,26 @@ _EPS = 1e-10
 # compares.
 LAUNCHES = {"shade": 0, "accumulate": 0}
 
-OUTPUTS = ("seed", "l_out", "weight", "d_pdf", "sdir", "raw_pdf",
-           "l_direct_pre", "en_l", "env_pdf_raw", "l_env_pre", "p_b_light",
-           "p_b_env")
+
+class Shade(NamedTuple):
+    """A bounce's draws and weights, what its later phases read (None
+    where the scene or the MIS mode has no such term)."""
+
+    seed: torch.Tensor
+    l_out: V3
+    weight: V3
+    d_pdf: torch.Tensor
+    sdir: V3 | None
+    raw_pdf: torch.Tensor | None
+    l_direct_pre: V3 | None
+    en_l: V3 | None
+    env_pdf_raw: torch.Tensor | None
+    l_env_pre: V3 | None
+    p_b_light: torch.Tensor | None
+    p_b_env: torch.Tensor | None
+
+
+OUTPUTS = Shade._fields
 
 # the columns of material_rows: the 12 scalars, base color, emissive
 _SCALARS = ("subsurface", "metallic", "specular", "specular_tint",
@@ -175,7 +188,7 @@ def shade_plain(scene: Scene, mat_tbl: Materials, irows: torch.Tensor,
     ``frame`` the frame word (an int or a 0-d tensor), ``px``/``py`` the
     rays' pixels; ``texture`` (None: untextured) maps the gathered [R, 3]
     base colors to the textured ones.  ``active`` is not read: every lane
-    is computed.  Returns :data:`OUTPUTS`."""
+    is computed.  Returns a :class:`Shade`."""
     materials, lights = scene.materials, scene.lights
     has_env = scene.env is not None
     has_lights = lights.count > 0
@@ -243,8 +256,8 @@ def shade_plain(scene: Scene, mat_tbl: Materials, irows: torch.Tensor,
             p_b_light = maximum(disney_pdf_v(v_dir, nrm, lnorm, mat), 0.0)
         if has_env:
             p_b_env = maximum(disney_pdf_v(v_dir, nrm, en_l, mat), 0.0)
-    return (seed, l_out, weight, d_pdf, sdir, raw_pdf, l_direct_pre, en_l,
-            env_pdf_raw, l_env_pre, p_b_light, p_b_env)
+    return Shade(seed, l_out, weight, d_pdf, sdir, raw_pdf, l_direct_pre,
+                 en_l, env_pdf_raw, l_env_pre, p_b_light, p_b_env)
 
 
 # how the kernel's environment draw picks its cell (csrc/shade.cu)
@@ -402,8 +415,9 @@ def shade_bounce(scene: Scene, mat_rows: torch.Tensor, irows: torch.Tensor,
     if balanced:
         p_b_light = next(it) if has_lights else None
         p_b_env = next(it) if has_env else None
-    return (seed_out, l_out, weight, d_pdf, sdir, raw_pdf, l_direct_pre,
-            en_l, env_pdf_raw, l_env_pre, p_b_light, p_b_env)
+    return Shade(seed_out, l_out, weight, d_pdf, sdir, raw_pdf,
+                 l_direct_pre, en_l, env_pdf_raw, l_env_pre, p_b_light,
+                 p_b_env)
 
 
 def kernel_info(has_lights=True, has_env=True, sobol=True,
@@ -451,7 +465,7 @@ class Nee(NamedTuple):
 class Path(NamedTuple):
     """A path's state between bounces, what the tail reads and rolls: its
     radiance ``lo``, throughput ``c``, view direction, surface (position,
-    normal, material id; the uv and texture id a textured scene carries,
+    normal, material id; the uv and texture id only in a textured scene,
     and the length ``path_t`` only with texture LOD, else None), live
     flag and RNG word."""
 
@@ -461,9 +475,9 @@ class Path(NamedTuple):
     pos: V3
     nrm: V3
     mat_id: torch.Tensor
-    u: torch.Tensor
-    v: torch.Tensor
-    tex_id: torch.Tensor
+    u: torch.Tensor | None
+    v: torch.Tensor | None
+    tex_id: torch.Tensor | None
     path_t: torch.Tensor | None
     active: torch.Tensor
     seed: torch.Tensor

@@ -41,8 +41,8 @@ from pnraytracing_tpu_torch.accel.layout import (
 )
 from pnraytracing_tpu_torch.accel.native import bvh_builder
 from pnraytracing_tpu_torch.accel.traverse_cuda import any_hit, closest_hit
+from pnraytracing_tpu_torch.accel.walks import ray_components
 from pnraytracing_tpu_torch.core.camera import resolve_device
-from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.ops.intersect import Hit
 from pnraytracing_tpu_torch.parallel.distributed import all_reduce, rank_device
 
@@ -163,13 +163,6 @@ def put_shards(shards: PrimShards, mesh, device=None) -> PlacedShard:
     if mesh.index < 0:
         raise ValueError("this rank is not in the mesh")
     return place_shard(shards, mesh.index, rank_device(device))
-
-
-def ray_components(o: torch.Tensor, d: torch.Tensor) -> tuple[V3, V3]:
-    """[R, 3] origins and directions as the walks take them: V3s of
-    contiguous components."""
-    return (V3.of(o).map(torch.Tensor.contiguous),
-            V3.of(d).map(torch.Tensor.contiguous))
 
 
 def walk_closest(placed: PlacedShard, o, d, t_max, compat: bool = False,

@@ -12,11 +12,11 @@ from __future__ import annotations
 import torch
 
 from pnraytracing_tpu_torch.accel.traverse import closest_hit
+from pnraytracing_tpu_torch.accel.walks import ray_components
 from pnraytracing_tpu_torch.core.camera import camera_rays, resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import FLOAT_MAX
 from pnraytracing_tpu_torch.core.types import Camera, Scene
-from pnraytracing_tpu_torch.core.vec import V3
 from pnraytracing_tpu_torch.render.integrator import render_rays
 
 
@@ -43,8 +43,7 @@ def probe_pixel(scene: Scene, camera: Camera, cfg: RenderConfig, x: int,
     py = torch.tensor([y_gl], dtype=torch.int64, device=dev)
 
     color = render_rays(scene, o, d, px, py, frame, cfg)
-    comps = lambda a: V3(*(a[:, k].contiguous() for k in range(3)))
-    hit = closest_hit(scene.bvh, scene.mesh, comps(o), comps(d),
+    hit = closest_hit(scene.bvh, scene.mesh, *ray_components(o, d),
                       torch.full((1,), FLOAT_MAX, dtype=torch.float32,
                                  device=dev),
                       stack_depth=cfg.stack_depth,

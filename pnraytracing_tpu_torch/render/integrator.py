@@ -4,41 +4,38 @@ PyTorch counterpart of ``_render_rays`` in
 ``pnraytracing_tpu/render/integrator.py`` (the estimator of
 ray_tracing.comp:861-992): all rays advance one bounce per step of a
 Python loop, and every stage is a masked operation over the whole ray
-batch.  Each bounce runs in three phases, as in the JAX package:
+batch.  Each bounce runs the JAX package's three phases (draws, sort,
+queries and contributions), and each part of the frame runs inside a
+``phase`` of ``utils/profiling.py``:
 
-1. draws and weights: every RNG draw and every pdf/BRDF weight of the
-   bounce (NEE area light, NEE environment, BRDF sample), in
-   ``ops/shade.py``: one launch of its CUDA kernel where
-   ``shade_on_card`` allows (a CUDA device, autograd recording nothing
-   through the scene), else its plain version, the torch code (the CPU,
-   the gradient's replay); a textured scene's base colors are overridden
-   in torch first;
-2. sort: with ``compact_rays``, for bounces below ``sort_max_bounce``,
-   one permutation of the whole path state, live rays first, ordered by
-   the ``sort_key`` of ``ops/compaction.py`` (the treelet-entry key of
-   their continuation ray by default) or, without ``sort_rays``, in their
-   order (``compact_indices``);
-3. queries and contributions: the two NEE shadow queries in one any-hit
-   launch (two with ``fuse_shadows`` off), then the continuation closest
-   hit, then the tail of the bounce (the NEE combine, the escaped and
-   emissive terms with their MIS weights, the throughput, the state roll
-   and Russian roulette) in ``ops/shade.py``: one launch of its kernel
-   under the same rule as phase 1, except in a replay, else its plain
-   version.
+* ``camera``: the tile's set-up and primary hit;
+* ``shade``: every RNG draw and pdf/BRDF weight of the bounce (NEE area
+  light, NEE environment, BRDF sample), in ``ops/shade.py``: one launch
+  of its CUDA kernel where ``shade_on_card`` allows (a CUDA device,
+  autograd recording nothing through the scene), else its plain
+  version, the torch code (the CPU, the gradient's replay); a textured
+  scene's base colors are overridden in torch first;
+* ``sort``: with ``compact_rays``, for bounces below
+  ``sort_max_bounce``, one permutation of the whole path state
+  (``ops/compaction.py::permute_state``), live rays first, ordered by
+  the ``sort_key`` (the treelet-entry key of their continuation ray by
+  default) or, without ``sort_rays``, in their order
+  (``compact_indices``);
+* ``shadow``: the two NEE shadow queries in one any-hit launch (two with
+  ``fuse_shadows`` off);
+* ``next``: the continuation closest hit and its interaction;
+* ``accumulate``: the tail of the bounce (the NEE combine, the escaped
+  and emissive terms with their MIS weights, the throughput, the state
+  roll and Russian roulette) in ``ops/shade.py``: one launch of its
+  kernel under the same rule as ``shade``, except in a replay, else its
+  plain version;
+* ``image``: the tile's colours.
 
-Each part of the frame runs inside a ``phase`` of ``utils/profiling.py``:
-``camera`` (the tile's set-up and primary hit), then a bounce each
-``shade`` (phase 1), ``sort`` (phase 2), ``shadow`` (the occlusion
-queries), ``next`` (the continuation closest hit and its interaction)
-and ``accumulate`` (the tail: the NEE terms the queries gate, the
-BRDF-sampled terms, their MIS weights, the throughput and Russian
-roulette), and ``image``
-(the tile's colours).  An eager frame inside an open ``collect()``
+An eager frame inside an open ``collect()``
 counts, at the top of each bounce, the live rays (``rays.live``) and the
 rays launched (``rays.launched``), and on route ``bvh`` each walk's work
-from its per-ray stats (``walk.closest.*`` and ``walk.shadow.*``:
-``pops``, ``slabs``, ``tests`` and the live ``queries``); any other
-frame, and a captured one, counts nothing.
+(``accel/walks.py``); any other frame, and a captured one, counts
+nothing.
 
 ``loop="scan"`` runs the same loop.  The JAX package's scan runs the
 first ``min(sort_max_bounce, max_depth)`` bounces as an unrolled, sorted
@@ -62,10 +59,10 @@ counterpart of ``_stop_gradient_trace``: a walk's answer carries no
 gradient on the card or on the CPU.
 
 A textured scene (``scene.textures``) carries each path's uv and
-texture id through the loop (and through the sort's pack, as the JAX
-package's ``uvtex`` columns, with the path length for
-``texture_lod_scale``) and overrides the material's base color by the
-texture fetch of ``ops/texture.py`` before the bounce's draws.
+texture id through the loop (and through the sort, as the JAX package's
+``uvtex`` columns, with the path length for ``texture_lod_scale``) and
+overrides the material's base color by the texture fetch of
+``ops/texture.py`` before the bounce's draws.
 
 ``compat_pnrt`` runs the reference's quirks where the JAX package does:
 the compat material decode, environment sample and BRDF sample, the env
@@ -76,28 +73,11 @@ RNG draws are the same in both modes.
 RNG words are int64 tensors holding uint32 values (ops/sampling.py); the
 frame counter is an int or a 0-d tensor (``frame_word``), so the whole
 frame can run inside a captured CUDA graph (``render/program.py``).
-The traversal route is the JAX package's (``accel/route.py::
-traversal_route``).  For ``cfg.traversal="pallas"`` (the port's
-default): the resident kernels of ``accel/traverse_cuda.py
-(with the interaction fill from the kernel when ``kernel_interaction`` is
-set and the attribute rows fit the budget, else the closest hit +
-``make_interaction``), the brick-streaming kernels of
-``accel/traverse_stream_cuda.py`` for a scene too large for the resident
-route, the binary walks of ``accel/traverse_cuda.py`` for such a scene
-without a stream layout, or, for a scene outside the packed layout
-(``scene.trav`` None), the walk over the plain BVH of
-``accel/traverse.py``.  On that last route no sort key is computed: live
-rays are only compacted, as the JAX package does without a layout.
-For the values of the JAX package's XLA walks (``"packed"``, ``"pop"``,
-``"packet"``, ``"wide"``, ``"wide4"``) the walk of that value
-(``accel/traverse_packed.py``, ``traverse_packet.py``,
-``traverse_wide.py``, ``traverse_wide4.py``, the last with the pop-test
-walk for the rays that overflow its leaf buffer), closest hit +
-``make_interaction``; the sort key does not depend on the value.  Every
-route tests at most ``cfg.max_leaf_size`` triangles of a leaf, as every
-walk of the JAX package does.
-Each route runs its CUDA kernels on the card and their plain versions on
-the CPU.
+The walks are the route's (``accel/walks.py``), the JAX package's
+choice for each scene and ``traversal`` value: each runs its CUDA
+kernels on the card and their plain versions on the CPU.  On route
+``bvh`` (a scene outside the packed layout) no sort key is computed:
+live rays are only compacted, as the JAX package does without a layout.
 """
 
 from __future__ import annotations
@@ -107,38 +87,7 @@ import dataclasses
 import torch
 
 from pnraytracing_tpu_torch.accel.layout import ATTR_TEX_BASE
-from pnraytracing_tpu_torch.accel.route import traversal_route
-from pnraytracing_tpu_torch.accel.traverse import any_hit as any_hit_bvh
-from pnraytracing_tpu_torch.accel.traverse import (
-    closest_hit as closest_hit_bvh,
-)
-from pnraytracing_tpu_torch.accel.traverse_cuda import (
-    any_hit,
-    closest_hit,
-    closest_hit_attr,
-)
-from pnraytracing_tpu_torch.accel.traverse_packed import (
-    any_hit_packed,
-    any_hit_pop,
-    closest_hit_packed,
-    closest_hit_pop,
-)
-from pnraytracing_tpu_torch.accel.traverse_packet import (
-    any_hit_packet,
-    closest_hit_packet,
-)
-from pnraytracing_tpu_torch.accel.traverse_stream_cuda import (
-    any_hit_stream,
-    closest_hit_stream,
-)
-from pnraytracing_tpu_torch.accel.traverse_wide import (
-    any_hit_wide,
-    closest_hit_wide,
-)
-from pnraytracing_tpu_torch.accel.traverse_wide4 import (
-    any_hit_wide4,
-    closest_hit_wide4,
-)
+from pnraytracing_tpu_torch.accel.walks import ray_components, route_walks
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import (
     FLOAT_MAX,
@@ -147,7 +96,8 @@ from pnraytracing_tpu_torch.core.math import (
     maximum,
     minimum,
 )
-from pnraytracing_tpu_torch.core.types import Scene, TriangleMesh, _Movable
+from pnraytracing_tpu_torch.core.types import (Scene, TriangleMesh, _map,
+                                               _Movable)
 from pnraytracing_tpu_torch.core.vec import (
     V3,
     vcat,
@@ -158,10 +108,13 @@ from pnraytracing_tpu_torch.core.vec import (
 )
 from pnraytracing_tpu_torch.ops.brdf import apply_compat_material_decode
 from pnraytracing_tpu_torch.ops.compaction import (
+    Lanes,
     coherence_key,
     coherence_key_pos,
     compact_indices,
     entry_key,
+    permute_state,
+    scatter_back,
     sort_live_first,
 )
 from pnraytracing_tpu_torch.ops.gather import gather_row
@@ -207,11 +160,6 @@ class TraceRecords(_Movable):
     bounce: Hit
 
 
-def _unsort(a: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
-    """Lane i of ``a`` to slot ``orig[i]`` of zeros."""
-    return torch.zeros_like(a).index_put_((orig,), a)
-
-
 def pack_interaction_rows(mesh: TriangleMesh) -> torch.Tensor:
     """[T, 26] per-triangle interaction table: corner positions (9),
     corner normals (9), corner uvs (6), material_id, texture_id."""
@@ -254,27 +202,6 @@ def make_interaction(hit: Hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
             rr[:, 25].to(torch.int32))
 
 
-WALK_STATS = ("pops", "slabs", "tests")  # the rows of a walk's stats
-
-
-def _count_walk(kind: str, stats: torch.Tensor, mask) -> None:
-    """Hand one walk's work to the open collects: ``walk.<kind>.pops``,
-    ``.slabs`` and ``.tests`` summed over its [3, R] per-ray stats (a
-    masked query does none) and ``walk.<kind>.queries``, its live
-    queries."""
-    total = stats.sum(dim=1)
-    for i, name in enumerate(WALK_STATS):
-        count(f"walk.{kind}.{name}", total[i])
-    count(f"walk.{kind}.queries",
-          stats.shape[1] if mask is None else mask.sum())
-
-
-def _comps(a: torch.Tensor) -> V3:
-    """[R, 3] -> V3 of contiguous components (what the kernels take)."""
-    return V3(a[:, 0].contiguous(), a[:, 1].contiguous(),
-              a[:, 2].contiguous())
-
-
 def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                  px: torch.Tensor, py: torch.Tensor, frame,
                  cfg: RenderConfig, records: TraceRecords | None,
@@ -290,12 +217,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     walk, no sort); ``record`` returns the frame's records.  Nothing here
     reads a device value on the host."""
     replay = records is not None
-    if scene.bvh_depth is not None and cfg.stack_depth < scene.bvh_depth:
-        raise ValueError(
-            f"RenderConfig.stack_depth={cfg.stack_depth} is too shallow for "
-            f"this scene's BVH (depth {scene.bvh_depth}); the traversal "
-            "stack would silently drop nodes.  Raise stack_depth to at "
-            f"least {scene.bvh_depth}.")
+    route, closest_q, any_q = route_walks(scene, cfg)
     trav, mesh, materials, lights = (scene.trav, scene.mesh, scene.materials,
                                      scene.lights)
     has_env = scene.env is not None
@@ -305,81 +227,16 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     lod_on = has_tex and cfg.texture_lod_scale is not None
     dev = o.device
     r = o.shape[0]
-    sd = cfg.stack_depth
     compat = cfg.compat_pnrt
     captured = capturing()
-    route = traversal_route(trav, cfg.kernel_interaction, cfg.traversal)
-    # the route's walks: (closest, any), the tables they read first, and
-    # their keyword arguments
-    walk_kw = dict(stack_depth=sd, compat=compat,
-                   max_leaf_size=cfg.max_leaf_size)
-    if route == "bvh":
-        closest_fn, any_fn = closest_hit_bvh, any_hit_bvh
-        tables = (scene.bvh, mesh)
-    elif route in ("attr", "wide", "stream", "binary"):
-        closest_fn, any_fn = ((closest_hit_stream, any_hit_stream)
-                              if route == "stream" else (closest_hit, any_hit))
-        tables = (trav,)
-        if route == "binary":
-            walk_kw["variant"] = "binary"
-    else:  # the JAX package's XLA walks (traversal != 'pallas')
-        walk_kw.update(tile_size=cfg.trav_tile, chunk=cfg.trav_chunk)
-        closest_fn, any_fn = {
-            "packed": (closest_hit_packed, any_hit_packed),
-            "pop": (closest_hit_pop, any_hit_pop),
-            "packet": (closest_hit_packet, any_hit_packet),
-            "wide_capped": (closest_hit_wide, any_hit_wide),
-            "wide4": (closest_hit_pop, any_hit_pop),  # its fallback
-        }[route]
-        tables = (trav,)
-
-    def walk(fn, o_, d_, tm_, mask_):
-        return fn(*tables, o_, d_, tm_, mask_, **walk_kw)
-
-    # the plain-BVH walks' work, counted only in an eager frame inside an
-    # open collect() (a capture's warm-up frame): a captured walk is
-    # launched without its stats buffer
-    count_walks = route == "bvh" and not captured and collecting()
-
-    def counted(fn, kind, o_, d_, tm_, mask_):
-        if not count_walks:
-            return walk(fn, o_, d_, tm_, mask_)
-        out, stats = fn(*tables, o_, d_, tm_, mask_, **walk_kw,
-                        with_stats=True)
-        _count_walk(kind, stats, mask_)
-        return out
-
-    if route == "wide4":
-        # overflowed rays are walked again by the pop-test walk
-        # (render/integrator.py:395-440 of the JAX package)
-        w4 = trav.w4
-        w4_kw = dict(stack_depth=max(16, (w4.width - 1) * w4.depth4 + 4),
-                     max_leaf_size=cfg.max_leaf_size, compat=compat,
-                     leaf_buffer=cfg.trav_leaf_buffer, chunk=cfg.trav_chunk)
-
-        def closest_q(o_, d_, tm_, mask_=None):
-            return closest_hit_wide4(
-                w4, o_, d_, tm_, mask_, **w4_kw,
-                fallback=lambda *a: walk(closest_fn, *a))[0]
-
-        def any_q(o_, d_, tm_, mask_=None):
-            return any_hit_wide4(w4, o_, d_, tm_, mask_, **w4_kw,
-                                 fallback=lambda *a: walk(any_fn, *a))[0]
-    else:
-        def closest_q(o_, d_, tm_, mask_=None):
-            return counted(closest_fn, "closest", o_, d_, tm_, mask_)
-
-        def any_q(o_, d_, tm_, mask_=None):
-            return counted(any_fn, "shadow", o_, d_, tm_, mask_)
 
     def closest_inter(o_: V3, d_: V3, tm_, mask_=None):
         """Closest hit + interaction fill (hit, pos, nrm, (u, v), mat id,
         tex id): from the attribute kernel (only the backface flip,
         normalize and hit position remain here) or from the route's
-        closest kernel + make_interaction."""
+        closest hit + make_interaction."""
         if route == "attr":
-            hit_, (nx, ny, nz, u_, v_, mt) = closest_hit_attr(
-                trav, o_, d_, tm_, mask_, **walk_kw)
+            hit_, (nx, ny, nz, u_, v_, mt) = closest_q(o_, d_, tm_, mask_)
             nrm_raw = V3(nx, ny, nz)
             nrm_ = vnormalize(vwhere(vdot(nrm_raw, d_) > 0, -nrm_raw,
                                      nrm_raw))
@@ -410,7 +267,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                 scene, env=contiguous_env(scene.env))
             px, py = px.to(torch.int64).contiguous(), py.to(
                 torch.int64).contiguous()
-        o_v, d_v = _comps(o), _comps(d)
+        o_v, d_v = ray_components(o, d)
         if replay:
             hit = records.primary
             pos, nrm, (u_uv, v_uv), mat_id, tex_id = make_interaction(
@@ -425,29 +282,29 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         miss_color = env_radiance(scene, env_const, cfg.env_scale, d_v)
         primary_emissive = emissive_of(materials, mat_id)
 
-        active = primary_hit
         v_dir = -d_v
         ones_r = torch.ones(r, dtype=torch.float32, device=dev)
-        c = V3(ones_r, ones_r, ones_r)
-        lo = zero_v
-        orig = torch.arange(r, dtype=torch.int64, device=dev)
-        px_l, py_l = px, py
+        if not has_tex:  # the uv and texture id only a textured scene reads
+            u_uv = v_uv = tex_id = None
+        path = Path(zero_v, V3(ones_r, ones_r, ones_r), v_dir, pos, nrm,
+                    mat_id, u_uv, v_uv, tex_id, path_t, primary_hit, seed)
+        lanes = Lanes(torch.arange(r, dtype=torch.int64, device=dev), px, py)
         rec_occ, rec_eocc, rec_hit2 = [], [], []  # record: a bounce each
         env_terms = []  # replay: (direction, coefficient) of escaped paths
 
     def textured(base_rows: torch.Tensor) -> torch.Tensor:
         """[R, 3] base colors overridden by the texture fetch
         (comp:870-872) at the paths' current uv, texture id and length."""
-        uv2 = torch.stack([u_uv, v_uv], dim=-1)
+        uv2 = torch.stack([path.u, path.v], dim=-1)
         if lod_on and textures.mips is not None:
-            whs = textures.sizes[torch.clamp_min(tex_id, 0).long()].to(
+            whs = textures.sizes[torch.clamp_min(path.tex_id, 0).long()].to(
                 torch.float32)
             texdim = torch.maximum(whs[:, 0], whs[:, 1])
             lod = torch.log2(torch.clamp_min(
-                path_t * cfg.texture_lod_scale * texdim, 1.0))
-            return fetch_base_color_trilinear(textures, tex_id, uv2,
+                path.path_t * cfg.texture_lod_scale * texdim, 1.0))
+            return fetch_base_color_trilinear(textures, path.tex_id, uv2,
                                               base_rows, lod)
-        return fetch_base_color(textures, tex_id, uv2, base_rows)
+        return fetch_base_color(textures, path.tex_id, uv2, base_rows)
 
     texture = textured if has_tex else None
 
@@ -456,32 +313,31 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         with phase("shade", bounce):
             # a captured counter would join the graph
             if not captured and collecting():
-                count("rays.live", active.sum())
+                count("rays.live", path.active.sum())
                 count("rays.launched", r)
-            state = (cfg, bounce, frame, active, pos, nrm, v_dir, mat_id,
-                     seed, px_l, py_l)
+            state = (cfg, bounce, frame, path.active, path.pos, path.nrm,
+                     path.v_dir, path.mat_id, path.seed, lanes.px, lanes.py)
             if on_card:
                 cdlin = None if texture is None else texture(
-                    mat_tbl.base_color.index_select(0, mat_id))
+                    mat_tbl.base_color.index_select(0, path.mat_id))
                 shaded = shade_bounce(card_scene, mat_rows, irows, *state,
                                       cdlin=cdlin)
             else:
                 shaded = shade_plain(scene, mat_tbl, irows, *state,
                                      texture=texture)
-            (seed, l_out, weight, d_pdf, sdir, raw_pdf, l_direct_pre, en_l,
-             env_pdf_raw, l_env_pre, p_b_light, p_b_env) = shaded
+            path = path._replace(seed=shaded.seed)
 
         with phase("sort", bounce):
-            # phase 2: one live-first permutation of the whole path state, as
-            # ONE gather of a [C, R] pack (each row comes out contiguous); a
-            # replay never sorts
+            # phase 2: one live-first permutation of the whole path state
+            # (ops/compaction.py::permute_state); a replay never sorts
             if (cfg.compact_rays and bounce < cfg.sort_max_bounce
                     and not replay):
+                active, pos, nrm = path.active, path.pos, path.nrm
                 if not cfg.sort_rays or trav is None:
                     perm, _ = compact_indices(active)
                 elif cfg.sort_key == "entry" and trav.treelets is not None:
-                    key = entry_key(pos + nrm * 1e-4, l_out, trav.treelets,
-                                    trav.treelet_tree)
+                    key = entry_key(pos + nrm * 1e-4, shaded.l_out,
+                                    trav.treelets, trav.treelet_tree)
                     perm, _ = sort_live_first(active, key)
                 else:  # 'dir' / 'pos', and 'entry' without a treelet table
                     root = trav.nodes8[0]
@@ -491,55 +347,16 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                               else coherence_key_pos)
                     perm, _ = sort_live_first(active,
                                               key_fn(nrm, pos, lo_b, inv_ext))
-                f32 = lambda a: a.to(torch.float32)
-                v3s = lambda v: [v.x, v.y, v.z]
-                cols = [f32(active)] + v3s(pos) + v3s(nrm) + [f32(mat_id)]
-                if has_tex:
-                    cols += [u_uv, v_uv, f32(tex_id)]
-                    if lod_on:
-                        cols += [path_t]
-                cols += (v3s(c) + v3s(lo)
-                        + [f32(seed & 0xFFFF), f32(seed >> 16)]
-                        + [f32(orig), f32(px_l), f32(py_l)]
-                        + v3s(l_out) + v3s(weight) + [d_pdf])
-                if has_lights:
-                    cols += v3s(sdir) + [raw_pdf] + v3s(l_direct_pre)
-                if has_env:
-                    cols += v3s(en_l) + [env_pdf_raw] + v3s(l_env_pre)
-                if cfg.mis == "balanced":
-                    cols += ([p_b_light] if has_lights else []) + (
-                        [p_b_env] if has_env else [])
-                packed = torch.stack(cols).index_select(1, perm)
-                rows_ = iter(packed.unbind(0))
-                nxt = lambda: next(rows_)
-                v3n = lambda: V3(nxt(), nxt(), nxt())
-                active = nxt() > 0.5
-                pos, nrm = v3n(), v3n()
-                mat_id = nxt().to(torch.int32)
-                if has_tex:
-                    u_uv, v_uv, tex_id = nxt(), nxt(), nxt().to(torch.int32)
-                    if lod_on:
-                        path_t = nxt()
-                c, lo = v3n(), v3n()
-                seed = nxt().to(torch.int64) | (nxt().to(torch.int64) << 16)
-                orig, px_l, py_l = (nxt().to(torch.int64),
-                                    nxt().to(torch.int64),
-                                    nxt().to(torch.int64))
-                l_out, weight, d_pdf = v3n(), v3n(), nxt()
-                if has_lights:
-                    sdir, raw_pdf, l_direct_pre = v3n(), nxt(), v3n()
-                if has_env:
-                    en_l, env_pdf_raw, l_env_pre = v3n(), nxt(), v3n()
-                if cfg.mis == "balanced":
-                    if has_lights:
-                        p_b_light = nxt()
-                    if has_env:
-                        p_b_env = nxt()
+                # the view direction is dead here: the tail rolls it from
+                # the sample
+                path, shaded, lanes = permute_state(
+                    perm, (path, shaded, lanes), dead=("v_dir",))
 
         with phase("shadow", bounce):
             # phase 3: occlusion queries — replayed, or both NEE classes in
             # one launch when the scene has both and fuse_shadows is on, else
             # one each
+            pos, nrm, active = path.pos, path.nrm, path.active
             occluded = facing = e_occ = None
             if has_lights:
                 s_origin = pos + nrm * 1e-4
@@ -549,66 +366,61 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                 # the reference casts the env shadow ray from the surface
                 # point itself (comp:918)
                 e_origin = pos if compat else pos + nrm * 1e-4
-                facing = vdot(en_l, nrm) > 0
+                facing = vdot(shaded.en_l, nrm) > 0
             if replay:
                 if has_lights:
                     occluded = records.light_occ[bounce]
                 if has_env:
                     e_occ = records.env_occ[bounce]
             elif has_lights and has_env and cfg.fuse_shadows:
-                occ2 = any_q(vcat(s_origin, e_origin), vcat(sdir, en_l),
+                occ2 = any_q(vcat(s_origin, e_origin),
+                             vcat(shaded.sdir, shaded.en_l),
                              torch.cat([s_tmax, t_max0]),
                              torch.cat([active, active & facing]))
                 occluded, e_occ = occ2[:r], occ2[r:]
             else:
                 if has_lights:
-                    occluded = any_q(s_origin, sdir, s_tmax, active)
+                    occluded = any_q(s_origin, shaded.sdir, s_tmax, active)
                 if has_env:
-                    e_occ = any_q(e_origin, en_l, t_max0, active & facing)
+                    e_occ = any_q(e_origin, shaded.en_l, t_max0,
+                                  active & facing)
             if record:
                 if has_lights:
-                    rec_occ.append(_unsort(occluded, orig))
+                    rec_occ.append(scatter_back(occluded, lanes.orig))
                 if has_env:
-                    rec_eocc.append(_unsort(e_occ, orig))
+                    rec_eocc.append(scatter_back(e_occ, lanes.orig))
 
         with phase("next", bounce):
             # continue the path (comp:950-969)
             b_origin = pos + nrm * 1e-4
             if replay:
-                hit2 = Hit(*(f[bounce] for f in (
-                    records.bounce.tri, records.bounce.t, records.bounce.b1,
-                    records.bounce.b2)))
-                pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = (
-                    make_interaction(hit2, l_out, b_origin, irows))
+                hit2 = _map(records.bounce, lambda f: f[bounce])
+                cont = (hit2,) + make_interaction(hit2, shaded.l_out,
+                                                  b_origin, irows)
             else:
-                hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2 = (
-                    closest_inter(b_origin, l_out, t_max0, active))
+                cont = closest_inter(b_origin, shaded.l_out, t_max0, active)
                 if record:
-                    rec_hit2.append(Hit(*(_unsort(f, orig) for f in (
-                        hit2.tri, hit2.t, hit2.b1, hit2.b2))))
+                    rec_hit2.append(_map(
+                        cont[0], lambda f: scatter_back(f, lanes.orig)))
 
         with phase("accumulate", bounce):
             # the tail: the NEE terms the queries gate, then the escaped and
             # emissive terms, the throughput and the state roll; a replay
             # defers its escaped terms to the image phase (plain version)
-            cont = (hit2, pos2, nrm2, (u_uv2, v_uv2), mat_id2, tex_id2)
-            nee = Nee(occluded, raw_pdf, l_direct_pre, facing, e_occ,
-                      env_pdf_raw, l_env_pre, p_b_light, p_b_env)
-            path = Path(lo, c, v_dir, pos, nrm, mat_id, u_uv, v_uv, tex_id,
-                        path_t, active, seed)
+            nee = Nee(occluded, shaded.raw_pdf, shaded.l_direct_pre, facing,
+                      e_occ, shaded.env_pdf_raw, shaded.l_env_pre,
+                      shaded.p_b_light, shaded.p_b_env)
+            sample = (shaded.l_out, shaded.weight, shaded.d_pdf)
             if on_card and not replay:
                 path = accumulate_bounce(card_scene, mat_rows, cfg, bounce,
-                                         env_const, path, l_out, weight,
-                                         d_pdf, nee, cont)
+                                         env_const, path, *sample, nee, cont)
             else:
                 path = accumulate_plain(
-                    scene, cfg, bounce, env_const, path, l_out, weight,
-                    d_pdf, nee, cont,
+                    scene, cfg, bounce, env_const, path, *sample, nee, cont,
                     deferred=env_terms if replay and has_env else None)
-            (lo, c, v_dir, pos, nrm, mat_id, u_uv, v_uv, tex_id, path_t,
-             active, seed) = path
 
     with phase("image"):
+        lo = path.lo
         if env_terms:
             # the deferred escaped-path terms: ONE radiance lookup over all
             # [max_depth * R] directions, then each bounce's term summed
@@ -627,7 +439,7 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             lo = lo + V3(deferred("x"), deferred("y"), deferred("z"))
 
         if not replay:  # restore the original ray order after the permutations
-            lo = lo.map(lambda a: _unsort(a, orig))
+            lo = lo.map(lambda a: scatter_back(a, lanes.orig))
 
         # compose (comp:983-988): primary emissive + path radiance on a hit,
         # the environment on a miss

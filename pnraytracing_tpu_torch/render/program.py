@@ -53,13 +53,7 @@ import dataclasses
 
 import torch
 
-from pnraytracing_tpu_torch.accel import (
-    traverse,
-    traverse_cuda,
-    traverse_packed,
-    traverse_stream_cuda,
-    traverse_wide4,
-)
+from pnraytracing_tpu_torch.accel import walks
 from pnraytracing_tpu_torch.core.camera import resolve_device
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.types import Camera, Scene, tensors
@@ -69,10 +63,7 @@ from pnraytracing_tpu_torch.render.renderer import frame_image
 from pnraytracing_tpu_torch.utils import profiling
 
 PROGRAM_CACHE_SIZE = 4
-_WALK_TABLES = (traverse_cuda.LAUNCHES, traverse_stream_cuda.LAUNCHES,
-                traverse.LAUNCHES, traverse_packed.LAUNCHES,
-                traverse_wide4.LAUNCHES)
-_LAUNCH_TABLES = _WALK_TABLES + (compaction.LAUNCHES,)
+_LAUNCH_TABLES = walks.LAUNCH_TABLES + (compaction.LAUNCHES,)
 
 
 def launch_counts() -> dict:
@@ -158,7 +149,7 @@ class FrameProgram:
         self.graph, self.image = graph, image
         self.counts = warm.counts
         if nodes is not None:  # None: the graph is no chain
-            walk_keys = {k for t in _WALK_TABLES for k in t}
+            walk_keys = {k for t in walks.LAUNCH_TABLES for k in t}
             self.nodes, self.phases = nodes, layout.phases
             self.walks = [n for k, n in layout.kernels if k in walk_keys]
             profiling.keep_capture(dict(

@@ -56,6 +56,7 @@ from pnraytracing_tpu.render.debug import probe_pixel as jax_probe_pixel
 from pnraytracing_tpu.render.renderer import render_frame as jax_render_frame
 from pnraytracing_tpu_torch.accel import route as port_route
 from pnraytracing_tpu_torch.accel import traverse as bvh_walk
+from pnraytracing_tpu_torch.accel import walks
 from pnraytracing_tpu_torch.convert import scene_from_arrays, scene_to_arrays
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import FLOAT_MAX
@@ -417,8 +418,8 @@ def test_binary_route_matches_jax(monkeypatch):
     finally:
         jax.clear_caches()
     calls = []
-    walk = integrator.closest_hit
-    monkeypatch.setattr(integrator, "closest_hit", lambda *a, **kw: (
+    walk = walks.closest_hit
+    monkeypatch.setattr(walks, "closest_hit", lambda *a, **kw: (
         calls.append(kw.get("variant")) or walk(*a, **kw)))
     got = render_frame(ps, port_camera(cam), RenderConfig(**size), 0,
                        device="cpu").numpy()

@@ -32,8 +32,8 @@ from pnrt_bench.reference import scene as rscene
 from pnrt_bench.reference import tracer
 from pnrt_bench.scenes import make_recipe
 from pnraytracing_tpu_torch.accel import traverse as bvh_walk
+from pnraytracing_tpu_torch.accel import walks
 from pnraytracing_tpu_torch.accel.route import traversal_route
-from pnraytracing_tpu_torch.render import integrator
 from pnraytracing_tpu_torch.render.renderer import (
     render_average,
     render_frame,
@@ -123,15 +123,15 @@ def test_reference_matches_the_program_on_route_bvh(cell):
 
 
 class _Walks:
-    """Records each call of the integrator's plain-BVH walks (its
+    """Records each call of the plain-BVH walks (its
     arguments, the bounce and tile it counts under) and runs it."""
 
     def __init__(self, monkeypatch):
         self.calls = []
         for name, kind in (("closest_hit_bvh", "closest"),
                            ("any_hit_bvh", "shadow")):
-            monkeypatch.setattr(integrator, name,
-                                self._wrap(getattr(integrator, name), kind))
+            monkeypatch.setattr(walks, name,
+                                self._wrap(getattr(walks, name), kind))
 
     def _wrap(self, fn, kind):
         def call(*args, **kw):
@@ -155,7 +155,7 @@ def _plain_counts(calls):
         assert int(stats[0].sum()) >= live  # each live query pops the root
         sums = [int(v) for v in stats.sum(dim=1)] + [live]
         out += [(f"walk.{kind}.{n}", bounce, tile, v) for n, v in zip(
-            integrator.WALK_STATS + ("queries",), sums)]
+            walks.WALK_STATS + ("queries",), sums)]
     return out
 
 

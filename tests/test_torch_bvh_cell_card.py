@@ -62,7 +62,8 @@ def _cfg(config, **kw):
 
 def test_warmup_counters_equal_the_plain_walks_stats(bunny_1m,
                                                      monkeypatch):
-    from pnraytracing_tpu_torch.render import integrator, program
+    from pnraytracing_tpu_torch.accel import walks
+    from pnraytracing_tpu_torch.render import program
     from pnraytracing_tpu_torch.utils import profiling
 
     scene, cam, config = bunny_1m
@@ -79,8 +80,8 @@ def test_warmup_counters_equal_the_plain_walks_stats(bunny_1m,
 
     for name, kind in (("closest_hit_bvh", "closest"),
                        ("any_hit_bvh", "shadow")):
-        monkeypatch.setattr(integrator, name,
-                            recorder(getattr(integrator, name), kind))
+        monkeypatch.setattr(walks, name,
+                            recorder(getattr(walks, name), kind))
     program.clear_programs()
     prog = program.frame_program(scene, cfg, "cuda")
     prog.capture(cam, START)
@@ -98,7 +99,8 @@ def test_warmup_counters_equal_the_plain_walks_stats(bunny_1m,
 
 
 def test_counters_leave_the_graph_and_the_image(bunny_1m, monkeypatch):
-    from pnraytracing_tpu_torch.render import integrator, program
+    from pnraytracing_tpu_torch.accel import walks
+    from pnraytracing_tpu_torch.render import program
     from pnraytracing_tpu_torch.render.renderer import render_average
 
     scene, cam, config = bunny_1m
@@ -110,7 +112,7 @@ def test_counters_leave_the_graph_and_the_image(bunny_1m, monkeypatch):
         prog = program.frame_program(scene, cfg, "cuda")
         with monkeypatch.context() as m:
             if not count:
-                m.setattr(integrator, "collecting", lambda: False)
+                m.setattr(walks, "collecting", lambda: False)
             prog.capture(cam, START)
         img = render_average(scene, cam, cfg, START, 16)
         torch.cuda.synchronize()

@@ -486,10 +486,10 @@ def _record_walks(ps, cam, cfg, monkeypatch):
     each hit as the JAX replay does; each answer its walks give
     (primary hit, per bounce the light and environment occlusion and
     the continuation hit) recorded."""
-    from pnraytracing_tpu_torch.render import integrator
+    from pnraytracing_tpu_torch.accel import walks
 
     closest, shadows = [], []
-    orig_c, orig_a = integrator.closest_hit, integrator.any_hit
+    orig_c, orig_a = walks.closest_hit, walks.any_hit
 
     def rec_closest(*args, **kw):
         hit = orig_c(*args, **kw)
@@ -501,8 +501,8 @@ def _record_walks(ps, cam, cfg, monkeypatch):
         shadows.append(occ)
         return occ
 
-    monkeypatch.setattr(integrator, "closest_hit", rec_closest)
-    monkeypatch.setattr(integrator, "any_hit", rec_any)
+    monkeypatch.setattr(walks, "closest_hit", rec_closest)
+    monkeypatch.setattr(walks, "any_hit", rec_any)
     img = render_frame(ps, cam, dataclasses.replace(
         cfg, compact_rays=False, kernel_interaction=False), 1, device="cpu")
     monkeypatch.undo()

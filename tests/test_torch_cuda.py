@@ -198,6 +198,7 @@ def test_entry_key_kernel_info(flagship):
 
 
 def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
+    from pnraytracing_tpu_torch.accel import walks
     from pnraytracing_tpu_torch.render import integrator
 
     scene, cam = flagship
@@ -209,9 +210,9 @@ def test_frame_through_kernels_matches_plain(flagship, monkeypatch):
     assert trv.LAUNCHES == dict({k: 0 for k in trv.LAUNCHES},
                                 closest_hit_attr=4, any_hit=3)
     assert compaction.LAUNCHES == {"treelet_entry_key": 2}
-    monkeypatch.setattr(integrator, "closest_hit_attr",
+    monkeypatch.setattr(walks, "closest_hit_attr",
                         trv.plain_closest_hit_attr)
-    monkeypatch.setattr(integrator, "any_hit", trv.plain_any_hit)
+    monkeypatch.setattr(walks, "any_hit", trv.plain_any_hit)
     monkeypatch.setattr(integrator, "entry_key",
                         lambda o, d, treelets, tree:
                         compaction.treelet_entry_key(o, d, treelets))
@@ -1235,7 +1236,7 @@ def test_bvh_route_frame_on_card(bvh_scenes, monkeypatch):
     are only compacted); the frame through the kernels against the plain
     versions; the captured frame equals the eager one bit for bit."""
     from pnraytracing_tpu_torch.accel import traverse as trb
-    from pnraytracing_tpu_torch.render import integrator
+    from pnraytracing_tpu_torch.accel import walks
     from pnraytracing_tpu_torch.render.program import FrameProgram
     from pnraytracing_tpu_torch.scene.scenes import _camera
 
@@ -1253,8 +1254,8 @@ def test_bvh_route_frame_on_card(bvh_scenes, monkeypatch):
         trs.LAUNCHES.values()) and not any(compaction.LAUNCHES.values())
     prog = FrameProgram(scene, cfg, "cuda")
     assert torch.equal(prog.replay(cam, 0), img)
-    monkeypatch.setattr(integrator, "closest_hit_bvh", trb.plain_closest_hit)
-    monkeypatch.setattr(integrator, "any_hit_bvh", trb.plain_any_hit)
+    monkeypatch.setattr(walks, "closest_hit_bvh", trb.plain_closest_hit)
+    monkeypatch.setattr(walks, "any_hit_bvh", trb.plain_any_hit)
     want = render_frame(scene, cam, cfg, 0, eager=True)
     off = (img - want).abs().amax(dim=-1) > 3e-5
     assert int(off.sum()) <= 1 and float(img.mean()) > 0.01

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pnraytracing_tpu.core.camera import camera_rays as jax_camera_rays
 from pnraytracing_tpu.core.config import RenderConfig as JaxRenderConfig
@@ -106,6 +107,117 @@ def test_compact_indices_matches_jax(live):
     np.testing.assert_array_equal(back.numpy(), x)
     np.testing.assert_array_equal(back.numpy(), np.asarray(
         jax_compaction.scatter_back(jnp.asarray(gathered), jperm)))
+
+
+# the scene forms of the sort's state: (area light, environment map,
+# textured, texture LOD, balanced MIS)
+STATE_FORMS = {
+    "lights_env": (True, True, False, False, False),
+    "lights_only": (True, False, False, False, False),
+    "env_only": (False, True, False, False, False),
+    "textured": (True, True, True, False, False),
+    "textured_lod": (True, True, True, True, False),
+    "balanced": (True, True, False, False, True),
+    "balanced_env_only": (False, True, True, True, True),
+}
+
+
+def _sort_state(form, n=1000):
+    """A path state of ``form`` as the integrator holds it at the sort:
+    ``(Path, Shade, Lanes)`` with None where the scene has no such term,
+    the RNG words including 0 and 0xFFFFFFFF, ids up to 2^24 - 1."""
+    from pnraytracing_tpu_torch.ops.shade import Path, Shade
+
+    lights, env, tex, lod, balanced = form
+    gen = torch.Generator().manual_seed(7)
+    f = lambda: torch.randn(n, generator=gen)
+    v = lambda: V3(f(), f(), f())
+    ints = lambda hi, dtype: torch.randint(0, hi, (n,), generator=gen,
+                                           dtype=dtype)
+    seed = ints(1 << 32, torch.int64)
+    seed[:2] = torch.tensor([0, 0xFFFFFFFF])
+    mat_id = ints(1 << 24, torch.int32)
+    mat_id[0] = (1 << 24) - 1
+    opt = lambda on, make: make() if on else None
+    path = Path(v(), v(), v(), v(), v(), mat_id, opt(tex, f), opt(tex, f),
+                opt(tex, lambda: ints(1 << 24, torch.int32) - 1),
+                opt(lod, f), f() > 0, seed)
+    shaded = Shade(seed, v(), v(), f(), opt(lights, v), opt(lights, f),
+                   opt(lights, v), opt(env, v), opt(env, f), opt(env, v),
+                   opt(balanced and lights, f), opt(balanced and env, f))
+    lanes = compaction.Lanes(torch.arange(n), ints(1 << 24, torch.int64),
+                             ints(1 << 24, torch.int64))
+    return path, shaded, lanes
+
+
+class _Ops(TorchDispatchMode):
+    """The operators a block runs, by name, with their outputs' shapes."""
+
+    def __init__(self):
+        super().__init__()
+        self.ran = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ran.append((func.overloadpacket.__name__,
+                         tuple(getattr(out, "shape", ()))))
+        return out
+
+
+@pytest.mark.parametrize("form", list(STATE_FORMS))
+def test_permute_state_moves_every_live_field_exactly(form):
+    """Every field of the state but the dead view direction comes out
+    gathered by the permutation, bit for bit and in its dtype (bools,
+    int32 ids, int64 slots and pixels, the uint32 RNG word up to
+    0xFFFFFFFF), each row contiguous; absent fields stay None; the whole
+    state moves as one [C, R] stack and one gather, with the columns the
+    integrator's pack always had: 26, 7 more for each NEE class, 3 for
+    the uv and texture id, 1 for the path length and 1 for each
+    balanced-MIS pdf."""
+    lights, env, tex, lod, balanced = STATE_FORMS[form]
+    state = _sort_state(STATE_FORMS[form])
+    perm = torch.randperm(1000, generator=torch.Generator().manual_seed(3))
+    with _Ops() as ops:
+        got = compaction.permute_state(perm, state, dead=("v_dir",))
+    columns = (26 + 7 * lights + 7 * env + 3 * tex + lod
+               + balanced * (lights + env))
+    gathers = [shape for op, shape in ops.ran if op == "index_select"]
+    stacks = [shape for op, shape in ops.ran if op in ("stack", "cat")]
+    assert gathers == stacks == [(columns, 1000)]
+    for rec, out in zip(state, got):
+        assert type(out) is type(rec)
+        for name, x, y in zip(rec._fields, rec, out):
+            if name == "v_dir" or x is None:
+                assert y is None, name
+                continue
+            xs = [x.x, x.y, x.z] if isinstance(x, V3) else [x]
+            ys = [y.x, y.y, y.z] if isinstance(y, V3) else [y]
+            for xc, yc in zip(xs, ys):
+                assert yc.dtype == xc.dtype and yc.is_contiguous(), name
+                assert torch.equal(yc, xc[perm]), name
+    assert got[0].seed is got[1].seed  # one field, moved once
+
+
+@pytest.mark.parametrize("fault", ["unknown_dead", "two_values", "float64",
+                                   "narrow_seed"])
+def test_permute_state_refuses_what_it_cannot_move(fault):
+    """A dead name no record has, two records holding different values
+    under one name, and a field float32 cannot carry exactly are refused,
+    not moved stale or rounded."""
+    path, shaded, lanes = _sort_state(STATE_FORMS["lights_env"])
+    dead = ("v_dir",)
+    if fault == "unknown_dead":
+        dead = ("v_dir", "view_dir")
+    elif fault == "two_values":
+        shaded = shaded._replace(seed=shaded.seed.clone())
+    elif fault == "float64":
+        shaded = shaded._replace(d_pdf=shaded.d_pdf.double())
+    else:
+        seed = path.seed.to(torch.int32)
+        path, shaded = path._replace(seed=seed), shaded._replace(seed=seed)
+    with pytest.raises(ValueError, match="permute_state"):
+        compaction.permute_state(torch.arange(1000), (path, shaded, lanes),
+                                 dead=dead)
 
 
 def _live_like(seed, root):

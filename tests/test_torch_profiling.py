@@ -33,6 +33,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from pnraytracing_tpu.core.config import RenderConfig as JaxRenderConfig
 from pnraytracing_tpu.render.renderer import render_frame as jax_render_frame
+from pnraytracing_tpu_torch.accel import walks
 from pnraytracing_tpu_torch.core.camera import camera_rays
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.render import integrator
@@ -246,6 +247,7 @@ def test_phases_tile_a_simulated_capture(monkeypatch):
     nodes = _Nodes()
     monkeypatch.setattr(profiling, "capturing", lambda: True)
     monkeypatch.setattr(integrator, "capturing", lambda: True)
+    monkeypatch.setattr(walks, "capturing", lambda: True)
     # node k (1, 2, ...) depends on node k - 1: one chain
     monkeypatch.setattr(profiling, "_last_node", lambda: nodes.n)
     monkeypatch.setattr(profiling, "_walk_back",

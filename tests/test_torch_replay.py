@@ -54,6 +54,7 @@ from pnraytracing_tpu.render.renderer import pixel_coords as jax_pixel_coords
 from pnraytracing_tpu.scene import shapes
 from pnraytracing_tpu.scene.build import SceneBuilder as JaxSceneBuilder
 from pnraytracing_tpu.scene.transform import compose, rotate, translate
+from pnraytracing_tpu_torch.accel import walks
 from pnraytracing_tpu_torch.convert import (
     records_from_arrays,
     records_to_arrays,
@@ -257,8 +258,9 @@ def test_replay_runs_no_walk(monkeypatch):
         raise AssertionError("a replay launched a walk or a key")
 
     for name in ("closest_hit", "closest_hit_attr", "any_hit",
-                 "closest_hit_stream", "any_hit_stream", "entry_key"):
-        monkeypatch.setattr(integrator, name, refuse)
+                 "closest_hit_stream", "any_hit_stream"):
+        monkeypatch.setattr(walks, name, refuse)
+    monkeypatch.setattr(integrator, "entry_key", refuse)
     got = render_rays_replay(ps, *rays, 2, cfg, recs)
     assert torch.equal(got, want)
     with pytest.raises(AssertionError, match="a replay launched"):

@@ -62,6 +62,7 @@ from pnraytracing_tpu.scene.transform import compose, rotate, translate
 from pnraytracing_tpu_torch.accel import route
 from pnraytracing_tpu_torch.accel import traverse_cuda as trv
 from pnraytracing_tpu_torch.accel import traverse_stream_cuda as trs
+from pnraytracing_tpu_torch.accel import walks
 from pnraytracing_tpu_torch.accel.bricks import (
     BRICK_BUDGET_BYTES,
     build_stream_data,
@@ -70,7 +71,6 @@ from pnraytracing_tpu_torch.convert import scene_to_arrays
 from pnraytracing_tpu_torch.core.camera import camera_rays
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.vec import V3
-from pnraytracing_tpu_torch.render import integrator
 from pnraytracing_tpu_torch.render.renderer import render_frame
 from pnraytracing_tpu_torch.scene import shapes
 from pnraytracing_tpu_torch.scene.build import SceneBuilder
@@ -455,12 +455,12 @@ def test_route_matches_jax(name, want):
 def _count_calls(monkeypatch, names):
     calls = {n: 0 for n in names}
     for n in names:
-        fn = getattr(integrator, n)
+        fn = getattr(walks, n)
 
         def wrapped(*a, _fn=fn, _n=n, **k):
             calls[_n] += 1
             return _fn(*a, **k)
-        monkeypatch.setattr(integrator, n, wrapped)
+        monkeypatch.setattr(walks, n, wrapped)
     return calls
 
 
@@ -477,7 +477,7 @@ def test_attr_rows_over_budget_render_through_make_interaction(monkeypatch):
 
     def no_attr(*a, **k):
         raise AssertionError("the attribute entry point was called")
-    monkeypatch.setattr(integrator, "closest_hit_attr", no_attr)
+    monkeypatch.setattr(walks, "closest_hit_attr", no_attr)
     calls = _count_calls(monkeypatch, ("closest_hit", "any_hit"))
     cam = jax_make_camera((0.0, 2.0, 5.0), (0, 0.8, 0), (0, 1, 0), 45.0, 1.0)
     cfg = dict(width=12, height=12, max_depth=2, sampler="hash")
