@@ -895,6 +895,71 @@ def accumulate_row(render_frame, scene, camera, dev, integrator, built,
         ptxas=ptx, **shade.accumulate_kernel_info())
 
 
+# bytes the fill kernel moves (csrc/shade.cu interaction_kernel): every
+# lane reads its hit (triangle, barycentrics: 12), its ray (24) and its
+# triangle's row of the interaction table (104), and writes its
+# position, normal, uv and two ids (40); what these inputs need reads
+# each row once (every missed lane reads row 0)
+FILL_ROW_BYTES = 104
+FILL_LANE_BYTES = 12 + 24 + FILL_ROW_BYTES + 40
+
+
+def interaction_row(render_frame, scene, camera, dev, integrator, built,
+                    path_launches) -> dict:
+    """The fill kernel's row: one launch over config5's 262,144 bounce-0
+    continuation rays (route ``stream``: kernel 7c's hits), every lane
+    equal to ``make_interaction`` bit for bit, timed beside it, with its
+    byte bound (``R x 180 B``), registers, spills and blocks an SM.
+    ``path_launches`` holds what ``shade.LAUNCHES["interaction"]`` read
+    on each path."""
+    import torch
+
+    from pnraytracing_tpu_torch.core.config import RenderConfig
+    from pnraytracing_tpu_torch.ops import shade
+
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, max_depth=DEPTH)
+    calls = record_inputs(render_frame, scene, camera, cfg, dev, integrator,
+                          name="fill_interaction")
+    if len(calls) != 1 + DEPTH:
+        raise AssertionError(f"interaction: {len(calls)} calls a frame, "
+                             f"expected {1 + DEPTH}")
+    args = calls[1]  # bounce 0's continuation hits (calls[0]: the camera)
+    got = shade.fill_interaction(*args)
+    want = integrator.make_interaction(*args)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    flat = lambda x: [x[0].x, x[0].y, x[0].z, x[1].x, x[1].y, x[1].z,
+                      *x[2], x[3], x[4]]
+    bad = sum(int((bits(g) != bits(w)).sum())
+              for g, w in zip(flat(got), flat(want)))
+    if bad:
+        raise AssertionError(f"interaction: {bad} values differ from "
+                             "make_interaction")
+    hit = args[0]
+    r, hits = int(hit.tri.shape[0]), int(hit.valid.sum())
+    rows_read = int(torch.unique(torch.clamp_min(hit.tri, 0)).numel())
+    ops_lane = elementwise_per_lane(
+        lambda: integrator.make_interaction(*args), r)
+    bnd, by = bound(r * FILL_LANE_BYTES, r * ops_lane)
+    need = bound(r * (FILL_LANE_BYTES - FILL_ROW_BYTES)
+                 + rows_read * FILL_ROW_BYTES, r * ops_lane)[0]
+    ptx = ptxas_entry(built.get("shade", {}).get("ptxas", []),
+                      "interaction_kernel")
+    return dict(
+        name="interaction", source="pnraytracing_tpu_torch/csrc/shade.cu",
+        replaces="none: render/integrator.py::make_interaction after a "
+                 "closest walk (every route but attr)",
+        launches=path_launches["eager_frame"],
+        path_launches=path_launches, rays=r, hit_rays=hits,
+        mismatches=bad,
+        ms=time_ms(lambda: shade.fill_interaction(*args), 50),
+        plain_ms=time_ms(lambda: integrator.make_interaction(*args), 5),
+        bound_ms=bnd, bound_by=by, ops_per_lane=ops_lane,
+        bound_formula=(f"max(R * {FILL_LANE_BYTES} B / 3.35 TB/s, "
+                       f"R * {ops_lane} / 67 TFLOP/s)"),
+        rows_read=rows_read, needed_bound_ms=need,
+        ptxas=ptx, **shade.interaction_kernel_info())
+
+
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean device time of ``fn`` by CUDA events over ``reps`` calls.  A
     ~10 ms device sleep is queued first, so the host enqueues the calls
@@ -1483,6 +1548,17 @@ def shade_per_frame(cfg) -> int:
     return cfg.max_depth * (p // tile if p % tile == 0 else 1)
 
 
+def fill_per_frame(scene, cfg) -> int:
+    """The fill kernel's launches in a frame: one a tile in the camera
+    phase and one a bounce a tile, off route ``attr`` (whose walk
+    fills); none on it."""
+    from pnraytracing_tpu_torch.accel.walks import route_walks
+
+    if route_walks(scene, cfg)[0] == "attr":
+        return 0
+    return shade_per_frame(cfg) // cfg.max_depth * (1 + cfg.max_depth)
+
+
 def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
                   smi) -> dict:
     """The frame of ``scene`` under ``cfg`` as one captured CUDA graph
@@ -1528,15 +1604,18 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     want = dict({k: 0 for k in got}, **expected)
     shade_n = shade.LAUNCHES["shade"]
     tail_n = shade.LAUNCHES["accumulate"]
+    fill_n = shade.LAUNCHES["interaction"]
+    fill_want = 2 * fill_per_frame(scene, cfg)
     if (prog.launches != want or got != {k: 2 * v for k, v in want.items()}
             or shade_n != 2 * shade_per_frame(cfg)
-            or tail_n != 2 * shade_per_frame(cfg)):
+            or tail_n != 2 * shade_per_frame(cfg) or fill_n != fill_want):
         raise AssertionError(f"{label}: launches at capture "
                              f"{prog.launches} (counters {got}, shade "
-                             f"{shade_n}, accumulate {tail_n}), expected "
-                             f"{want} (and twice that with the warm-up), "
-                             f"shade and accumulate twice "
-                             f"{shade_per_frame(cfg)}")
+                             f"{shade_n}, accumulate {tail_n}, interaction "
+                             f"{fill_n}), expected {want} (and twice that "
+                             f"with the warm-up), shade and accumulate "
+                             f"twice {shade_per_frame(cfg)}, interaction "
+                             f"{fill_want}")
     torch.cuda.empty_cache()  # the warm-up's blocks; the pool stays
     pool_bytes = torch.cuda.memory_reserved() - reserved0
     a = replayed(1)
@@ -1544,7 +1623,8 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
     torch.cuda.synchronize()
     shade_replays = shade.LAUNCHES["shade"] - shade_n  # the two replays'
     tail_replays = shade.LAUNCHES["accumulate"] - tail_n
-    if counts() != got or shade_replays or tail_replays:
+    fill_replays = shade.LAUNCHES["interaction"] - fill_n
+    if counts() != got or shade_replays or tail_replays or fill_replays:
         raise AssertionError(f"{label}: a replay counted launches")
     equal = [bool(torch.equal(a, eager(1))), bool(torch.equal(b, eager(2)))]
     if not (all(equal) and not torch.equal(a, b)):
@@ -1607,6 +1687,8 @@ def program_phase(label, scene, camera, cfg, dev, expected, tables, counts,
                               "program_replays": shade_replays},
            "tail_launches": {"program_capture": tail_n,
                              "program_replays": tail_replays},
+           "fill_launches": {"program_capture": fill_n,
+                             "program_replays": fill_replays},
            "replay_equals_eager": equal, "ms_per_frame": ms,
            "sm_mhz_celsius_watts": clocks, "replay_split": splits,
            "eager_ms": mean(ms["eager"]), "replayed_ms": mean(ms["replayed"]),
@@ -2620,7 +2702,7 @@ def textures_phase(render_frame, RenderConfig, dev, modules, tables,
 
 
 def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
-                  counts, cfgp) -> tuple:
+                  counts, cfgp, built) -> tuple:
     """Phases 14-16: config5_large through the brick-streaming kernels.
     Returns their rows of the kernels line, the times of the resident
     wide kernels on config5's rays, by wrapper name, and the scene and
@@ -2629,6 +2711,7 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
 
     from pnraytracing_tpu_torch.accel.bricks import build_stream_data
     from pnraytracing_tpu_torch.accel.route import traversal_route
+    from pnraytracing_tpu_torch.ops import shade
     from pnraytracing_tpu_torch.scene.scenes import config5_large
 
     _, trv, trs, compaction = modules
@@ -2716,9 +2799,13 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
     expected = dict({k: 0 for k in launches}, closest_hit_stream=1 + DEPTH,
                     any_hit_stream=DEPTH,
                     treelet_entry_key=cfg.sort_max_bounce)
-    if launches != expected:
+    fill_launches = {"eager_frame": shade.LAUNCHES["interaction"]}
+    if (launches != expected
+            or fill_launches["eager_frame"] != fill_per_frame(scene, cfg)):
         raise AssertionError(f"config5 launches per frame {launches}, "
-                             f"expected {expected}")
+                             f"interaction {fill_launches}, expected "
+                             f"{expected}, interaction "
+                             f"{fill_per_frame(scene, cfg)}")
     if not (img.shape == (HEIGHT, WIDTH, 3) and torch.isfinite(img).all()
             and float(img.min()) >= 0.0 and float(img.max()) <= 1.0):
         raise AssertionError("config5 frame is not a finite [0,1] image")
@@ -2832,6 +2919,8 @@ def stream_phases(render_frame, RenderConfig, dev, smi, modules, tables,
           "card": smi})
     emit(dict(phase="stream_profile", **profile_frame(
         lambda: render_frame(scene, camera, cfg, 12, device=dev), ms_frame)))
+    rows.append(interaction_row(render_frame, scene, camera, dev,
+                                modules[0], built, fill_launches))
     rows += compat_phase("config5", render_frame, RenderConfig, scene, camera,
                          dev, modules, tables, counts,
                          dict(closest_hit_stream_compat=1 + DEPTH,
@@ -5125,7 +5214,8 @@ def main() -> int:
     catalog_phase(render_frame, RenderConfig, dev, modules, tables, counts)
     textures_phase(render_frame, RenderConfig, dev, modules, tables, counts)
     stream_rows, on_config5, c5, c5_cam = stream_phases(
-        render_frame, RenderConfig, dev, smi, modules, tables, counts, cfgp)
+        render_frame, RenderConfig, dev, smi, modules, tables, counts, cfgp,
+        built)
     asset_launches = assets_phase(render_frame, RenderConfig, c5, c5_cam,
                                   dev, modules, tables, counts, smi)
     bvh_rows, binary_route = bvh_phase(render_frame, RenderConfig, dev,
@@ -5146,7 +5236,7 @@ def main() -> int:
     rows += stream_rows + bvh_rows + trav_rows
     for row in rows:
         row.update(route="cuda", library_ms=None)
-        if row["name"] in ("shade", "accumulate"):
+        if row["name"] in ("shade", "accumulate", "interaction"):
             # the paths below count the walks' tables (the workers and
             # ranks report render/program.py::launch_counts()), which the
             # shade kernel stays out of: its row keeps what shade.LAUNCHES

@@ -1,6 +1,7 @@
 // The shade phase of one bounce for Hopper (sm_90a): phase 1 of
 // render/integrator.py::_render_rays, one thread a ray; and, further
-// down, the tail of the bounce after its walks (accumulate_bounce_kernel).
+// down, the tail of the bounce after its walks (accumulate_bounce_kernel)
+// and the interaction fill after a closest hit (interaction_kernel).
 //
 // Replaces no TPU kernel.  In the JAX package XLA fuses this chain; the
 // port ran it as plain PyTorch (ops/shade.py::shade_plain), ~1,570
@@ -49,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "intersect.cuh"
 
 namespace {
 
@@ -121,6 +124,35 @@ __device__ __forceinline__ int64_t clamp_index(int64_t j, int n) {
 // ops/shade.py::safe_inv
 __device__ __forceinline__ float safe_inv(float x) {
   return fabsf(x) > kEps ? 1.0f / (x == 0.0f ? 1.0f : x) : 0.0f;
+}
+
+// ---- a row of the interaction table ---------------------------------------
+// (render/integrator.py::pack_interaction_rows: corner positions, corner
+// normals, corner uvs, material id, texture id)
+struct TriRow {
+  F3 p0, p1, p2, n0, n1, n2;
+};
+__device__ __forceinline__ TriRow load_tri_row(const float* rr) {
+  return {{rr[0], rr[1], rr[2]},    {rr[3], rr[4], rr[5]},
+          {rr[6], rr[7], rr[8]},    {rr[9], rr[10], rr[11]},
+          {rr[12], rr[13], rr[14]}, {rr[15], rr[16], rr[17]}};
+}
+// a * b0 + b * b1 + c * b2, summed in that order
+__device__ __forceinline__ F3 interpolate(F3 a, F3 b, F3 c, float b0,
+                                          float b1, float b2) {
+  return add(add(scale(a, b0), scale(b, b1)), scale(c, b2));
+}
+// The surface normal at (b0, b1, b2), before its normalize: the corner
+// normals interpolated, or the geometric normal where a corner normal is
+// the zero vector (ops/shade.py::any_zero)
+__device__ __forceinline__ F3 surface_normal(const TriRow& t, float b0,
+                                             float b1, float b2) {
+  const F3 geom_n = normalize(cross(sub(t.p1, t.p0), sub(t.p2, t.p0)));
+  const F3 n_interp = interpolate(t.n0, t.n1, t.n2, b0, b1, b2);
+  auto zero3 = [](F3 a) {
+    return (a.x == 0.0f) & (a.y == 0.0f) & (a.z == 0.0f);
+  };
+  return select(zero3(t.n0) | zero3(t.n1) | zero3(t.n2), geom_n, n_interp);
 }
 
 // ---- the RNG (ops/sampling.py) --------------------------------------------
@@ -550,19 +582,10 @@ __global__ void __launch_bounds__(kThreads)
     const float b0 = 1.0f - su;
     const float b1 = u2 * su;
     const float* rr = p.irows + tri * kIrow;
-    const F3 p0 = {rr[0], rr[1], rr[2]}, p1 = {rr[3], rr[4], rr[5]},
-             p2 = {rr[6], rr[7], rr[8]};
-    const F3 n0 = {rr[9], rr[10], rr[11]}, n1 = {rr[12], rr[13], rr[14]},
-             n2 = {rr[15], rr[16], rr[17]};
+    const TriRow corners = load_tri_row(rr);
     const float b2 = 1.0f - b0 - b1;
-    const F3 lp = add(add(scale(p0, b0), scale(p1, b1)), scale(p2, b2));
-    const F3 geom_n = normalize(cross(sub(p1, p0), sub(p2, p0)));
-    const F3 n_interp = add(add(scale(n0, b0), scale(n1, b1)), scale(n2, b2));
-    auto zero3 = [](F3 a) {
-      return (a.x == 0.0f) & (a.y == 0.0f) & (a.z == 0.0f);
-    };
-    const F3 ln =
-        normalize(select(zero3(n0) | zero3(n1) | zero3(n2), geom_n, n_interp));
+    const F3 lp = interpolate(corners.p0, corners.p1, corners.p2, b0, b1, b2);
+    const F3 ln = normalize(surface_normal(corners, b0, b1, b2));
 
     const F3 sdir = sub(lp, pos);
     const float dis2 = dot(sdir, sdir);
@@ -985,6 +1008,69 @@ const TailKernel kTailKernels[16] = {
     PNRT_TAIL(12), PNRT_TAIL(13), PNRT_TAIL(14), PNRT_TAIL(15)};
 #undef PNRT_TAIL
 
+// ---- the interaction fill after a closest hit -----------------------------
+//
+// render/integrator.py::make_interaction, one thread a ray
+// (ops/shade.py::fill_interaction): every route but `attr` runs its
+// closest walk and then this fill.  Its plain version is ~260 torch
+// kernels a call, 0.86 ms over 262,144 rays on the H100 (config5's
+// bounce 0), 144 calls a 2048x2048 depth-8 frame.  A lane reads its hit
+// (triangle and barycentrics, 12 B), its ray (24 B) and its triangle's
+// 104-byte row of the interaction table, and writes its position,
+// normal, uv and two ids (40 B): 180 B a lane, ~47 MB a call of 262,144
+// rays, 0.014 ms at 3.35 TB/s (chip_smoke.py's interaction row; missed
+// lanes share row 0, so a call needs less).  Every lane is computed, a
+// missed one too (tri -1 reads row 0), as the plain version computes it;
+// the watertight test is intersect.cuh's, the one the walks run, so the
+// barycentrics and every output equal the plain version's bit for bit.
+struct FillParams {
+  int r;
+  float t_max;  // the re-test's segment: core/math.py::FLOAT_MAX
+  const int* tri;
+  const float *b1, *b2;
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  const float* irows;
+  float* out;  // [8, r]: pos, nrm, u, v
+  int* ids;    // [2, r]: material id, texture id
+};
+
+__global__ void __launch_bounds__(kThreads)
+    interaction_kernel(const FillParams p) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= p.r) return;
+  const int r = p.r;
+  const float* rr = p.irows + (int64_t)max(p.tri[i], 0) * kIrow;
+  const TriRow row = load_tri_row(rr);
+  const F3 d = {p.dx[i], p.dy[i], p.dz[i]};
+  // the barycentrics re-derived by intersecting the hit triangle again
+  const pnrt::Ray ray =
+      pnrt::make_ray<false>(p.ox[i], p.oy[i], p.oz[i], d.x, d.y, d.z);
+  float t, rb1, rb2;
+  const bool ok = pnrt::hit_corners(
+      ray, row.p0.x, row.p0.y, row.p0.z, row.p1.x, row.p1.y, row.p1.z,
+      row.p2.x, row.p2.y, row.p2.z, p.t_max, t, rb1, rb2);
+  const float b1 = ok ? rb1 : p.b1[i];
+  const float b2 = ok ? rb2 : p.b2[i];
+  const float b0 = 1.0f - b1 - b2;
+  const F3 pos = interpolate(row.p0, row.p1, row.p2, b0, b1, b2);
+  const F3 n = surface_normal(row, b0, b1, b2);
+  // backface flip toward the incoming ray (comp:345-348)
+  const F3 nrm = normalize(select(dot(n, d) > 0.0f, neg(n), n));
+  const float u = rr[18] * b0 + rr[20] * b1 + rr[22] * b2;
+  const float v = rr[19] * b0 + rr[21] * b1 + rr[23] * b2;
+  float* o = p.out + i;
+  o[0] = pos.x;
+  o[r] = pos.y;
+  o[2 * r] = pos.z;
+  o[3 * r] = nrm.x;
+  o[4 * r] = nrm.y;
+  o[5 * r] = nrm.z;
+  o[6 * r] = u;
+  o[7 * r] = v;
+  p.ids[i] = (int)rr[24];
+  p.ids[r + i] = (int)rr[25];
+}
+
 // what == 0 registers, 1 blocks an SM, 2 threads a block, 3 local bytes of
 // kernel k; a negative value is minus the CUDA error
 int kernel_attribute(const void* k, int what) {
@@ -1103,6 +1189,31 @@ int pnrt_accumulate_inputs() { return kTailInputs; }
 int pnrt_accumulate_kernel_info(int flags, int what) {
   if (flags < 0 || flags > 15) return -(int)cudaErrorInvalidValue;
   return kernel_attribute((const void*)kTailKernels[flags], what);
+}
+
+// The interaction fill over r rays: tri int32, b1, b2 and the ray's
+// components float32 [r]; irows the [T, 26] interaction table; out [8, r]
+// f32 and ids [2, r] int32 as FillParams.  Returns cudaGetLastError()
+// after the launch.
+int pnrt_interaction(int r, float t_max, const int* tri, const float* b1,
+                     const float* b2, const float* ox, const float* oy,
+                     const float* oz, const float* dx, const float* dy,
+                     const float* dz, const float* irows, float* out,
+                     int* ids, void* stream) {
+  if (r <= 0) return 0;
+  const FillParams p = {r,  t_max, tri, b1, b2,    ox,  oy,
+                        oz, dx,    dy,  dz, irows, out, ids};
+  const int blocks = (r + kThreads - 1) / kThreads;
+  interaction_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// As pnrt_shade_kernel_info, of the fill kernel (one instantiation: flags
+// must be 0).
+int pnrt_interaction_kernel_info(int flags, int what) {
+  if (flags != 0) return -(int)cudaErrorInvalidValue;
+  return kernel_attribute((const void*)interaction_kernel, what);
 }
 
 }  // extern "C"

@@ -115,6 +115,8 @@ _SIGNATURES = {
     "pnrt_accumulate": [_I] * 8 + [_F, _F] + [_P] * 6,
     "pnrt_accumulate_inputs": [],
     "pnrt_accumulate_kernel_info": [_I] * 2,
+    "pnrt_interaction": [_I, _F] + [_P] * 13,
+    "pnrt_interaction_kernel_info": [_I] * 2,
 }
 
 

@@ -35,9 +35,16 @@ version bit for bit, a dead one too: its radiance gains the three zero
 terms and the rest of its state passes through (the image reads the
 radiance of every lane).
 
+The interaction fill after a closest hit (``render/integrator.py::
+make_interaction``, the plain version) has its kernel too,
+:func:`fill_interaction` (``csrc/shade.cu``'s ``interaction_kernel``):
+every lane of it, a missed one too, equals the plain version bit for
+bit (the re-test of the hit triangle is the walks' own,
+``csrc/intersect.cuh``).
+
 No TPU kernel stands behind these: XLA fuses the same chains in the JAX
-package.  On the card the torch versions are ~1,400 and ~215
-elementwise kernels a bounce, each reading and writing [R] vectors
+package.  On the card the torch versions are ~1,400, ~215 and ~260
+elementwise kernels a call, each reading and writing [R] vectors
 (csrc/shade.cu has the bounds and the figures).
 """
 
@@ -50,7 +57,13 @@ from typing import NamedTuple
 import torch
 
 from pnraytracing_tpu_torch.core.config import RenderConfig
-from pnraytracing_tpu_torch.core.math import absolute, clip, maximum, minimum
+from pnraytracing_tpu_torch.core.math import (
+    FLOAT_MAX,
+    absolute,
+    clip,
+    maximum,
+    minimum,
+)
 from pnraytracing_tpu_torch.core.types import (
     EnvMap,
     Materials,
@@ -91,11 +104,11 @@ from pnraytracing_tpu_torch.utils.profiling import launched
 
 _EPS = 1e-10
 
-# Launches of the two kernels since the last reset (the caller zeroes
+# Launches of the three kernels since the last reset (the caller zeroes
 # it).  Deliberately not one of render/program.py's launch tables: those
 # list the route's walk kernels, which the benchmark's route check
 # compares.
-LAUNCHES = {"shade": 0, "accumulate": 0}
+LAUNCHES = {"shade": 0, "accumulate": 0, "interaction": 0}
 
 
 class Shade(NamedTuple):
@@ -771,3 +784,59 @@ def accumulate_kernel_info(has_lights=True, has_env=True, balanced=False,
     flags = (int(has_lights) | int(has_env) << 1 | int(balanced) << 2
              | int(textured) << 3)
     return _attributes("accumulate", flags)
+
+
+# ---- the interaction fill after a closest hit -----------------------------
+
+def fill_inputs(hit, ray_d: V3, ray_o: V3, rows: torch.Tensor) -> list:
+    """What :func:`fill_interaction` hands its kernel, checked: the hit's
+    triangle (int32) and barycentrics, the ray's origin and direction
+    components (float32, [R] each), the [T, 26] float32 interaction
+    table, in the order of csrc/shade.cu's ``pnrt_interaction``.  Raises
+    where one has another dtype, shape or device, or is not
+    contiguous."""
+    dev = hit.tri.device
+    r = int(hit.tri.shape[0])
+    f32 = torch.float32
+    inputs = [("hit.tri", hit.tri, torch.int32, (r,)),
+              ("hit.b1", hit.b1, f32, (r,)), ("hit.b2", hit.b2, f32, (r,)),
+              *((f"ray_o.{k}", getattr(ray_o, k), f32, (r,)) for k in "xyz"),
+              *((f"ray_d.{k}", getattr(ray_d, k), f32, (r,)) for k in "xyz"),
+              ("rows", rows, f32, (rows.shape[0], 26))]
+    for name, t, dtype, shape in inputs:
+        _check(name, t, dtype, shape, dev, kernel="interaction")
+    return [t for _, t, _, _ in inputs]
+
+
+def fill_interaction(hit, ray_d: V3, ray_o: V3, rows: torch.Tensor):
+    """The kernel: ``render/integrator.py::make_interaction``'s
+    ``(pos V3, nrm V3, (u, v), mat_id, tex_id)`` in one launch, every
+    lane bit for bit (missed lanes read row 0, as there).  ``rows`` is
+    the interaction table (``pack_interaction_rows``); every input lies
+    on one CUDA device, contiguous (:func:`fill_inputs`).  Raises on
+    anything else, and if the launch fails."""
+    from pnraytracing_tpu_torch.cuda_build import library
+
+    dev = hit.tri.device
+    if dev.type != "cuda":
+        raise ValueError(f"interaction: the kernel runs on a CUDA device, "
+                         f"not {dev}; the CPU takes make_interaction")
+    inputs = fill_inputs(hit, ray_d, ray_o, rows)
+    r = int(hit.tri.shape[0])
+    out = torch.empty((8, r), dtype=torch.float32, device=dev)
+    ids = torch.empty((2, r), dtype=torch.int32, device=dev)
+    err = library("shade").pnrt_interaction(
+        r, float(FLOAT_MAX), *map(_ptr, inputs), _ptr(out), _ptr(ids),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"interaction kernel launch failed: CUDA error "
+                           f"{err}")
+    launched(LAUNCHES, "interaction")
+    rows_ = out.unbind(0)
+    return (V3(*rows_[0:3]), V3(*rows_[3:6]), (rows_[6], rows_[7]), ids[0],
+            ids[1])
+
+
+def interaction_kernel_info() -> dict:
+    """As :func:`kernel_info`, of the fill kernel."""
+    return _attributes("interaction", 0)

@@ -23,7 +23,11 @@ queries and contributions), and each part of the frame runs inside a
   (``compact_indices``);
 * ``shadow``: the two NEE shadow queries in one any-hit launch (two with
   ``fuse_shadows`` off);
-* ``next``: the continuation closest hit and its interaction;
+* ``next``: the continuation closest hit and its interaction (off route
+  ``attr``, ``make_interaction``'s fill: one launch of its kernel,
+  ``ops/shade.py::fill_interaction``, under the same rule as ``shade``,
+  else ``make_interaction`` itself; the camera phase's primary fill
+  too);
 * ``accumulate``: the tail of the bounce (the NEE combine, the escaped
   and emissive terms with their MIS weights, the throughput, the state
   roll and Russian roulette) in ``ops/shade.py``: one launch of its
@@ -130,6 +134,7 @@ from pnraytracing_tpu_torch.ops.shade import (
     corners,
     emissive_of,
     env_radiance,
+    fill_interaction,
     material_rows,
     shade_bounce,
     shade_on_card,
@@ -234,7 +239,8 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         """Closest hit + interaction fill (hit, pos, nrm, (u, v), mat id,
         tex id): from the attribute kernel (only the backface flip,
         normalize and hit position remain here) or from the route's
-        closest hit + make_interaction."""
+        closest hit + the fill (its kernel on the card, else
+        make_interaction)."""
         if route == "attr":
             hit_, (nx, ny, nz, u_, v_, mt) = closest_q(o_, d_, tm_, mask_)
             nrm_raw = V3(nx, ny, nz)
@@ -243,7 +249,8 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             return (hit_, o_ + d_ * hit_.t, nrm_, (u_, v_),
                     mt // ATTR_TEX_BASE, mt % ATTR_TEX_BASE - 1)
         hit_ = closest_q(o_, d_, tm_, mask_)
-        return (hit_,) + make_interaction(hit_, d_, o_, irows)
+        fill = fill_interaction if on_card else make_interaction
+        return (hit_,) + fill(hit_, d_, o_, irows)
 
     # ---- camera: the primary hit (comp:983) -----------------------------
     with phase("camera"):
@@ -258,8 +265,8 @@ def _render_rays(scene: Scene, o: torch.Tensor, d: torch.Tensor,
         mat_tbl = materials.sanitized()
         if compat:
             mat_tbl = apply_compat_material_decode(mat_tbl)
-        # the shade phase's and the tail's kernels, or their plain versions
-        # (ops/shade.py)
+        # the shade phase's, the tail's and the fill's kernels, or their
+        # plain versions (ops/shade.py)
         on_card = shade_on_card(scene, dev, o, d)
         if on_card:
             mat_rows = material_rows(mat_tbl, materials)

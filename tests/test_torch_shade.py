@@ -33,6 +33,13 @@ plain versions.  The kernels themselves run on the card only
   replay; the kernel's branch hands it a state ``tail_inputs`` accepts
   (every tensor the kernel reads, of its dtype, shape and device,
   contiguous), and its wrapper raises on CPU tensors.
+* The interaction fill: off route ``attr`` the integrator takes the fill
+  kernel (``fill_interaction``) exactly where it takes the shade kernel,
+  in the camera and ``next`` phases; ``make_interaction`` on the CPU,
+  under autograd and in ``render_rays_replay``; on route ``attr``
+  neither is reached from a walk (the attribute kernel fills).  The
+  kernel's branch hands it a hit, rays and table ``fill_inputs``
+  accepts, and its wrapper raises on CPU tensors.
 """
 
 import dataclasses
@@ -40,6 +47,7 @@ import dataclasses
 import pytest
 import torch
 
+from pnraytracing_tpu_torch.accel.walks import route_walks
 from pnraytracing_tpu_torch.core.config import RenderConfig
 from pnraytracing_tpu_torch.core.math import absolute, clip, maximum, minimum
 from pnraytracing_tpu_torch.core.types import Lights
@@ -75,6 +83,7 @@ from pnraytracing_tpu_torch.scene.transform import compose, rotate, translate
 from tests.test_torch_scene import _torch_threads  # noqa: F401
 
 SIZE, DEPTH, FRAME = 32, 4, 9
+_make_interaction = integrator.make_interaction  # unpatched
 
 
 @pytest.fixture(scope="module")
@@ -300,10 +309,11 @@ def test_material_rows_columns(lit_teapot):
 
 
 def _kernel_branch_through_plain(monkeypatch, seen, tails=None,
-                                 on_card=lambda *a: True):
+                                 on_card=lambda *a: True, fills=None):
     """Force the kernels' branch (or decide it by ``on_card``) and stand
     the plain versions in for the launches, checking what the integrator
-    hands the kernels (the tail's bounces noted in ``tails``)."""
+    hands the kernels (the tail's bounces noted in ``tails``, the fill's
+    calls in ``fills``)."""
     def fake(scene, mat_rows, irows, cfg, bounce, frame, active, pos, nrm,
              v_dir, mat_id, seed, px, py, cdlin=None):
         tbl = scene.materials.sanitized()
@@ -335,7 +345,14 @@ def _kernel_branch_through_plain(monkeypatch, seen, tails=None,
             tails.append(bounce)
         return shade.accumulate_plain(scene, cfg, bounce, env_const, *rest)
 
+    def fake_fill(hit, ray_d, ray_o, rows):
+        shade.fill_inputs(hit, ray_d, ray_o, rows)
+        if fills is not None:
+            fills.append(int(hit.tri.shape[0]))
+        return _make_interaction(hit, ray_d, ray_o, rows)
+
     monkeypatch.setattr(integrator, "shade_on_card", on_card)
+    monkeypatch.setattr(integrator, "fill_interaction", fake_fill)
     monkeypatch.setattr(integrator, "shade_bounce", fake)
     monkeypatch.setattr(integrator, "accumulate_bounce", fake_tail)
 
@@ -657,3 +674,107 @@ def test_tail_wrapper_raises_on_cpu_tensors(lit_teapot, monkeypatch):
     bad = path._replace(mat_id=torch.zeros(r, dtype=torch.int64))
     with pytest.raises(ValueError, match="accumulate: mat_id must be"):
         shade.tail_inputs(*args[:5], bad, *args[6:])
+
+
+# ---- the interaction fill ---------------------------------------------------
+
+def _count_plain_fills(monkeypatch):
+    """The calls of ``make_interaction`` (the plain fill), as the number
+    of rays of each."""
+    plain = []
+
+    def counted(hit, *rest):
+        plain.append(int(hit.tri.shape[0]))
+        return _make_interaction(hit, *rest)
+
+    monkeypatch.setattr(integrator, "make_interaction", counted)
+    return plain
+
+
+@pytest.mark.parametrize("where", ["cpu", "autograd", "replay", "card"])
+def test_fill_dispatch(lit_teapot, monkeypatch, where):
+    """Off route ``attr`` the fill kernel is taken exactly where the
+    shade kernel is, once in the camera phase and once a bounce; the
+    plain version on the CPU, under autograd through the scene, and in
+    a replay (the trace before it takes the kernel)."""
+    scene, cam = lit_teapot
+    cfg = RenderConfig(width=16, height=16, max_depth=DEPTH,
+                       kernel_interaction=False)
+    assert route_walks(scene, cfg)[0] == "wide"
+    r = cfg.width * cfg.height
+    want = render_frame(scene, cam, cfg, FRAME, device="cpu")
+    plain = _count_plain_fills(monkeypatch)
+    fills = []
+    if where != "cpu":
+        _kernel_branch_through_plain(
+            monkeypatch, [], fills=fills,
+            on_card=lambda scene, dev, *t: shade.shade_on_card(
+                scene, "cuda", *t))
+    if where == "replay":
+        px, py = pixel_coords(cfg, "cpu")
+        o, d, _ = _camera_rays(cam, cfg)
+        recs = integrator.trace_paths(scene, o, d, px, py, FRAME, cfg)
+        assert fills == [r] * (1 + DEPTH) and not plain  # the trace
+        fills.clear()
+        integrator.render_rays_replay(scene, o, d, px, py, FRAME, cfg, recs)
+    elif where == "autograd":
+        assert torch.is_grad_enabled()
+        img = render_frame(_with_grad(scene), cam, cfg, FRAME, device="cpu")
+        assert img.requires_grad
+    else:
+        img = render_frame(scene, cam, cfg, FRAME, device="cpu")
+        assert torch.equal(img, want)
+    on_card = where == "card"
+    assert fills == ([r] * (1 + DEPTH) if on_card else [])
+    assert plain == ([] if on_card else [r] * (1 + DEPTH))
+
+
+def test_attr_route_reaches_no_fill(lit_teapot, monkeypatch):
+    """On route ``attr`` the attribute kernel fills the interaction: the
+    walks reach neither the fill kernel nor ``make_interaction``, on the
+    card's branch and off it."""
+    scene, cam = lit_teapot
+    cfg = RenderConfig(width=16, height=16, max_depth=DEPTH)
+    assert route_walks(scene, cfg)[0] == "attr"
+    plain = _count_plain_fills(monkeypatch)
+    want = render_frame(scene, cam, cfg, FRAME, device="cpu")
+    fills = []
+    _kernel_branch_through_plain(monkeypatch, [], fills=fills)
+    got = render_frame(scene, cam, cfg, FRAME, device="cpu")
+    assert not fills and not plain
+    assert torch.equal(got, want)
+
+
+def test_fill_wrapper_raises_on_cpu_tensors(lit_teapot, monkeypatch):
+    """No fallback inside the wrapper: CPU tensors raise before any
+    library is loaded or any launch counted; ``fill_inputs`` names a
+    tensor of the wrong dtype or shape, or one not contiguous."""
+    from pnraytracing_tpu_torch import cuda_build
+    from pnraytracing_tpu_torch.ops.intersect import Hit
+
+    scene, _ = lit_teapot
+    r = 4
+    f = lambda: torch.zeros(r)
+    v = V3(f(), f(), f())
+    hit = Hit(torch.zeros(r, dtype=torch.int32), f(), f(), f())
+    rows = integrator.pack_interaction_rows(scene.mesh)
+
+    def no_library(name):
+        raise AssertionError(f"library {name!r} loaded")
+
+    monkeypatch.setattr(cuda_build, "library", no_library)
+    before = dict(shade.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        shade.fill_interaction(hit, v, v, rows)
+    assert shade.LAUNCHES == before
+    assert len(shade.fill_inputs(hit, v, v, rows)) == 10
+    with pytest.raises(ValueError, match="interaction: hit.tri must be"):
+        shade.fill_inputs(dataclasses.replace(
+            hit, tri=torch.zeros(r, dtype=torch.int64)), v, v, rows)
+    with pytest.raises(ValueError, match="interaction: ray_d.y must be"):
+        shade.fill_inputs(hit, V3(f(), torch.zeros(r + 1), f()), v, rows)
+    with pytest.raises(ValueError, match="interaction: rows must be"):
+        shade.fill_inputs(hit, v, v, rows[:, :25])
+    with pytest.raises(ValueError, match="interaction: hit.b1 must be"):
+        shade.fill_inputs(dataclasses.replace(
+            hit, b1=torch.zeros(r, 2)[:, 0]), v, v, rows)
